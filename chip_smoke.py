@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path on one GPU and check it.
+
+Run from the repository root on a machine with an NVIDIA H100 and the
+CUDA toolkit:
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure exits non-zero; no phase swallows an exception):
+  1. device   require CUDA, print the card's name and power limit
+  2. build    compile every kernel from csrc/ (one nvcc per source, in
+              parallel) and print the build seconds and ptxas report
+  3. kernels  hold each kernel against its plain PyTorch version on the
+              card at the serving path's shapes, in float32 and bfloat16,
+              and time the kernel, the plain version and (where one
+              exists) the one PyTorch library call computing the same
+              function, beside the card's bound for the work
+  4. slice    llama1b at full width (random weights from --seed) behind
+              serving.Engine: 33 requests run to completion, and both
+              kernels' launch counters must have grown during the run
+  5. e2e      the check request served alone on the CPU through the plain
+              path must produce the card's greedy tokens (or diverge only
+              at a reported near-tie)
+  6. summary  one JSON line of per-kernel numbers, then the result line
+
+The last line of standard output is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): device-memory rate,
+# float32 outside the tensor cores, bf16 tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# Kernel vs plain version on the same inputs: the two sum in a different
+# order (tiled online softmax vs one softmax over the whole row), so they
+# agree to float32 rounding, not bit for bit. In bfloat16 both round the
+# output to 8 mantissa bits, and the plain version also rounds the
+# probabilities before P.V, so the gap is a few bf16 ulps of |out| <~ 4.
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+NEAR_TIE = 1e-3     # top-2 logit gap below which fp32 order may flip argmax
+# card vs CPU logits of llama1b in float32: 22 layers of sums taken in
+# another order (cuBLAS vs CPU GEMMs, tiled vs whole-row softmax); a
+# wrong kernel or layout moves them by O(1) of the logit range
+LOGIT_RTOL = 1e-3
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def check_close(name, got, want, tol):
+    err = (got.float() - want.float()).abs()
+    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    max_err = float(err.max())
+    if bool(bad.any()):
+        raise AssertionError("%s: %d elements off, max abs err %.3g (%s)"
+                             % (name, int(bad.sum()), max_err, tol))
+    return max_err
+
+
+def time_ms(fn, iters=10, reps=5):
+    """Median over ``reps`` of the mean CUDA-event time of ``iters``
+    back-to-back calls, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bound(nbytes, flops, dtype):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+# -- phase 1 / 2 ------------------------------------------------------------
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only "
+                         "on the card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log("[device] torch %s, CUDA %s, %d device(s)" % (
+        torch.__version__, torch.version.cuda, torch.cuda.device_count()))
+    log(card)
+    return card
+
+
+def phase_build():
+    from paddle_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    paths = _build.build()
+    log("[build] %d kernels in %.1f s" % (len(paths),
+                                          time.perf_counter() - t0))
+    for name, path in paths.items():
+        report = path.with_name(path.name + ".log")
+        for line in report.read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log("[build] %s: %s" % (name, line.strip()))
+
+
+# -- phase 3 ----------------------------------------------------------------
+
+def flash_case(gen, n, heads, head_dim, dtype, timed=False):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    def rand(h):
+        return torch.randn((1, n, h, head_dim), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v = rand(heads), rand(heads), rand(heads)
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    name = "flash N=%d H=%d D=%d %s" % (n, heads, head_dim,
+                                        str(dtype).split(".")[-1])
+    err = check_close(name + " out", out, ref_out, TOL[dtype])
+    check_close(name + " lse", lse, ref_lse, TOL[torch.float32])
+    row = {"case": name, "max_abs_err": err}
+    if timed:
+        esize = q.element_size()
+        nbytes = 4 * q.numel() * esize + lse.numel() * 4
+        flops = 4 * heads * head_dim * n * (n + 1) // 2   # causal pairs only
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_reference(q, k, v, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        row.update(bound(nbytes, flops, dtype))
+    log("[kernels] " + json.dumps(row))
+    return row
+
+
+def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
+               head_dim=128, block_size=16, max_blocks=128):
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    s = len(lens)
+    pages = [-(-n // block_size) for n in lens]
+    num_blocks = sum(pages) + 1
+    ids = (torch.randperm(num_blocks - 1, generator=torch.Generator()
+                          .manual_seed(sum(lens))) + 1).tolist()
+    table = np.zeros((s, max_blocks), np.int32)
+    for i, n_pages in enumerate(pages):
+        table[i, :n_pages] = [ids.pop() for _ in range(n_pages)]
+    shape = (num_blocks, block_size, kv_heads, head_dim)
+    k_pool = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    v_pool = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    q = torch.randn((s, heads, head_dim), generator=gen,
+                    device="cuda").to(dtype)
+    bt = torch.tensor(table, device="cuda")
+    sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out = pa.paged_attention(q, k_pool, v_pool, bt, sl)
+    ref = pa.paged_attention_reference(q, k_pool, v_pool, bt, sl)
+    torch.cuda.synchronize()
+    live = sl > 0
+    name = "paged S=%d H=%d Hkv=%d D=%d bs=%d %s" % (
+        s, heads, kv_heads, head_dim, block_size, str(dtype).split(".")[-1])
+    err = check_close(name, out[live], ref[live], TOL[dtype])
+    if not bool((out[~live] == 0).all()):
+        raise AssertionError(name + ": idle slots are not exactly zero")
+    row = {"case": name, "lens": lens, "max_abs_err": err}
+    if timed:
+        esize = q.element_size()
+        tokens = sum(lens)
+        nbytes = (2 * q.numel() * esize
+                  + 2 * tokens * kv_heads * head_dim * esize
+                  + sum(pages) * 4 + s * 4)
+        flops = 4 * tokens * heads * head_dim
+        row["ms"] = time_ms(lambda: pa.paged_attention(q, k_pool, v_pool,
+                                                       bt, sl))
+        row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(
+            q, k_pool, v_pool, bt, sl))
+        row["library_ms"] = None
+        row["library"] = "none: no single PyTorch call reads paged K/V"
+        row.update(bound(nbytes, flops, dtype))
+    log("[kernels] " + json.dumps(row))
+    return row
+
+
+# serving-path shapes: llama1b prefill buckets (B=1, H=16, D=128) and a
+# decode batch of 16 slots over ragged histories up to max_model_len 2048
+FLASH_NS = (8, 200, 512, 2048)
+PAGED_LENS = [0, 1, 15, 16, 17, 100, 257, 512, 777, 1000, 1023, 1500, 1999,
+              2047, 2048, 0]
+
+
+def phase_kernels(seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {"flash_attention": [], "paged_attention": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in FLASH_NS:
+            rows["flash_attention"].append(flash_case(
+                gen, n, 16, 128, dtype, timed=dtype is torch.float32))
+        rows["flash_attention"].append(flash_case(gen, 256, 16, 64, dtype))
+        for kv_heads in (16, 4):
+            rows["paged_attention"].append(paged_case(
+                gen, PAGED_LENS, 16, kv_heads, dtype,
+                timed=dtype is torch.float32))
+    return rows
+
+
+# -- phase 4 / 5 -------------------------------------------------------------
+
+def pct(values, q):
+    values = sorted(values)
+    return values[min(len(values) - 1, int(math.ceil(q * len(values))) - 1)]
+
+
+def phase_slice(seed):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    cfg = LlamaConfig.llama1b()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    engine = Engine(model, max_slots=16, block_size=16, num_blocks=2048,
+                    max_model_len=2048)
+    torch.cuda.synchronize()
+    log("[slice] llama1b fp32 (%d layers, hidden %d) + Engine in %.1f s" % (
+        cfg.num_hidden_layers, cfg.hidden_size, time.perf_counter() - t0))
+    rng = np.random.default_rng(seed)
+    check_prompt = rng.integers(0, cfg.vocab_size, 64).tolist()
+    check_id = engine.add_request(check_prompt, max_new_tokens=16)
+    expect = {check_id: 16}
+    for n in rng.integers(128, 1537, 32):
+        rid = engine.add_request(rng.integers(0, cfg.vocab_size, n).tolist(),
+                                 max_new_tokens=64)
+        expect[rid] = 64
+
+    fa.launches = 0
+    pa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": fa.launches,
+                "paged_attention": pa.launches}
+
+    for rid, n in expect.items():
+        if len(outs[rid]) != n:
+            raise AssertionError("request %d produced %d tokens, not %d"
+                                 % (rid, len(outs[rid]), n))
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError("%s was never launched on the main path"
+                                 % name)
+    st = engine.stats()
+    per = [engine.request_metrics(rid) for rid in expect]
+    ttft = [m["ttft_s"] for m in per]
+    tpot = [m["tpot_s"] for m in per]
+    result = {
+        "requests": len(expect), "wall_s": wall,
+        "prefill_tokens": st["prefill_tokens"], "prefill_runs":
+            st["prefill_runs"], "prefill_tok_s": st["prefill_tokens"]
+            / st["prefill_s"],
+        "decode_steps": st["decode_steps"], "decode_tok_s":
+            st["decode_tokens"] / st["decode_s"],
+        "output_tokens": st["output_tokens"], "preemptions":
+            st["preemptions"], "slot_occupancy": st["slot_occupancy"],
+        "ttft_p50_s": pct(ttft, 0.5), "ttft_p99_s": pct(ttft, 0.99),
+        "tpot_p50_s": pct(tpot, 0.5), "tpot_p99_s": pct(tpot, 0.99),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    log("[slice] " + json.dumps(result))
+    return model, check_prompt, outs[check_id], launches
+
+
+def phase_e2e(model, prompt, card_tokens):
+    from paddle_tpu_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    engine = Engine(cpu_model, max_slots=1, block_size=16, num_blocks=8,
+                    max_model_len=2048, device="cpu")
+    rid = engine.add_request(prompt, max_new_tokens=len(card_tokens))
+    cpu_tokens = engine.run()[rid]
+    log("[e2e] card %s" % card_tokens)
+    log("[e2e] cpu  %s (%.1f s)" % (cpu_tokens, time.perf_counter() - t0))
+    # random weights can make greedy tokens insensitive (a few ids may
+    # dominate), so the full-width logits of the whole sequence are held
+    # card (flash kernel) against CPU (plain path) as well
+    ids = torch.tensor([prompt + card_tokens])
+    with torch.no_grad():
+        want = cpu_model(ids)[0]
+        got = model(ids.to(model.device))[0].cpu()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log("[e2e] logits [%d, %d]: max abs diff %.3g, max |logit| %.3g" % (
+        want.shape[0], want.shape[1], diff, scale))
+    if not (bool(torch.isfinite(got).all()) and diff <= LOGIT_RTOL * scale):
+        raise AssertionError("card logits differ from the CPU plain path "
+                             "by %.3g (> %g x %.3g)"
+                             % (diff, LOGIT_RTOL, scale))
+    if cpu_tokens == card_tokens:
+        log("[e2e] greedy tokens identical")
+        return
+    i = next(j for j, (a, b) in enumerate(zip(cpu_tokens, card_tokens))
+             if a != b)
+    with torch.no_grad():
+        logits = cpu_model(torch.tensor([prompt + card_tokens[:i]]))[0, -1]
+    top2 = logits.float().topk(2).values
+    gap = float(top2[0] - top2[1])
+    log("[e2e] first divergence at token %d, top-2 logit gap %.3g" % (i, gap))
+    if gap >= NEAR_TIE:
+        raise AssertionError("card and CPU diverge at token %d with a top-2 "
+                             "gap of %.3g (>= %g): not a near-tie"
+                             % (i, gap, NEAR_TIE))
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+KERNELS = {
+    "flash_attention": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:161"),
+    "paged_attention": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:167"),
+}
+
+
+def summary(rows, launches):
+    out = []
+    for name, meta in KERNELS.items():
+        # the timed fp32 case with the most work: llama1b's largest prefill
+        # bucket, and the decode batch without GQA
+        timed = max((r for r in rows[name] if "ms" in r),
+                    key=lambda r: r["bound_ms"])
+        fp32_err = max(r["max_abs_err"] for r in rows[name]
+                       if r["case"].endswith("float32"))
+        out.append(dict(name=name, route="cuda", **meta,
+                        launches=launches[name], max_abs_err=fp32_err,
+                        ms=timed["ms"], plain_ms=timed["plain_ms"],
+                        bound_ms=timed["bound_ms"],
+                        bound_by=timed["bound_by"],
+                        library_ms=timed["library_ms"]))
+    return {"kernels": out}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    phase_device()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    phase_build()
+    rows = phase_kernels(args.seed)
+    model, prompt, card_tokens, launches = phase_slice(args.seed)
+    phase_e2e(model, prompt, card_tokens)
+    log(json.dumps(summary(rows, launches)))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

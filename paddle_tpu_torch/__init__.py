@@ -1,0 +1,22 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for one H100.
+
+The JAX package (``paddle_tpu``) is the reference this port is held
+against; the port imports nothing from it and never imports ``jax``. It
+keeps the reference's module layout, so each module here names its
+counterpart there. Plain tensor work is PyTorch; every Pallas kernel of
+the reference becomes a hand-written CUDA kernel for ``sm_90a`` under
+``csrc/``, built at first use (``_build.py``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``device.resolve_device``). The reference runs float32 matmuls at
+'highest' precision, so TF32 is turned off here for both cuBLAS and
+cuDNN: the two packages then compute comparable float32 numbers.
+"""
+import torch
+
+from .device import resolve_device
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__all__ = ["resolve_device"]

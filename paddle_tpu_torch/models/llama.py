@@ -1,0 +1,226 @@
+"""Llama decoder (counterpart of paddle_tpu/models/llama.py, the
+``use_parallel=False`` branch).
+
+Module names follow the reference (``llama.layers.0.self_attn.q_proj``,
+``lm_head`` ...), so ``models/convert.py`` maps the reference's
+``functional_state()`` names one to one. Attention goes through
+``F.scaled_dot_product_attention`` (the flash kernel) or, when a serving
+engine passes a paged cache view, through the view's
+``update_and_attend`` hook: the engine owns the KV pages and the model
+never stores KV state. The views write K/V into the pools in place, so
+``generate_step`` returns only the logits.
+
+Not in this slice: the fused QKV/MLP variants, tensor and sequence
+parallelism, recompute, the fused lm_head cross-entropy loss and
+``DecodeCache`` generation.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..nn import functional as F
+from ..nn.layers import Embedding, Linear, RMSNorm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LlamaConfig:
+    def __init__(self, vocab_size=32000, hidden_size=4096,
+                 intermediate_size=11008, num_hidden_layers=32,
+                 num_attention_heads=32, num_key_value_heads=None,
+                 max_position_embeddings=4096, rms_norm_eps=1e-6,
+                 rope_theta=10000.0, dtype="float32"):
+        if dtype not in _DTYPES:
+            raise ValueError("dtype must be one of %s" % sorted(_DTYPES))
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.intermediate_size = intermediate_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.num_key_value_heads = num_key_value_heads or num_attention_heads
+        self.max_position_embeddings = max_position_embeddings
+        self.rms_norm_eps = rms_norm_eps
+        self.rope_theta = rope_theta
+        self.dtype = dtype
+
+    @property
+    def torch_dtype(self):
+        return _DTYPES[self.dtype]
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def tiny(cls, **kw):
+        d = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 max_position_embeddings=128)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def llama1b(cls, **kw):
+        """The reference's on-chip serving preset
+        (tools/serving_benchmark.py PRESETS["llama1b"])."""
+        d = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+                 num_hidden_layers=22, num_attention_heads=16,
+                 max_position_embeddings=2048)
+        d.update(kw)
+        return cls(**d)
+
+
+def rope_apply(q, k, theta, position_offset=0):
+    """Rotary position embedding on q and k ``[B, S, H, D]``, half-split
+    pairing (dim i rotates with dim i + D/2), angles in float32.
+
+    ``position_offset`` is an int (one offset for the whole batch) or a
+    ``[B]`` integer tensor (per-row offsets: the serving decode step,
+    where each slot sits at its own position)."""
+    d, seq, dev = q.shape[-1], q.shape[1], q.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=dev) / d))
+    steps = torch.arange(seq, dtype=torch.float32, device=dev)
+    if isinstance(position_offset, torch.Tensor) and position_offset.dim():
+        pos = position_offset.to(dev, torch.float32)[:, None] + steps[None]
+        freqs = pos[..., None] * inv_freq                  # [B, S, D/2]
+        freqs = freqs[:, :, None, :]
+    else:
+        freqs = torch.outer(steps + int(position_offset), inv_freq)
+        freqs = freqs[None, :, None, :]                    # [1, S, 1, D/2]
+    cos = torch.cat([freqs.cos(), freqs.cos()], dim=-1)
+    sin = torch.cat([freqs.sin(), freqs.sin()], dim=-1)
+    return _rope_rot(q, cos, sin), _rope_rot(k, cos, sin)
+
+
+def _rope_rot(x, cos, sin):
+    half = x.shape[-1] // 2
+    xf = x.float()
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rotated * sin).to(x.dtype)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config, *, generator, device):
+        super().__init__()
+        c = config
+        self.num_heads = c.num_attention_heads
+        self.num_kv_heads = c.num_key_value_heads
+        self.head_dim = c.head_dim
+        self.rope_theta = c.rope_theta
+        kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
+        q_dim = self.num_heads * self.head_dim
+        kv_dim = self.num_kv_heads * self.head_dim
+        self.q_proj = Linear(c.hidden_size, q_dim, **kw)
+        self.k_proj = Linear(c.hidden_size, kv_dim, **kw)
+        self.v_proj = Linear(c.hidden_size, kv_dim, **kw)
+        self.o_proj = Linear(q_dim, c.hidden_size, **kw)
+
+    def forward(self, x, cache=None, position_offset=0):
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q, k = rope_apply(q, k, self.rope_theta, position_offset)
+        if cache is not None:
+            # external-cache hook (serving): the engine's per-layer paged
+            # view writes this step's K/V into its pool pages and returns
+            # the attention context (serving/kv_cache.py)
+            ctx = cache.update_and_attend(q, k, v)
+        else:
+            ctx = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(ctx.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config, *, generator, device):
+        super().__init__()
+        c = config
+        kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
+        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config, *, generator, device):
+        super().__init__()
+        kw = dict(device=device, dtype=config.torch_dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(config, generator=generator,
+                                        device=device)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps, **kw)
+        self.mlp = LlamaMLP(config, generator=generator, device=device)
+
+    def forward(self, x, cache=None, position_offset=0):
+        x = x + self.self_attn(self.input_layernorm(x), cache,
+                               position_offset)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config, *, generator, device):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      generator=generator, device=device,
+                                      dtype=config.torch_dtype)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, generator=generator, device=device)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            device=device, dtype=config.torch_dtype)
+
+    def forward(self, input_ids, caches=None, position_offset=0):
+        x = self.embed_tokens(input_ids)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, None if caches is None else caches[i],
+                      position_offset)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    def __init__(self, config, device=None, generator=None):
+        """Weights are drawn from ``generator`` (a ``torch.Generator`` on
+        the model's device; seed 0 when omitted). ``device`` defaults to
+        the card and raises without one (``device.resolve_device``)."""
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.config = config
+        self.llama = LlamaModel(config, generator=generator, device=device)
+        self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                              generator=generator, device=device,
+                              dtype=config.torch_dtype)
+
+    @property
+    def device(self):
+        return self.lm_head.weight.device
+
+    def forward(self, input_ids):
+        """Full-sequence logits ``[B, S, V]`` (causal, no cache)."""
+        return self.lm_head(self.llama(input_ids))
+
+    def generate_step(self, input_ids, caches, position_offset):
+        """One step over the engine's per-layer cache views: writes this
+        step's K/V into the pools and returns the logits ``[B, S, V]``."""
+        return self.lm_head(self.llama(input_ids, caches, position_offset))
+
+    def max_decode_len(self):
+        return self.config.max_position_embeddings
+
+    def paged_cache_spec(self):
+        """KV geometry for the serving engine's paged cache."""
+        cfg = self.config
+        return {"num_layers": cfg.num_hidden_layers,
+                "num_kv_heads": cfg.num_key_value_heads,
+                "head_dim": cfg.head_dim,
+                "dtype": cfg.torch_dtype}
