@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+check them.
 
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -7,21 +8,28 @@ CUDA toolkit:
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure exits non-zero; no phase swallows an exception):
-  1. device   require CUDA, print the card's name and power limit
-  2. build    compile every kernel from csrc/ (one nvcc per source, in
-              parallel) and print the build seconds and ptxas report
-  3. kernels  hold each kernel against its plain PyTorch version on the
-              card at the serving path's shapes, in float32 and bfloat16,
-              and time the kernel, the plain version and (where one
-              exists) the one PyTorch library call computing the same
-              function, beside the card's bound for the work
-  4. slice    llama1b at full width (random weights from --seed) behind
-              serving.Engine: 33 requests run to completion, and both
-              kernels' launch counters must have grown during the run
-  5. e2e      the check request served alone on the CPU through the plain
-              path must produce the card's greedy tokens (or diverge only
-              at a reported near-tie)
-  6. summary  one JSON line of per-kernel numbers, then the result line
+  1. device     require CUDA, print the card's name and power limit
+  2. build      compile every kernel from csrc/ (one nvcc per source, in
+                parallel) and print the build seconds and ptxas report
+  3. kernels    hold each kernel against its plain PyTorch version on the
+                card at the serving and training paths' shapes, in float32
+                and bfloat16, and time the kernel, the plain version and
+                (where one exists) the one PyTorch library call computing
+                the same function, beside the card's bound for the work
+  4. slice      llama1b at full width (random weights from --seed) behind
+                serving.Engine: 33 requests run to completion, and both
+                serving kernels' launch counters must have grown
+  5. e2e        the check request served alone on the CPU through the
+                plain path must produce the card's greedy tokens (or
+                diverge only at a reported near-tie)
+  6. train      the llama1b training row (bf16, recompute, 8 x 1024) at
+                full width and depth through TrainStep + AdamW(1e-4): one
+                warm-up and 5 timed steps on one batch, finite and falling
+                loss, and per step 16 dq, 16 dk/dv and 32 forward launches
+  7. train e2e  the same widths at 2 layers in float32, 2 AdamW steps on
+                the card and on a CPU copy (plain path): losses and the
+                first step's gradients must agree
+  8. summary    one JSON line of per-kernel numbers, then the result line
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,11 +60,23 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # probabilities before P.V, so the gap is a few bf16 ulps of |out| <~ 4.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+# Backward kernels vs plain version: float32 gradients are sums of up to
+# N products taken in another order, so atol 1e-4 + rtol 1e-3. bfloat16:
+# both round dS and P to bf16 at the same points and the gradients to bf16
+# at the end; the forward's bf16 tolerance (atol 2e-2 for |out| <~ 4) is
+# scaled to the gradient's size: atol 5e-3 x max|grad|, rtol 1e-2.
+BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
+           torch.bfloat16: dict(atol=5e-3, rtol=1e-2, scaled=True)}
 NEAR_TIE = 1e-3     # top-2 logit gap below which fp32 order may flip argmax
 # card vs CPU logits of llama1b in float32: 22 layers of sums taken in
 # another order (cuBLAS vs CPU GEMMs, tiled vs whole-row softmax); a
 # wrong kernel or layout moves them by O(1) of the logit range
 LOGIT_RTOL = 1e-3
+# card vs CPU training of 2 full-width layers in float32: the losses are
+# means over 256 tokens of values that agree to ~1e-6 relative; the
+# gradients sum over 256 tokens and 2048-wide products in another order
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
 
 
 def log(*parts):
@@ -65,7 +85,10 @@ def log(*parts):
 
 def check_close(name, got, want, tol):
     err = (got.float() - want.float()).abs()
-    bad = err > tol["atol"] + tol["rtol"] * want.float().abs()
+    atol = tol["atol"]
+    if tol.get("scaled"):
+        atol *= float(want.float().abs().max())
+    bad = err > atol + tol["rtol"] * want.float().abs()
     max_err = float(err.max())
     if bool(bad.any()):
         raise AssertionError("%s: %d elements off, max abs err %.3g (%s)"
@@ -134,26 +157,26 @@ def phase_build():
 
 # -- phase 3 ----------------------------------------------------------------
 
-def flash_case(gen, n, heads, head_dim, dtype, timed=False):
+def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1):
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     def rand(h):
-        return torch.randn((1, n, h, head_dim), generator=gen,
+        return torch.randn((batch, n, h, head_dim), generator=gen,
                            device="cuda").to(dtype)
 
     q, k, v = rand(heads), rand(heads), rand(heads)
     out, lse = fa.flash_attention(q, k, v, causal=True)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
     torch.cuda.synchronize()
-    name = "flash N=%d H=%d D=%d %s" % (n, heads, head_dim,
-                                        str(dtype).split(".")[-1])
+    name = "flash B=%d N=%d H=%d D=%d %s" % (batch, n, heads, head_dim,
+                                             str(dtype).split(".")[-1])
     err = check_close(name + " out", out, ref_out, TOL[dtype])
     check_close(name + " lse", lse, ref_lse, TOL[torch.float32])
     row = {"case": name, "max_abs_err": err}
     if timed:
         esize = q.element_size()
         nbytes = 4 * q.numel() * esize + lse.numel() * 4
-        flops = 4 * heads * head_dim * n * (n + 1) // 2   # causal pairs only
+        flops = 4 * head_dim * causal_pairs(batch * heads, n, n)
         row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=True))
@@ -162,6 +185,69 @@ def flash_case(gen, n, heads, head_dim, dtype, timed=False):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True))
         row.update(bound(nbytes, flops, dtype))
+    log("[kernels] " + json.dumps(row))
+    return row
+
+
+def causal_pairs(heads, n, n_kv):
+    """(query, key) pairs a start-aligned causal mask keeps, over all
+    heads: query i sees min(i + 1, n_kv) keys."""
+    keep = min(n, n_kv)
+    return heads * (keep * (keep + 1) // 2 + (n - keep) * n_kv)
+
+
+def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
+                   kv_heads=None, timed=False):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n_kv = n if n_kv is None else n_kv
+    kv_heads = heads if kv_heads is None else kv_heads
+
+    def rand(length, h):
+        return torch.randn((batch, length, h, head_dim), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v = rand(n, heads), rand(n_kv, kv_heads), rand(n_kv, kv_heads)
+    dout = rand(n, heads)
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                 causal=True)
+    torch.cuda.synchronize()
+    name = "flash_bwd B=%d N=%d Nkv=%d H=%d Hkv=%d D=%d %s" % (
+        batch, n, n_kv, heads, kv_heads, head_dim, str(dtype).split(".")[-1])
+    err = [check_close("%s d%s" % (name, part), x, y, BWD_TOL[dtype])
+           for part, x, y in zip("qkv", got, want)]
+    row = {"case": name, "max_abs_err": {"dq": err[0],
+                                         "dkv": max(err[1], err[2])}}
+    if timed:
+        esize = q.element_size()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(batch * heads, n).contiguous()
+        args = (q, k, v, dout, lse, delta)
+        row["dq_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_dq(*args, causal=True))
+        row["dkv_ms"] = time_ms(
+            lambda: fa.flash_attention_bwd_dkv(*args, causal=True))
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_backward_reference(
+                q, k, v, out, lse, dout, causal=True))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)
+        g = dout.transpose(1, 2)
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), g, retain_graph=True))
+        row["library"] = ("torch SDPA backward (dq, dk and dv together), "
+                          "timed as autograd.grad of one SDPA forward")
+        pairs = causal_pairs(batch * heads, n, n_kv)
+        reads = ((q.numel() + dout.numel() + k.numel() + v.numel()) * esize
+                 + 2 * lse.numel() * 4)
+        row["dq"] = bound(reads + q.numel() * esize,
+                          3 * 2 * head_dim * pairs, dtype)
+        row["dkv"] = bound(reads + (k.numel() + v.numel()) * esize,
+                           4 * 2 * head_dim * pairs, dtype)
     log("[kernels] " + json.dumps(row))
     return row
 
@@ -218,11 +304,21 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
 FLASH_NS = (8, 200, 512, 2048)
 PAGED_LENS = [0, 1, 15, 16, 17, 100, 257, 512, 777, 1000, 1023, 1500, 1999,
               2047, 2048, 0]
+# training-path shapes: the llama1b training row's attention (B=8, N=1024,
+# H=16, D=128), then a ragged length, D=64, GQA and cross-length causal
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+FLASH_BWD_CASES = (dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
+                        head_dim=128),
+                   dict(n=200, heads=16, head_dim=128),
+                   dict(n=256, heads=16, head_dim=64),
+                   dict(n=512, heads=16, kv_heads=4, head_dim=128),
+                   dict(n=128, n_kv=256, heads=16, head_dim=128))
 
 
 def phase_kernels(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = {"flash_attention": [], "paged_attention": []}
+    rows = {"flash_attention": [], "flash_attention_bwd": [],
+            "paged_attention": []}
     for dtype in (torch.float32, torch.bfloat16):
         for n in FLASH_NS:
             rows["flash_attention"].append(flash_case(
@@ -232,6 +328,15 @@ def phase_kernels(seed):
             rows["paged_attention"].append(paged_case(
                 gen, PAGED_LENS, 16, kv_heads, dtype,
                 timed=dtype is torch.float32))
+        for i, case in enumerate(FLASH_BWD_CASES):
+            rows["flash_attention_bwd"].append(flash_bwd_case(
+                gen, dtype=dtype, timed=i == 0 and dtype is torch.bfloat16,
+                **case))
+    # the training path's forward, timed in bf16 (kept out of the summary,
+    # whose forward entry stays the fp32 serving shape of earlier runs)
+    rows["flash_attention"].append(flash_case(
+        gen, TRAIN_SEQ, 16, 128, torch.bfloat16, timed=True,
+        batch=TRAIN_BATCH))
     return rows
 
 
@@ -347,33 +452,178 @@ def phase_e2e(model, prompt, card_tokens):
                              % (i, gap, NEAR_TIE))
 
 
-# -- phase 6 ----------------------------------------------------------------
+# -- phase 6 / 7 -------------------------------------------------------------
 
+def lm_loss(vocab):
+    from paddle_tpu_torch.nn import functional as F
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1))
+    return loss_fn
+
+
+def phase_train(seed):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = LlamaConfig.llama1b_train()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    step = TrainStep(model, lm_loss(cfg.vocab_size),
+                     AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    rng = np.random.default_rng(seed)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, labels)]   # warm-up: cuBLAS handles, AdamW slots
+    torch.cuda.synchronize()
+    log("[train] llama1b bf16 (%d layers, hidden %d, FFN %d, recompute) "
+        "built and warmed up in %.1f s" % (
+            cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
+            time.perf_counter() - t0))
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd_dq": fa.dq_launches,
+                "flash_attention_bwd_dkv": fa.dkv_launches}
+
+    losses = [loss.item() for loss in losses]
+    layers = cfg.num_hidden_layers
+    # recompute runs each layer's forward twice per step
+    want = {"flash_attention": 2 * layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError("train launches %s, expected %s"
+                             % (launches, want))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite training loss: %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("training loss did not fall: %s" % losses)
+    median = statistics.median(times)
+    result = {
+        "params": sum(p.numel() for p in model.parameters()),
+        "batch": [TRAIN_BATCH, TRAIN_SEQ], "step_ms": median * 1e3,
+        "step_ms_each": [t * 1e3 for t in times],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
+        "losses": losses,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    log("[train] " + json.dumps(result))
+    return launches
+
+
+TRAIN_GRADS = ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight")
+
+
+def phase_train_e2e(seed):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama1b_train(num_hidden_layers=2, dtype="float32")
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(seed + 1)
+    ids, labels = (rng.integers(0, cfg.vocab_size, (1, 256))
+                   for _ in range(2))
+    losses, grads = {}, {}
+    for where, m, dev in (("card", model, None), ("cpu", cpu_model, "cpu")):
+        step = TrainStep(m, lm_loss(cfg.vocab_size),
+                         AdamW(learning_rate=1e-4, parameters=m.parameters()),
+                         device=dev)
+        losses[where] = [step(ids, labels).item()]
+        params = dict(m.named_parameters())
+        grads[where] = {n: params[n].grad.float().cpu() for n in TRAIN_GRADS}
+        losses[where].append(step(ids, labels).item())
+    log("[train e2e] losses card %s, cpu %s (%.1f s)" % (
+        losses["card"], losses["cpu"], time.perf_counter() - t0))
+    for got, want in zip(losses["card"], losses["cpu"]):
+        if not (math.isfinite(got)
+                and abs(got - want) <= TRAIN_LOSS_RTOL * abs(want)):
+            raise AssertionError("card losses %s differ from the CPU plain "
+                                 "path's %s (rtol %g)" % (
+                                     losses["card"], losses["cpu"],
+                                     TRAIN_LOSS_RTOL))
+    for name in TRAIN_GRADS:
+        got, want = grads["card"][name], grads["cpu"][name]
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        log("[train e2e] grad %s: max abs diff %.3g, max |grad| %.3g"
+            % (name, diff, scale))
+        if not (bool(torch.isfinite(got).all())
+                and diff <= TRAIN_GRAD_RTOL * scale):
+            raise AssertionError("card gradient of %s differs from the CPU "
+                                 "plain path's by %.3g (> %g x %.3g)"
+                                 % (name, diff, TRAIN_GRAD_RTOL, scale))
+
+
+# -- phase 8 ----------------------------------------------------------------
+
+BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "flash_attention": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/kernels/flash_attention.py:161"),
+    "flash_attention_bwd_dq": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:330"),
+    "flash_attention_bwd_dkv": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:366"),
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/serving/kernels/paged_attention.py:167"),
 }
 
 
-def summary(rows, launches):
+def summary(rows, paths):
+    """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
+    an entry's ``launches`` sums them over the paths."""
     out = []
     for name, meta in KERNELS.items():
-        # the timed fp32 case with the most work: llama1b's largest prefill
-        # bucket, and the decode batch without GQA
-        timed = max((r for r in rows[name] if "ms" in r),
-                    key=lambda r: r["bound_ms"])
-        fp32_err = max(r["max_abs_err"] for r in rows[name]
-                       if r["case"].endswith("float32"))
+        by_path = {path: counts[name] for path, counts in paths.items()
+                   if name in counts}
+        if name.startswith("flash_attention_bwd"):
+            # the bf16 training shape; the plain and library times cover
+            # dq, dk and dv together
+            part = name.rsplit("_", 1)[1]
+            cases = rows["flash_attention_bwd"]
+            timed = next(r for r in cases if part in r)
+            fp32_err = max(r["max_abs_err"][part] for r in cases
+                           if r["case"].endswith("float32"))
+            numbers = dict(ms=timed[part + "_ms"], plain_ms=timed["plain_ms"],
+                           bound_ms=timed[part]["bound_ms"],
+                           bound_by=timed[part]["bound_by"],
+                           library_ms=timed["library_ms"])
+        else:
+            # the timed fp32 case with the most work: llama1b's largest
+            # prefill bucket, and the decode batch without GQA
+            timed = max((r for r in rows[name] if "ms" in r
+                         and r["case"].endswith("float32")),
+                        key=lambda r: r["bound_ms"])
+            fp32_err = max(r["max_abs_err"] for r in rows[name]
+                           if r["case"].endswith("float32"))
+            numbers = dict(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                           bound_ms=timed["bound_ms"],
+                           bound_by=timed["bound_by"],
+                           library_ms=timed["library_ms"])
         out.append(dict(name=name, route="cuda", **meta,
-                        launches=launches[name], max_abs_err=fp32_err,
-                        ms=timed["ms"], plain_ms=timed["plain_ms"],
-                        bound_ms=timed["bound_ms"],
-                        bound_by=timed["bound_by"],
-                        library_ms=timed["library_ms"]))
+                        launches=sum(by_path.values()),
+                        launches_by_path=by_path, max_abs_err=fp32_err,
+                        timed_case=timed["case"], **numbers))
     return {"kernels": out}
 
 
@@ -385,9 +635,14 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
     rows = phase_kernels(args.seed)
-    model, prompt, card_tokens, launches = phase_slice(args.seed)
+    model, prompt, card_tokens, serving = phase_slice(args.seed)
     phase_e2e(model, prompt, card_tokens)
-    log(json.dumps(summary(rows, launches)))
+    del model
+    torch.cuda.empty_cache()
+    train = phase_train(args.seed)
+    torch.cuda.empty_cache()
+    phase_train_e2e(args.seed)
+    log(json.dumps(summary(rows, {"serving": serving, "train": train})))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,7 +28,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("flash_attention", "paged_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the element types every C entry point takes, by the code it expects

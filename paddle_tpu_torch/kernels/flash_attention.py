@@ -1,18 +1,27 @@
-"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention forward and backward: the CUDA kernels' wrappers, their
+plain versions, and the autograd function that joins them.
 
 Counterpart of ``paddle_tpu/kernels/flash_attention.py``: blocked
 online-softmax attention over ``[B, N, H, D]`` inputs with the
 reference's START-aligned causal convention (query i attends keys
 j <= i, for any kv length), returning the output and the per-row
-log-sum-exp ``[B*H, N]`` float32 that a backward pass needs.
+log-sum-exp ``[B*H, N]`` float32 that the backward pass needs.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` for CUDA
-tensors and runs ``flash_attention_reference`` (the reference's
-``_reference_attention`` form) for CPU tensors, and for nothing else:
-there is no fallback from the card to the plain version. The kernel
-reads q/k/v through their strides (last axis contiguous), masks ragged
-lengths itself, and maps GQA query heads onto their kv head, so the
-caller never folds, pads or repeats.
+``flash_attention`` launches ``csrc/flash_attention.cu`` and
+``flash_attention_backward`` launches the two kernels of
+``csrc/flash_attention_bwd.cu`` (dq, then dk/dv) for CUDA tensors; for
+CPU tensors they run ``flash_attention_reference`` and
+``flash_attention_backward_reference`` (the reference's
+``_reference_attention`` form and its ``_dq_kernel``/``_dkv_kernel``
+formulas over the whole score matrix), and for nothing else: there is no
+fallback from the card to the plain versions. The kernels read q/k/v/dO
+through their strides (last axis contiguous), mask ragged lengths
+themselves, and map GQA query heads onto their kv head, so the caller
+never folds, pads or repeats; dk/dv come back for the kv heads, summed
+over each group's query heads (what the reference's repeat_interleave
+VJP gives). ``FlashAttention`` is the ``torch.autograd.Function`` whose
+forward is ``flash_attention`` and whose backward is
+``flash_attention_backward``.
 """
 from __future__ import annotations
 
@@ -26,12 +35,20 @@ from .. import _build
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset (chip_smoke.py reads and resets
+# them): the forward, the backward's dq kernel and its dk/dv kernel
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"pt_flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 9
                + [ctypes.c_float, _I, _I, _P]}
+# q, k, v, dO, lse, delta, then dq (or dk, dv); sizes; the strides of q,
+# k, v and dO; scale, causal, dtype, stream
+_BWD_ARGS = [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _P]
+_BWD_SIGNATURES = {"pt_flash_attention_bwd_dq": [_P] * 7 + _BWD_ARGS,
+                   "pt_flash_attention_bwd_dkv": [_P] * 8 + _BWD_ARGS}
 
 
 def _check_shapes(q, k, v):
@@ -46,21 +63,39 @@ def _check_shapes(q, k, v):
                          "%d kv heads" % (h, k.shape[2]))
 
 
+def _acc_dtype(x):
+    """float32 statistics for float32/bfloat16 inputs; float64 stays
+    float64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _repeat_kv(x, heads):
+    return x if x.shape[2] == heads else x.repeat_interleave(
+        heads // x.shape[2], dim=2)
+
+
+def _logits(q, k, causal, scale):
+    """Scaled, start-aligned-causal-masked scores ``[B, H, N, N_kv]`` in
+    the accumulation dtype (k already repeated to q's heads)."""
+    acc = _acc_dtype(q)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc)) * scale
+    if causal:
+        keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        logits = logits.masked_fill(~keep, NEG_INF)
+    return logits
+
+
 def flash_attention_reference(q, k, v, causal=False, scale=None):
-    """Plain PyTorch version: fp32 logits and softmax over the whole
-    score matrix, same mask and output dtype as the kernel. Returns
+    """Plain PyTorch version: fp32 logits and softmax (float64 for
+    float64 inputs) over the whole score matrix, same mask and output
+    dtype as the kernel. Returns
     ``(out [B, N, H, D], lse [B*H, N] float32)``."""
     _check_shapes(q, k, v)
     b, n, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
-    if k.shape[2] != h:
-        k = k.repeat_interleave(h // k.shape[2], dim=2)
-        v = v.repeat_interleave(h // v.shape[2], dim=2)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    if causal:
-        keep = torch.ones(n, k.shape[1], dtype=torch.bool,
-                          device=q.device).tril()
-        logits = logits.masked_fill(~keep, NEG_INF)
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    logits = _logits(q, k, causal, scale)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
@@ -114,3 +149,159 @@ def flash_attention(q, k, v, causal=False, scale=None):
     global launches
     launches += 1
     return out, lse
+
+
+def _check_backward(q, k, v, out, lse, dout):
+    _check_shapes(q, k, v)
+    b, n, h, _ = q.shape
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError("flash_attention_backward: out %s / dout %s must "
+                         "have q's shape %s" % (tuple(out.shape),
+                                                tuple(dout.shape),
+                                                tuple(q.shape)))
+    if lse.shape != (b * h, n):
+        raise ValueError("flash_attention_backward: lse %s is not [B*H, N] "
+                         "= %s" % (tuple(lse.shape), (b * h, n)))
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                       causal=False, scale=None):
+    """Plain PyTorch version of the backward over the whole score matrix,
+    following the reference's ``_dq_kernel``/``_dkv_kernel`` formulas and
+    bf16 rounding points: ``ds`` is cast to the input dtype before
+    ``ds.K`` and ``ds^T.Q``, and ``p`` to ``dout``'s dtype before
+    ``p^T.dO``. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes, with
+    dk/dv for the kv heads (summed over each GQA group)."""
+    _check_backward(q, k, v, out, lse, dout)
+    b, n, h, d = q.shape
+    n_kv, h_kv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    acc = _acc_dtype(q)
+    kr, vr = _repeat_kv(k, h), _repeat_kv(v, h)
+    p = torch.exp(_logits(q, kr, causal, scale)
+                  - lse.to(acc).reshape(b, h, n, 1))
+    delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bnhd,bmhd->bhnm", dout.to(acc), vr.to(acc))
+    ds = (p * (dp - delta)).to(q.dtype).to(acc)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kr.to(acc)) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, q.to(acc)) * scale
+    dv = torch.einsum("bhnm,bnhd->bmhd", p.to(dout.dtype).to(acc),
+                      dout.to(acc))
+    rep = h // h_kv
+    dk = dk.reshape(b, n_kv, h_kv, rep, d).sum(3)
+    dv = dv.reshape(b, n_kv, h_kv, rep, d).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
+                             scale=None):
+    """Gradients of ``flash_attention``: q/dout/out ``[B, N, H, D]``, k/v
+    ``[B, N_kv, H_kv, D]``, lse ``[B*H, N]`` float32 (the forward's) ->
+    ``(dq [B, N, H, D], dk, dv [B, N_kv, H_kv, D])``.
+
+    CUDA tensors launch the dq kernel and then the dk/dv kernel (same
+    dtypes and head dims as the forward) or raise; CPU tensors take the
+    plain version. ``delta = rowsum(dO * O)`` in float32 is one PyTorch
+    reduction, as in the reference, outside the kernels."""
+    _check_backward(q, k, v, out, lse, dout)
+    tensors = (q, k, v, out, lse, dout)
+    if all(t.device.type == "cpu" for t in tensors):
+        return flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                  causal, scale)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("flash_attention_backward: all tensors must be on "
+                         "one CUDA device or all on the CPU")
+    if (q.dtype not in _build.DTYPE_CODES
+            or any(t.dtype != q.dtype for t in (k, v, out, dout))
+            or lse.dtype != torch.float32):
+        raise ValueError("flash_attention_backward: the kernels take "
+                         "float32 or bfloat16 q/k/v/out/dout of one dtype "
+                         "and a float32 lse")
+    b, n, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError("flash_attention_backward: head_dim %d not in %s"
+                         % (d, HEAD_DIMS))
+    if n == 0 or k.shape[1] == 0:
+        raise ValueError("flash_attention_backward: empty sequence")
+    # autograd may hand over a broadcast gradient (stride 0): the kernels
+    # read each row's D values contiguously
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention_backward: the head_dim axis must "
+                         "be contiguous")
+    if b * h > 65535:
+        raise ValueError("flash_attention_backward: B*H = %d exceeds the "
+                         "grid limit" % (b * h))
+    lse = lse.contiguous()
+    # [B*H, N] contiguous (for B = 1 the reshape alone would be a view)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, n).contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal,
+                                     scale)
+    return dq, dk, dv
+
+
+def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, what):
+    b, n, h, d = q.shape
+    if not (lse.is_contiguous() and delta.is_contiguous()):
+        raise ValueError("%s: lse and delta must be contiguous [B*H, N]"
+                         % what)
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    err = getattr(lib, fn)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+        b, n, k.shape[1], h, k.shape[2], d, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
+        int(bool(causal)), _build.DTYPE_CODES[q.dtype],
+        _build.stream_handle(q.device))
+    _build.check(lib, err, what)
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
+                           scale=None):
+    """The dq kernel's wrapper, on CUDA tensors that
+    ``flash_attention_backward`` has checked; ``delta`` is ``[B*H, N]``
+    float32. Returns dq ``[B, N, H, D]`` in q's dtype."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("pt_flash_attention_bwd_dq", q, k, v, dout, lse, delta,
+                (dq,), causal, scale, "flash_attention_backward (dq)")
+    global dq_launches
+    dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
+                            scale=None):
+    """The dk/dv kernel's wrapper, on the same checked CUDA tensors.
+    Returns dk, dv ``[B, N_kv, H_kv, D]`` in k's and v's dtypes."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _bwd_launch("pt_flash_attention_bwd_dkv", q, k, v, dout, lse, delta,
+                (dk, dv), causal, scale, "flash_attention_backward (dk/dv)")
+    global dkv_launches
+    dkv_launches += 1
+    return dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``FlashAttention.apply(q, k, v, causal, scale) -> out``: the forward
+    kernel, with the backward kernels as its gradient (the reference's
+    ``_flash_core`` custom_vjp). Saves q, k, v, out and the LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, scale=None):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None

@@ -1,4 +1,5 @@
-from .convert import load_jax_state
+from .convert import export_state, load_jax_optimizer_state, load_jax_state
 from .llama import LlamaConfig, LlamaForCausalLM, rope_apply
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "load_jax_state", "rope_apply"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "export_state",
+           "load_jax_optimizer_state", "load_jax_state", "rope_apply"]

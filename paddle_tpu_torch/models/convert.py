@@ -1,4 +1,4 @@
-"""Loads the JAX package's weights into the port's modules.
+"""Carries weights and optimizer state between the JAX package and the port.
 
 The reference's ``Layer.functional_state()`` gives ``(names, values)``
 with names such as ``llama.layers.0.self_attn.q_proj.weight`` and
@@ -7,6 +7,11 @@ The port keeps the same module names and the same ``Linear`` layout, so
 each name maps onto the port parameter of that name unchanged, with no
 transpose. The arrays arrive as numpy (or anything ``numpy.asarray``
 takes), so this module needs nothing from JAX.
+
+``export_state`` gives the port's weights back in the same names, and
+``load_jax_optimizer_state`` takes a reference train step's optimizer
+state (``CompiledTrainStep._opt_state``, ``{name: [moment1, moment2]}``,
+and its ``_step_count``), so a port step can resume from a JAX step.
 """
 from __future__ import annotations
 
@@ -41,3 +46,57 @@ def load_jax_state(model, names, arrays):
         for name, arr in zip(names, arrays):
             p = params[name]
             p.copy_(torch.tensor(arr, dtype=p.dtype))
+
+
+def export_state(model):
+    """``(names, arrays)`` of ``model``'s parameters in the reference's
+    names, as numpy arrays (bfloat16 parameters widen to float32, which
+    holds them exactly; ``load_jax_state`` casts back)."""
+    names, arrays = [], []
+    for name, p in model.named_parameters():
+        names.append(name)
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arrays.append(t.numpy())
+    return names, arrays
+
+
+def load_jax_optimizer_state(optimizer, model, names, slots, step):
+    """Load a reference optimizer state into ``optimizer`` (built over
+    ``model.parameters()``): ``slots[name]`` lists the slot arrays of the
+    parameter ``name`` in the optimizer's slot order, for every name in
+    ``names``, and ``step`` is the reference's step count, which becomes
+    the optimizer's global step. ``names`` must cover ``model``'s
+    parameters exactly once; an unknown, missing or repeated name, a
+    wrong slot count or a wrong shape raises ``ValueError`` before
+    anything is written."""
+    params = dict(model.named_parameters())
+    names = list(names)
+    if len(set(names)) != len(names):
+        raise ValueError("load_jax_optimizer_state: repeated names")
+    unknown = sorted(set(names) - set(params))
+    missing = sorted(set(params) - set(names))
+    if unknown or missing:
+        raise ValueError("load_jax_optimizer_state: unknown names %s, "
+                         "missing names %s" % (unknown, missing))
+    slot_names = optimizer._slots()
+    values = {}
+    for name in names:
+        arrs = [np.array(a, dtype=np.float32) for a in slots[name]]
+        if len(arrs) != len(slot_names):
+            raise ValueError("load_jax_optimizer_state: %s has %d slots, "
+                             "the optimizer keeps %d (%s)"
+                             % (name, len(arrs), len(slot_names),
+                                ", ".join(slot_names)))
+        for arr in arrs:
+            if tuple(arr.shape) != tuple(params[name].shape):
+                raise ValueError("load_jax_optimizer_state: a slot of %s "
+                                 "has shape %s, the parameter %s"
+                                 % (name, tuple(arr.shape),
+                                    tuple(params[name].shape)))
+        values[name] = arrs
+    for name, arrs in values.items():
+        for slot, arr in zip(slot_names, arrs):
+            optimizer.set_slot(params[name], slot, torch.from_numpy(arr))
+    optimizer._global_step = int(step)

@@ -10,14 +10,21 @@ engine passes a paged cache view, through the view's
 never stores KV state. The views write K/V into the pools in place, so
 ``generate_step`` returns only the logits.
 
+Training: ``forward(input_ids, labels)`` returns the mean cross-entropy
+over the flattened tokens, and ``LlamaConfig(recompute=True)`` wraps
+each decoder layer in ``torch.utils.checkpoint`` (the reference's
+``_remat_layer``), so the backward re-runs each layer's forward instead
+of keeping its activations.
+
 Not in this slice: the fused QKV/MLP variants, tensor and sequence
-parallelism, recompute, the fused lm_head cross-entropy loss and
-``DecodeCache`` generation.
+parallelism, the fused lm_head cross-entropy loss (the reference's
+``FLAGS_fused_lm_head_ce`` gate) and ``DecodeCache`` generation.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..nn import functional as F
@@ -31,7 +38,7 @@ class LlamaConfig:
                  intermediate_size=11008, num_hidden_layers=32,
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-6,
-                 rope_theta=10000.0, dtype="float32"):
+                 rope_theta=10000.0, dtype="float32", recompute=False):
         if dtype not in _DTYPES:
             raise ValueError("dtype must be one of %s" % sorted(_DTYPES))
         self.vocab_size = vocab_size
@@ -44,6 +51,8 @@ class LlamaConfig:
         self.rms_norm_eps = rms_norm_eps
         self.rope_theta = rope_theta
         self.dtype = dtype
+        # per-decoder-layer activation recompute in training
+        self.recompute = recompute
 
     @property
     def torch_dtype(self):
@@ -68,6 +77,18 @@ class LlamaConfig:
         d = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
                  num_hidden_layers=22, num_attention_heads=16,
                  max_position_embeddings=2048)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def llama1b_train(cls, **kw):
+        """The reference's ~1B training row (tools/model_benchmark.py
+        ``bench_llama1b``, on-chip branch): 953M parameters in bfloat16
+        with per-layer recompute."""
+        d = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+                 num_hidden_layers=16, num_attention_heads=16,
+                 max_position_embeddings=2048, dtype="bfloat16",
+                 recompute=True)
         d.update(kw)
         return cls(**d)
 
@@ -180,9 +201,13 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, caches=None, position_offset=0):
         x = self.embed_tokens(input_ids)
+        remat = self.config.recompute and caches is None
         for i, layer in enumerate(self.layers):
-            x = layer(x, None if caches is None else caches[i],
-                      position_offset)
+            if remat:
+                x = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x = layer(x, None if caches is None else caches[i],
+                          position_offset)
         return self.norm(x)
 
 
@@ -205,9 +230,15 @@ class LlamaForCausalLM(nn.Module):
     def device(self):
         return self.lm_head.weight.device
 
-    def forward(self, input_ids):
-        """Full-sequence logits ``[B, S, V]`` (causal, no cache)."""
-        return self.lm_head(self.llama(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Full-sequence logits ``[B, S, V]`` (causal, no cache), or, when
+        ``labels [B, S]`` are given, the mean cross-entropy of the logits
+        against them (rows labelled -100 ignored)."""
+        logits = self.lm_head(self.llama(input_ids))
+        if labels is None:
+            return logits
+        return F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                               labels.reshape(-1))
 
     def generate_step(self, input_ids, caches, position_offset):
         """One step over the engine's per-layer cache views: writes this

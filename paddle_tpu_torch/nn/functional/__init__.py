@@ -1,5 +1,7 @@
 from .activation import silu
 from .attention import scaled_dot_product_attention
+from .loss import cross_entropy
 from .norm import rms_norm
 
-__all__ = ["rms_norm", "scaled_dot_product_attention", "silu"]
+__all__ = ["cross_entropy", "rms_norm", "scaled_dot_product_attention",
+           "silu"]

@@ -1,0 +1,116 @@
+"""Optimizer base (counterpart of paddle_tpu/optimizer/optimizer.py).
+
+Each optimizer keeps one list of slots (its accumulators) per parameter,
+created in float32 whatever the parameter's dtype (the reference's
+master-moment practice for bf16 training), and one global step. ``step()``
+increments the global step before it updates, so the first update uses
+t = 1, as the reference's compiled step does. The update rule of each
+subclass is ``_update(p, g, slots, lr, step, wd)``: it writes the new
+parameter and slots in place, under ``torch.no_grad()``.
+
+``state_dict()`` keeps the reference's keys: ``"<slot>/<index>"`` (the
+parameter's index in the list given at construction) and
+``"global_step"``.
+
+Not in this slice: gradient clipping and learning-rate schedulers.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class L2Decay:
+    """paddle.regularizer.L2Decay analog: a weight-decay coefficient."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
+class Optimizer:
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None):
+        self._lr = float(learning_rate)
+        self._params = None if parameters is None else list(parameters)
+        self._weight_decay = weight_decay
+        self._slots_of = {}   # id(param) -> [float32 slot tensors]
+        self._global_step = 0
+
+    # -- public API --------------------------------------------------------
+    def get_lr(self):
+        return self._lr
+
+    @torch.no_grad()
+    def step(self):
+        pg = [(p, p.grad) for p in self._get_params() if p.grad is not None]
+        self._global_step += 1
+        wd = self._weight_decay_value()
+        for p, g in pg:
+            self._update(p, g, self._get_slots(p), self._lr,
+                         self._global_step, wd)
+
+    @torch.no_grad()
+    def clear_grad(self):
+        for p in self._get_params():
+            p.grad = None
+
+    def state_dict(self):
+        sd = {}
+        for i, p in enumerate(self._get_params()):
+            slots = self._slots_of.get(id(p))
+            if slots is not None:
+                for name, value in zip(self._slots(), slots):
+                    sd["%s/%d" % (name, i)] = value
+        sd["global_step"] = self._global_step
+        return sd
+
+    def set_state_dict(self, sd):
+        params = self._get_params()
+        for key, value in sd.items():
+            if key == "global_step":
+                self._global_step = int(value)
+                continue
+            name, index = key.rsplit("/", 1)
+            p = params[int(index)]
+            self.set_slot(p, name, value)
+
+    def set_slot(self, param, name, value):
+        """Overwrite one slot of ``param`` (float32, on the parameter's
+        device) with ``value`` (a tensor or anything ``torch.as_tensor``
+        takes, of the parameter's shape)."""
+        slots = self._get_slots(param)
+        value = torch.as_tensor(value)
+        if tuple(value.shape) != tuple(param.shape):
+            raise ValueError("slot %s has shape %s, the parameter %s"
+                             % (name, tuple(value.shape), tuple(param.shape)))
+        slots[self._slots().index(name)].copy_(value)
+
+    # -- machinery ---------------------------------------------------------
+    def _get_params(self):
+        if self._params is None:
+            raise ValueError("Optimizer created without a parameters list; "
+                             "pass parameters=model.parameters()")
+        return self._params
+
+    def _slots(self):
+        """Accumulator slot names, e.g. ('moment1', 'moment2')."""
+        return ()
+
+    def _get_slots(self, param):
+        slots = self._slots_of.get(id(param))
+        if slots is None:
+            slots = [torch.zeros(param.shape, dtype=torch.float32,
+                                 device=param.device)
+                     for _ in self._slots()]
+            self._slots_of[id(param)] = slots
+        return slots
+
+    def _weight_decay_value(self):
+        wd = self._weight_decay
+        if wd is None:
+            return 0.0
+        if isinstance(wd, (int, float)):
+            return float(wd)
+        return float(wd._coeff)
+
+    def _update(self, p, g, slots, lr, step, wd):
+        raise NotImplementedError

@@ -1,0 +1,149 @@
+"""Where a training step's device time goes, on one GPU.
+
+    python3 -m paddle_tpu_torch.tools.train_profile [--seed N]
+
+Builds the llama1b training row (``LlamaConfig.llama1b_train()``: 953M
+parameters in bfloat16, per-layer recompute, random weights from
+--seed) behind ``TrainStep`` with ``AdamW(1e-4)``, on one batch of 8 x
+1024 random ids and labels, takes two warm-up steps, times a third
+without the profiler (``unprofiled_wall_ms``) and runs a fourth under
+``torch.profiler``. It prints one JSON line: the host wall time of the
+profiled step, the summed device kernel time, the device busy share
+(kernel time over the profiled wall time; the profiler's host cost
+lowers it) and the kernel time by group:
+
+  gemm           cuBLAS/CUTLASS matrix products (forward, recompute and
+                 backward)
+  flash_forward  the flash-attention forward kernel (forward and
+                 recompute)
+  dq, dkv        the two flash-attention backward kernels
+  loss           kernels launched inside ``train_step.loss`` and, in the
+                 backward, before its first GEMM (the loss's own backward
+                 runs first: the lm_head's GEMMs need its gradient)
+  optimizer      kernels launched inside ``train_step.optimizer``
+  other          the rest (norms, rope, activations, embedding, casts)
+
+GEMM and flash kernels are grouped by name, the others by the
+``record_function`` range (``TrainStep``'s phases) whose host time holds
+their launch.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..models import LlamaConfig, LlamaForCausalLM
+from ..nn import functional as F
+from ..optimizer import AdamW
+from ..parallel import TrainStep
+
+BATCH, SEQ = 8, 1024
+_GEMM_MARKS = ("gemm", "gemv", "cutlass", "nvjet", "xmma")
+
+
+def _name_group(name):
+    if "flash_bwd_dq" in name:
+        return "dq"
+    if "flash_bwd_dkv" in name:
+        return "dkv"
+    if "flash_fwd" in name:
+        return "flash_forward"
+    if any(mark in name.lower() for mark in _GEMM_MARKS):
+        return "gemm"
+    return None
+
+
+def _is_cuda(evt):
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def breakdown(prof, wall_ms):
+    """Device kernel time of one profiled step, by group."""
+    kernels = {}
+    for evt in prof.key_averages():
+        # the phase ranges also appear on the device timeline, as
+        # annotations spanning their kernels: not kernels themselves
+        if (_is_cuda(evt) and evt.self_device_time_total > 0
+                and not evt.key.startswith("train_step.")):
+            kernels[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
+    total = sum(ms for ms, _ in kernels.values())
+    groups = dict.fromkeys(("gemm", "flash_forward", "dq", "dkv", "loss",
+                            "optimizer", "other"), 0.0)
+    for name, (ms, _) in kernels.items():
+        group = _name_group(name)
+        if group is not None:
+            groups[group] += ms
+
+    # the rest by phase, from the host time of the op that launched them
+    events = [e for e in prof.events() if not _is_cuda(e)]
+    phases = {e.name[len("train_step."):]: (e.time_range.start,
+                                           e.time_range.end)
+              for e in events if e.name.startswith("train_step.")}
+    bwd0, bwd1 = phases["backward"]
+    first_bwd_gemm = min(
+        (e.time_range.start for e in events
+         if bwd0 <= e.time_range.start < bwd1
+         and any(_name_group(k.name) == "gemm" for k in e.kernels)),
+        default=bwd1)
+    for e in events:
+        t = e.time_range.start
+        for k in e.kernels:
+            if _name_group(k.name) is not None:
+                continue
+            if (phases["loss"][0] <= t < phases["loss"][1]
+                    or bwd0 <= t < first_bwd_gemm):
+                groups["loss"] += k.duration / 1e3
+            elif phases["optimizer"][0] <= t < phases["optimizer"][1]:
+                groups["optimizer"] += k.duration / 1e3
+    groups["other"] = total - sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall_ms, "device_kernel_ms": total,
+            "device_busy_share": total / wall_ms,
+            "groups_ms": groups,
+            "top_kernels": [{"name": name[:80], "ms": ms, "calls": calls}
+                            for name, (ms, calls) in top]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("train_profile: no CUDA device")
+    cfg = LlamaConfig.llama1b_train()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
+    step = TrainStep(
+        model, lambda logits, labels: F.cross_entropy(
+            logits.reshape(-1, cfg.vocab_size), labels.reshape(-1)),
+        AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    rng = np.random.default_rng(args.seed)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BATCH, SEQ))).cuda() for _ in range(2))
+    for _ in range(2):
+        step(ids, labels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(ids, labels)
+    torch.cuda.synchronize()
+    unprofiled_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    row = {"window": "1 train step, llama1b bf16 recompute, %d x %d"
+                     % (BATCH, SEQ), "loss": loss.item(),
+           "unprofiled_wall_ms": unprofiled_ms}
+    row.update(breakdown(prof, wall_ms))
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -137,9 +137,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules\n"
-        "           if m.startswith('paddle_tpu_torch')]))\n")
+        "print(' '.join(m for m in sys.modules\n"
+        "               if m.startswith('paddle_tpu_torch')))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    imported = set(res.stdout.split())
+    assert len(imported) >= 30
+    assert {"paddle_tpu_torch.nn.functional.loss",
+            "paddle_tpu_torch.optimizer.optimizers",
+            "paddle_tpu_torch.parallel.engine",
+            "paddle_tpu_torch.tools.train_profile"} <= imported
