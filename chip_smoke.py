@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 card at the serving and training paths' shapes, in float32
                 and bfloat16, and time the kernel, the plain version and
                 (where one exists) the one PyTorch library call computing
-                the same function, beside the card's bound for the work
+                the same function, beside the card's bound for the work;
+                run the bf16 MMA form probe (all four forms must be OK)
+                and hold the fused lm_head + CE kernels (forward, dh, dW)
+                against their plain versions, bf16 at the training shape,
+                a ragged vocab and float32, beside the port's unfused tail
   4. slice      llama1b at full width (random weights from --seed) behind
                 serving.Engine: 33 requests run to completion, and both
                 serving kernels' launch counters must have grown
@@ -26,9 +30,18 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 full width and depth through TrainStep + AdamW(1e-4): one
                 warm-up and 5 timed steps on one batch, finite and falling
                 loss, and per step 16 dq, 16 dk/dv and 32 forward launches
+  6b. fused     phase 6 again with FLAGS_fused_lm_head_ce on and
+                TrainStep(labels_to_model=True): per step exactly one
+                fused-CE forward, dh and dW launch besides the attention
+                launches, a first loss within bf16 rounding of phase 6's,
+                and a lower peak memory
   7. train e2e  the same widths at 2 layers in float32, 2 AdamW steps on
                 the card and on a CPU copy (plain path): losses and the
                 first step's gradients must agree
+  7b. fused e2e phase 7's model with the flag on and the training recipe
+                (linear warm-up into cosine decay, global-norm clipping),
+                3 steps on the card and on the CPU: the float32 fused-CE
+                kernels against the plain path end to end
   8. summary    one JSON line of per-kernel numbers, then the result line
 
 The last line of standard output is
@@ -340,6 +353,132 @@ def phase_kernels(seed):
     return rows
 
 
+# fused lm_head + CE vs its plain version. Forward: float32 sums of exact
+# products in another order (tiles vs one GEMM), and a sum-exp combined
+# across vocab splits; loss and lse ~10, so atol 1e-3 + rtol 1e-4 in both
+# dtypes. Backward: float32 gradients sum T or V products in another
+# order: atol 1e-4 x max|grad|, rtol 1e-3. bfloat16: dl is rounded to
+# bf16 at the same point on both sides, but a p one float32 ulp apart may
+# round to the neighbouring bf16, and dh/dW are rounded to bf16: atol
+# 1e-2 x max|grad|, rtol 1e-2.
+FCE_FWD_TOL = dict(atol=1e-3, rtol=1e-4)
+FCE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, scaled=True),
+               torch.bfloat16: dict(atol=1e-2, rtol=1e-2, scaled=True)}
+# (T, H, V, dtype, timed): the training shape, ragged vocabs, float32
+FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
+             (1024, 2048, 40000, torch.bfloat16, False),
+             (512, 2048, 2000, torch.bfloat16, False),
+             (512, 2048, 2000, torch.float32, False),
+             (1024, 2048, 32000, torch.float32, True))
+
+
+def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.nn import functional as F
+
+    h = torch.randn((t_len, hid), generator=gen, device="cuda").to(dtype)
+    w = (torch.randn((hid, vocab), generator=gen, device="cuda")
+         * math.sqrt(2.0 / (hid + vocab))).to(dtype)
+    labels = torch.randint(0, vocab, (t_len,), generator=gen, device="cuda")
+    labels[::8] = -100                      # 1/8 of the rows ignored
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0)
+    g_t = torch.where(valid, 1.0 / valid.sum(), 0.0).float()
+    loss, lse = fc.fused_lm_head_ce_forward(h, w, safe)
+    want_loss, want_lse = fc.fused_lm_head_ce_forward_reference(h, w, safe)
+    dh, dw = fc.fused_lm_head_ce_backward(h, w, safe, lse, g_t)
+    want_dh, want_dw = fc.fused_lm_head_ce_backward_reference(
+        h, w, safe, want_lse, g_t)
+    torch.cuda.synchronize()
+    name = "fused_ce T=%d H=%d V=%d %s" % (t_len, hid, vocab,
+                                           str(dtype).split(".")[-1])
+    err = {"loss": check_close(name + " loss", loss, want_loss, FCE_FWD_TOL),
+           "lse": check_close(name + " lse", lse, want_lse, FCE_FWD_TOL),
+           "dh": check_close(name + " dh", dh, want_dh, FCE_BWD_TOL[dtype]),
+           "dw": check_close(name + " dw", dw, want_dw, FCE_BWD_TOL[dtype])}
+    row = {"case": name, "max_abs_err": err,
+           "chunk": fc.chunk_columns(vocab),
+           "splits": fc.forward_splits(t_len, vocab)}
+    if timed:
+        iters, reps = (10, 5) if dtype is torch.bfloat16 else (3, 3)
+        row["fwd_ms"] = time_ms(lambda: fc.fused_lm_head_ce_forward(
+            h, w, safe), iters, reps)
+        split = []
+
+        def backward():
+            events = {}
+            fc.fused_lm_head_ce_backward(h, w, safe, lse, g_t, events)
+            split.append(events)
+        row["bwd_ms"] = time_ms(backward, iters, reps)
+        torch.cuda.synchronize()
+        for part in ("dh", "dw"):
+            per_call = [sum(ev[part][i].elapsed_time(ev[part][i + 1])
+                            for i in range(0, len(ev[part]), 2))
+                        for ev in split[1:]]
+            row[part + "_ms"] = statistics.median(per_call)
+        row["plain_fwd_ms"] = time_ms(
+            lambda: fc.fused_lm_head_ce_forward_reference(h, w, safe),
+            iters, reps)
+        row["plain_bwd_ms"] = time_ms(
+            lambda: fc.fused_lm_head_ce_backward_reference(
+                h, w, safe, want_lse, g_t), iters, reps)
+        # the yardstick: the port's own unfused tail, Linear then
+        # cross_entropy, forward and forward + backward
+        hg = h.detach().requires_grad_()
+        wg = w.detach().requires_grad_()
+        row["unfused_fwd_ms"] = time_ms(
+            lambda: F.cross_entropy(hg @ wg, labels), iters, reps)
+        row["unfused_fwd_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(F.cross_entropy(hg @ wg, labels),
+                                        (hg, wg)), iters, reps)
+        row["library"] = ("none: no single PyTorch call computes lm_head + "
+                          "CE without the logits")
+        esize = h.element_size()
+        reads = (h.numel() + w.numel()) * esize + t_len * 4
+        product = 2 * t_len * hid * vocab
+        # the dh side recomputes the logits for dl (1 product) and takes
+        # dl . W^T (1); the dW side takes h^T . dl (1) from the shared dl
+        row["fwd"] = bound(reads + 2 * t_len * 4, product, dtype)
+        row["dh"] = bound(reads + 2 * t_len * 4 + dh.numel() * esize,
+                          2 * product, dtype)
+        row["dw"] = bound(reads + 2 * t_len * 4 + dw.numel() * esize,
+                          product, dtype)
+    log("[kernels] " + json.dumps(row))
+    return row
+
+
+def mma_probe_case(seed):
+    from paddle_tpu_torch.tools import mma_probe
+
+    mma_probe.launches = 0
+    forms = mma_probe.run(seed)
+    launches = {"mma_probe": mma_probe.launches}
+    failed = [f["name"] for f in forms if not f["ok"]]
+    if failed:
+        raise AssertionError("mma probe forms FAIL: %s" % failed)
+    if launches["mma_probe"] != len(mma_probe.FORMS):
+        raise AssertionError("mma probe launched %s" % launches)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a, b = mma_probe.inputs(1, gen, "cuda")   # the nn form, fused CE's h.W
+    row = {"case": "mma_probe nn bf16 512 x 128 x 512", "forms": forms,
+           "max_abs_err": max(f["max_abs_err"] for f in forms),
+           "ms": time_ms(lambda: mma_probe.probe(1, a, b)),
+           "plain_ms": time_ms(lambda: mma_probe.plain(1, a, b)),
+           "library_ms": time_ms(lambda: torch.matmul(a, b)),
+           "library": "torch.matmul of the bf16 operands (bf16 result)"}
+    row.update(bound((a.numel() + b.numel()) * 2 + 512 * 512 * 4,
+                     2 * 512 * 512 * 128, torch.bfloat16))
+    log("[kernels] " + json.dumps(row))
+    return row, launches
+
+
+def phase_fused_kernels(seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    probe, probe_launches = mma_probe_case(seed)
+    cases = [fused_ce_case(gen, *case) for case in FCE_CASES]
+    return {"mma_probe": [probe], "fused_ce": cases}, probe_launches
+
+
 # -- phase 4 / 5 -------------------------------------------------------------
 
 def pct(values, q):
@@ -462,40 +601,56 @@ def lm_loss(vocab):
     return loss_fn
 
 
-def phase_train(seed):
+def phase_train(seed, fused=False):
+    """Phase 6, or with ``fused`` phase 6b: the same row with
+    FLAGS_fused_lm_head_ce on and the loss computed inside the model."""
+    from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
+    tag = "[train fused]" if fused else "[train]"
     cfg = LlamaConfig.llama1b_train()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
-    step = TrainStep(model, lm_loss(cfg.vocab_size),
-                     AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    if fused:
+        step = TrainStep(model, None, opt, labels_to_model=True)
+    else:
+        step = TrainStep(model, lm_loss(cfg.vocab_size), opt)
     rng = np.random.default_rng(seed)
     ids, labels = (torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
         for _ in range(2))
-    torch.cuda.reset_peak_memory_stats()
-    losses = [step(ids, labels)]   # warm-up: cuBLAS handles, AdamW slots
-    torch.cuda.synchronize()
-    log("[train] llama1b bf16 (%d layers, hidden %d, FFN %d, recompute) "
-        "built and warmed up in %.1f s" % (
-            cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size,
-            time.perf_counter() - t0))
-
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    times = []
-    for _ in range(TRAIN_STEPS):
-        t1 = time.perf_counter()
-        losses.append(step(ids, labels))
+    flags.set_flags({"FLAGS_fused_lm_head_ce": fused})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(ids, labels)]   # warm-up: cuBLAS handles, AdamW slots
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-    launches = {"flash_attention": fa.launches,
-                "flash_attention_bwd_dq": fa.dq_launches,
-                "flash_attention_bwd_dkv": fa.dkv_launches}
+        log("%s llama1b bf16 (%d layers, hidden %d, FFN %d, recompute) "
+            "built and warmed up in %.1f s" % (
+                tag, cfg.num_hidden_layers, cfg.hidden_size,
+                cfg.intermediate_size, time.perf_counter() - t0))
+
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
+        times = []
+        for _ in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            losses.append(step(ids, labels))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        launches = {"flash_attention": fa.launches,
+                    "flash_attention_bwd_dq": fa.dq_launches,
+                    "flash_attention_bwd_dkv": fa.dkv_launches,
+                    "fused_ce_fwd": fc.fwd_launches,
+                    "fused_ce_dh": fc.dh_launches,
+                    "fused_ce_dw": fc.dw_launches}
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
 
     losses = [loss.item() for loss in losses]
     layers = cfg.num_hidden_layers
@@ -503,9 +658,11 @@ def phase_train(seed):
     want = {"flash_attention": 2 * layers * TRAIN_STEPS,
             "flash_attention_bwd_dq": layers * TRAIN_STEPS,
             "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
+    for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+        want[name] = TRAIN_STEPS if fused else 0
     if launches != want:
-        raise AssertionError("train launches %s, expected %s"
-                             % (launches, want))
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("non-finite training loss: %s" % losses)
     if not losses[-1] < losses[0]:
@@ -519,18 +676,60 @@ def phase_train(seed):
         "losses": losses,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}
-    log("[train] " + json.dumps(result))
-    return launches
+    log(tag + " " + json.dumps(result))
+    return result
+
+
+# phase 6b's first loss against phase 6's: phase 6 rounds the logits to
+# bf16 before cross_entropy, the fused kernels keep them float32; the two
+# means over 8192 tokens may differ by up to one bf16 ulp (2^-8) of the loss
+FUSED_LOSS_RTOL = 2.0 ** -8
+
+
+def check_fused_train(plain, fused):
+    got, want = fused["losses"][0], plain["losses"][0]
+    log("[train fused] first loss %.6f vs unfused %.6f; step %.2f vs %.2f "
+        "ms; %.0f vs %.0f tokens/s; peak %.2f vs %.2f GB" % (
+            got, want, fused["step_ms"], plain["step_ms"],
+            fused["tokens_per_s"], plain["tokens_per_s"],
+            fused["peak_mem_gb"], plain["peak_mem_gb"]))
+    if abs(got - want) > FUSED_LOSS_RTOL * abs(want):
+        raise AssertionError("fused first loss %.6f differs from the "
+                             "unfused %.6f by more than rtol %g"
+                             % (got, want, FUSED_LOSS_RTOL))
+    if not fused["peak_mem_gb"] < plain["peak_mem_gb"]:
+        raise AssertionError("fused peak memory %.3f GB is not below the "
+                             "unfused %.3f GB" % (fused["peak_mem_gb"],
+                                                  plain["peak_mem_gb"]))
 
 
 TRAIN_GRADS = ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight")
 
 
-def phase_train_e2e(seed):
+def recipe_optimizer(params):
+    """The training recipe of phase 7b: AdamW under a linear warm-up into
+    cosine decay, with global-norm gradient clipping."""
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm, lr
+
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-3, T_max=10),
+                            warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+    return sched, AdamW(learning_rate=sched, parameters=params,
+                        grad_clip=ClipGradByGlobalNorm(RECIPE_CLIP))
+
+
+RECIPE_CLIP = 0.01   # far below the 2-layer model's gradient norm: engaged
+
+
+def phase_train_e2e(seed, fused=False):
+    """Phase 7, or with ``fused`` phase 7b: the fused loss tail and the
+    recipe optimizer, 3 steps (the warm-up's first step has lr 0)."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
     from paddle_tpu_torch.parallel import TrainStep
 
+    tag = "[train e2e fused]" if fused else "[train e2e]"
     t0 = time.perf_counter()
     cfg = LlamaConfig.llama1b_train(num_hidden_layers=2, dtype="float32")
     model = LlamaForCausalLM(
@@ -539,17 +738,43 @@ def phase_train_e2e(seed):
     rng = np.random.default_rng(seed + 1)
     ids, labels = (rng.integers(0, cfg.vocab_size, (1, 256))
                    for _ in range(2))
-    losses, grads = {}, {}
-    for where, m, dev in (("card", model, None), ("cpu", cpu_model, "cpu")):
-        step = TrainStep(m, lm_loss(cfg.vocab_size),
-                         AdamW(learning_rate=1e-4, parameters=m.parameters()),
-                         device=dev)
-        losses[where] = [step(ids, labels).item()]
-        params = dict(m.named_parameters())
-        grads[where] = {n: params[n].grad.float().cpu() for n in TRAIN_GRADS}
-        losses[where].append(step(ids, labels).item())
-    log("[train e2e] losses card %s, cpu %s (%.1f s)" % (
-        losses["card"], losses["cpu"], time.perf_counter() - t0))
+    losses, grads, norms = {}, {}, []
+    flags.set_flags({"FLAGS_fused_lm_head_ce": fused})
+    fc.fwd_launches = 0
+    try:
+        for where, m, dev in (("card", model, None),
+                              ("cpu", cpu_model, "cpu")):
+            if fused:
+                sched, opt = recipe_optimizer(m.parameters())
+                step = TrainStep(m, None, opt, labels_to_model=True,
+                                 device=dev)
+            else:
+                sched, opt = None, AdamW(learning_rate=1e-4,
+                                         parameters=m.parameters())
+                step = TrainStep(m, lm_loss(cfg.vocab_size), opt, device=dev)
+            losses[where] = []
+            for i in range(3 if fused else 2):
+                losses[where].append(step(ids, labels).item())
+                if i == 0:
+                    params = dict(m.named_parameters())
+                    grads[where] = {n: params[n].grad.float().cpu()
+                                    for n in TRAIN_GRADS}
+                    norms.append(float(ClipGradByGlobalNorm(1.0).global_norm(
+                        [p.grad for p in m.parameters()])))
+                if sched is not None:
+                    sched.step()
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    log("%s losses card %s, cpu %s (%.1f s)" % (
+        tag, losses["card"], losses["cpu"], time.perf_counter() - t0))
+    if fused:
+        log("%s fused forward launches on the card %d, gradient norm %.4g "
+            "(clip %g)" % (tag, fc.fwd_launches, norms[0], RECIPE_CLIP))
+        if fc.fwd_launches != 3 or not norms[0] > RECIPE_CLIP:
+            raise AssertionError("%s: %d fused launches (want 3), gradient "
+                                 "norm %.4g vs clip %g" % (
+                                     tag, fc.fwd_launches, norms[0],
+                                     RECIPE_CLIP))
     for got, want in zip(losses["card"], losses["cpu"]):
         if not (math.isfinite(got)
                 and abs(got - want) <= TRAIN_LOSS_RTOL * abs(want)):
@@ -561,8 +786,8 @@ def phase_train_e2e(seed):
         got, want = grads["card"][name], grads["cpu"][name]
         diff = float((got - want).abs().max())
         scale = float(want.abs().max())
-        log("[train e2e] grad %s: max abs diff %.3g, max |grad| %.3g"
-            % (name, diff, scale))
+        log("%s grad %s: max abs diff %.3g, max |grad| %.3g"
+            % (tag, name, diff, scale))
         if not (bool(torch.isfinite(got).all())
                 and diff <= TRAIN_GRAD_RTOL * scale):
             raise AssertionError("card gradient of %s differs from the CPU "
@@ -586,7 +811,42 @@ KERNELS = {
     "paged_attention": dict(
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/serving/kernels/paged_attention.py:167"),
+    "fused_ce_fwd": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:147"),
+    "fused_ce_dh": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:177"),
+    "fused_ce_dw": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:193"),
+    "mma_probe": dict(
+        source="paddle_tpu_torch/csrc/mma_probe.cu",
+        replaces="tools/mosaic_probe.py:19"),
 }
+
+
+def fused_numbers(name, cases):
+    """A fused-CE entry's numbers: the bf16 training shape's times and
+    errors, with the float32 case's time and bound beside them."""
+    part = name.rsplit("_", 1)[1]
+    timed = next(r for r in cases if "fwd_ms" in r
+                 and r["case"].endswith("bfloat16"))
+    fp32 = next(r for r in cases if "fwd_ms" in r
+                and r["case"].endswith("float32"))
+    err_key = "loss" if part == "fwd" else part
+    plain, unfused = (("plain_fwd_ms", "unfused_fwd_ms") if part == "fwd"
+                      else ("plain_bwd_ms", "unfused_fwd_bwd_ms"))
+    return dict(ms=timed[part + "_ms"], plain_ms=timed[plain],
+                bound_ms=timed[part]["bound_ms"],
+                bound_by=timed[part]["bound_by"], library_ms=None,
+                library=timed["library"], unfused_ms=timed[unfused],
+                max_abs_err=timed["max_abs_err"][err_key],
+                max_abs_err_fp32=max(r["max_abs_err"][err_key] for r in cases
+                                     if r["case"].endswith("float32")),
+                ms_fp32=fp32[part + "_ms"],
+                bound_ms_fp32=fp32[part]["bound_ms"],
+                timed_case_fp32=fp32["case"], timed_case=timed["case"])
 
 
 def summary(rows, paths):
@@ -596,7 +856,17 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name.startswith("flash_attention_bwd"):
+        if name.startswith("fused_ce"):
+            numbers = fused_numbers(name, rows["fused_ce"])
+        elif name == "mma_probe":
+            timed = rows["mma_probe"][0]
+            numbers = dict(ms=timed["ms"], plain_ms=timed["plain_ms"],
+                           bound_ms=timed["bound_ms"],
+                           bound_by=timed["bound_by"],
+                           library_ms=timed["library_ms"],
+                           max_abs_err=timed["max_abs_err"],
+                           timed_case=timed["case"])
+        elif name.startswith("flash_attention_bwd"):
             # the bf16 training shape; the plain and library times cover
             # dq, dk and dv together
             part = name.rsplit("_", 1)[1]
@@ -607,7 +877,8 @@ def summary(rows, paths):
             numbers = dict(ms=timed[part + "_ms"], plain_ms=timed["plain_ms"],
                            bound_ms=timed[part]["bound_ms"],
                            bound_by=timed[part]["bound_by"],
-                           library_ms=timed["library_ms"])
+                           library_ms=timed["library_ms"],
+                           max_abs_err=fp32_err, timed_case=timed["case"])
         else:
             # the timed fp32 case with the most work: llama1b's largest
             # prefill bucket, and the decode batch without GQA
@@ -619,11 +890,11 @@ def summary(rows, paths):
             numbers = dict(ms=timed["ms"], plain_ms=timed["plain_ms"],
                            bound_ms=timed["bound_ms"],
                            bound_by=timed["bound_by"],
-                           library_ms=timed["library_ms"])
+                           library_ms=timed["library_ms"],
+                           max_abs_err=fp32_err, timed_case=timed["case"])
         out.append(dict(name=name, route="cuda", **meta,
                         launches=sum(by_path.values()),
-                        launches_by_path=by_path, max_abs_err=fp32_err,
-                        timed_case=timed["case"], **numbers))
+                        launches_by_path=by_path, **numbers))
     return {"kernels": out}
 
 
@@ -635,14 +906,23 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     phase_build()
     rows = phase_kernels(args.seed)
+    fused_rows, probe = phase_fused_kernels(args.seed)
+    rows.update(fused_rows)
+    torch.cuda.empty_cache()
     model, prompt, card_tokens, serving = phase_slice(args.seed)
     phase_e2e(model, prompt, card_tokens)
     del model
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
+    train_fused = phase_train(args.seed, fused=True)
+    check_fused_train(train, train_fused)
+    torch.cuda.empty_cache()
     phase_train_e2e(args.seed)
-    log(json.dumps(summary(rows, {"serving": serving, "train": train})))
+    phase_train_e2e(args.seed, fused=True)
+    log(json.dumps(summary(rows, {
+        "serving": serving, "train": train["launches"],
+        "train_fused": train_fused["launches"], "probe": probe})))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes). The library lands in ``build/paddle_tpu_torch/`` at the
-repository root, named by a hash of its source and the compiler flags:
-an edited source gets a new name and is rebuilt, an unchanged one is
-loaded as it is. ``build()`` starts one nvcc per stale source, all at
+repository root, named by a hash of its source, the ``csrc/`` headers it
+includes (``HEADERS``) and the compiler flags: an edited source or header
+gets a new name and is rebuilt, an unchanged one is loaded as it is. ``build()`` starts one nvcc per stale source, all at
 once, and waits for them together. Every C entry point returns
 ``cudaGetLastError()`` after its launch; ``check`` turns a non-zero code
 into an exception.
@@ -28,7 +28,10 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
+           "fused_ce", "mma_probe")
+# the csrc/ headers each source includes (hashed with it)
+HEADERS = {"fused_ce": ("mma_bf16.cuh",), "mma_probe": ("mma_bf16.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the element types every C entry point takes, by the code it expects
@@ -47,9 +50,10 @@ def _nvcc():
 
 
 def library_path(name):
-    src = CSRC / (name + ".cu")
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / (name + ".cu")).read_bytes()
+    for header in HEADERS.get(name, ()):
+        text += (CSRC / header).read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / ("%s-%s.so" % (name, digest[:16]))
 
 

@@ -14,11 +14,14 @@ Training: ``forward(input_ids, labels)`` returns the mean cross-entropy
 over the flattened tokens, and ``LlamaConfig(recompute=True)`` wraps
 each decoder layer in ``torch.utils.checkpoint`` (the reference's
 ``_remat_layer``), so the backward re-runs each layer's forward instead
-of keeping its activations.
+of keeping its activations. With ``FLAGS_fused_lm_head_ce`` on and a
+token count that tiles 256 (``kernels.fused_ce.fused_ce_applies``), the
+loss tail goes through the fused lm_head + cross-entropy kernels and the
+``[B*S, V]`` logits are never built (``_maybe_fused_ce``, the reference's
+``llama.py:405-423``).
 
 Not in this slice: the fused QKV/MLP variants, tensor and sequence
-parallelism, the fused lm_head cross-entropy loss (the reference's
-``FLAGS_fused_lm_head_ce`` gate) and ``DecodeCache`` generation.
+parallelism and ``DecodeCache`` generation.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels.fused_ce import fused_ce_applies, fused_mean_ce
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
 
@@ -230,11 +234,27 @@ class LlamaForCausalLM(nn.Module):
     def device(self):
         return self.lm_head.weight.device
 
+    def _maybe_fused_ce(self, h, labels):
+        """The mean cross-entropy of the final-normed ``h [B, S, H]``
+        through the fused lm_head + CE kernels when the gate applies
+        (``FLAGS_fused_lm_head_ce`` on, ``B*S % 256 == 0``), else None."""
+        if not fused_ce_applies(h):
+            return None
+        b, s, hid = h.shape
+        return fused_mean_ce(h.reshape(b * s, hid), self.lm_head.weight,
+                             labels.reshape(b * s))
+
     def forward(self, input_ids, labels=None):
         """Full-sequence logits ``[B, S, V]`` (causal, no cache), or, when
         ``labels [B, S]`` are given, the mean cross-entropy of the logits
-        against them (rows labelled -100 ignored)."""
-        logits = self.lm_head(self.llama(input_ids))
+        against them (rows labelled -100 ignored), fused when the gate of
+        ``_maybe_fused_ce`` applies."""
+        h = self.llama(input_ids)
+        if labels is not None:
+            fused = self._maybe_fused_ce(h, labels)
+            if fused is not None:
+                return fused
+        logits = self.lm_head(h)
         if labels is None:
             return logits
         return F.cross_entropy(logits.reshape(-1, self.config.vocab_size),

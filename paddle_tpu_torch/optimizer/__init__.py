@@ -1,4 +1,7 @@
+from . import lr
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .optimizer import L2Decay, Optimizer
 from .optimizers import Adam, AdamW
 
-__all__ = ["Adam", "AdamW", "L2Decay", "Optimizer"]
+__all__ = ["Adam", "AdamW", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "L2Decay", "Optimizer", "lr"]

@@ -8,15 +8,21 @@ t = 1, as the reference's compiled step does. The update rule of each
 subclass is ``_update(p, g, slots, lr, step, wd)``: it writes the new
 parameter and slots in place, under ``torch.no_grad()``.
 
-``state_dict()`` keeps the reference's keys: ``"<slot>/<index>"`` (the
-parameter's index in the list given at construction) and
-``"global_step"``.
+``learning_rate`` is a float or an ``LRScheduler`` (``optimizer/lr.py``):
+``get_lr()`` then reads the scheduler, ``set_lr`` raises, and the caller
+steps the scheduler, as in the reference. ``grad_clip`` (a
+``ClipGradBy*`` of ``optimizer/clip.py``) clips the gradients in
+``step()`` before the update.
 
-Not in this slice: gradient clipping and learning-rate schedulers.
+``state_dict()`` keeps the reference's keys: ``"<slot>/<index>"`` (the
+parameter's index in the list given at construction), ``"global_step"``
+and, under a scheduler, ``"LR_Scheduler"``.
 """
 from __future__ import annotations
 
 import torch
+
+from .lr import LRScheduler
 
 
 class L2Decay:
@@ -28,8 +34,14 @@ class L2Decay:
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None):
-        self._lr = float(learning_rate)
+                 weight_decay=None, grad_clip=None):
+        self._lr_scheduler = None
+        if isinstance(learning_rate, LRScheduler):
+            self._lr_scheduler = learning_rate
+            self._lr = learning_rate()
+        else:
+            self._lr = float(learning_rate)
+        self._grad_clip = grad_clip
         self._params = None if parameters is None else list(parameters)
         self._weight_decay = weight_decay
         self._slots_of = {}   # id(param) -> [float32 slot tensors]
@@ -37,16 +49,26 @@ class Optimizer:
 
     # -- public API --------------------------------------------------------
     def get_lr(self):
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
         return self._lr
+
+    def set_lr(self, value):
+        if self._lr_scheduler is not None:
+            raise RuntimeError("set_lr is not allowed when learning rate is "
+                               "an LRScheduler")
+        self._lr = float(value)
 
     @torch.no_grad()
     def step(self):
         pg = [(p, p.grad) for p in self._get_params() if p.grad is not None]
+        if self._grad_clip is not None:
+            pg = self._grad_clip(pg)
+        lr = self.get_lr()
         self._global_step += 1
         wd = self._weight_decay_value()
         for p, g in pg:
-            self._update(p, g, self._get_slots(p), self._lr,
-                         self._global_step, wd)
+            self._update(p, g, self._get_slots(p), lr, self._global_step, wd)
 
     @torch.no_grad()
     def clear_grad(self):
@@ -61,6 +83,8 @@ class Optimizer:
                 for name, value in zip(self._slots(), slots):
                     sd["%s/%d" % (name, i)] = value
         sd["global_step"] = self._global_step
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return sd
 
     def set_state_dict(self, sd):
@@ -68,6 +92,9 @@ class Optimizer:
         for key, value in sd.items():
             if key == "global_step":
                 self._global_step = int(value)
+                continue
+            if key == "LR_Scheduler":
+                self._lr_scheduler.set_state_dict(value)
                 continue
             name, index = key.rsplit("/", 1)
             p = params[int(index)]

@@ -16,8 +16,9 @@ from .optimizer import Optimizer
 
 class _AdamBase(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=None):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -47,9 +48,10 @@ class Adam(_AdamBase):
 
 class AdamW(_AdamBase):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=0.01):
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 grad_clip=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay)
+                         weight_decay, grad_clip)
 
     def _update(self, p, g, slots, lr, step, wd):
         pf = p.float()

@@ -1,13 +1,17 @@
 """Where a training step's device time goes, on one GPU.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--seed N]
+    python3 -m paddle_tpu_torch.tools.train_profile [--seed N] [--fused-ce]
 
 Builds the llama1b training row (``LlamaConfig.llama1b_train()``: 953M
 parameters in bfloat16, per-layer recompute, random weights from
 --seed) behind ``TrainStep`` with ``AdamW(1e-4)``, on one batch of 8 x
 1024 random ids and labels, takes two warm-up steps, times a third
 without the profiler (``unprofiled_wall_ms``) and runs a fourth under
-``torch.profiler``. It prints one JSON line: the host wall time of the
+``torch.profiler``. With ``--fused-ce`` the row runs as the reference's
+``FLAGS_fused_lm_head_ce`` configuration: the flag on and
+``TrainStep(model, None, opt, labels_to_model=True)``, so the loss tail
+goes through the fused lm_head + CE kernels. It prints one JSON line: the
+host wall time of the
 profiled step, the summed device kernel time, the device busy share
 (kernel time over the profiled wall time; the profiler's host cost
 lowers it) and the kernel time by group:
@@ -17,6 +21,7 @@ lowers it) and the kernel time by group:
   flash_forward  the flash-attention forward kernel (forward and
                  recompute)
   dq, dkv        the two flash-attention backward kernels
+  fused_ce       the fused lm_head + CE kernels (forward, dl, dh, dW)
   loss           kernels launched inside ``train_step.loss`` and, in the
                  backward, before its first GEMM (the loss's own backward
                  runs first: the lm_head's GEMMs need its gradient)
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..core import flags
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..nn import functional as F
 from ..optimizer import AdamW
@@ -47,6 +53,8 @@ _GEMM_MARKS = ("gemm", "gemv", "cutlass", "nvjet", "xmma")
 
 
 def _name_group(name):
+    if "fce_" in name:
+        return "fused_ce"
     if "flash_bwd_dq" in name:
         return "dq"
     if "flash_bwd_dkv" in name:
@@ -72,8 +80,8 @@ def breakdown(prof, wall_ms):
                 and not evt.key.startswith("train_step.")):
             kernels[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
     total = sum(ms for ms, _ in kernels.values())
-    groups = dict.fromkeys(("gemm", "flash_forward", "dq", "dkv", "loss",
-                            "optimizer", "other"), 0.0)
+    groups = dict.fromkeys(("gemm", "flash_forward", "dq", "dkv", "fused_ce",
+                            "loss", "optimizer", "other"), 0.0)
     for name, (ms, _) in kernels.items():
         group = _name_group(name)
         if group is not None:
@@ -112,34 +120,44 @@ def breakdown(prof, wall_ms):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fused-ce", action="store_true",
+                    help="FLAGS_fused_lm_head_ce on, loss inside the model")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
     cfg = LlamaConfig.llama1b_train()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
-    step = TrainStep(
-        model, lambda logits, labels: F.cross_entropy(
-            logits.reshape(-1, cfg.vocab_size), labels.reshape(-1)),
-        AdamW(learning_rate=1e-4, parameters=model.parameters()))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    if args.fused_ce:
+        step = TrainStep(model, None, opt, labels_to_model=True)
+    else:
+        step = TrainStep(
+            model, lambda logits, labels: F.cross_entropy(
+                logits.reshape(-1, cfg.vocab_size), labels.reshape(-1)), opt)
     rng = np.random.default_rng(args.seed)
     ids, labels = (torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (BATCH, SEQ))).cuda() for _ in range(2))
-    for _ in range(2):
-        step(ids, labels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step(ids, labels)
-    torch.cuda.synchronize()
-    unprofiled_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss = step(ids, labels)
+    flags.set_flags({"FLAGS_fused_lm_head_ce": args.fused_ce})
+    try:
+        for _ in range(2):
+            step(ids, labels)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    row = {"window": "1 train step, llama1b bf16 recompute, %d x %d"
-                     % (BATCH, SEQ), "loss": loss.item(),
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        unprofiled_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    row = {"window": "1 train step, llama1b bf16 recompute, %d x %d%s"
+                     % (BATCH, SEQ, ", fused lm_head + CE" if args.fused_ce
+                        else ""), "loss": loss.item(),
            "unprofiled_wall_ms": unprofiled_ms}
     row.update(breakdown(prof, wall_ms))
     print(json.dumps(row), flush=True)

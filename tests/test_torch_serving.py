@@ -147,4 +147,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"paddle_tpu_torch.nn.functional.loss",
             "paddle_tpu_torch.optimizer.optimizers",
             "paddle_tpu_torch.parallel.engine",
-            "paddle_tpu_torch.tools.train_profile"} <= imported
+            "paddle_tpu_torch.tools.train_profile",
+            "paddle_tpu_torch.kernels.fused_ce",
+            "paddle_tpu_torch.core.flags",
+            "paddle_tpu_torch.optimizer.clip",
+            "paddle_tpu_torch.optimizer.lr",
+            "paddle_tpu_torch.tools.mma_probe"} <= imported

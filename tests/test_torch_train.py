@@ -333,3 +333,183 @@ def test_llama1b_train_preset():
             cfg.vocab_size, cfg.max_position_embeddings, cfg.dtype,
             cfg.recompute) == (2048, 5632, 16, 16, 16, 128, 32000, 2048,
                                "bfloat16", True)
+
+
+# -- (g) gradient clipping, LR schedulers and the training recipe ------------
+
+from paddle_tpu.optimizer import clip as jax_clip  # noqa: E402
+from paddle_tpu.optimizer import lr as jax_lr  # noqa: E402
+from paddle_tpu_torch.optimizer import clip, lr  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("clip_norm", [0.5, 50.0])   # engaged / not
+@pytest.mark.parametrize("kind", ["ClipGradByValue", "ClipGradByNorm",
+                                  "ClipGradByGlobalNorm"])
+def test_clip_matches_reference(kind, clip_norm, dtype):
+    rng = np.random.RandomState(8)
+    grads = [rng.randn(*shape).astype(np.float32)
+             for shape in ((6, 5), (7,), (3, 4, 2))]
+    want = getattr(jax_clip, kind)(clip_norm).functional_clip(
+        {i: jax.numpy.asarray(g, dtype) for i, g in enumerate(grads)})
+    tdtype = getattr(torch, dtype)
+    params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
+    got = getattr(clip, kind)(clip_norm)(
+        [(p, torch.from_numpy(g).to(tdtype)) for p, g in zip(params, grads)])
+    for i, (p, g) in enumerate(got):
+        assert p is params[i] and g.dtype == tdtype
+        # float32: one fp32 rounding of the scale; bf16: the same fp32
+        # product rounded to bf16 may land one ulp apart
+        tol = (dict(rtol=1e-6, atol=1e-7) if dtype == "float32"
+               else dict(rtol=8e-3, atol=0))
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(want[i], np.float32), **tol)
+    if kind == "ClipGradByGlobalNorm":
+        norm = float(clip.ClipGradByGlobalNorm(clip_norm).global_norm(
+            [torch.from_numpy(g) for g in grads]))
+        np.testing.assert_allclose(norm, float(jax_clip.ClipGradByGlobalNorm(
+            clip_norm).global_norm(grads)), rtol=1e-6)
+        assert (norm > clip_norm) == (clip_norm == 0.5)
+
+
+SCHEDULERS = {
+    "NoamDecay": lambda m: m.NoamDecay(64, 4, learning_rate=2.0),
+    "PiecewiseDecay": lambda m: m.PiecewiseDecay([3, 6], [0.1, 0.05, 0.01]),
+    "NaturalExpDecay": lambda m: m.NaturalExpDecay(0.1, 0.3),
+    "InverseTimeDecay": lambda m: m.InverseTimeDecay(0.1, 0.5),
+    "PolynomialDecay": lambda m: m.PolynomialDecay(0.1, 5, end_lr=0.01,
+                                                   power=2.0, cycle=True),
+    "LinearWarmup": lambda m: m.LinearWarmup(
+        m.CosineAnnealingDecay(0.1, T_max=6), 3, 0.0, 0.1),
+    "ExponentialDecay": lambda m: m.ExponentialDecay(0.1, 0.8),
+    "MultiStepDecay": lambda m: m.MultiStepDecay(0.1, [2, 5, 9], gamma=0.5),
+    "StepDecay": lambda m: m.StepDecay(0.1, 4, gamma=0.3),
+    "MultiplicativeDecay": lambda m: m.MultiplicativeDecay(
+        0.1, lambda e: 0.9 if e % 2 else 0.95),
+    "LambdaDecay": lambda m: m.LambdaDecay(0.1, lambda e: 1.0 / (1 + e)),
+    "CosineAnnealingDecay": lambda m: m.CosineAnnealingDecay(
+        0.1, T_max=5, eta_min=0.01),
+    "CosineAnnealingWarmRestarts": lambda m: m.CosineAnnealingWarmRestarts(
+        0.1, T_0=3, T_mult=2, eta_min=0.001),
+    "OneCycleLR": lambda m: m.OneCycleLR(0.1, 10, phase_pct=0.3),
+    "CyclicLR": lambda m: m.CyclicLR(0.01, 0.1, 3, mode="triangular2"),
+    "ReduceOnPlateau": lambda m: m.ReduceOnPlateau(0.1, patience=1,
+                                                   factor=0.5, cooldown=1),
+}
+PLATEAU_METRICS = [5.0, 4.0, 4.0, 4.0, 3.0, 3.0, 3.0, 3.0, 2.0, 2.5, 2.5, 2.5]
+
+
+def _advance(sched, i):
+    if isinstance(sched, (lr.ReduceOnPlateau, jax_lr.ReduceOnPlateau)):
+        sched.step(PLATEAU_METRICS[i])
+    else:
+        sched.step()
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULERS))
+def test_lr_scheduler_matches_reference(name):
+    assert len(SCHEDULERS) == 16
+    make = SCHEDULERS[name]
+    sched, jsched = make(lr), make(jax_lr)
+    assert isinstance(sched, lr.LRScheduler)
+    got, want = [sched()], [jsched()]
+    for i in range(12):
+        _advance(sched, i)
+        _advance(jsched, i)
+        got.append(sched.last_lr)
+        want.append(jsched.last_lr)
+        if i == 5:
+            sd = sched.state_dict()
+            assert sd == jsched.state_dict()
+    assert sched.last_epoch == jsched.last_epoch
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    # a fresh scheduler given the mid-run state continues as the first did
+    resumed = make(lr)
+    resumed.set_state_dict(sd)
+    tail = []
+    for i in range(6, 12):
+        _advance(resumed, i)
+        tail.append(resumed.last_lr)
+    np.testing.assert_allclose(tail, got[7:], rtol=1e-12)
+
+
+def test_optimizer_reads_a_scheduler_and_saves_it():
+    param = torch.nn.Parameter(torch.ones(3))
+    sched = lr.StepDecay(0.1, 1, gamma=0.5)
+    opt = AdamW(learning_rate=sched, parameters=[param],
+                grad_clip=clip.ClipGradByValue(0.01))
+    assert opt.get_lr() == 0.1
+    sched.step()
+    assert opt.get_lr() == 0.05
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.3)
+    param.grad = torch.full((3,), 5.0)
+    opt.step()
+    sd = opt.state_dict()
+    assert sd["LR_Scheduler"]["last_epoch"] == 1
+    # the clipped gradient (0.01) is what reached the moments
+    np.testing.assert_allclose(sd["moment1/0"].numpy(), 0.1 * 0.01,
+                               rtol=1e-6)
+    other = AdamW(learning_rate=lr.StepDecay(0.1, 1, gamma=0.5),
+                  parameters=[param])
+    other.set_state_dict(sd)
+    assert other.get_lr() == 0.05 and other.state_dict()["global_step"] == 1
+    plain = AdamW(learning_rate=0.2, parameters=[param])
+    plain.set_lr(0.3)
+    assert plain.get_lr() == 0.3 and "LR_Scheduler" not in plain.state_dict()
+
+
+def _recipe(mod_lr, opt_cls, clip_cls, params):
+    sched = mod_lr.LinearWarmup(mod_lr.CosineAnnealingDecay(1e-3, T_max=10),
+                                warmup_steps=2, start_lr=0.0, end_lr=1e-3)
+    return sched, opt_cls(learning_rate=sched, parameters=params,
+                          grad_clip=clip_cls(RECIPE_CLIP))
+
+
+RECIPE_CLIP = 0.5
+
+
+def test_recipe_trajectory_matches_compiled_train_step():
+    """AdamW + linear warm-up into cosine decay + global-norm clipping,
+    with the fused loss tail on both sides, 5 steps with the scheduler
+    stepped after each."""
+    from paddle_tpu.core import flags as jax_flags
+    from paddle_tpu_torch.core import flags
+
+    paddle.seed(0)
+    jmodel = JaxLlamaForCausalLM(JaxLlamaConfig.tiny(use_parallel=False))
+    names, values = jmodel.functional_state()
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    load_jax_state(model, names, [np.asarray(v) for v in values])
+    rng = np.random.RandomState(9)
+    ids = rng.randint(0, V, (4, 64)).astype(np.int32)
+    labels = rng.randint(0, V, (4, 64)).astype(np.int32)
+    jsched, jopt = _recipe(jax_lr, JaxAdamW, jax_clip.ClipGradByGlobalNorm,
+                           jmodel.parameters())
+    sched, opt = _recipe(lr, AdamW, clip.ClipGradByGlobalNorm,
+                         model.parameters())
+    mesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    flag = {"FLAGS_fused_lm_head_ce": True}
+    flags.set_flags(flag)
+    jax_flags.set_flags(flag)
+    try:
+        jstep = CompiledTrainStep(jmodel, None, jopt, mesh=mesh,
+                                  labels_to_model=True)
+        step = TrainStep(model, None, opt, labels_to_model=True,
+                         device="cpu")
+        want, got, norms, lrs = [], [], [], []
+        for _ in range(5):
+            want.append(float(jstep(ids, labels)))
+            got.append(float(step(ids, labels)))
+            norms.append(float(clip.ClipGradByGlobalNorm(1.0).global_norm(
+                [p.grad for p in model.parameters()])))
+            lrs.append(opt.get_lr())
+            jsched.step()
+            sched.step()
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+        jax_flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL)
+    assert lrs[0] == 0.0 and lrs[2] == pytest.approx(1e-3)
+    assert min(norms) > RECIPE_CLIP   # clipping engaged on every step
+    assert got[-1] < got[0]
