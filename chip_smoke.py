@@ -265,46 +265,134 @@ def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
     return row
 
 
-def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
-               head_dim=128, block_size=16, max_blocks=128):
-    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+def random_pages(gen, totals, kv_heads, head_dim, dtype, int8,
+                 block_size=16, max_blocks=128):
+    """Pools holding ``totals[s]`` history tokens per slot on shuffled
+    pages (trash page 0 random too: it must never be read), their block
+    tables, and, with ``int8``, the int8 pools and scale planes
+    quantized from them (``pools`` then maps "fp32" to the originals)."""
+    from paddle_tpu_torch.kernels.quant import quantize_int8_page
 
-    s = len(lens)
-    pages = [-(-n // block_size) for n in lens]
+    pages = [-(-n // block_size) for n in totals]
     num_blocks = sum(pages) + 1
     ids = (torch.randperm(num_blocks - 1, generator=torch.Generator()
-                          .manual_seed(sum(lens))) + 1).tolist()
-    table = np.zeros((s, max_blocks), np.int32)
+                          .manual_seed(sum(totals))) + 1).tolist()
+    table = np.zeros((len(totals), max_blocks), np.int32)
     for i, n_pages in enumerate(pages):
         table[i, :n_pages] = [ids.pop() for _ in range(n_pages)]
     shape = (num_blocks, block_size, kv_heads, head_dim)
-    k_pool = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    v_pool = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    k_pool = torch.randn(shape, generator=gen, device="cuda")
+    v_pool = torch.randn(shape, generator=gen, device="cuda")
+    pools = {"k_pool": k_pool.to(dtype), "v_pool": v_pool.to(dtype)}
+    if int8:
+        pools = {"fp32": (k_pool, v_pool)}
+        pools["k_pool"], pools["k_scale"] = quantize_int8_page(k_pool)
+        pools["v_pool"], pools["v_scale"] = quantize_int8_page(v_pool)
+    return pools, torch.tensor(table, device="cuda"), pages
+
+
+def pool_bytes(pools, pages, kv_heads, head_dim, block_size=16):
+    """Bytes of the K/V pages (and scales) the slots' histories cover,
+    each page read once per (slot, kv head)."""
+    per_token = 2 * kv_heads * head_dim * pools["k_pool"].element_size()
+    if "k_scale" in pools:
+        per_token += 2 * kv_heads * 4
+    return sum(pages) * block_size * per_token
+
+
+def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
+               head_dim=128, block_size=16, max_blocks=128, int8=False):
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    s = len(lens)
+    pools, bt, pages = random_pages(gen, lens, kv_heads, head_dim, dtype,
+                                    int8, block_size, max_blocks)
+    kv = {k: v for k, v in pools.items() if k != "fp32"}
     q = torch.randn((s, heads, head_dim), generator=gen,
                     device="cuda").to(dtype)
-    bt = torch.tensor(table, device="cuda")
     sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    out = pa.paged_attention(q, k_pool, v_pool, bt, sl)
-    ref = pa.paged_attention_reference(q, k_pool, v_pool, bt, sl)
+    out = pa.paged_attention(q, block_tables=bt, seq_lens=sl, **kv)
+    ref = pa.paged_attention_reference(q, block_tables=bt, seq_lens=sl, **kv)
     torch.cuda.synchronize()
     live = sl > 0
-    name = "paged S=%d H=%d Hkv=%d D=%d bs=%d %s" % (
-        s, heads, kv_heads, head_dim, block_size, str(dtype).split(".")[-1])
+    name = "paged S=%d H=%d Hkv=%d D=%d bs=%d %s%s" % (
+        s, heads, kv_heads, head_dim, block_size, str(dtype).split(".")[-1],
+        " int8 pages" if int8 else "")
     err = check_close(name, out[live], ref[live], TOL[dtype])
     if not bool((out[~live] == 0).all()):
         raise AssertionError(name + ": idle slots are not exactly zero")
     row = {"case": name, "lens": lens, "max_abs_err": err}
+    if int8:
+        # the dequantized pages reconstruct the context: the int8 kernel
+        # tracks the plain version on the unquantized pools
+        k32, v32 = pools["fp32"]
+        fp32 = pa.paged_attention_reference(q, k32.to(dtype), v32.to(dtype),
+                                            bt, sl)
+        row["vs_unquantized_err"] = check_close(
+            name + " vs unquantized", out[live], fp32[live], INT8_VS_FP32_TOL)
     if timed:
         esize = q.element_size()
         tokens = sum(lens)
         nbytes = (2 * q.numel() * esize
-                  + 2 * tokens * kv_heads * head_dim * esize
+                  + pool_bytes(pools, pages, kv_heads, head_dim, block_size)
                   + sum(pages) * 4 + s * 4)
         flops = 4 * tokens * heads * head_dim
-        row["ms"] = time_ms(lambda: pa.paged_attention(q, k_pool, v_pool,
-                                                       bt, sl))
+        row["ms"] = time_ms(lambda: pa.paged_attention(
+            q, block_tables=bt, seq_lens=sl, **kv))
         row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(
-            q, k_pool, v_pool, bt, sl))
+            q, block_tables=bt, seq_lens=sl, **kv))
+        row["library_ms"] = None
+        row["library"] = "none: no single PyTorch call reads paged K/V"
+        row.update(bound(nbytes, flops, dtype))
+    log("[kernels] " + json.dumps(row))
+    return row
+
+
+def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
+               head_dim=128, int8=False, block_size=16, max_blocks=128):
+    """Kernel 8 against its plain version: valid rows (ci < q_len) within
+    the tolerance, every other row exactly zero."""
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    s = len(hist)
+    totals = [h + n if n else 0 for h, n in zip(hist, q_lens)]
+    pools, bt, pages = random_pages(gen, totals, kv_heads, head_dim, dtype,
+                                    int8, block_size, max_blocks)
+    kv = {k: v for k, v in pools.items() if k != "fp32"}
+    q = torch.randn((s, chunk, heads, head_dim), generator=gen,
+                    device="cuda").to(dtype)
+    hl = torch.tensor(hist, dtype=torch.int32, device="cuda")
+    ql = torch.tensor(q_lens, dtype=torch.int32, device="cuda")
+    args = dict(block_tables=bt, hist_lens=hl, q_lens=ql, **kv)
+    out = pa.mixed_paged_attention(q, **args)
+    ref = pa.mixed_paged_attention_reference(q, **args)
+    torch.cuda.synchronize()
+    valid = (torch.arange(chunk, device="cuda")[None, :] < ql[:, None])
+    name = "mixed S=%d C=%d H=%d Hkv=%d D=%d bs=%d %s%s" % (
+        s, chunk, heads, kv_heads, head_dim, block_size,
+        str(dtype).split(".")[-1], " int8 pages" if int8 else "")
+    err = check_close(name, out[valid], ref[valid], TOL[dtype])
+    if not bool((out[~valid] == 0).all()):
+        raise AssertionError(name + ": rows past q_len are not exactly zero")
+    row = {"case": name, "hist": hist, "q_lens": q_lens, "max_abs_err": err}
+    if int8:
+        k32, v32 = pools["fp32"]
+        fp32 = pa.mixed_paged_attention_reference(
+            q, k32.to(dtype), v32.to(dtype), bt, hl, ql)
+        row["vs_unquantized_err"] = check_close(
+            name + " vs unquantized", out[valid], fp32[valid],
+            INT8_VS_FP32_TOL)
+    if timed:
+        esize = q.element_size()
+        visible = sum(h * n + n * (n + 1) // 2 for h, n in zip(hist, q_lens))
+        rows = sum(q_lens)
+        nbytes = (2 * rows * heads * head_dim * esize
+                  + pool_bytes(pools, pages, kv_heads, head_dim, block_size)
+                  + sum(pages) * 4 + 2 * s * 4)
+        flops = 4 * heads * head_dim * visible
+        row["ms"] = time_ms(lambda: pa.mixed_paged_attention(q, **args))
+        row["plain_ms"] = time_ms(
+            lambda: pa.mixed_paged_attention_reference(q, **args))
         row["library_ms"] = None
         row["library"] = "none: no single PyTorch call reads paged K/V"
         row.update(bound(nbytes, flops, dtype))
@@ -350,6 +438,52 @@ def phase_kernels(seed):
     rows["flash_attention"].append(flash_case(
         gen, TRAIN_SEQ, 16, 128, torch.bfloat16, timed=True,
         batch=TRAIN_BATCH))
+    return rows
+
+
+# int8 pages against the plain version on the same int8 pages: both take
+# the same dequantized values (one fp32 product each), so only the order
+# of the sums differs and the float32/bfloat16 TOL above applies. Against
+# the unquantized pools (standard normal K/V) the int8 rounding error,
+# <= max|vector| / 254 per element, moves the outputs by < 5e-2.
+INT8_VS_FP32_TOL = dict(atol=5e-2, rtol=0.0)
+# kernel 8's shapes on the tier-2 path, llama1b (H = Hkv = 16, D = 128):
+# (a) a mixed step of 16 slots x 16-token chunks: full and partial prompt
+# chunks, decode rows (q_len 1), idle rows, histories 0..2000 not aligned
+# to the 16-token pages; (b) a prefix-cache suffix prefill: one slot, the
+# 1024 bucket, 1000 new tokens after a 512-token cached prefix; (c) GQA
+MIXED_STEP = dict(hist=[0, 5, 17, 100, 250, 513, 777, 1000, 1023, 1250,
+                        1500, 1777, 1900, 2000, 31, 0],
+                  q_lens=[16, 1, 16, 7, 1, 16, 1, 0, 12, 1, 16, 3, 1, 16,
+                          0, 1], chunk=16, heads=16, kv_heads=16)
+SUFFIX_PREFILL = dict(hist=[512], q_lens=[1000], chunk=1024, heads=16,
+                      kv_heads=16)
+MIXED_GQA = dict(hist=[0, 37, 700, 1500], q_lens=[16, 1, 9, 16], chunk=16,
+                 heads=32, kv_heads=8, head_dim=64)
+
+
+def phase_tier2_kernels(seed):
+    """Phase 3c: kernel 8 in its three modes and kernel 7's int8 mode."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {"mixed_paged_attention": [], "mixed_paged_attention_bf16": [],
+            "mixed_paged_attention_int8": [], "paged_attention_int8": []}
+    for dtype, key in ((f32, "mixed_paged_attention"),
+                       (bf16, "mixed_paged_attention_bf16")):
+        rows[key] += [
+            mixed_case(gen, dtype=dtype, timed=True, **MIXED_STEP),
+            mixed_case(gen, dtype=dtype, timed=dtype is f32,
+                       **SUFFIX_PREFILL),
+            mixed_case(gen, dtype=dtype, **MIXED_GQA)]
+    rows["mixed_paged_attention_int8"] += [
+        mixed_case(gen, dtype=f32, timed=True, int8=True, **MIXED_STEP),
+        mixed_case(gen, dtype=f32, timed=True, int8=True, **SUFFIX_PREFILL),
+        mixed_case(gen, dtype=bf16, int8=True, **MIXED_STEP),
+        mixed_case(gen, dtype=f32, int8=True, **MIXED_GQA)]
+    rows["paged_attention_int8"] += [
+        paged_case(gen, PAGED_LENS, 16, 16, f32, timed=True, int8=True),
+        paged_case(gen, PAGED_LENS, 16, 4, f32, int8=True),
+        paged_case(gen, PAGED_LENS, 16, 16, bf16, int8=True)]
     return rows
 
 
@@ -549,7 +683,238 @@ def phase_slice(seed):
     return model, check_prompt, outs[check_id], launches
 
 
+def attention_counters():
+    """Every attention kernel's launch counter, by summary entry (the
+    float32 and bfloat16 modes of the mixed kernel share one counter)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    return {"flash_attention": fa.launches,
+            "paged_attention": pa.launches,
+            "paged_attention_int8": pa.int8_launches,
+            "mixed_paged_attention": pa.mixed_launches,
+            "mixed_paged_attention_bf16": pa.mixed_launches,
+            "mixed_paged_attention_int8": pa.mixed_int8_launches}
+
+
+def reset_attention_counters():
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+
+    fa.launches = 0
+    pa.launches = pa.int8_launches = 0
+    pa.mixed_launches = pa.mixed_int8_launches = 0
+
+
+def tier2_engine(model, prefix, chunked, quant_kv, device=None, **kw):
+    """An Engine built with the tier-2 flags set (they are latched at
+    construction); the flags are cleared again right after."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.serving import Engine
+
+    names = ("FLAGS_serving_prefix_cache", "FLAGS_serving_chunked_prefill",
+             "FLAGS_serving_quant_kv")
+    flags.set_flags(dict(zip(names, (prefix, chunked, quant_kv))))
+    try:
+        return Engine(model, device=device, **kw)
+    finally:
+        flags.set_flags(dict.fromkeys(names, False))
+
+
+# phase 4b: the reference's shared-prefix traffic (serving_benchmark.py
+# --shared-prefix-tokens 512 --prefix-groups 4) at the phase-4 geometry
+TIER2_RUNS = (("prefix", True, False, False),
+              ("prefix+chunked", True, True, False),
+              ("prefix+int8", True, False, True),
+              ("prefix+chunked+int8", True, True, True))
+TIER2_GEOMETRY = dict(max_slots=16, block_size=16, max_model_len=2048,
+                      prefill_chunk=16)
+TIER2_NEW_TOKENS = 64
+
+
+def tier2_prompts(seed, vocab):
+    """32 prompts of one of 4 shared 512-token prefixes plus a random
+    16-512-token tail; then a repeat of the first (a hit on all but one
+    token) and one sharing 520 tokens, 32.5 pages, with the second, so
+    its first write copies the half-shared page."""
+    rng = np.random.default_rng(seed + 3)
+    prefixes = [rng.integers(0, vocab, 512).tolist() for _ in range(4)]
+    prompts = [prefixes[int(rng.integers(4))]
+               + rng.integers(0, vocab, int(rng.integers(16, 513))).tolist()
+               for _ in range(32)]
+    prompts.append(list(prompts[0]))
+    prompts.append(prompts[1][:520] + rng.integers(0, vocab, 100).tolist())
+    return prompts
+
+
+def tier2_blocks(cfg, quant_kv, fp32_blocks=2048, block_size=16):
+    """The fp32 run's page count, or for int8 pages the count the same
+    bytes buy (serving_benchmark.py's equal-byte-budget sizing)."""
+    if not quant_kv:
+        return fp32_blocks
+    d = cfg.hidden_size // cfg.num_attention_heads
+    hkv = cfg.num_key_value_heads
+    fp32_page = 8 * block_size * hkv * d
+    int8_page = 2 * block_size * hkv * (d + 4)
+    return fp32_blocks * fp32_page // int8_page
+
+
+def tier2_run(model, prompts, tag, prefix, chunked, quant_kv):
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    num_blocks = tier2_blocks(cfg, quant_kv)
+    engine = tier2_engine(model, prefix, chunked, quant_kv,
+                          num_blocks=num_blocks, **TIER2_GEOMETRY)
+    ids = [engine.add_request(p, max_new_tokens=TIER2_NEW_TOKENS)
+           for p in prompts]
+    reset_attention_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = attention_counters()
+    st = engine.stats()
+    per = [engine.request_metrics(i) for i in ids]
+    name = "[tier2 %s]" % tag
+    for rid in ids:
+        if len(engine.output(rid)) != TIER2_NEW_TOKENS:
+            raise AssertionError("%s request %d produced %d tokens"
+                                 % (name, rid, len(engine.output(rid))))
+    if not (st["prefix_hit_tokens"] > 0 and st["cow_clones"] > 0):
+        raise AssertionError("%s no prefix hit or no copy-on-write: %s"
+                             % (name, st))
+    mode = "_int8" if quant_kv else ""
+    want = dict.fromkeys(launches, 0)
+    if chunked:
+        want["mixed_paged_attention" + mode] = layers * st["mixed_steps"]
+    else:
+        want["mixed_paged_attention" + mode] = layers * st["prefill_runs"]
+        want["paged_attention" + mode] = layers * st["decode_steps"]
+    want["mixed_paged_attention_bf16"] = want["mixed_paged_attention"]
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (name, launches, want))
+    ttft = [m["ttft_s"] for m in per]
+    tpot = [m["tpot_s"] for m in per]
+    result = {
+        "requests": len(ids), "wall_s": wall,
+        "output_tok_s": st["output_tokens"] / wall,
+        "ttft_p50_s": pct(ttft, 0.5), "ttft_p99_s": pct(ttft, 0.99),
+        "tpot_p50_s": pct(tpot, 0.5), "tpot_p99_s": pct(tpot, 0.99),
+        "prefill_runs": st["prefill_runs"], "decode_steps":
+            st["decode_steps"], "mixed_steps": st["mixed_steps"],
+        "tokens_per_mixed_step": (st["mixed_tokens"] / st["mixed_steps"]
+                                  if st["mixed_steps"] else None),
+        "mixed_tok_s": (st["mixed_tokens"] / st["mixed_s"]
+                        if st["mixed_steps"] else None),
+        "prefill_tok_s": (st["prefill_tokens"] / st["prefill_s"]
+                          if st["prefill_s"] else None),
+        "decode_tok_s": (st["decode_tokens"] / st["decode_s"]
+                         if st["decode_s"] else None),
+        "prefix_hit_rate": st["prefix_hit_tokens"]
+            / st["prefix_lookup_tokens"],
+        "prefix_hit_tokens": st["prefix_hit_tokens"],
+        "cow_clones": st["cow_clones"],
+        "prefix_evictions": st["prefix_evictions"],
+        "prefill_chunks": st["prefill_chunks"],
+        "preemptions": st["preemptions"],
+        "kv_pages": num_blocks - 1,
+        "kv_token_capacity": (num_blocks - 1) * TIER2_GEOMETRY["block_size"],
+        "kv_quant_pages": st["kv_quant_pages"],
+        "quant_dequant_bytes": st["quant_dequant_bytes"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches}
+    log(name + " " + json.dumps(result))
+    del engine
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_tier2_slice(seed, model):
+    """Phase 4b: llama1b (the phase-4 model) through the prefix cache,
+    chunked prefill and int8 KV pages, four runs of the same traffic."""
+    prompts = tier2_prompts(seed, model.config.vocab_size)
+    out = {}
+    for tag, prefix, chunked, quant_kv in TIER2_RUNS:
+        out[tag] = tier2_run(model, prompts, tag, prefix, chunked, quant_kv)
+    return out
+
+
+def diverges_at_near_tie(tag, cpu_model, prompt, want, got):
+    """True when ``got`` equals ``want``; else the first divergence must
+    sit at a top-2 logit gap below NEAR_TIE (dense logits on the CPU
+    copy), or this raises."""
+    if got == want:
+        return True
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    with torch.no_grad():
+        logits = cpu_model(torch.tensor([prompt + want[:i]]))[0, -1]
+    top2 = logits.float().topk(2).values
+    gap = float(top2[0] - top2[1])
+    log("%s first divergence at token %d, top-2 logit gap %.3g"
+        % (tag, i, gap))
+    if gap >= NEAR_TIE:
+        raise AssertionError("%s diverges at token %d with a top-2 gap of "
+                             "%.3g (>= %g): not a near-tie" % (
+                                 tag, i, gap, NEAR_TIE))
+    return False
+
+
+def phase_tier2_e2e(seed, model, cpu_model):
+    """Phase 5b: three full-width requests, two sharing a 48-token
+    prefix and one matching 40 tokens of it (half a page: copy-on-write),
+    through prefix cache + chunked prefill on the card and on the CPU copy
+    (plain path), with and without int8 pages; and the card's fp32 tokens
+    against the card's flags-off engine."""
+    rng = np.random.default_rng(seed + 5)
+    vocab = model.config.vocab_size
+    base = rng.integers(0, vocab, 48).tolist()
+    prompts = [base + rng.integers(0, vocab, 8).tolist(),
+               base + rng.integers(0, vocab, 8).tolist(),
+               base[:40] + rng.integers(0, vocab, 10).tolist()]
+
+    def serve(m, device, flags_on, quant_kv):
+        t0 = time.perf_counter()
+        engine = tier2_engine(m, flags_on, flags_on, quant_kv, device=device,
+                              max_slots=3, block_size=16, num_blocks=64,
+                              max_model_len=256, prefill_chunk=16)
+        ids = [engine.add_request(prompts[0], max_new_tokens=8)]
+        engine.run()
+        ids += [engine.add_request(p, max_new_tokens=8) for p in prompts[1:]]
+        engine.run()
+        st = engine.stats()
+        tokens = [engine.output(i) for i in ids]
+        log("[tier2 e2e] %s %s%s: %s (%.1f s; prefix hit %d tokens, %d "
+            "clones)" % ("card" if device is None else "cpu ",
+                         "prefix+chunked" if flags_on else "flags off",
+                         "+int8" if quant_kv else "", tokens,
+                         time.perf_counter() - t0, st["prefix_hit_tokens"],
+                         st["cow_clones"]))
+        if flags_on and not (st["prefix_hit_tokens"] >= 88
+                             and st["cow_clones"] >= 1):
+            raise AssertionError("[tier2 e2e] expected 48 + 40 cached tokens "
+                                 "and a clone: %s" % st)
+        return tokens
+
+    card_off = serve(model, None, False, False)
+    for quant_kv in (False, True):
+        card = serve(model, None, True, quant_kv)
+        cpu = serve(cpu_model, "cpu", True, quant_kv)
+        tag = "[tier2 e2e%s]" % (" int8" if quant_kv else "")
+        same = [diverges_at_near_tie(tag + " card vs cpu", cpu_model, p, w, g)
+                for p, w, g in zip(prompts, cpu, card)]
+        if not quant_kv:
+            same += [diverges_at_near_tie(tag + " tier 2 vs flags off",
+                                          cpu_model, p, w, g)
+                     for p, w, g in zip(prompts, card_off, card)]
+        log("%s %d of %d token sequences identical" % (tag, sum(same),
+                                                       len(same)))
+
+
 def phase_e2e(model, prompt, card_tokens):
+    """Phase 5; returns the model's CPU copy (phase 5b reuses it)."""
     from paddle_tpu_torch.serving import Engine
 
     t0 = time.perf_counter()
@@ -575,20 +940,10 @@ def phase_e2e(model, prompt, card_tokens):
         raise AssertionError("card logits differ from the CPU plain path "
                              "by %.3g (> %g x %.3g)"
                              % (diff, LOGIT_RTOL, scale))
-    if cpu_tokens == card_tokens:
+    if diverges_at_near_tie("[e2e]", cpu_model, prompt, cpu_tokens,
+                            card_tokens):
         log("[e2e] greedy tokens identical")
-        return
-    i = next(j for j, (a, b) in enumerate(zip(cpu_tokens, card_tokens))
-             if a != b)
-    with torch.no_grad():
-        logits = cpu_model(torch.tensor([prompt + card_tokens[:i]]))[0, -1]
-    top2 = logits.float().topk(2).values
-    gap = float(top2[0] - top2[1])
-    log("[e2e] first divergence at token %d, top-2 logit gap %.3g" % (i, gap))
-    if gap >= NEAR_TIE:
-        raise AssertionError("card and CPU diverge at token %d with a top-2 "
-                             "gap of %.3g (>= %g): not a near-tie"
-                             % (i, gap, NEAR_TIE))
+    return cpu_model
 
 
 # -- phase 6 / 7 -------------------------------------------------------------
@@ -823,7 +1178,58 @@ KERNELS = {
     "mma_probe": dict(
         source="paddle_tpu_torch/csrc/mma_probe.cu",
         replaces="tools/mosaic_probe.py:19"),
+    "paged_attention_int8": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:167",
+        mode="int8 pages + fp32 scales (quantized=True)"),
+    "mixed_paged_attention": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="float32"),
+    "mixed_paged_attention_bf16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="bfloat16"),
+    "mixed_paged_attention_int8": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="int8 pages + fp32 scales (quantized=True)"),
 }
+# the float32 and bfloat16 modes of the mixed kernel share one counter
+SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches (float32 and "
+                  "bfloat16 together)",
+                  "mixed_paged_attention_bf16": "mixed_launches (float32 "
+                  "and bfloat16 together; the serving path runs float32)"}
+
+
+def tier2_numbers(name, cases):
+    """A phase-3c entry's numbers: its first timed case (the mixed-step
+    shape, or the decode shape for kernel 7's int8 mode), the suffix
+    prefill's time beside it where it was timed, and the largest error
+    over the entry's cases."""
+    timed = [r for r in cases if "ms" in r]
+    # float32 queries' error; the bfloat16 cases' beside it (int8 modes)
+    fp32 = [r["max_abs_err"] for r in cases if "float32" in r["case"]]
+    bf16 = [r["max_abs_err"] for r in cases if "bfloat16" in r["case"]]
+    numbers = dict(ms=timed[0]["ms"], plain_ms=timed[0]["plain_ms"],
+                   bound_ms=timed[0]["bound_ms"],
+                   bound_by=timed[0]["bound_by"], library_ms=None,
+                   library=timed[0]["library"],
+                   max_abs_err=max(fp32 or bf16),
+                   timed_case=timed[0]["case"])
+    if fp32 and bf16:
+        numbers["max_abs_err_bf16"] = max(bf16)
+    if len(timed) > 1:
+        numbers["suffix_prefill"] = {
+            k: timed[1][k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                     "bound_by")}
+    errs = [r["vs_unquantized_err"] for r in cases
+            if "vs_unquantized_err" in r]
+    if errs:
+        numbers["max_abs_err_vs_unquantized"] = max(errs)
+    if name in SHARED_COUNTER:
+        numbers["launches_counter"] = SHARED_COUNTER[name]
+    return numbers
 
 
 def fused_numbers(name, cases):
@@ -866,6 +1272,8 @@ def summary(rows, paths):
                            library_ms=timed["library_ms"],
                            max_abs_err=timed["max_abs_err"],
                            timed_case=timed["case"])
+        elif name.endswith("_int8") or name.startswith("mixed"):
+            numbers = tier2_numbers(name, rows[name])
         elif name.startswith("flash_attention_bwd"):
             # the bf16 training shape; the plain and library times cover
             # dq, dk and dv together
@@ -908,10 +1316,14 @@ def main(argv=None):
     rows = phase_kernels(args.seed)
     fused_rows, probe = phase_fused_kernels(args.seed)
     rows.update(fused_rows)
+    rows.update(phase_tier2_kernels(args.seed))
     torch.cuda.empty_cache()
     model, prompt, card_tokens, serving = phase_slice(args.seed)
-    phase_e2e(model, prompt, card_tokens)
-    del model
+    cpu_model = phase_e2e(model, prompt, card_tokens)
+    torch.cuda.empty_cache()
+    tier2 = phase_tier2_slice(args.seed, model)
+    phase_tier2_e2e(args.seed, model, cpu_model)
+    del model, cpu_model
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
@@ -920,9 +1332,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     phase_train_e2e(args.seed)
     phase_train_e2e(args.seed, fused=True)
-    log(json.dumps(summary(rows, {
-        "serving": serving, "train": train["launches"],
-        "train_fused": train_fused["launches"], "probe": probe})))
+    paths = {"serving": serving, "train": train["launches"],
+             "train_fused": train_fused["launches"], "probe": probe}
+    paths.update({"tier2 " + tag: run["launches"]
+                  for tag, run in tier2.items()})
+    log(json.dumps(summary(rows, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ only the flags the port reads).
 Flags are process-global values, bootstrapped from ``FLAGS_*``
 environment variables at import (``"1"``, ``"true"``, ``"yes"`` and
 ``"on"`` turn a boolean on) and settable from Python with ``set_flags``;
-``get_flags(name)`` returns ``{name: value}`` as the reference does.
+``get_flags(name)`` returns ``{name: value}`` as the reference does and
+``flag(name)`` the value alone.
 """
 from __future__ import annotations
 
@@ -14,6 +15,15 @@ _DEFAULTS = {
     # route the decoder loss tail through the fused lm_head + cross-entropy
     # kernels (kernels/fused_ce.py) when the token count tiles 256
     "FLAGS_fused_lm_head_ce": False,
+    # serving tier 2, each latched by serving.Engine at construction:
+    # radix prefix cache over the page pool (shared prompt heads map to
+    # shared refcounted pages, copy-on-write on a partial page)
+    "FLAGS_serving_prefix_cache": False,
+    # prompts prefill in prefill_chunk-token rows of ONE mixed ragged
+    # step beside the decode rows
+    "FLAGS_serving_chunked_prefill": False,
+    # int8 KV pages with per-(page, position, head) fp32 scale planes
+    "FLAGS_serving_quant_kv": False,
 }
 
 _flags = {}
@@ -46,6 +56,11 @@ def get_flags(name=None):
     if isinstance(name, (list, tuple)):
         return {n: _flags[n] for n in name}
     return {name: _flags[name]}
+
+
+def flag(name, default=None):
+    """The value of one flag (``default`` for an unknown name)."""
+    return _flags.get(name, default)
 
 
 def set_flags(d):

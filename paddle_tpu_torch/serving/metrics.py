@@ -8,6 +8,10 @@ per request (``RequestMetrics.to_dict()``):
   tpot_s           mean inter-token time after the first token
   e2e_s            arrival -> finished
   prompt_tokens / output_tokens / preemptions
+  prefix_cached_tokens         prompt tokens served from the radix cache,
+                               summed over (re-)admissions
+  prefix_cached_tokens_first   the same at the first admission only (the
+                               hit/miss classification)
 
 engine (``EngineMetrics.to_dict()``):
   requests_in / requests_finished / preemptions
@@ -21,7 +25,23 @@ engine (``EngineMetrics.to_dict()``):
   throughput_tok_s             output tokens / wall time since the first
                                admission
   slot_occupancy               mean active slots / max_slots over decode
-                               steps
+                               (and mixed) steps
+  mixed_steps / mixed_tokens / mixed_s
+                               chunked prefill: mixed ragged steps, the
+                               valid tokens they ran (prompt chunks and
+                               decode rows) and the host seconds spent in
+                               them (each step reads its tokens back);
+                               each mixed step also counts as a decode
+                               step, as in the reference
+  tier 2, under the reference's keys (all 0 with the flags off):
+  prefix_hit_tokens / prefix_lookup_tokens   admitted lookups' cached and
+                               looked-up prompt tokens
+  prefix_evictions / prefix_insert_pages / prefix_cached_pages
+                               radix-tree pages reclaimed, inserted, held
+  cow_clones                   copy-on-write page splits
+  prefill_chunks               prompt chunks run through mixed steps
+  kv_quant_pages               live int8 pages at the last step
+  quant_dequant_bytes          int8 page bytes the steps' attention read
 """
 from __future__ import annotations
 
@@ -41,6 +61,15 @@ class RequestMetrics:
         self.prompt_tokens = prompt_tokens
         self.output_tokens = 0
         self.preemptions = 0
+        self.prefix_lookup_tokens = 0
+        self.prefix_cached_tokens = 0
+        self.prefix_cached_tokens_first = None
+
+    def on_prefix_lookup(self, lookup_tokens, hit_tokens):
+        if self.prefix_cached_tokens_first is None:
+            self.prefix_cached_tokens_first = int(hit_tokens)
+        self.prefix_lookup_tokens += int(lookup_tokens)
+        self.prefix_cached_tokens += int(hit_tokens)
 
     def on_admit(self, t):
         if self.first_admit_t is None:
@@ -71,6 +100,9 @@ class RequestMetrics:
             "prompt_tokens": self.prompt_tokens,
             "output_tokens": self.output_tokens,
             "preemptions": self.preemptions,
+            "prefix_cached_tokens": self.prefix_cached_tokens,
+            "prefix_cached_tokens_first": (
+                self.prefix_cached_tokens_first or 0),
         }
 
 
@@ -89,6 +121,18 @@ class EngineMetrics:
         self.decode_s = 0.0
         self.output_tokens = 0
         self._occupancy_sum = 0
+        self.mixed_steps = 0
+        self.mixed_tokens = 0
+        self.mixed_s = 0.0
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.prefix_evictions = 0
+        self.prefix_insert_pages = 0
+        self.prefix_cached_pages = 0
+        self.cow_clones = 0
+        self.prefill_chunks = 0
+        self.kv_quant_pages = 0
+        self.quant_dequant_bytes = 0
 
     def on_request_in(self):
         self.requests_in += 1
@@ -108,11 +152,42 @@ class EngineMetrics:
         self.prefill_tokens += tokens
         self.prefill_s += seconds
 
+    def on_prefill_run(self):
+        """A chunked prefill admitted: its chunks run in mixed steps."""
+        self.prefill_runs += 1
+
+    def on_prefill_chunk(self, tokens):
+        self.prefill_chunks += 1
+        self.prefill_tokens += tokens
+
     def on_decode_step(self, active_slots, seconds):
         self.decode_steps += 1
         self.decode_tokens += active_slots
         self.decode_s += seconds
         self._occupancy_sum += active_slots
+
+    def on_mixed_step(self, rows, tokens, seconds):
+        self.decode_steps += 1
+        self._occupancy_sum += rows
+        self.mixed_steps += 1
+        self.mixed_tokens += tokens
+        self.mixed_s += seconds
+
+    def on_prefix_stats(self, pc_stats, cow_clones):
+        """Snapshot of the radix cache's counters, once per engine step
+        with the cache on."""
+        self.prefix_hit_tokens = pc_stats["hit_tokens"]
+        self.prefix_lookup_tokens = pc_stats["lookup_tokens"]
+        self.prefix_evictions = pc_stats["evicted_pages"]
+        self.prefix_insert_pages = pc_stats["inserted_pages"]
+        self.prefix_cached_pages = pc_stats["cached_pages"]
+        self.cow_clones = cow_clones
+
+    def on_quant_step(self, pages_used, dequant_bytes):
+        """Once per decode or mixed step with int8 KV pages: the live page
+        count and the int8 bytes the step's attention read."""
+        self.kv_quant_pages = pages_used
+        self.quant_dequant_bytes += int(dequant_bytes)
 
     def on_output_token(self):
         self.output_tokens += 1
@@ -136,4 +211,16 @@ class EngineMetrics:
             "slot_occupancy": (self._occupancy_sum
                                / (self.decode_steps * self.max_slots)
                                if self.decode_steps else 0.0),
+            "mixed_steps": self.mixed_steps,
+            "mixed_tokens": self.mixed_tokens,
+            "mixed_s": self.mixed_s,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_lookup_tokens": self.prefix_lookup_tokens,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_insert_pages": self.prefix_insert_pages,
+            "prefix_cached_pages": self.prefix_cached_pages,
+            "cow_clones": self.cow_clones,
+            "prefill_chunks": self.prefill_chunks,
+            "kv_quant_pages": self.kv_quant_pages,
+            "quant_dequant_bytes": self.quant_dequant_bytes,
         }

@@ -1,22 +1,31 @@
 """Request lifecycle and FCFS continuous-batching scheduler
-(counterpart of paddle_tpu/serving/scheduler.py, without trace hooks,
-deadlines or the prefix cache).
+(counterpart of paddle_tpu/serving/scheduler.py, without trace hooks or
+deadlines).
 
 Lifecycle: QUEUED -> PREFILL -> DECODING -> FINISHED, with
-DECODING -> PREEMPTED when the page pool runs dry (the victim waits at
-the queue front until re-admission re-prefills it).
+PREFILL/DECODING -> PREEMPTED when the page pool runs dry (the victim
+waits at the queue front until re-admission re-prefills it).
 
 Policies (kept simple and deterministic, so outputs are reproducible):
 
 - Admission is strict FCFS: the queue head is admitted only when a slot
   is free AND the pool has pages for its whole (resume) prompt; nothing
   behind it jumps ahead.
-- Preemption victim = the most recently admitted OTHER decoding request.
-  Its pages are freed and it is requeued at the FRONT by recompute: its
-  resume prompt is ``prompt + generated so far``, so greedy decoding
+- Preemption victim = the most recently admitted OTHER running request.
+  Its pages are released and it is requeued at the FRONT by recompute:
+  its resume prompt is ``prompt + generated so far``, so greedy decoding
   continues token-identically after the re-prefill.
 - A finished or preempted slot is reusable at once; admission claims the
   lowest free slot index.
+
+Serving tier 2 (latched at Engine construction): with the prefix cache
+the admission check charges only the UNCACHED SUFFIX of the resume
+prompt (matched pages are adopted shared from the radix tree, and an LRU
+reclaim of cold cached pages runs before admission gives up); release
+inserts the slot's full pages into the tree before it decrefs. With
+chunked prefill, PREFILL is a resumable state (``prefill_pos`` walks the
+prompt in chunks through the mixed step) and mid-prefill rows are
+preemption candidates like decode rows.
 """
 from __future__ import annotations
 
@@ -46,6 +55,13 @@ class Request:
         self.slot = None
         self.admit_seq = None      # monotone admission stamp (victim pick)
         self.metrics = RequestMetrics(now(), len(self.prompt))
+        # prefix cache / chunked prefill (0 and unused with the flags off),
+        # both reset at every (re-)admission: cached_tokens = tokens of the
+        # resume prompt served from the radix cache (prefill starts there);
+        # prefill_pos = tokens of resume_tokens already run through the
+        # mixed step
+        self.cached_tokens = 0
+        self.prefill_pos = 0
 
     @property
     def resume_tokens(self):
@@ -62,8 +78,10 @@ class Request:
 
 
 class Scheduler:
-    def __init__(self, max_slots, cache):
+    def __init__(self, max_slots, cache, prefix_cache=None):
         self.cache = cache
+        # radix prefix cache (FLAGS_serving_prefix_cache), or None
+        self.prefix_cache = prefix_cache
         self.queue = deque()
         self.slots = [None] * max_slots    # slot -> Request or None
         self._admit_counter = itertools.count()
@@ -82,9 +100,26 @@ class Scheduler:
         return [(i, r) for i, r in enumerate(self.slots)
                 if r is not None and r.state is RequestState.DECODING]
 
+    def occupied(self):
+        """(slot, req) for every slot holding live work: DECODING rows
+        plus mid-prefill chunk rows (chunked prefill keeps the PREFILL
+        state across steps), in slot order."""
+        return [(i, r) for i, r in enumerate(self.slots)
+                if r is not None and r.state in (RequestState.PREFILL,
+                                                 RequestState.DECODING)]
+
+    def slots_active(self):
+        """Occupied slot count, any state."""
+        return sum(1 for r in self.slots if r is not None)
+
     def admit_next(self):
-        """Admit the queue head if a slot is free and the pool can hold its
-        resume prompt. Returns (slot, req) or None."""
+        """Admit the queue head if a slot is free and the pool can hold
+        its resume prompt's uncached suffix (the whole prompt without the
+        prefix cache). Returns (slot, req) or None. With the prefix cache
+        the head's prefix is matched first; matched pages are adopted
+        shared instead of allocated, and when even the suffix does not
+        fit, an LRU reclaim of unreferenced cached pages runs before
+        giving up."""
         if not self.queue:
             return None
         free = [i for i, r in enumerate(self.slots) if r is None]
@@ -93,12 +128,35 @@ class Scheduler:
         req = self.queue[0]
         slot = free[0]
         tokens = req.resume_tokens
-        if self.cache.pages_needed(len(tokens)) \
-                > self.cache.allocator.free_blocks:
-            return None
+        matched_pages, matched = [], 0
+        if self.prefix_cache is not None:
+            matched_pages, matched = self.prefix_cache.match(
+                tokens, limit=len(tokens) - 1)
+        need = self.cache.pages_needed(len(tokens)) - len(matched_pages)
+        if matched % self.cache.block_size:
+            # the partially matched page is cloned at its first write:
+            # charge the clone now, so the admission stays all-or-nothing
+            need += 1
+        # adopt BEFORE any reclaim: the slot's reference protects the
+        # just-matched pages from this admission's own LRU walk
+        if matched_pages:
+            self.cache.adopt_prefix(slot, matched_pages, matched)
+        if need > self.cache.allocator.free_blocks:
+            if self.prefix_cache is not None:
+                self.prefix_cache.reclaim(
+                    need - self.cache.allocator.free_blocks)
+            if need > self.cache.allocator.free_blocks:
+                if matched_pages:       # undo: all-or-nothing admission
+                    self.cache.release_slot(slot)
+                return None
         self.queue.popleft()
         if not self.cache.ensure_capacity(slot, len(tokens)):
             raise AssertionError("admission raced the allocator")
+        req.cached_tokens = matched
+        req.prefill_pos = matched
+        if self.prefix_cache is not None:
+            self.prefix_cache.note_lookup(len(tokens), matched)
+            req.metrics.on_prefix_lookup(len(tokens), matched)
         self.slots[slot] = req
         req.slot = slot
         req.state = RequestState.PREFILL
@@ -107,16 +165,27 @@ class Scheduler:
         return slot, req
 
     def release(self, req):
-        """Release the request's slot and pages (finish or preempt)."""
-        self.cache.release_slot(req.slot)
-        self.slots[req.slot] = None
+        """Release the request's slot and pages (finish or preempt). With
+        the prefix cache the slot's full pages are inserted into the tree
+        first, so the computed history (prompt and generated tokens) stays
+        warm for a resume or the next request sharing the prompt head."""
+        slot = req.slot
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.resume_tokens,
+                                     self.cache.slot_pages(slot),
+                                     int(self.cache.seq_lens[slot]))
+        self.cache.release_slot(slot)
+        self.slots[slot] = None
         req.slot = None
 
-    def preempt_victim(self, exclude_slot):
-        """Preempt the most recently admitted decoding request other than
+    def preempt_victim(self, exclude_slot, include_prefill=False):
+        """Preempt the most recently admitted running request other than
         ``exclude_slot`` and requeue it at the front. Returns the victim,
-        or None when there is no other decoding request."""
-        candidates = [r for i, r in self.active() if i != exclude_slot]
+        or None when there is no other candidate. ``include_prefill``
+        widens the candidates to mid-prefill chunk rows (chunked prefill);
+        without it only decoding requests are candidates."""
+        pool = self.occupied() if include_prefill else self.active()
+        candidates = [r for i, r in pool if i != exclude_slot]
         if not candidates:
             return None
         victim = max(candidates, key=lambda r: r.admit_seq)

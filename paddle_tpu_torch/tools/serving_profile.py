@@ -1,6 +1,7 @@
 """Where the serving engine's device time goes, on one GPU.
 
     python3 -m paddle_tpu_torch.tools.serving_profile [--seed N] [--steps N]
+        [--prefix-cache] [--chunked-prefill] [--quant-kv] [--prefill-chunk N]
 
 Builds llama1b (float32, random weights from --seed) behind
 ``serving.Engine(max_slots=16, block_size=16, num_blocks=2048,
@@ -10,7 +11,18 @@ tokens. Two windows run under ``torch.profiler``: the first engine step
 For each window it prints one JSON line: the host wall time, the summed
 device kernel time, the device busy share (kernel time over wall time),
 and the kernels with the most device time, grouped into the serving
-path's parts (paged attention, flash attention, GEMMs, other).
+path's parts (paged and mixed paged attention, flash attention, GEMMs,
+other).
+
+The tier-2 flags switch the engine's paths as ``FLAGS_serving_*`` do
+(latched at construction). With ``--prefix-cache`` the prompts are the
+shared-prefix traffic of ``chip_smoke.py`` phase 4b (one of 4 shared
+512-token prefixes plus a 16-512-token tail, after a warm-up request per
+prefix), so the first window's prefills are suffix prefills over cached
+pages. With ``--chunked-prefill`` every step is one mixed step of
+``--prefill-chunk``-token rows: the first window is the first mixed step
+and the second ``--steps`` more. ``--quant-kv`` makes the pages int8
+(the same page count, so the bytes shrink).
 """
 from __future__ import annotations
 
@@ -22,11 +34,17 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..core import flags
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..serving import Engine
 
+_FLAGS = ("FLAGS_serving_prefix_cache", "FLAGS_serving_chunked_prefill",
+          "FLAGS_serving_quant_kv")
+
 
 def _group(name):
+    if "mixed_paged" in name:
+        return "mixed_paged_attention"
     if "paged_decode" in name:
         return "paged_attention"
     if "flash_fwd" in name:
@@ -70,30 +88,57 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="FLAGS_serving_prefix_cache, shared-prefix prompts")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="FLAGS_serving_chunked_prefill: mixed steps only")
+    ap.add_argument("--quant-kv", action="store_true",
+                    help="FLAGS_serving_quant_kv: int8 KV pages")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serving_profile: no CUDA device")
     cfg = LlamaConfig.llama1b()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
-    engine = Engine(model, max_slots=16, block_size=16, num_blocks=2048,
-                    max_model_len=2048)
+    flags.set_flags(dict(zip(_FLAGS, (args.prefix_cache,
+                                      args.chunked_prefill, args.quant_kv))))
+    try:
+        engine = Engine(model, max_slots=16, block_size=16, num_blocks=2048,
+                        max_model_len=2048, prefill_chunk=args.prefill_chunk)
+    finally:
+        flags.set_flags(dict.fromkeys(_FLAGS, False))
     rng = np.random.default_rng(args.seed)
-    # warm-up request: the first cuBLAS calls of each shape are not timed
-    engine.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 2)
+    vocab = cfg.vocab_size
+    # warm-up: the first cuBLAS calls of each shape are not timed; with
+    # the prefix cache one request per shared prefix caches it
+    prefixes = [rng.integers(0, vocab, 512).tolist() for _ in range(4)]
+    for prompt in (prefixes if args.prefix_cache
+                   else [rng.integers(0, vocab, 64).tolist()]):
+        engine.add_request(prompt, 2)
     engine.run()
-    for n in rng.integers(128, 1537, 16):
-        engine.add_request(rng.integers(0, cfg.vocab_size, n).tolist(),
-                           args.steps + 2)
-    print(json.dumps(_window("step: 16 prefills + 1 decode", engine.step)),
-          flush=True)
+    for _ in range(16):
+        if args.prefix_cache:
+            prompt = (prefixes[int(rng.integers(4))]
+                      + rng.integers(0, vocab,
+                                     int(rng.integers(16, 513))).tolist())
+        else:
+            prompt = rng.integers(0, vocab,
+                                  int(rng.integers(128, 1537))).tolist()
+        engine.add_request(prompt, args.steps + 2)
+    if args.chunked_prefill:
+        first, rest = "step: 1 mixed step, 16 slots", "%d mixed steps"
+    else:
+        first = "step: 16 %sprefills + 1 decode" % (
+            "suffix " if args.prefix_cache else "")
+        rest = "%d decode steps, 16 slots"
+    print(json.dumps(_window(first, engine.step)), flush=True)
 
-    def decode_steps():
+    def steps():
         for _ in range(args.steps):
             engine.step()
 
-    print(json.dumps(_window("%d decode steps, 16 slots" % args.steps,
-                             decode_steps)), flush=True)
+    print(json.dumps(_window(rest % args.steps, steps)), flush=True)
 
 
 if __name__ == "__main__":

@@ -152,4 +152,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "paddle_tpu_torch.core.flags",
             "paddle_tpu_torch.optimizer.clip",
             "paddle_tpu_torch.optimizer.lr",
-            "paddle_tpu_torch.tools.mma_probe"} <= imported
+            "paddle_tpu_torch.tools.mma_probe",
+            "paddle_tpu_torch.serving.prefix_cache",
+            "paddle_tpu_torch.kernels.quant",
+            "paddle_tpu_torch.serving.kv_cache",
+            "paddle_tpu_torch.serving.kernels.paged_attention"} <= imported
