@@ -20,12 +20,24 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
                 against their plain versions, bf16 at the training shape,
                 a ragged vocab and float32, beside the port's unfused tail
+  3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
+                kernel's int8 mode against their plain versions
+  3d. segments  the segment-id (packed sequence) mode of the flash
+                forward, dq and dk/dv kernels against their plain
+                versions: (a) the training shape, bf16, causal, each row
+                packing documents of 64-512 tokens; (b) float32, B = 1,
+                N = 2048, non-causal, shuffled ids; all-zero ids must give
+                the non-segmented kernels' results bit for bit; timed
+                beside torch SDPA with a dense boolean mask
   4. slice      llama1b at full width (random weights from --seed) behind
                 serving.Engine: 33 requests run to completion, and both
                 serving kernels' launch counters must have grown
+  4b. tier 2    llama1b through the prefix cache, chunked prefill and
+                int8 KV pages, with exact launch counts
   5. e2e        the check request served alone on the CPU through the
                 plain path must produce the card's greedy tokens (or
-                diverge only at a reported near-tie)
+                diverge only at a reported near-tie); 5b the same for the
+                tier-2 engine, fp32 and int8 pages
   6. train      the llama1b training row (bf16, recompute, 8 x 1024) at
                 full width and depth through TrainStep + AdamW(1e-4): one
                 warm-up and 5 timed steps on one batch, finite and falling
@@ -35,6 +47,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 fused-CE forward, dh and dW launch besides the attention
                 launches, a first loss within bf16 rounding of phase 6's,
                 and a lower peak memory
+  6c. bench row the reference's own training row (bench.py, BENCH_FUSE=1:
+                hidden 768, 12 layers, 6 heads x 128, FFN 2048, fused QKV
+                and gate/up projections, bf16, 8 x 1024, AdamW(1e-4))
+                through TrainStep.run_steps: a warm-up window and 2 timed
+                windows of K = 10 stacked batches, then the same 10
+                batches through 10 calls from the same starting state
+                (losses within bf16 rounding of the window's); per step
+                exactly 12 forward, dq and dk/dv launches, none segmented
+  6d. varlen    F.variable_length_attention at the 3d (a) shape with
+                gradients, once by segment ids and once by a 1-D seq_lens
+                list with a padded tail: each call launches exactly one
+                segmented forward, dq and dk/dv and agrees with the plain
+                version
   7. train e2e  the same widths at 2 layers in float32, 2 AdamW steps on
                 the card and on a CPU copy (plain path): losses and the
                 first step's gradients must agree
@@ -42,6 +67,10 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 (linear warm-up into cosine decay, global-norm clipping),
                 3 steps on the card and on the CPU: the float32 fused-CE
                 kernels against the plain path end to end
+  7c. variant   phase 7's model with fused QKV and gate/up projections, a
+                label-smoothed loss and run_steps (2 windows of K = 2) on
+                the card and on the CPU: losses and the first step's
+                gradients must agree
   8. summary    one JSON line of per-kernel numbers, then the result line
 
 The last line of standard output is
@@ -487,6 +516,192 @@ def phase_tier2_kernels(seed):
     return rows
 
 
+# -- phase 3d: the segment-id mode of kernels 1-3 -----------------------------
+
+def packed_ids(rng, batch, n, lo=64, hi=512):
+    """Each row packs documents of lengths uniform in [lo, hi], the last
+    one cut to fit; document i of a row has id i. Returns the ids
+    ``[batch, n]`` int32 and each row's lengths."""
+    ids = np.zeros((batch, n), np.int32)
+    lens = []
+    for r in range(batch):
+        off, row = 0, []
+        while off < n:
+            length = min(int(rng.integers(lo, hi + 1)), n - off)
+            ids[r, off:off + length] = len(row)
+            row.append(length)
+            off += length
+        lens.append(row)
+    return ids, lens
+
+
+def scattered_ids(rng, batch, n, groups=6):
+    """Packed documents (as ``packed_ids``) whose ids are drawn from
+    ``groups`` values: not monotonic, and one id may label documents far
+    apart, which then see each other."""
+    ids, _ = packed_ids(rng, batch, n)
+    return rng.integers(0, groups, (batch, int(ids.max()) + 1)).astype(
+        np.int32)[np.arange(batch)[:, None], ids]
+
+
+def shuffled_ids(rng, batch, n, groups=8):
+    """Ids in no order: each position draws one of ``groups`` values."""
+    return (rng.integers(0, groups, (batch, n)) * 5 - 7).astype(np.int32)
+
+
+def visible_pairs(ids, heads, causal):
+    """(query, key) pairs the segment mask (and the start-aligned causal
+    mask) keeps, over all heads: per row and id of count c, c * c pairs,
+    or c * (c + 1) / 2 when causal (for any order of the ids)."""
+    total = 0
+    for row in ids:
+        _, counts = np.unique(row, return_counts=True)
+        counts = counts.astype(np.int64)
+        total += int((counts * (counts + 1) // 2).sum() if causal
+                     else (counts * counts).sum())
+    return heads * total
+
+
+def dense_mask(segs, causal):
+    """The boolean mask ``[B, 1, N, N]`` (True = attend) that gives torch
+    SDPA the same function: equal ids, and key <= query when causal."""
+    keep = segs[:, :, None] == segs[:, None, :]
+    if causal:
+        n = segs.shape[1]
+        keep &= torch.ones(n, n, dtype=torch.bool, device=segs.device).tril()
+    return keep[:, None]
+
+
+def segmented_case(gen, ids, heads, head_dim, dtype, causal, tag,
+                   timed=True):
+    """The segmented forward, dq and dk/dv kernels on one set of ids
+    against their plain versions; all-zero ids against the non-segmented
+    kernels, bit for bit; with ``timed``, their times beside the plain
+    versions', torch SDPA's with a dense mask and the bound of the
+    visible pairs."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    batch, n = ids.shape
+
+    def rand():
+        return torch.randn((batch, n, heads, head_dim), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v, dout = rand(), rand(), rand(), rand()
+    segs = torch.from_numpy(ids).cuda()
+    out, lse = fa.flash_attention(q, k, v, causal, segment_ids=segs)
+    grads = fa.flash_attention_backward(q, k, v, out, lse, dout, causal,
+                                        segment_ids=segs)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal,
+                                                      segment_ids=segs)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                 causal, segment_ids=segs)
+    torch.cuda.synchronize()
+    name = "segmented %s B=%d N=%d H=%d D=%d %s %s" % (
+        tag, batch, n, heads, head_dim, str(dtype).split(".")[-1],
+        "causal" if causal else "non-causal")
+    err = {"fwd": check_close(name + " out", out, want_out, TOL[dtype])}
+    check_close(name + " lse", lse, want_lse, TOL[torch.float32])
+    errs = [check_close("%s d%s" % (name, part), x, y, BWD_TOL[dtype])
+            for part, x, y in zip("qkv", grads, want)]
+    err["dq"], err["dkv"] = errs[0], max(errs[1:])
+
+    zeros = torch.zeros_like(segs)
+    z_out, z_lse = fa.flash_attention(q, k, v, causal, segment_ids=zeros)
+    p_out, p_lse = fa.flash_attention(q, k, v, causal)
+    z_grads = fa.flash_attention_backward(q, k, v, p_out, p_lse, dout,
+                                          causal, segment_ids=zeros)
+    p_grads = fa.flash_attention_backward(q, k, v, p_out, p_lse, dout,
+                                          causal)
+    same = [torch.equal(a, b) for a, b in zip(
+        (z_out, z_lse, *z_grads), (p_out, p_lse, *p_grads))]
+    if not all(same):
+        raise AssertionError("%s: all-zero ids differ from the "
+                             "non-segmented kernels (out, lse, dq, dk, dv "
+                             "equal: %s)" % (name, same))
+    row = {"case": name, "max_abs_err": err, "zero_ids_bitwise": True}
+    if timed:
+        esize = q.element_size()
+        pairs = visible_pairs(ids, heads, causal)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+            .reshape(batch * heads, n).contiguous()
+        args = (q, k, v, dout, lse, delta, causal, None, segs)
+        row["ms"] = time_ms(lambda: fa.flash_attention(
+            q, k, v, causal, segment_ids=segs))
+        row["dq_ms"] = time_ms(lambda: fa.flash_attention_bwd_dq(*args))
+        row["dkv_ms"] = time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, causal, segment_ids=segs))
+        row["plain_bwd_ms"] = time_ms(
+            lambda: fa.flash_attention_backward_reference(
+                q, k, v, out, lse, dout, causal, segment_ids=segs))
+        mask = dense_mask(segs, causal)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        g = dout.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = time_ms(lambda: sdpa(qt, kt, vt,
+                                                 attn_mask=mask))
+        lib_out = sdpa(qt, kt, vt, attn_mask=mask)
+        row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), g, retain_graph=True))
+        row["library_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(qt, kt, vt, attn_mask=mask), (qt, kt, vt), g))
+        row["library"] = ("torch SDPA with a dense boolean mask [B, 1, N, "
+                          "N]: forward; backward (dq, dk, dv together) as "
+                          "autograd.grad of one forward; forward + "
+                          "backward")
+        row["visible_pairs"] = pairs
+        row["causal_pairs"] = causal_pairs(batch * heads, n, n) \
+            if causal else batch * heads * n * n
+        reads = ((q.numel() + dout.numel() + k.numel() + v.numel()) * esize
+                 + 2 * lse.numel() * 4 + segs.numel() * 4)
+        row["fwd"] = bound(3 * q.numel() * esize + segs.numel() * 4
+                           + q.numel() * esize + lse.numel() * 4,
+                           4 * head_dim * pairs, dtype)
+        row["dq"] = bound(reads + q.numel() * esize,
+                          3 * 2 * head_dim * pairs, dtype)
+        row["dkv"] = bound(reads + (k.numel() + v.numel()) * esize,
+                           4 * 2 * head_dim * pairs, dtype)
+    log("[segments] " + json.dumps(row))
+    return row
+
+
+# (a) the training shape, documents of 64-512 tokens; (b) float32, one
+# 2048-token row of shuffled ids, non-causal
+SEG_HEADS, SEG_HEAD_DIM = 16, 128
+
+
+def segment_train_ids(seed):
+    return packed_ids(np.random.default_rng(seed + 8), TRAIN_BATCH,
+                      TRAIN_SEQ)
+
+
+def phase_segmented_kernels(seed):
+    """Phase 3d."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    ids_a, lens = segment_train_ids(seed)
+    log("[segments] (a) documents per row %s"
+        % [len(row) for row in lens])
+    ids_b = shuffled_ids(np.random.default_rng(seed + 9), 1, 2048)
+    rows = [segmented_case(gen, ids_a, SEG_HEADS, SEG_HEAD_DIM,
+                           torch.bfloat16, True, "(a)"),
+            segmented_case(gen, ids_b, SEG_HEADS, SEG_HEAD_DIM,
+                           torch.float32, False, "(b)")]
+    # the other dtype at each shape, and (c) scattered ids, where the
+    # kernels' id-interval tile skip must keep the far-apart documents of
+    # one id: checked only
+    ids_c = scattered_ids(np.random.default_rng(seed + 10), 2, TRAIN_SEQ)
+    for ids, dtype, causal, tag in (
+            (ids_a[:2], torch.float32, True, "(a) fp32"),
+            (ids_b, torch.bfloat16, False, "(b) bf16"),
+            (ids_c, torch.float32, False, "(c)"),
+            (ids_c, torch.bfloat16, True, "(c) bf16")):
+        rows.append(segmented_case(gen, ids, SEG_HEADS, SEG_HEAD_DIM, dtype,
+                                   causal, tag, timed=False))
+    return {"segmented": rows}
+
+
 # fused lm_head + CE vs its plain version. Forward: float32 sums of exact
 # products in another order (tiles vs one GEMM), and a sum-exp combined
 # across vocab splits; loss and lse ~10, so atol 1e-3 + rtol 1e-4 in both
@@ -690,6 +905,11 @@ def attention_counters():
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
     return {"flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "flash_attention_segmented": fa.segmented_fwd_launches,
+            "flash_attention_bwd_dq_segmented": fa.segmented_dq_launches,
+            "flash_attention_bwd_dkv_segmented": fa.segmented_dkv_launches,
             "paged_attention": pa.launches,
             "paged_attention_int8": pa.int8_launches,
             "mixed_paged_attention": pa.mixed_launches,
@@ -701,7 +921,9 @@ def reset_attention_counters():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
-    fa.launches = 0
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.segmented_fwd_launches = fa.segmented_dq_launches = 0
+    fa.segmented_dkv_launches = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
 
@@ -960,7 +1182,6 @@ def phase_train(seed, fused=False):
     """Phase 6, or with ``fused`` phase 6b: the same row with
     FLAGS_fused_lm_head_ce on and the loss computed inside the model."""
     from paddle_tpu_torch.core import flags
-    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -990,7 +1211,7 @@ def phase_train(seed, fused=False):
                 tag, cfg.num_hidden_layers, cfg.hidden_size,
                 cfg.intermediate_size, time.perf_counter() - t0))
 
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        reset_attention_counters()
         fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
         times = []
         for _ in range(TRAIN_STEPS):
@@ -998,23 +1219,23 @@ def phase_train(seed, fused=False):
             losses.append(step(ids, labels))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
-        launches = {"flash_attention": fa.launches,
-                    "flash_attention_bwd_dq": fa.dq_launches,
-                    "flash_attention_bwd_dkv": fa.dkv_launches,
-                    "fused_ce_fwd": fc.fwd_launches,
-                    "fused_ce_dh": fc.dh_launches,
-                    "fused_ce_dw": fc.dw_launches}
+        launches = dict(attention_counters(), fused_ce_fwd=fc.fwd_launches,
+                        fused_ce_dh=fc.dh_launches,
+                        fused_ce_dw=fc.dw_launches)
     finally:
         flags.set_flags({"FLAGS_fused_lm_head_ce": False})
 
     losses = [loss.item() for loss in losses]
     layers = cfg.num_hidden_layers
-    # recompute runs each layer's forward twice per step
-    want = {"flash_attention": 2 * layers * TRAIN_STEPS,
-            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
-    for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
-        want[name] = TRAIN_STEPS if fused else 0
+    # recompute runs each layer's forward twice per step; no segmented
+    # launch
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention": 2 * layers * TRAIN_STEPS,
+                 "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+                 "flash_attention_bwd_dkv": layers * TRAIN_STEPS})
+    if fused:
+        for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+            want[name] = TRAIN_STEPS
     if launches != want:
         raise AssertionError("%s launches %s, expected %s"
                              % (tag, launches, want))
@@ -1056,6 +1277,203 @@ def check_fused_train(plain, fused):
         raise AssertionError("fused peak memory %.3f GB is not below the "
                              "unfused %.3f GB" % (fused["peak_mem_gb"],
                                                   plain["peak_mem_gb"]))
+
+
+# -- phase 6c: the reference's bench row, fused, through run_steps ------------
+
+# bench.py:80-86 with BENCH_FUSE=1 (the TPU branch's config), 8 x 1024,
+# K = 10 stacked batches per run_steps window (bench.py:132-162)
+BENCH_K, BENCH_WINDOWS = 10, 2
+# run_steps against 10 calls from the same state: the same kernels on the
+# same inputs; the losses are float32 means of bf16 logits, so they may
+# differ by at most a bf16 ulp (2^-8) of the loss
+WINDOW_LOSS_RTOL = 2.0 ** -8
+
+
+def bench_config():
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=768,
+                       intermediate_size=2048, num_hidden_layers=12,
+                       num_attention_heads=6, max_position_embeddings=2048,
+                       dtype="bfloat16", fuse_attention_qkv=True,
+                       fuse_mlp=True)
+
+
+def phase_bench_fused(seed):
+    """Phase 6c."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    tag = "[bench fused]"
+    cfg = bench_config()
+
+    def fresh_step():
+        """The model from the seed (the same starting state each time)
+        and its train step."""
+        model = LlamaForCausalLM(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(seed + 6))
+        return TrainStep(model, lm_loss(cfg.vocab_size),
+                         AdamW(learning_rate=1e-4,
+                               parameters=model.parameters()))
+
+    t0 = time.perf_counter()
+    step = fresh_step()
+    params = sum(p.numel() for p in step.model.parameters())
+    rng = np.random.default_rng(seed + 6)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (BENCH_K, TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    torch.cuda.reset_peak_memory_stats()
+    window_losses = [step.run_steps(ids, labels).item()]   # warm-up window
+    log("%s fused llama (%d layers, hidden %d, %d heads x %d, FFN %d), "
+        "warm-up window of %d steps in %.1f s" % (
+            tag, cfg.num_hidden_layers, cfg.hidden_size,
+            cfg.num_attention_heads, cfg.head_dim, cfg.intermediate_size,
+            BENCH_K, time.perf_counter() - t0))
+    reset_attention_counters()
+    times = []
+    for _ in range(BENCH_WINDOWS):
+        t1 = time.perf_counter()
+        loss = step.run_steps(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        window_losses.append(loss.item())
+    launches = attention_counters()
+    window_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # the first window's 10 batches again, one call each, from the state
+    # the warm-up window started from (one model on the card at a time,
+    # so the two peaks compare)
+    del step
+    torch.cuda.empty_cache()
+    call_step = fresh_step()
+    torch.cuda.reset_peak_memory_stats()
+    call_losses, call_times = [], []
+    for i in range(BENCH_K):
+        t1 = time.perf_counter()
+        call_losses.append(call_step(ids[i], labels[i]).item())
+        torch.cuda.synchronize()
+        call_times.append(time.perf_counter() - t1)
+    call_peak = torch.cuda.max_memory_allocated() / 1e9
+
+    layers = cfg.num_hidden_layers
+    steps = BENCH_K * BENCH_WINDOWS
+    want = dict.fromkeys(launches, 0)
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        want[name] = layers * steps
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    losses = window_losses + call_losses
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("%s non-finite loss: %s" % (tag, losses))
+    # each window trains on the same 10 batches again, so its last loss
+    # falls from window to window (within a window every batch is new)
+    if not all(a > b for a, b in zip(window_losses, window_losses[1:])):
+        raise AssertionError("%s loss did not fall from window to window: "
+                             "%s" % (tag, window_losses))
+    gap = abs(call_losses[-1] - window_losses[0])
+    if gap > WINDOW_LOSS_RTOL * abs(window_losses[0]):
+        raise AssertionError(
+            "%s the warm-up window's last loss %.6f differs from the 10th "
+            "call's %.6f by more than rtol %g" % (
+                tag, window_losses[0], call_losses[-1], WINDOW_LOSS_RTOL))
+    window_ms = statistics.median(times) * 1e3 / BENCH_K
+    call_ms = statistics.median(call_times[1:]) * 1e3
+    result = {
+        "params": params, "batch": [TRAIN_BATCH, TRAIN_SEQ], "k": BENCH_K,
+        "run_steps": {"step_ms": window_ms,
+                      "window_s_each": times,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / window_ms
+                      * 1e3,
+                      "peak_mem_gb": window_peak,
+                      "window_losses": window_losses},
+        "calls": {"step_ms": call_ms,
+                  "step_ms_each": [t * 1e3 for t in call_times],
+                  "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / call_ms * 1e3,
+                  "peak_mem_gb": call_peak, "losses": call_losses},
+        "window_vs_calls_loss_gap": gap,
+        "launches": launches}
+    log(tag + " " + json.dumps(result))
+    return result
+
+
+# -- phase 6d: variable_length_attention at full width ------------------------
+
+def phase_varlen(seed):
+    """Phase 6d: the packed-sequence entry point, forward and backward,
+    by segment ids and by seq_lens."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.functional.attention import \
+        segment_ids_from_lens
+
+    tag = "[varlen]"
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    ids_a, _ = segment_train_ids(seed)
+    rng = np.random.default_rng(seed + 10)
+    lens, total = [], 0
+    while True:        # documents of 64-512 tokens, a tail of >= 64 left
+        length = int(rng.integers(64, 513))
+        if total + length > TRAIN_SEQ - 64:
+            break
+        lens.append(length)
+        total += length
+    shape = (TRAIN_BATCH, TRAIN_SEQ, SEG_HEADS, SEG_HEAD_DIM)
+    calls = (("segment_ids", dict(segment_ids=torch.from_numpy(ids_a)
+                                  .cuda()), ids_a),
+             ("seq_lens", dict(seq_lens=lens), np.broadcast_to(
+                 segment_ids_from_lens(lens, TRAIN_SEQ),
+                 (TRAIN_BATCH, TRAIN_SEQ)).copy()))
+    reset_attention_counters()
+    runs = []
+    for how, kw, ids in calls:
+        leaves = [torch.randn(shape, generator=gen, device="cuda")
+                  .bfloat16().requires_grad_() for _ in range(3)]
+        dout = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        before = attention_counters()
+        out = F.variable_length_attention(*leaves, **kw)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = attention_counters()
+        grew = {k: after[k] - before[k] for k in after}
+        runs.append((how, leaves, dout, out.detach(), ids, grew))
+    launches = attention_counters()
+
+    result = {"shape": list(shape), "dtype": "bfloat16", "causal": True,
+              "seq_lens": lens, "tail": TRAIN_SEQ - total, "calls": {}}
+    for how, leaves, dout, out, ids, grew in runs:
+        want = {k: 0 for k in grew}
+        for k in ("flash_attention_segmented",
+                  "flash_attention_bwd_dq_segmented",
+                  "flash_attention_bwd_dkv_segmented"):
+            want[k] = 1
+        if grew != want:
+            raise AssertionError("%s %s call launched %s, expected %s"
+                                 % (tag, how, grew, want))
+        q, k, v = (x.detach() for x in leaves)
+        segs = torch.from_numpy(ids).cuda()
+        want_out, _ = fa.flash_attention_reference(q, k, v, True,
+                                                   segment_ids=segs)
+        name = "%s %s" % (tag, how)
+        err = {"out": check_close(name + " out", out, want_out,
+                                  TOL[torch.bfloat16])}
+        # the gradients against the plain backward on the kernel's own
+        # forward (the plain forward rounds its output elsewhere)
+        k_out, k_lse = fa.flash_attention(q, k, v, True, segment_ids=segs)
+        want_grads = fa.flash_attention_backward_reference(
+            q, k, v, k_out, k_lse, dout, True, segment_ids=segs)
+        for part, leaf, w in zip("qkv", leaves, want_grads):
+            err["d" + part] = check_close("%s d%s" % (name, part),
+                                          leaf.grad, w,
+                                          BWD_TOL[torch.bfloat16])
+        result["calls"][how] = {"launches": grew, "max_abs_err": err}
+    result["launches"] = launches
+    log(tag + " " + json.dumps(result))
+    return result
 
 
 TRAIN_GRADS = ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight")
@@ -1150,6 +1568,73 @@ def phase_train_e2e(seed, fused=False):
                                  % (name, diff, TRAIN_GRAD_RTOL, scale))
 
 
+VARIANT_GRADS = ("lm_head.weight",
+                 "llama.layers.0.self_attn.qkv_proj.weight",
+                 "llama.layers.1.mlp.gate_up_proj.weight")
+VARIANT_K, VARIANT_WINDOWS = 2, 2
+
+
+def phase_train_e2e_variant(seed):
+    """Phase 7c: phase 7's model with both fused projections, a
+    label-smoothed loss and run_steps, on the card and on a CPU copy."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    tag = "[train e2e variant]"
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama1b_train(num_hidden_layers=2, dtype="float32",
+                                    fuse_attention_qkv=True, fuse_mlp=True)
+    vocab = cfg.vocab_size
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 7))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(seed + 7)
+    windows = [tuple(rng.integers(0, vocab, (VARIANT_K, 1, 256))
+                     for _ in range(2)) for _ in range(VARIANT_WINDOWS)]
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1),
+                               label_smoothing=0.1)
+
+    losses, grads = {}, {}
+    for where, m, dev in (("card", model, None), ("cpu", cpu_model, "cpu")):
+        device = next(m.parameters()).device
+        # the first step's gradients: the loss at the starting weights
+        ids, labels = (torch.from_numpy(x[0]).to(device)
+                       for x in windows[0])
+        loss_fn(m(ids), labels).backward()
+        params = dict(m.named_parameters())
+        grads[where] = {n: params[n].grad.float().cpu()
+                        for n in VARIANT_GRADS}
+        step = TrainStep(m, loss_fn, AdamW(learning_rate=1e-4,
+                                           parameters=m.parameters()),
+                         device=dev)
+        losses[where] = [step.run_steps(*w).item() for w in windows]
+    log("%s last losses of %d windows of K = %d: card %s, cpu %s (%.1f s)"
+        % (tag, VARIANT_WINDOWS, VARIANT_K, losses["card"], losses["cpu"],
+           time.perf_counter() - t0))
+    for got, want in zip(losses["card"], losses["cpu"]):
+        if not (math.isfinite(got)
+                and abs(got - want) <= TRAIN_LOSS_RTOL * abs(want)):
+            raise AssertionError("%s card losses %s differ from the CPU "
+                                 "plain path's %s (rtol %g)" % (
+                                     tag, losses["card"], losses["cpu"],
+                                     TRAIN_LOSS_RTOL))
+    for name in VARIANT_GRADS:
+        got, want = grads["card"][name], grads["cpu"][name]
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        log("%s grad %s: max abs diff %.3g, max |grad| %.3g"
+            % (tag, name, diff, scale))
+        if not (bool(torch.isfinite(got).all())
+                and diff <= TRAIN_GRAD_RTOL * scale):
+            raise AssertionError("%s card gradient of %s differs from the "
+                                 "CPU plain path's by %.3g (> %g x %.3g)"
+                                 % (tag, name, diff, TRAIN_GRAD_RTOL, scale))
+
+
 # -- phase 8 ----------------------------------------------------------------
 
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -1194,6 +1679,18 @@ KERNELS = {
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
         mode="int8 pages + fp32 scales (quantized=True)"),
+    "flash_attention_segmented": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:161",
+        mode="segment ids"),
+    "flash_attention_bwd_dq_segmented": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:330",
+        mode="segment ids"),
+    "flash_attention_bwd_dkv_segmented": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:366",
+        mode="segment ids"),
 }
 # the float32 and bfloat16 modes of the mixed kernel share one counter
 SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches (float32 and "
@@ -1255,6 +1752,34 @@ def fused_numbers(name, cases):
                 timed_case_fp32=fp32["case"], timed_case=timed["case"])
 
 
+def segmented_numbers(name, cases):
+    """A segment-mode entry's numbers: the training shape (a), bf16, with
+    the shuffled float32 shape (b) beside it; errors over every case."""
+    part = {"flash_attention_segmented": "fwd",
+            "flash_attention_bwd_dq_segmented": "dq",
+            "flash_attention_bwd_dkv_segmented": "dkv"}[name]
+    ms_key = "ms" if part == "fwd" else part + "_ms"
+    plain, library = (("plain_ms", "library_ms") if part == "fwd"
+                      else ("plain_bwd_ms", "library_bwd_ms"))
+    timed = [r for r in cases if "ms" in r]
+    a, b = timed
+    return dict(ms=a[ms_key], plain_ms=a[plain],
+                bound_ms=a[part]["bound_ms"], bound_by=a[part]["bound_by"],
+                library_ms=a[library],
+                library_fwd_bwd_ms=a["library_fwd_bwd_ms"],
+                library=a["library"],
+                max_abs_err=max(r["max_abs_err"][part] for r in cases
+                                if "float32" in r["case"]),
+                max_abs_err_bf16=max(r["max_abs_err"][part] for r in cases
+                                     if "bfloat16" in r["case"]),
+                visible_pairs=a["visible_pairs"],
+                causal_pairs=a["causal_pairs"], timed_case=a["case"],
+                shuffled=dict(case=b["case"], ms=b[ms_key],
+                              plain_ms=b[plain], library_ms=b[library],
+                              bound_ms=b[part]["bound_ms"],
+                              bound_by=b[part]["bound_by"]))
+
+
 def summary(rows, paths):
     """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
     an entry's ``launches`` sums them over the paths."""
@@ -1262,7 +1787,9 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name.startswith("fused_ce"):
+        if name.endswith("_segmented"):
+            numbers = segmented_numbers(name, rows["segmented"])
+        elif name.startswith("fused_ce"):
             numbers = fused_numbers(name, rows["fused_ce"])
         elif name == "mma_probe":
             timed = rows["mma_probe"][0]
@@ -1317,6 +1844,7 @@ def main(argv=None):
     fused_rows, probe = phase_fused_kernels(args.seed)
     rows.update(fused_rows)
     rows.update(phase_tier2_kernels(args.seed))
+    rows.update(phase_segmented_kernels(args.seed))
     torch.cuda.empty_cache()
     model, prompt, card_tokens, serving = phase_slice(args.seed)
     cpu_model = phase_e2e(model, prompt, card_tokens)
@@ -1330,10 +1858,16 @@ def main(argv=None):
     train_fused = phase_train(args.seed, fused=True)
     check_fused_train(train, train_fused)
     torch.cuda.empty_cache()
+    bench = phase_bench_fused(args.seed)
+    torch.cuda.empty_cache()
+    varlen = phase_varlen(args.seed)
+    torch.cuda.empty_cache()
     phase_train_e2e(args.seed)
     phase_train_e2e(args.seed, fused=True)
+    phase_train_e2e_variant(args.seed)
     paths = {"serving": serving, "train": train["launches"],
-             "train_fused": train_fused["launches"], "probe": probe}
+             "train_fused": train_fused["launches"], "probe": probe,
+             "bench_fused": bench["launches"], "varlen": varlen["launches"]}
     paths.update({"tier2 " + tag: run["launches"]
                   for tag, run in tier2.items()})
     log(json.dumps(summary(rows, paths)))

@@ -10,7 +10,9 @@
 // the reference computes it outside its kernels). Start-aligned causal mask
 // (query i sees keys j <= i, for any kv length). The reference's bf16
 // rounding points are kept: dS is rounded to the input dtype before dS.K
-// and dS^T.Q, and P before P^T.dO.
+// and dS^T.Q, and P before P^T.dO. With segment ids (packed sequences; the
+// reference masks at lines 221-223 and 274-276) a (query, key) pair also
+// needs equal ids: P is 0 there, so dS is 0 too.
 //
 // What bounds them on this card: per causal (query, key) pair and head the
 // dq kernel does 3 products of 2*D operations (S, dP, dS.K) and the dk/dv
@@ -41,13 +43,22 @@
 //    registers a thread; shared memory already limits it to one CTA (8
 //    warps) per SM at D = 128, so the registers cost no occupancy. The
 //    build keeps ptxas's report beside the library (chip_smoke.py prints
-//    it). For sm_90a it reads: dk/dv 167 registers at D = 128 (bf16 and
-//    fp32) and 145/147 at D = 64; dq 127/128 at D = 128 and 125 at
-//    D = 64; 0 bytes of stack and spills in all eight instantiations.
+//    it). For sm_90a, with the segment ids, the eight instantiations use
+//    151-189 registers (dk/dv) and 127-139 (dq), up from 145-167 and
+//    125-128 before them, and 0 bytes of stack and spills.
 //    So the accumulators fit, and what bounds both kernels is the fp32
 //    FMA issue rate of one 8-warp CTA per SM, not memory or spills.
 //  * inputs are read through their [B, N, H, D] strides and the ragged edge
 //    (N or N_kv not a multiple of 64) is masked in-kernel.
+//  * segment ids ([B, N] int32, nullptr = off): each thread keeps the ids
+//    of the rows or keys fixed for its CTA (dq: its 4 query rows; dk/dv:
+//    its 4 keys) in registers and reads the other side's 4 ids with each
+//    tile. The ids belong to the batch row, so every query head of a GQA
+//    group sees the same mask and the in-register sum over the group is
+//    unchanged. A (query tile, key tile) pair whose id intervals
+//    [min, max] do not meet has no equal pair and is skipped whole, for
+//    any order of the ids; its P and dS would be exact zeros, so the
+//    results are the bits of the unskipped kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +78,24 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+// (min, max) of ids[r0 .. min(r0 + 64, limit)). Every warp computes it
+// and gets the same answer, so the block agrees without a barrier.
+__device__ __forceinline__ int2 id_range(const int32_t* __restrict__ ids,
+                                         int r0, int limit) {
+  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+  for (int r = r0 + (threadIdx.x & 31); r < min(r0 + TILE, limit);
+       r += 32) {
+    lo = min(lo, ids[r]);
+    hi = max(hi, ids[r]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+  return make_int2(lo, hi);
+}
+
 // x rounded to T's precision (the reference's .astype(dtype) points)
 template <typename T>
 __device__ __forceinline__ float round_as(float x) { return x; }
@@ -136,6 +165,7 @@ struct Args {
   int64_t sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh;
   float scale;
   int causal;
+  const int32_t* segs;   // [B, N] segment ids (n == n_kv), or nullptr
 };
 
 template <typename T, int D>
@@ -165,14 +195,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(q + b * a.sqb + h * a.sqh, a.sqn, q0, a.n, qt, nullptr);
   load_tile<T, D>(dout + b * a.sob + h * a.soh, a.son, q0, a.n, ot, nullptr);
+  const int32_t* sb =
+      a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
   float lse_r[4], delta_r[4];
+  int seg_q[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     const int64_t at = int64_t(bh) * a.n + row;
     lse_r[i] = row < a.n ? lse[at] : 0.f;
     delta_r[i] = row < a.n ? delta[at] : 0.f;
+    seg_q[i] = sb != nullptr && row < a.n ? sb[row] : 0;
   }
+  const int2 q_ids = sb != nullptr ? id_range(sb, q0, a.n) : make_int2(0, 0);
   float acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -181,6 +216,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kv_end = a.causal ? min(a.n_kv, q0 + TILE) : a.n_kv;
   for (int k0 = 0; k0 < kv_end; k0 += TILE) {
+    if (sb != nullptr) {   // the whole block takes the same branch
+      const int2 k_ids = id_range(sb, k0, a.n_kv);
+      if (k_ids.y < q_ids.x || k_ids.x > q_ids.y) continue;   // no equal ids
+    }
     __syncthreads();   // the last tile's reads of ks and dst are done
     load_tile<T, D>(kb, a.skn, k0, a.n_kv, kt, ks);
     load_tile<T, D>(vb, a.svn, k0, a.n_kv, vt, nullptr);
@@ -193,13 +232,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     tile_dot<D>(qt, kt, ty * 4, tx * 4, s);
     tile_dot<D>(ot, vt, ty * 4, tx * 4, dp);
+    int seg_k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k0 + tx * 4 + j;
+      seg_k[j] = sb != nullptr && col < a.n_kv ? sb[col] : 0;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx * 4 + j;
-        const bool ok = row < a.n && col < a.n_kv && (!a.causal || col <= row);
+        const bool ok = row < a.n && col < a.n_kv &&
+                        (!a.causal || col <= row) && seg_q[i] == seg_k[j];
         const float p = ok ? expf(s[i][j] * a.scale - lse_r[i]) : 0.f;
         s[i][j] = round_as<T>(p * (dp[i][j] - delta_r[i]));   // dS
       }
@@ -260,6 +306,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
+  const int32_t* sb =
+      a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
+  int seg_k[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = k0 + ty * 4 + j;
+    seg_k[j] = sb != nullptr && col < a.n_kv ? sb[col] : 0;
+  }
+  const int2 k_ids = sb != nullptr ? id_range(sb, k0, a.n_kv) : make_int2(0, 0);
 
   // causal: query tiles that end before key k0 see none of this tile
   const int q_begin = a.causal ? (k0 / TILE) * TILE : 0;
@@ -269,6 +324,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* qb = q + b * a.sqb + h * a.sqh;
     const T* ob = dout + b * a.sob + h * a.soh;
     for (int q0 = q_begin; q0 < a.n; q0 += TILE) {
+      if (sb != nullptr) {   // the whole block takes the same branch
+        const int2 q_ids = id_range(sb, q0, a.n);
+        if (q_ids.y < k_ids.x || q_ids.x > k_ids.y) continue;   // no equal ids
+      }
       __syncthreads();   // the last tile's reads of pb, db, qs, os are done
       load_tile<T, D>(qb, a.sqn, q0, a.n, qt, qs);
       load_tile<T, D>(ob, a.son, q0, a.n, ot, os);
@@ -287,11 +346,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int row = q0 + tx * 4 + i;
         const float lse_i = row < a.n ? lse[bh * a.n + row] : 0.f;
         const float delta_i = row < a.n ? delta[bh * a.n + row] : 0.f;
+        const int seg_i = sb != nullptr && row < a.n ? sb[row] : 0;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = k0 + ty * 4 + j;
-          const bool ok =
-              row < a.n && col < a.n_kv && (!a.causal || col <= row);
+          const bool ok = row < a.n && col < a.n_kv &&
+                          (!a.causal || col <= row) && seg_i == seg_k[j];
           const float p = ok ? expf(s[j][i] * a.scale - lse_i) : 0.f;
           pr[j][i] = round_as<T>(p);
           s[j][i] = round_as<T>(p * (dp[j][i] - delta_i));   // dS
@@ -367,10 +427,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 Args make_args(int n, int n_kv, int heads, int kv_heads, const long long* st,
-               float scale, int causal) {
+               float scale, int causal, const void* segs) {
   return Args{n,     n_kv,  heads, kv_heads, st[0], st[1],  st[2],
               st[3], st[4], st[5], st[6],    st[7], st[8],  st[9],
-              st[10], st[11], scale, causal};
+              st[10], st[11], scale, causal,
+              static_cast<const int32_t*>(segs)};
 }
 
 }  // namespace
@@ -384,17 +445,19 @@ const char* pt_error_string(int err) {
 // q, dout [B, N, H, D] and k/v [B, N_kv, H_kv, D] with the given element
 // strides for their first three axes (the last is contiguous); lse and
 // delta [B*H, N] float32; dq [B, N, H, D] contiguous. dtype: 0 = float32,
-// 1 = bfloat16. Returns the launch's cudaError_t.
+// 1 = bfloat16. segs: [B, N] int32 segment ids (needs n == n_kv), or
+// nullptr for none. Returns the launch's cudaError_t.
 int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int n, int n_kv,
     int heads, int kv_heads, int head_dim, long long sqb, long long sqn,
     long long sqh, long long skb, long long skn, long long skh, long long svb,
     long long svn, long long svh, long long sob, long long son, long long soh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, const void* segs, void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal);
+  if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
+  const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
     return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, batch, a, s);
@@ -417,10 +480,12 @@ int pt_flash_attention_bwd_dkv(
     int n_kv, int heads, int kv_heads, int head_dim, long long sqb,
     long long sqn, long long sqh, long long skb, long long skn, long long skh,
     long long svb, long long svn, long long svh, long long sob, long long son,
-    long long soh, float scale, int causal, int dtype, void* stream) {
+    long long soh, float scale, int causal, int dtype, const void* segs,
+    void* stream) {
   const long long st[12] = {sqb, sqn, sqh, skb, skn, skh,
                             svb, svn, svh, sob, son, soh};
-  const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal);
+  if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
+  const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
     return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, batch,

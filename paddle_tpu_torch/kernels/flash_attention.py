@@ -22,6 +22,18 @@ over each group's query heads (what the reference's repeat_interleave
 VJP gives). ``FlashAttention`` is the ``torch.autograd.Function`` whose
 forward is ``flash_attention`` and whose backward is
 ``flash_attention_backward``.
+
+Segment ids (packed, variable-length sequences; the reference's
+``segment_ids`` mode, ``:442-490``): every function takes an optional
+``segment_ids [B, N]`` (``q_len == kv_len``), shared by the heads of a
+batch row. A query sees a key only if their ids are equal, on top of the
+causal mask; the ids need be neither sorted nor contiguous. Masked
+scores take the reference's finite ``NEG_INF``, so a key tile that is
+masked for a whole row is erased by the next visible tile's rescale
+instead of turning into NaN. The kernels read the ids through one
+``int32`` pointer (``nullptr`` = off) and skip every (query tile, key
+tile) pair whose id intervals do not meet; the segmented launches have
+counters of their own.
 """
 from __future__ import annotations
 
@@ -36,17 +48,23 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
-# them): the forward, the backward's dq kernel and its dk/dv kernel
+# them): the forward, the backward's dq kernel and its dk/dv kernel,
+# without and with segment ids
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+segmented_fwd_launches = 0
+segmented_dq_launches = 0
+segmented_dkv_launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# q, k, v, out, lse; sizes; the strides of q, k and v; scale, causal,
+# dtype, segment ids (None = off), stream
 _SIGNATURES = {"pt_flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_L] * 9
-               + [ctypes.c_float, _I, _I, _P]}
+               + [ctypes.c_float, _I, _I, _P, _P]}
 # q, k, v, dO, lse, delta, then dq (or dk, dv); sizes; the strides of q,
-# k, v and dO; scale, causal, dtype, stream
-_BWD_ARGS = [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _P]
+# k, v and dO; scale, causal, dtype, segment ids (None = off), stream
+_BWD_ARGS = [_I] * 6 + [_L] * 12 + [ctypes.c_float, _I, _I, _P, _P]
 _BWD_SIGNATURES = {"pt_flash_attention_bwd_dq": [_P] * 7 + _BWD_ARGS,
                    "pt_flash_attention_bwd_dkv": [_P] * 8 + _BWD_ARGS}
 
@@ -63,6 +81,37 @@ def _check_shapes(q, k, v):
                          "%d kv heads" % (h, k.shape[2]))
 
 
+def _segments(segment_ids, q, k, what):
+    """``segment_ids`` (a tensor on q's device, or anything
+    ``torch.as_tensor`` takes) as a contiguous ``[B, N]`` int32 tensor on
+    q's device; None stays None."""
+    if segment_ids is None:
+        return None
+    b, n = q.shape[:2]
+    if k.shape[1] != n:
+        raise ValueError(
+            "segment_ids requires q_len == kv_len (packed batches)")
+    if isinstance(segment_ids, torch.Tensor):
+        if segment_ids.device != q.device:
+            raise ValueError("%s: segment_ids on %s, q on %s"
+                             % (what, segment_ids.device, q.device))
+        segs = segment_ids
+    else:
+        segs = torch.as_tensor(segment_ids, device=q.device)
+    if tuple(segs.shape) != (b, n):
+        raise ValueError("%s: segment_ids has shape %s, not [B, N] = %s"
+                         % (what, tuple(segs.shape), (b, n)))
+    if segs.dtype.is_floating_point or segs.dtype.is_complex \
+            or segs.dtype == torch.bool:
+        raise ValueError("%s: segment_ids must be integers, got %s"
+                         % (what, segs.dtype))
+    return segs.to(torch.int32).contiguous()
+
+
+def _segs_ptr(segs):
+    return None if segs is None else segs.data_ptr()
+
+
 def _acc_dtype(x):
     """float32 statistics for float32/bfloat16 inputs; float64 stays
     float64 (gradcheck)."""
@@ -74,36 +123,43 @@ def _repeat_kv(x, heads):
         heads // x.shape[2], dim=2)
 
 
-def _logits(q, k, causal, scale):
-    """Scaled, start-aligned-causal-masked scores ``[B, H, N, N_kv]`` in
-    the accumulation dtype (k already repeated to q's heads)."""
+def _logits(q, k, causal, scale, segs=None):
+    """Scaled scores ``[B, H, N, N_kv]`` in the accumulation dtype (k
+    already repeated to q's heads), start-aligned-causal-masked and, with
+    ``segs [B, N]``, masked where the query's and key's ids differ."""
     acc = _acc_dtype(q)
     logits = torch.einsum("bnhd,bmhd->bhnm", q.to(acc), k.to(acc)) * scale
     if causal:
         keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
                           device=q.device).tril()
         logits = logits.masked_fill(~keep, NEG_INF)
+    if segs is not None:
+        same = segs[:, :, None] == segs[:, None, :]          # [B, N, N]
+        logits = logits.masked_fill(~same[:, None], NEG_INF)
     return logits
 
 
-def flash_attention_reference(q, k, v, causal=False, scale=None):
+def flash_attention_reference(q, k, v, causal=False, scale=None,
+                              segment_ids=None):
     """Plain PyTorch version: fp32 logits and softmax (float64 for
     float64 inputs) over the whole score matrix, same mask and output
     dtype as the kernel. Returns
     ``(out [B, N, H, D], lse [B*H, N] float32)``."""
     _check_shapes(q, k, v)
+    segs = _segments(segment_ids, q, k, "flash_attention")
     b, n, h, d = q.shape
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
-    logits = _logits(q, k, causal, scale)
+    logits = _logits(q, k, causal, scale, segs)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhnm,bmhd->bnhd", probs.to(v.dtype), v)
     return out, lse.reshape(b * h, n)
 
 
-def flash_attention(q, k, v, causal=False, scale=None):
-    """q ``[B, N, H, D]``, k/v ``[B, N_kv, H_kv, D]`` (``H % H_kv == 0``)
+def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
+    """q ``[B, N, H, D]``, k/v ``[B, N_kv, H_kv, D]`` (``H % H_kv == 0``),
+    optional ``segment_ids [B, N]`` (needs ``N_kv == N``)
     -> ``(out [B, N, H, D], lse [B*H, N] float32)``.
 
     CUDA tensors launch the kernel (float32 or bfloat16, head_dim 64 or
@@ -115,7 +171,7 @@ def flash_attention(q, k, v, causal=False, scale=None):
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     dev = q.device
     if dev.type == "cpu" and k.device == dev and v.device == dev:
-        return flash_attention_reference(q, k, v, causal, scale)
+        return flash_attention_reference(q, k, v, causal, scale, segment_ids)
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k, v must all be on one CUDA "
                          "device or all on the CPU (got %s, %s, %s)"
@@ -136,6 +192,7 @@ def flash_attention(q, k, v, causal=False, scale=None):
     if b * h > 65535:
         raise ValueError("flash_attention: B*H = %d exceeds the grid limit"
                          % (b * h))
+    segs = _segments(segment_ids, q, k, "flash_attention")
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=dev)
     lib = _build.load("flash_attention", _SIGNATURES)
@@ -144,10 +201,13 @@ def flash_attention(q, k, v, causal=False, scale=None):
         lse.data_ptr(), b, n, n_kv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         scale, int(bool(causal)), _build.DTYPE_CODES[q.dtype],
-        _build.stream_handle(dev))
+        _segs_ptr(segs), _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention")
-    global launches
-    launches += 1
+    global launches, segmented_fwd_launches
+    if segs is None:
+        launches += 1
+    else:
+        segmented_fwd_launches += 1
     return out, lse
 
 
@@ -165,7 +225,8 @@ def _check_backward(q, k, v, out, lse, dout):
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                       causal=False, scale=None):
+                                       causal=False, scale=None,
+                                       segment_ids=None):
     """Plain PyTorch version of the backward over the whole score matrix,
     following the reference's ``_dq_kernel``/``_dkv_kernel`` formulas and
     bf16 rounding points: ``ds`` is cast to the input dtype before
@@ -173,12 +234,13 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
     ``p^T.dO``. Returns ``(dq, dk, dv)`` in q's, k's and v's dtypes, with
     dk/dv for the kv heads (summed over each GQA group)."""
     _check_backward(q, k, v, out, lse, dout)
+    segs = _segments(segment_ids, q, k, "flash_attention_backward")
     b, n, h, d = q.shape
     n_kv, h_kv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     acc = _acc_dtype(q)
     kr, vr = _repeat_kv(k, h), _repeat_kv(v, h)
-    p = torch.exp(_logits(q, kr, causal, scale)
+    p = torch.exp(_logits(q, kr, causal, scale, segs)
                   - lse.to(acc).reshape(b, h, n, 1))
     delta = (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)[..., None]
     dp = torch.einsum("bnhd,bmhd->bhnm", dout.to(acc), vr.to(acc))
@@ -194,9 +256,10 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout,
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
-                             scale=None):
+                             scale=None, segment_ids=None):
     """Gradients of ``flash_attention``: q/dout/out ``[B, N, H, D]``, k/v
-    ``[B, N_kv, H_kv, D]``, lse ``[B*H, N]`` float32 (the forward's) ->
+    ``[B, N_kv, H_kv, D]``, lse ``[B*H, N]`` float32 (the forward's),
+    the forward's ``segment_ids`` ->
     ``(dq [B, N, H, D], dk, dv [B, N_kv, H_kv, D])``.
 
     CUDA tensors launch the dq kernel and then the dk/dv kernel (same
@@ -207,7 +270,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
     tensors = (q, k, v, out, lse, dout)
     if all(t.device.type == "cpu" for t in tensors):
         return flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                                  causal, scale)
+                                                  causal, scale, segment_ids)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention_backward: all tensors must be on "
@@ -234,17 +297,20 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
     if b * h > 65535:
         raise ValueError("flash_attention_backward: B*H = %d exceeds the "
                          "grid limit" % (b * h))
+    segs = _segments(segment_ids, q, k, "flash_attention_backward")
     lse = lse.contiguous()
     # [B*H, N] contiguous (for B = 1 the reshape alone would be a view)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         b * h, n).contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal, scale,
+                                segs)
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal,
-                                     scale)
+                                     scale, segs)
     return dq, dk, dv
 
 
-def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, what):
+def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, segs,
+                what):
     b, n, h, d = q.shape
     if not (lse.is_contiguous() and delta.is_contiguous()):
         raise ValueError("%s: lse and delta must be contiguous [B*H, N]"
@@ -256,52 +322,66 @@ def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, what):
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, n, k.shape[1], h, k.shape[2], d, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
-        int(bool(causal)), _build.DTYPE_CODES[q.dtype],
+        int(bool(causal)), _build.DTYPE_CODES[q.dtype], _segs_ptr(segs),
         _build.stream_handle(q.device))
     _build.check(lib, err, what)
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
-                           scale=None):
+                           scale=None, segment_ids=None):
     """The dq kernel's wrapper, on CUDA tensors that
     ``flash_attention_backward`` has checked; ``delta`` is ``[B*H, N]``
     float32. Returns dq ``[B, N, H, D]`` in q's dtype."""
+    segs = _segments(segment_ids, q, k, "flash_attention_backward (dq)")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("pt_flash_attention_bwd_dq", q, k, v, dout, lse, delta,
-                (dq,), causal, scale, "flash_attention_backward (dq)")
-    global dq_launches
-    dq_launches += 1
+                (dq,), causal, scale, segs, "flash_attention_backward (dq)")
+    global dq_launches, segmented_dq_launches
+    if segs is None:
+        dq_launches += 1
+    else:
+        segmented_dq_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
-                            scale=None):
+                            scale=None, segment_ids=None):
     """The dk/dv kernel's wrapper, on the same checked CUDA tensors.
     Returns dk, dv ``[B, N_kv, H_kv, D]`` in k's and v's dtypes."""
+    segs = _segments(segment_ids, q, k, "flash_attention_backward (dk/dv)")
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch("pt_flash_attention_bwd_dkv", q, k, v, dout, lse, delta,
-                (dk, dv), causal, scale, "flash_attention_backward (dk/dv)")
-    global dkv_launches
-    dkv_launches += 1
+                (dk, dv), causal, scale, segs,
+                "flash_attention_backward (dk/dv)")
+    global dkv_launches, segmented_dkv_launches
+    if segs is None:
+        dkv_launches += 1
+    else:
+        segmented_dkv_launches += 1
     return dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
-    """``FlashAttention.apply(q, k, v, causal, scale) -> out``: the forward
-    kernel, with the backward kernels as its gradient (the reference's
-    ``_flash_core`` custom_vjp). Saves q, k, v, out and the LSE."""
+    """``FlashAttention.apply(q, k, v, causal, scale, segment_ids=None)
+    -> out``: the forward kernel, with the backward kernels as its
+    gradient (the reference's ``_flash_core`` custom_vjp). Saves q, k, v,
+    out, the LSE and the int32 segment ids; the ids get no gradient (the
+    reference's float0 cotangent)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=False, scale=None):
-        out, lse = flash_attention(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, causal=False, scale=None, segment_ids=None):
+        segs = _segments(segment_ids, q, k, "flash_attention")
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   segment_ids=segs)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.segs = causal, scale, segs
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
-                                              ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+                                              ctx.causal, ctx.scale,
+                                              ctx.segs)
+        return dq, dk, dv, None, None, None

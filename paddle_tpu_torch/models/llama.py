@@ -20,8 +20,16 @@ loss tail goes through the fused lm_head + cross-entropy kernels and the
 ``[B*S, V]`` logits are never built (``_maybe_fused_ce``, the reference's
 ``llama.py:405-423``).
 
-Not in this slice: the fused QKV/MLP variants, tensor and sequence
-parallelism and ``DecodeCache`` generation.
+``LlamaConfig(fuse_attention_qkv=True)`` replaces q/k/v_proj with one
+``qkv_proj [hidden, (H + 2*H_kv)*D]`` split at ``(H*D, H*D + H_kv*D)``,
+and ``fuse_mlp=True`` replaces gate/up_proj with one ``gate_up_proj
+[hidden, 2*FFN]`` (gate first): the reference's fused variants, under
+its parameter names, in training and in serving alike. One wider GEMM
+gives the same numbers as the narrow ones, so each fused model equals
+the unfused one whose weights are the fused weight's column blocks.
+
+Not in this slice: tensor and sequence parallelism and ``DecodeCache``
+generation.
 """
 from __future__ import annotations
 
@@ -42,7 +50,8 @@ class LlamaConfig:
                  intermediate_size=11008, num_hidden_layers=32,
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-6,
-                 rope_theta=10000.0, dtype="float32", recompute=False):
+                 rope_theta=10000.0, dtype="float32", recompute=False,
+                 fuse_attention_qkv=False, fuse_mlp=False):
         if dtype not in _DTYPES:
             raise ValueError("dtype must be one of %s" % sorted(_DTYPES))
         self.vocab_size = vocab_size
@@ -57,6 +66,10 @@ class LlamaConfig:
         self.dtype = dtype
         # per-decoder-layer activation recompute in training
         self.recompute = recompute
+        # one [hidden, (H + 2*H_kv)*D] and one [hidden, 2*FFN] projection
+        # in place of three and two narrow ones
+        self.fuse_attention_qkv = fuse_attention_qkv
+        self.fuse_mlp = fuse_mlp
 
     @property
     def torch_dtype(self):
@@ -138,16 +151,32 @@ class LlamaAttention(nn.Module):
         kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
         q_dim = self.num_heads * self.head_dim
         kv_dim = self.num_kv_heads * self.head_dim
-        self.q_proj = Linear(c.hidden_size, q_dim, **kw)
-        self.k_proj = Linear(c.hidden_size, kv_dim, **kw)
-        self.v_proj = Linear(c.hidden_size, kv_dim, **kw)
+        self.fuse_qkv = c.fuse_attention_qkv
+        if self.fuse_qkv:
+            self._qkv_splits = (q_dim, kv_dim, kv_dim)
+            self.qkv_proj = Linear(c.hidden_size, q_dim + 2 * kv_dim, **kw)
+        else:
+            self.q_proj = Linear(c.hidden_size, q_dim, **kw)
+            self.k_proj = Linear(c.hidden_size, kv_dim, **kw)
+            self.v_proj = Linear(c.hidden_size, kv_dim, **kw)
         self.o_proj = Linear(q_dim, c.hidden_size, **kw)
+
+    def _project(self, x):
+        """q, k, v as ``[B, S, heads, D]``; from the fused projection
+        they are strided views of its output (last axis contiguous),
+        which rope copies for q and k and the kernels read as they are."""
+        if self.fuse_qkv:
+            q, k, v = self.qkv_proj(x).split(self._qkv_splits, dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        b, s, _ = x.shape
+        return (q.view(b, s, self.num_heads, self.head_dim),
+                k.view(b, s, self.num_kv_heads, self.head_dim),
+                v.view(b, s, self.num_kv_heads, self.head_dim))
 
     def forward(self, x, cache=None, position_offset=0):
         b, s, _ = x.shape
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q, k, v = self._project(x)
         q, k = rope_apply(q, k, self.rope_theta, position_offset)
         if cache is not None:
             # external-cache hook (serving): the engine's per-layer paged
@@ -164,12 +193,22 @@ class LlamaMLP(nn.Module):
         super().__init__()
         c = config
         kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
-        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.fuse_mlp = c.fuse_mlp
+        if self.fuse_mlp:
+            self._inter = c.intermediate_size
+            self.gate_up_proj = Linear(c.hidden_size,
+                                       2 * c.intermediate_size, **kw)
+        else:
+            self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+            self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
         self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.fuse_mlp:
+            gate, up = self.gate_up_proj(x).split(self._inter, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaDecoderLayer(nn.Module):

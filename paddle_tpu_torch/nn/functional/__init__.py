@@ -1,7 +1,8 @@
 from .activation import silu
-from .attention import scaled_dot_product_attention
-from .loss import cross_entropy
+from .attention import scaled_dot_product_attention, variable_length_attention
+from .loss import cross_entropy, nll_loss, softmax_with_cross_entropy
 from .norm import rms_norm
 
-__all__ = ["cross_entropy", "rms_norm", "scaled_dot_product_attention",
-           "silu"]
+__all__ = ["cross_entropy", "nll_loss", "rms_norm",
+           "scaled_dot_product_attention", "silu",
+           "softmax_with_cross_entropy", "variable_length_attention"]
