@@ -10,13 +10,17 @@ CUDA toolkit:
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. device     require CUDA, print the card's name and power limit
   2. build      compile every kernel from csrc/ (one nvcc per source, in
-                parallel) and print the build seconds and ptxas report
+                parallel) and print the build seconds and, per kernel,
+                ptxas's registers and spill bytes
   3. kernels    hold each kernel against its plain PyTorch version on the
                 card at the serving and training paths' shapes, in float32
                 and bfloat16, and time the kernel, the plain version and
                 (where one exists) the one PyTorch library call computing
                 the same function, beside the card's bound for the work;
-                run the bf16 MMA form probe (all four forms must be OK)
+                the backward twice on the same inputs must give the same
+                bits, and it is timed at the bench row's 6 heads too;
+                run the bf16 MMA form probe (all seven forms, mma.sync and
+                wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
                 against their plain versions, bf16 at the training shape,
                 a ragged vocab and float32, beside the port's unfused tail
@@ -73,6 +77,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 gradients must agree
   8. summary    one JSON line of per-kernel numbers, then the result line
 
+Every exact launch count of phases 4, 4b, 6, 6b, 6c and 6d also holds the
+backward's TMA operand copies (``tma_copies``) at 0.
+
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -83,6 +90,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -183,18 +191,68 @@ def phase_device():
     return card
 
 
+def kernel_name(mangled):
+    """A ptxas entry name without its mangling: the innermost name and
+    its template arguments (``flash_bwd_dq_wgmma_kernel<128>``)."""
+    i = mangled.find("_ZN")
+    if i < 0:
+        return mangled
+    i += 3
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = []
+    if mangled[i:i + 1] == "I":
+        for m in re.finditer(r"L[ib](\d+)E|(f)|13__nv_bfloat16",
+                             mangled[i + 1:mangled.find("EE", i) + 1]):
+            args.append(m.group(1) or ("float" if m.group(2) else "bf16"))
+    return name + ("<%s>" % ", ".join(args) if args else "")
+
+
+def ptxas_report(text):
+    """``[{kernel, registers, stack, spill_stores, spill_loads}]`` from
+    ptxas's verbose report (one entry per compiled kernel)."""
+    rows, row = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            row = {"kernel": kernel_name(m.group(1))}
+            rows.append(row)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and row is not None:
+            row.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and row is not None:
+            row["registers"] = int(m.group(1))
+    return rows
+
+
 def phase_build():
+    """Build every kernel and print ptxas's registers and spills for each
+    (the bf16 backward kernels' consumer warpgroups run at 240 registers
+    after setmaxnreg; ptxas reports the launch-time count)."""
     from paddle_tpu_torch import _build
 
     t0 = time.perf_counter()
     paths = _build.build()
     log("[build] %d kernels in %.1f s" % (len(paths),
                                           time.perf_counter() - t0))
+    report = {}
     for name, path in paths.items():
-        report = path.with_name(path.name + ".log")
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("[build] %s: %s" % (name, line.strip()))
+        rows = ptxas_report(path.with_name(path.name + ".log").read_text())
+        for row in rows:
+            log("[build] %s: %s: %s registers, %s bytes stack, %s bytes "
+                "spill stores, %s bytes spill loads" % (
+                    name, row["kernel"], row.get("registers"),
+                    row.get("stack"), row.get("spill_stores"),
+                    row.get("spill_loads")))
+        report[name] = rows
+    return report
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -262,6 +320,13 @@ def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
            for part, x, y in zip("qkv", got, want)]
     row = {"case": name, "max_abs_err": {"dq": err[0],
                                          "dkv": max(err[1], err[2])}}
+    # no atomics: the same inputs give the same bits, launch after launch
+    again = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=True)
+    same = [torch.equal(a, b) for a, b in zip(got, again)]
+    if not all(same):
+        raise AssertionError("%s: two launches differ (dq, dk, dv equal: "
+                             "%s)" % (name, same))
+    row["deterministic"] = True
     if timed:
         esize = q.element_size()
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
@@ -443,6 +508,8 @@ FLASH_BWD_CASES = (dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
                    dict(n=256, heads=16, head_dim=64),
                    dict(n=512, heads=16, kv_heads=4, head_dim=128),
                    dict(n=128, n_kv=256, heads=16, head_dim=128))
+# the bench row's attention (phase 6c: bench_config(), 6 heads x 128)
+BENCH_BWD_CASE = dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=6, head_dim=128)
 
 
 def phase_kernels(seed):
@@ -462,6 +529,9 @@ def phase_kernels(seed):
             rows["flash_attention_bwd"].append(flash_bwd_case(
                 gen, dtype=dtype, timed=i == 0 and dtype is torch.bfloat16,
                 **case))
+    # the backward at the bench row's attention (phase 6c: 6 heads), timed
+    rows["flash_attention_bwd"].append(flash_bwd_case(
+        gen, dtype=torch.bfloat16, timed=True, **BENCH_BWD_CASE))
     # the training path's forward, timed in bf16 (kept out of the summary,
     # whose forward entry stays the fp32 serving shape of earlier runs)
     rows["flash_attention"].append(flash_case(
@@ -900,7 +970,8 @@ def phase_slice(seed):
 
 def attention_counters():
     """Every attention kernel's launch counter, by summary entry (the
-    float32 and bfloat16 modes of the mixed kernel share one counter)."""
+    float32 and bfloat16 modes of the mixed kernel share one counter), and
+    the backward's TMA operand copies."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
@@ -914,7 +985,10 @@ def attention_counters():
             "paged_attention_int8": pa.int8_launches,
             "mixed_paged_attention": pa.mixed_launches,
             "mixed_paged_attention_bf16": pa.mixed_launches,
-            "mixed_paged_attention_int8": pa.mixed_int8_launches}
+            "mixed_paged_attention_int8": pa.mixed_int8_launches,
+            # not a kernel: operand copies the bf16 backward made for TMA,
+            # which every main path's exact count holds at 0
+            "tma_copies": fa.tma_copies}
 
 
 def reset_attention_counters():
@@ -923,7 +997,7 @@ def reset_attention_counters():
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.segmented_fwd_launches = fa.segmented_dq_launches = 0
-    fa.segmented_dkv_launches = 0
+    fa.segmented_dkv_launches = fa.tma_copies = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
 
@@ -1809,11 +1883,23 @@ def summary(rows, paths):
             timed = next(r for r in cases if part in r)
             fp32_err = max(r["max_abs_err"][part] for r in cases
                            if r["case"].endswith("float32"))
+            bf16_err = max(r["max_abs_err"][part] for r in cases
+                           if r["case"].endswith("bfloat16"))
+            bench = next(r for r in cases if part in r and r is not timed)
             numbers = dict(ms=timed[part + "_ms"], plain_ms=timed["plain_ms"],
                            bound_ms=timed[part]["bound_ms"],
                            bound_by=timed[part]["bound_by"],
                            library_ms=timed["library_ms"],
-                           max_abs_err=fp32_err, timed_case=timed["case"])
+                           max_abs_err=fp32_err, max_abs_err_bf16=bf16_err,
+                           timed_case=timed["case"],
+                           bench_row=dict(case=bench["case"],
+                                          ms=bench[part + "_ms"],
+                                          plain_ms=bench["plain_ms"],
+                                          bound_ms=bench[part]["bound_ms"],
+                                          library_ms=bench["library_ms"]),
+                           ptxas_bf16=[
+                               r for r in rows["ptxas"]["flash_attention_bwd"]
+                               if "_%s_wgmma" % part in r["kernel"]])
         else:
             # the timed fp32 case with the most work: llama1b's largest
             # prefill bucket, and the decode batch without GQA
@@ -1839,8 +1925,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    phase_build()
+    ptxas = phase_build()
     rows = phase_kernels(args.seed)
+    rows["ptxas"] = ptxas
     fused_rows, probe = phase_fused_kernels(args.seed)
     rows.update(fused_rows)
     rows.update(phase_tier2_kernels(args.seed))

@@ -11,13 +11,24 @@
 // product taken in fp32 by PyTorch: a wrong fragment layout shows here as
 // a wrong value of one form, not as a wrong loss.
 //
+// Forms 4-6 do the same for the warpgroup forms of csrc/wgmma_bf16.cuh
+// that the bf16 flash-attention backward kernels use, each operand tile
+// loaded by TMA with 128-byte swizzle: (4) nt, an ss product with A and B
+// K-major; (5) nn, an ss product with B MN-major (the transpose bit) two
+// 64-wide blocks apart (LBO); (6) the chained form on wgmma: S = a.b^T
+// (ss), exp, the accumulator handed over as bf16 A fragments, and P.b as
+// an rs product with b read MN-major, as dk/dv computes P^T.dO.
+//
 // What bounds it: each form is 2 * 512 * 512 * 128 = 6.7e7 operations on
 // ~1.3 MB, so at this size it is bound by bytes and by its launch; the
 // probe checks layouts and values, its time is printed for reference.
 // Design: the three plain forms are one 128 x 128 block tile each
 // (ptmma::block_mma, 16 blocks); the chained form is a flash-attention
 // shaped kernel, 4 warps of 16 query rows per block, keys in tiles of 64.
+// The wgmma forms run one warpgroup per block (64 rows), its thread 0
+// issuing the TMA loads onto one mbarrier.
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -98,6 +109,174 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// forms 4-6 ----------------------------------------------------------------
+
+constexpr uint32_t BOX_BYTES = 64 * 64 * 2;   // a 64 x 64 bf16 box
+
+__device__ __forceinline__ unsigned char* aligned_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  return smem_raw + ((1024 - (ptwg::smem_u32(smem_raw) & 1023)) & 1023);
+}
+
+// out[m0 + row, n0 + col] for every accumulator element of the warpgroup
+template <int R>
+__device__ __forceinline__ void store_wg(const float (&acc)[R], float* out,
+                                         int ld, int m0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int r = m0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    out[(r + 8 * ((i >> 1) & 1)) * ld + n0 + (i >> 2) * 8 + 2 * (lane & 3) +
+        (i & 1)] = acc[i];
+}
+
+// form 4 (MN = false): out = a . b^T, a [512, 128], b [512, 128], a 64 x 64
+// tile per block; form 5 (MN = true): out = a . b, b [128, 512], a 64 x 128
+// tile per block, b's tile two boxes of 64 columns x 128 rows
+template <bool MN>
+__global__ void __launch_bounds__(128)
+    probe_wgmma_ss(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb, float* out) {
+  using namespace ptwg;
+  constexpr int BN = MN ? 128 : 64;
+  constexpr uint32_t B_BOX = MN ? 2 * BOX_BYTES : BOX_BYTES;
+  unsigned char* smem = aligned_smem();
+  bf16* as = reinterpret_cast<bf16*>(smem);               // 2 boxes
+  bf16* bs = reinterpret_cast<bf16*>(smem + 2 * BOX_BYTES);   // 2 boxes
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * BOX_BYTES +
+                                              2 * B_BOX);
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * BN;
+  if (threadIdx.x == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_arrive_tx(bar, 2 * BOX_BYTES + 2 * B_BOX);
+    for (int j = 0; j < 2; ++j) {
+      tma_load(as + j * BOX_BYTES / 2, &ta, bar, j * 64, 0, m0, 0);
+      if (MN)
+        tma_load(bs + j * B_BOX / 2, &tb, bar, n0 + j * 64, 0, 0, 0);
+      else
+        tma_load(bs + j * B_BOX / 2, &tb, bar, j * 64, 0, n0, 0);
+    }
+  }
+  bar_wait(bar, 0);
+  float acc[BN / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PD / 16; ++kk) {
+    if (MN)
+      wgmma_ss<1>(acc, desc_kslice(as, kk, BOX_BYTES),
+                  desc_mnmajor(bs, B_BOX) + kk * 128, kk > 0);
+    else
+      wgmma_ss<0>(acc, desc_kslice(as, kk, BOX_BYTES),
+                  desc_kslice(bs, kk, BOX_BYTES), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  store_wg(acc, out, PK, m0, n0);
+}
+
+// form 6: out [512, 128] = bf16(exp(a . b^T - 1)) . b, a 64-row block per
+// CTA, keys in tiles of 64: S on ss, P handed over in registers, P.b on
+// rs with the key tile read MN-major
+__global__ void __launch_bounds__(128)
+    probe_wgmma_chained(const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb, float* out) {
+  using namespace ptwg;
+  unsigned char* smem = aligned_smem();
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = reinterpret_cast<bf16*>(smem + 2 * BOX_BYTES);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 4 * BOX_BYTES);
+  const int q0 = blockIdx.x * 64;
+  if (threadIdx.x == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_arrive_tx(bar, 2 * BOX_BYTES);
+    for (int j = 0; j < 2; ++j)
+      tma_load(as + j * BOX_BYTES / 2, &ta, bar, j * 64, 0, q0, 0);
+  }
+  uint32_t phase = 0;
+  bar_wait(bar, phase);
+  phase ^= 1;
+  float o[PD / 2];
+#pragma unroll
+  for (int i = 0; i < PD / 2; ++i) o[i] = 0.f;
+  for (int k0 = 0; k0 < PK; k0 += 64) {
+    __syncthreads();   // every warp's products on the last key tile are done
+    if (threadIdx.x == 0) {
+      bar_arrive_tx(bar, 2 * BOX_BYTES);
+      for (int j = 0; j < 2; ++j)
+        tma_load(bs + j * BOX_BYTES / 2, &tb, bar, j * 64, 0, k0, 0);
+    }
+    bar_wait(bar, phase);
+    phase ^= 1;
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < PD / 16; ++kk)
+      wgmma_ss<0>(s, desc_kslice(as, kk, BOX_BYTES),
+                  desc_kslice(bs, kk, BOX_BYTES), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = expf(s[i] - 1.f);
+    uint32_t p[4][4];
+    acc_to_frag(p, s);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(o, p[kk], desc_mnmajor(bs, BOX_BYTES) + kk * 128, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+  store_wg(o, out, PD, q0, 0);
+}
+
+// a [512, 128] (or b [128, 512] for form 5) as a tensor map of 64-column
+// boxes
+cudaError_t probe_map(CUtensorMap* map, const void* x, int rows, int cols,
+                      int box_rows) {
+  return ptwg::tile_map(map, x, cols, 1, rows, 1, cols, cols,
+                        (long long)rows * cols, box_rows);
+}
+
+cudaError_t launch_wgmma(int form, const void* a, const void* b, void* out,
+                         cudaStream_t s) {
+  CUtensorMap ta, tb;
+  cudaError_t err = probe_map(&ta, a, PQ, PD, 64);
+  if (err == cudaSuccess)
+    err = form == 5 ? probe_map(&tb, b, PD, PK, PD)
+                    : probe_map(&tb, b, PK, PD, 64);
+  if (err != cudaSuccess) return err;
+  float* o = static_cast<float*>(out);
+  if (form == 6) {
+    const int smem = 4 * BOX_BYTES + 1024 + 64;
+    err = cudaFuncSetAttribute(probe_wgmma_chained,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    probe_wgmma_chained<<<PQ / 64, 128, smem, s>>>(ta, tb, o);
+    return cudaGetLastError();
+  }
+  const bool mn = form == 5;
+  const int smem = (mn ? 6 : 4) * BOX_BYTES + 1024 + 64;
+  auto kernel = mn ? probe_wgmma_ss<true> : probe_wgmma_ss<false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(PQ / 64, PK / (mn ? 128 : 64)), 128, smem, s>>>(ta, tb, o);
+  return cudaGetLastError();
+}
+
 template <bool AK, bool BKM>
 cudaError_t launch_gemm(const void* a, const void* b, void* out,
                         cudaStream_t s) {
@@ -125,6 +304,8 @@ const char* pt_error_string(int err) {
 // form 2 tn: a [128, 512], b [128, 512] -> out [512, 512] = a^T . b
 // form 3 chained: a, b [512, 128] -> out [512, 128]
 //   = bf16(exp(a . b^T - 1)) . b
+// forms 4-6: forms 0, 1 and 3 on wgmma (4 nt ss, 5 nn ss with B
+//   MN-major, 6 chained ss -> exp -> bf16 -> rs)
 // a, b contiguous bf16, out contiguous fp32. Returns the launch's error.
 int pt_mma_probe(int form, const void* a, const void* b, void* out,
                  void* stream) {
@@ -138,6 +319,9 @@ int pt_mma_probe(int form, const void* a, const void* b, void* out,
                                             static_cast<const bf16*>(b),
                                             static_cast<float*>(out));
       return cudaGetLastError();
+    case 4:
+    case 5:
+    case 6: return launch_wgmma(form, a, b, out, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,10 @@ through their strides (last axis contiguous), mask ragged lengths
 themselves, and map GQA query heads onto their kv head, so the caller
 never folds, pads or repeats; dk/dv come back for the kv heads, summed
 over each group's query heads (what the reference's repeat_interleave
-VJP gives). ``FlashAttention`` is the ``torch.autograd.Function`` whose
+VJP gives). The bf16 backward kernels load their tiles with TMA, which
+needs 16-byte aligned addresses and strides: an operand that breaks that
+is copied first and counted in ``tma_copies`` (the kernels are the only
+route; the copy is the remedy, never a fallback). ``FlashAttention`` is the ``torch.autograd.Function`` whose
 forward is ``flash_attention`` and whose backward is
 ``flash_attention_backward``.
 
@@ -56,6 +59,9 @@ dkv_launches = 0
 segmented_fwd_launches = 0
 segmented_dq_launches = 0
 segmented_dkv_launches = 0
+# bf16 operands the backward copied because TMA could not read them in
+# place (``tma_aligned``); 0 on every main path
+tma_copies = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, out, lse; sizes; the strides of q, k and v; scale, causal,
@@ -211,6 +217,32 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
     return out, lse
 
 
+def tma_aligned(x):
+    """Whether the bf16 backward kernels' TMA loads read ``x`` ``[B, N, H,
+    D]`` (last axis contiguous) in place: its address and the byte stride
+    of every other axis are multiples of 16 bytes. The stride of a
+    length-1 axis is never used and does not count."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        stride * size % 16 == 0
+        for length, stride in zip(x.shape[:-1], x.stride()[:-1])
+        if length > 1)
+
+
+def _tma_operands(*xs):
+    """``xs``, each bf16 tensor that ``tma_aligned`` refuses replaced by a
+    contiguous copy (counted in ``tma_copies``); float32 tensors go to the
+    CUDA-core kernels, which read any stride, as they are."""
+    global tma_copies
+    out = []
+    for x in xs:
+        if x.dtype == torch.bfloat16 and not tma_aligned(x):
+            x = x.clone(memory_format=torch.contiguous_format)
+            tma_copies += 1
+        out.append(x)
+    return out
+
+
 def _check_backward(q, k, v, out, lse, dout):
     _check_shapes(q, k, v)
     b, n, h, _ = q.shape
@@ -298,6 +330,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
         raise ValueError("flash_attention_backward: B*H = %d exceeds the "
                          "grid limit" % (b * h))
     segs = _segments(segment_ids, q, k, "flash_attention_backward")
+    # the dq and dk/dv launches share any copy TMA needs
+    q, k, v, dout = _tma_operands(q, k, v, dout)
     lse = lse.contiguous()
     # [B*H, N] contiguous (for B = 1 the reshape alone would be a view)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).reshape(
@@ -316,6 +350,7 @@ def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, segs,
         raise ValueError("%s: lse and delta must be contiguous [B*H, N]"
                          % what)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    q, k, v, dout = _tma_operands(q, k, v, dout)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     err = getattr(lib, fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

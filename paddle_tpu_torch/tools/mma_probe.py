@@ -5,7 +5,11 @@
 Counterpart of ``tools/mosaic_probe.py``, which asks the TPU compiler
 whether it takes four bf16 dot forms at BQ = BK = 512, D = 128 with fp32
 results. Here each form runs through the fragment loads and ``mma.sync``
-building blocks of ``csrc/mma_bf16.cuh`` (``csrc/mma_probe.cu``) and, unlike
+building blocks of ``csrc/mma_bf16.cuh`` (``csrc/mma_probe.cu``), and
+three of them again through the ``wgmma`` and TMA building blocks of
+``csrc/wgmma_bf16.cuh`` that the bf16 flash-attention backward kernels
+use (nt with both operands K-major, nn with B MN-major, and the chained
+form with the accumulator handed over as the A operand). Unlike
 the reference, its values are checked too: each result is held against
 the same product of the same bf16 values taken in float32 by PyTorch. One
 line per form, ``OK`` or ``FAIL``, as the reference prints them, with the
@@ -26,13 +30,22 @@ BQ, BK, D = 512, 512, 128
 FORMS = (("nt bf16 (1,1)", 0, (BQ, D), (BK, D)),
          ("nn bf16 (1,0)", 1, (BQ, D), (D, BK)),
          ("tn bf16 (0,0)", 2, (D, BQ), (D, BK)),
-         ("nt+cast+nn chained", 3, (BQ, D), (BK, D)))
+         ("nt+cast+nn chained", 3, (BQ, D), (BK, D)),
+         ("wgmma ss nt (K-major A, B)", 4, (BQ, D), (BK, D)),
+         ("wgmma ss nn (B MN-major)", 5, (BQ, D), (D, BK)),
+         ("wgmma ss nt+cast+rs nn chained", 6, (BQ, D), (BK, D)))
 # fp32 sums of 128 products taken in another order: a few fp32 ulps of
 # sums whose terms are ~1e-2. The chained form rounds exp(s - 1) to bf16 on
 # both sides; an s one fp32 ulp apart can round to the neighbouring bf16
 # (2^-8 relative) in a few of the 512 terms of each output.
+# The wgmma forms 4-6 take the same tolerances as their mma.sync
+# counterparts 0, 1 and 3: the same products, summed in another order.
 TOL = {0: dict(atol=1e-5, rtol=1e-4), 1: dict(atol=1e-5, rtol=1e-4),
-       2: dict(atol=1e-5, rtol=1e-4), 3: dict(atol=2e-3, rtol=1e-2)}
+       2: dict(atol=1e-5, rtol=1e-4), 3: dict(atol=2e-3, rtol=1e-2),
+       4: dict(atol=1e-5, rtol=1e-4), 5: dict(atol=1e-5, rtol=1e-4),
+       6: dict(atol=2e-3, rtol=1e-2)}
+# the forms whose result is [512, 128] (the rest are [512, 512])
+CHAINED = (3, 6)
 
 launches = 0
 
@@ -41,15 +54,19 @@ _SIGNATURES = {"pt_mma_probe": [ctypes.c_int] + [ctypes.c_void_p] * 4}
 
 def probe(form, a, b):
     """The kernel's result for ``form`` on contiguous bf16 CUDA tensors a, b
-    of the form's shapes (fp32 ``[512, 512]``, or ``[512, 128]`` chained)."""
+    of the form's shapes (fp32 ``[512, 512]``, or ``[512, 128]`` chained;
+    TMA reads a and b, so their addresses are multiples of 16 bytes, as
+    PyTorch's allocations are)."""
     shape_a, shape_b = FORMS[form][2:]
     if (a.device.type != "cuda" or b.device != a.device
             or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
             or tuple(a.shape) != shape_a or tuple(b.shape) != shape_b
-            or not (a.is_contiguous() and b.is_contiguous())):
-        raise ValueError("mma_probe: form %d takes contiguous bf16 CUDA "
-                         "tensors %s and %s" % (form, shape_a, shape_b))
-    out = torch.empty((BQ, D if form == 3 else BK), dtype=torch.float32,
+            or not (a.is_contiguous() and b.is_contiguous())
+            or (a.data_ptr() | b.data_ptr()) % 16):
+        raise ValueError("mma_probe: form %d takes contiguous, 16-byte "
+                         "aligned bf16 CUDA tensors %s and %s"
+                         % (form, shape_a, shape_b))
+    out = torch.empty((BQ, D if form in CHAINED else BK), dtype=torch.float32,
                       device=a.device)
     lib = _build.load("mma_probe", _SIGNATURES)
     err = lib.pt_mma_probe(form, a.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -63,9 +80,9 @@ def probe(form, a, b):
 def plain(form, a, b):
     """The same product in float32 on the same bf16 values."""
     a, b = a.float(), b.float()
-    if form == 0:
+    if form in (0, 4):
         return a @ b.T
-    if form == 1:
+    if form in (1, 5):
         return a @ b
     if form == 2:
         return a.T @ b

@@ -1,6 +1,7 @@
 """Where a training step's device time goes, on one GPU.
 
-    python3 -m paddle_tpu_torch.tools.train_profile [--seed N] [--fused-ce]
+    python3 -m paddle_tpu_torch.tools.train_profile [--seed N]
+        [--fused-ce | --bench-row]
 
 Builds the llama1b training row (``LlamaConfig.llama1b_train()``: 953M
 parameters in bfloat16, per-layer recompute, random weights from
@@ -10,11 +11,17 @@ without the profiler (``unprofiled_wall_ms``) and runs a fourth under
 ``torch.profiler``. With ``--fused-ce`` the row runs as the reference's
 ``FLAGS_fused_lm_head_ce`` configuration: the flag on and
 ``TrainStep(model, None, opt, labels_to_model=True)``, so the loss tail
-goes through the fused lm_head + CE kernels. It prints one JSON line: the
-host wall time of the
-profiled step, the summed device kernel time, the device busy share
-(kernel time over the profiled wall time; the profiler's host cost
-lowers it) and the kernel time by group:
+goes through the fused lm_head + CE kernels. With ``--bench-row`` it
+profiles the reference's own training row instead (``bench.py:70-162``
+with ``BENCH_FUSE=1``: hidden 768, 12 layers, 6 heads x 128, FFN 2048,
+fused QKV and gate/up projections, bf16, no recompute, 8 x 1024 per
+step): one ``TrainStep.run_steps`` window of K = 10 stacked batches as
+warm-up, one timed without the profiler and one under it; its numbers
+are per window and, as ``per_step``, divided by K. It prints one JSON
+line: the host wall time of the profiled step (or window), the summed
+device kernel time, the device busy share (kernel time over the profiled
+wall time; the profiler's host cost lowers it) and the kernel time by
+group:
 
   gemm           cuBLAS/CUTLASS matrix products (forward, recompute and
                  backward)
@@ -49,6 +56,7 @@ from ..optimizer import AdamW
 from ..parallel import TrainStep
 
 BATCH, SEQ = 8, 1024
+BENCH_K = 10     # steps per run_steps window (bench.py:132-162)
 _GEMM_MARKS = ("gemm", "gemv", "cutlass", "nvjet", "xmma")
 
 
@@ -89,24 +97,32 @@ def breakdown(prof, wall_ms):
 
     # the rest by phase, from the host time of the op that launched them
     events = [e for e in prof.events() if not _is_cuda(e)]
-    phases = {e.name[len("train_step."):]: (e.time_range.start,
-                                           e.time_range.end)
-              for e in events if e.name.startswith("train_step.")}
-    bwd0, bwd1 = phases["backward"]
-    first_bwd_gemm = min(
-        (e.time_range.start for e in events
-         if bwd0 <= e.time_range.start < bwd1
-         and any(_name_group(k.name) == "gemm" for k in e.kernels)),
-        default=bwd1)
+    # each phase's host ranges, one per step of the window
+    phases = {"loss": [], "backward": [], "optimizer": []}
+    for e in events:
+        name = e.name[len("train_step."):]
+        if e.name.startswith("train_step.") and name in phases:
+            phases[name].append((e.time_range.start, e.time_range.end))
+    loss_ranges = list(phases["loss"])
+    for bwd0, bwd1 in phases["backward"]:
+        first_bwd_gemm = min(
+            (e.time_range.start for e in events
+             if bwd0 <= e.time_range.start < bwd1
+             and any(_name_group(k.name) == "gemm" for k in e.kernels)),
+            default=bwd1)
+        loss_ranges.append((bwd0, first_bwd_gemm))
+
+    def inside(t, ranges):
+        return any(t0 <= t < t1 for t0, t1 in ranges)
+
     for e in events:
         t = e.time_range.start
         for k in e.kernels:
             if _name_group(k.name) is not None:
                 continue
-            if (phases["loss"][0] <= t < phases["loss"][1]
-                    or bwd0 <= t < first_bwd_gemm):
+            if inside(t, loss_ranges):
                 groups["loss"] += k.duration / 1e3
-            elif phases["optimizer"][0] <= t < phases["optimizer"][1]:
+            elif inside(t, phases["optimizer"]):
                 groups["optimizer"] += k.duration / 1e3
     groups["other"] = total - sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
@@ -117,15 +133,28 @@ def breakdown(prof, wall_ms):
                             for name, (ms, calls) in top]}
 
 
+def bench_row_config():
+    """The reference's bench row (``bench.py:80-86``, ``BENCH_FUSE=1``),
+    as ``chip_smoke.py`` phase 6c builds it."""
+    return LlamaConfig(vocab_size=32000, hidden_size=768,
+                       intermediate_size=2048, num_hidden_layers=12,
+                       num_attention_heads=6, max_position_embeddings=2048,
+                       dtype="bfloat16", fuse_attention_qkv=True,
+                       fuse_mlp=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fused-ce", action="store_true",
-                    help="FLAGS_fused_lm_head_ce on, loss inside the model")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fused-ce", action="store_true",
+                      help="FLAGS_fused_lm_head_ce on, loss inside the model")
+    mode.add_argument("--bench-row", action="store_true",
+                      help="the reference's bench row through run_steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
-    cfg = LlamaConfig.llama1b_train()
+    cfg = bench_row_config() if args.bench_row else LlamaConfig.llama1b_train()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
@@ -136,30 +165,47 @@ def main(argv=None):
             model, lambda logits, labels: F.cross_entropy(
                 logits.reshape(-1, cfg.vocab_size), labels.reshape(-1)), opt)
     rng = np.random.default_rng(args.seed)
+    shape = (BENCH_K, BATCH, SEQ) if args.bench_row else (BATCH, SEQ)
     ids, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (BATCH, SEQ))).cuda() for _ in range(2))
+        0, cfg.vocab_size, shape)).cuda() for _ in range(2))
+    run = step.run_steps if args.bench_row else step
     flags.set_flags({"FLAGS_fused_lm_head_ce": args.fused_ce})
     try:
-        for _ in range(2):
-            step(ids, labels)
+        for _ in range(1 if args.bench_row else 2):
+            run(ids, labels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        step(ids, labels)
+        run(ids, labels)
         torch.cuda.synchronize()
         unprofiled_ms = (time.perf_counter() - t0) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            loss = step(ids, labels)
+            loss = run(ids, labels)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         flags.set_flags({"FLAGS_fused_lm_head_ce": False})
-    row = {"window": "1 train step, llama1b bf16 recompute, %d x %d%s"
-                     % (BATCH, SEQ, ", fused lm_head + CE" if args.fused_ce
-                        else ""), "loss": loss.item(),
-           "unprofiled_wall_ms": unprofiled_ms}
+    if args.bench_row:
+        window = ("1 run_steps window of %d steps, bench row (fused "
+                  "QKV/MLP, hidden %d, %d layers, %d heads) bf16, %d x %d"
+                  % (BENCH_K, cfg.hidden_size, cfg.num_hidden_layers,
+                     cfg.num_attention_heads, BATCH, SEQ))
+    else:
+        window = ("1 train step, llama1b bf16 recompute, %d x %d%s"
+                  % (BATCH, SEQ, ", fused lm_head + CE" if args.fused_ce
+                     else ""))
+    row = {"window": window, "loss": loss.item(),
+           "unprofiled_wall_ms": unprofiled_ms,
+           "device": torch.cuda.get_device_name(0)}
     row.update(breakdown(prof, wall_ms))
+    if args.bench_row:
+        row["per_step"] = {
+            "unprofiled_wall_ms": unprofiled_ms / BENCH_K,
+            "wall_ms": wall_ms / BENCH_K,
+            "device_kernel_ms": row["device_kernel_ms"] / BENCH_K,
+            "groups_ms": {k: v / BENCH_K
+                          for k, v in row["groups_ms"].items()}}
     print(json.dumps(row), flush=True)
 
 

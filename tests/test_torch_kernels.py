@@ -294,6 +294,18 @@ class TestBuild:
         (fake_tree / "a.cu").write_text("// a, edited")
         assert _build.build(("a",))["a"] != paths["a"]
 
+    def test_rebuilds_when_a_listed_header_changes(self, fake_tree,
+                                                   monkeypatch):
+        (fake_tree / "a.cu").write_text('#include "h.cuh"')
+        (fake_tree / "b.cu").write_text("// b")
+        (fake_tree / "h.cuh").write_text("// h")
+        monkeypatch.setattr(_build, "HEADERS", {"a": ("h.cuh",)})
+        first = _build.build(("a", "b"))
+        (fake_tree / "h.cuh").write_text("// h, edited")
+        second = _build.build(("a", "b"))
+        assert second["a"] != first["a"] and second["a"].exists()
+        assert second["b"] == first["b"]     # b does not list the header
+
     def test_failed_build_raises_with_the_log(self, fake_tree):
         (fake_tree / "bad.cu").write_text("FAIL")
         with pytest.raises(RuntimeError, match="refused"):
