@@ -17,8 +17,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and bfloat16, and time the kernel, the plain version and
                 (where one exists) the one PyTorch library call computing
                 the same function, beside the card's bound for the work;
-                the backward twice on the same inputs must give the same
-                bits, and it is timed at the bench row's 6 heads too;
+                the forward is also checked alone with GQA, non-causal,
+                N_kv != N both ways, D = 64 and operands that are not
+                16-byte aligned (O and the LSE), and timed
+                in bf16 at the training shape with 16 and 6 heads; the
+                forward and the backward twice on the same inputs must
+                give the same bits, and the backward is timed at the
+                bench row's 6 heads too;
                 run the bf16 MMA form probe (all seven forms, mma.sync and
                 wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
@@ -78,7 +83,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   8. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c and 6d also holds the
-backward's TMA operand copies (``tma_copies``) at 0.
+bf16 kernels' TMA operand copies (``tma_copies``, forward and backward) at
+0, fused QKV views included.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,8 +112,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # Kernel vs plain version on the same inputs: the two sum in a different
 # order (tiled online softmax vs one softmax over the whole row), so they
 # agree to float32 rounding, not bit for bit. In bfloat16 both round the
-# output to 8 mantissa bits, and the plain version also rounds the
-# probabilities before P.V, so the gap is a few bf16 ulps of |out| <~ 4.
+# output to 8 mantissa bits and the probabilities before P.V (the plain
+# version the normalised ones, the kernel the unnormalised ones, as the
+# reference), so the gap is a few bf16 ulps of |out| <~ 4.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
 # Backward kernels vs plain version: float32 gradients are sums of up to
@@ -234,8 +241,8 @@ def ptxas_report(text):
 
 def phase_build():
     """Build every kernel and print ptxas's registers and spills for each
-    (the bf16 backward kernels' consumer warpgroups run at 240 registers
-    after setmaxnreg; ptxas reports the launch-time count)."""
+    (the bf16 forward and backward kernels' consumer warpgroups run at 240
+    registers after setmaxnreg; ptxas reports the launch-time count)."""
     from paddle_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -257,34 +264,61 @@ def phase_build():
 
 # -- phase 3 ----------------------------------------------------------------
 
-def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1):
+def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1,
+               kv_heads=None, n_kv=None, causal=True, offset=0):
+    """The forward kernel against its plain version (O and the LSE); two
+    launches on the same inputs must give the same bits (no atomics). With
+    ``offset``, q/k/v are views ``offset`` elements into rows of head_dim
+    + 4: not 16-byte aligned, so float32 takes the kernel's 4-byte copies
+    and bf16 the wrapper's TMA copy (3 a launch). With ``timed``, its time
+    beside the plain version's, torch SDPA's and the bound."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    def rand(h):
-        return torch.randn((batch, n, h, head_dim), generator=gen,
-                           device="cuda").to(dtype)
+    n_kv = n if n_kv is None else n_kv
+    kv_heads = heads if kv_heads is None else kv_heads
 
-    q, k, v = rand(heads), rand(heads), rand(heads)
-    out, lse = fa.flash_attention(q, k, v, causal=True)
-    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    def rand(length, h):
+        pad = 4 if offset else 0
+        x = torch.randn((batch, length, h, head_dim + pad), generator=gen,
+                        device="cuda").to(dtype)
+        return x[..., offset:offset + head_dim]
+
+    q, k, v = rand(n, heads), rand(n_kv, kv_heads), rand(n_kv, kv_heads)
+    copies = fa.tma_copies
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    copies = fa.tma_copies - copies
+    if copies != (3 if offset and dtype is torch.bfloat16 else 0):
+        raise AssertionError("forward made %d TMA operand copies" % copies)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
     name = "flash B=%d N=%d H=%d D=%d %s" % (batch, n, heads, head_dim,
                                              str(dtype).split(".")[-1])
+    if n_kv != n or kv_heads != heads or not causal or offset:
+        name += " (Nkv=%d Hkv=%d %s%s)" % (
+            n_kv, kv_heads, "causal" if causal else "non-causal",
+            ", misaligned" if offset else "")
     err = check_close(name + " out", out, ref_out, TOL[dtype])
-    check_close(name + " lse", lse, ref_lse, TOL[torch.float32])
-    row = {"case": name, "max_abs_err": err}
+    lse_err = check_close(name + " lse", lse, ref_lse, TOL[torch.float32])
+    again = fa.flash_attention(q, k, v, causal=causal)
+    if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+        raise AssertionError("%s: two launches differ" % name)
+    row = {"case": name, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "deterministic": True}
     if timed:
         esize = q.element_size()
-        nbytes = 4 * q.numel() * esize + lse.numel() * 4
-        flops = 4 * head_dim * causal_pairs(batch * heads, n, n)
-        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize \
+            + lse.numel() * 4
+        pairs = causal_pairs(batch * heads, n, n_kv) if causal \
+            else batch * heads * n * n_kv
+        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal))
         row["plain_ms"] = time_ms(
-            lambda: fa.flash_attention_reference(q, k, v, causal=True))
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
-        row.update(bound(nbytes, flops, dtype))
+                qt, kt, vt, is_causal=causal))
+        row.update(bound(nbytes, 4 * head_dim * pairs, dtype))
     log("[kernels] " + json.dumps(row))
     return row
 
@@ -510,6 +544,16 @@ FLASH_BWD_CASES = (dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
                    dict(n=128, n_kv=256, heads=16, head_dim=128))
 # the bench row's attention (phase 6c: bench_config(), 6 heads x 128)
 BENCH_BWD_CASE = dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=6, head_dim=128)
+# the forward alone beyond the serving buckets: GQA, non-causal,
+# cross-length causal both ways and operands that are not 16-byte aligned
+# (ragged N = 200 and D = 64 are in the serving list)
+FLASH_FWD_CASES = (dict(n=512, heads=16, kv_heads=4, head_dim=128),
+                   dict(n=200, heads=16, kv_heads=4, head_dim=128, offset=1),
+                   dict(n=512, heads=16, head_dim=128, causal=False),
+                   dict(n=128, n_kv=256, heads=16, head_dim=128),
+                   dict(n=256, n_kv=128, heads=16, head_dim=128),
+                   dict(n=512, heads=16, kv_heads=4, head_dim=64,
+                        causal=False))
 
 
 def phase_kernels(seed):
@@ -521,6 +565,9 @@ def phase_kernels(seed):
             rows["flash_attention"].append(flash_case(
                 gen, n, 16, 128, dtype, timed=dtype is torch.float32))
         rows["flash_attention"].append(flash_case(gen, 256, 16, 64, dtype))
+        for case in FLASH_FWD_CASES:
+            rows["flash_attention"].append(flash_case(gen, dtype=dtype,
+                                                      **case))
         for kv_heads in (16, 4):
             rows["paged_attention"].append(paged_case(
                 gen, PAGED_LENS, 16, kv_heads, dtype,
@@ -532,11 +579,13 @@ def phase_kernels(seed):
     # the backward at the bench row's attention (phase 6c: 6 heads), timed
     rows["flash_attention_bwd"].append(flash_bwd_case(
         gen, dtype=torch.bfloat16, timed=True, **BENCH_BWD_CASE))
-    # the training path's forward, timed in bf16 (kept out of the summary,
-    # whose forward entry stays the fp32 serving shape of earlier runs)
-    rows["flash_attention"].append(flash_case(
-        gen, TRAIN_SEQ, 16, 128, torch.bfloat16, timed=True,
-        batch=TRAIN_BATCH))
+    # the training path's forward, timed in bf16 at the llama1b row's 16
+    # heads and the bench row's 6 (the summary's forward entry keeps the
+    # fp32 serving shape and shows these beside it)
+    for heads in (16, BENCH_BWD_CASE["heads"]):
+        rows["flash_attention"].append(flash_case(
+            gen, TRAIN_SEQ, heads, 128, torch.bfloat16, timed=True,
+            batch=TRAIN_BATCH))
     return rows
 
 
@@ -986,8 +1035,8 @@ def attention_counters():
             "mixed_paged_attention": pa.mixed_launches,
             "mixed_paged_attention_bf16": pa.mixed_launches,
             "mixed_paged_attention_int8": pa.mixed_int8_launches,
-            # not a kernel: operand copies the bf16 backward made for TMA,
-            # which every main path's exact count holds at 0
+            # not a kernel: operand copies the bf16 forward and backward
+            # made for TMA, which every main path's exact count holds at 0
             "tma_copies": fa.tma_copies}
 
 
@@ -1854,6 +1903,21 @@ def segmented_numbers(name, cases):
                               bound_by=b[part]["bound_by"]))
 
 
+def forward_bf16_numbers(rows):
+    """The bf16 forward beside the fp32 serving row: its error over every
+    bf16 case, the timed training-shape rows (16 and 6 heads) and ptxas's
+    report of both forward kernels."""
+    cases = rows["flash_attention"]
+    keys = ("case", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    timed = [{k: r[k] for k in keys} for r in cases
+             if "ms" in r and "bfloat16" in r["case"]]
+    return dict(max_abs_err_bf16=max(r["max_abs_err"] for r in cases
+                                     if "bfloat16" in r["case"]),
+                lse_max_abs_err=max(r["lse_max_abs_err"] for r in cases),
+                train_bf16=timed,
+                ptxas=rows["ptxas"]["flash_attention"])
+
+
 def summary(rows, paths):
     """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
     an entry's ``launches`` sums them over the paths."""
@@ -1913,6 +1977,8 @@ def summary(rows, paths):
                            bound_by=timed["bound_by"],
                            library_ms=timed["library_ms"],
                            max_abs_err=fp32_err, timed_case=timed["case"])
+            if name == "flash_attention":
+                numbers.update(forward_bf16_numbers(rows))
         out.append(dict(name=name, route="cuda", **meta,
                         launches=sum(by_path.values()),
                         launches_by_path=by_path, **numbers))

@@ -1,265 +1,640 @@
-// Flash attention forward for Hopper (sm_90a), CUDA cores, fp32 statistics.
+// Flash attention forward for Hopper (sm_90a): bf16 on the tensor cores
+// through wgmma with TMA loads; float32 on the CUDA cores.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py, _flash_fwd_bhnd ->
 // _fa_kernel (the pallas_call at line 161): blocked online-softmax attention
 // that never writes the [N, N] score matrix to device memory, start-aligned
-// causal mask (query i sees keys j <= i), emitting O and the per-row
-// log-sum-exp the backward needs. With segment ids (packed variable-length
-// sequences, the reference's `segmented` mode, mask at lines 104-106), a
-// query also needs the key's id to equal its own.
+// causal mask (query i sees keys j <= i, for any kv length), emitting O and
+// the per-row natural-log log-sum-exp the backward needs. With segment ids
+// (packed variable-length sequences, the reference's `segmented` mode, mask
+// at lines 104-106), a query also needs the key's id to equal its own.
 //
-// What bounds it on this card: at the prefill shapes (N up to 2048, D 128)
-// the work is ~4*N*N*D/2 operations per head against ~4*N*D elements moved,
-// far above the card's operations-per-byte line, so it is bound by
-// arithmetic. float32 inputs must not go through TF32 tensor cores (the
-// reference computes at 'highest' precision), so the ceiling is the 67
-// TFLOP/s of the fp32 CUDA cores.
+// What bounds it on this card: per causal (query, key) pair and head two
+// products of 2*D operations (S = Q.K^T, P.V) against ~4*N*D elements moved
+// per head, far above the card's operations-per-byte line at the training
+// and prefill shapes: bound by arithmetic, on the bf16 tensor cores (989
+// TFLOP/s) for bf16 and on the fp32 CUDA cores (67 TFLOP/s) for float32,
+// which stays off TF32 to match the reference's 'highest' matmuls.
 //
-// What the design does about it:
-//  * one CTA per (64-row query tile, batch*head); the causal loop stops at
-//    the diagonal, and the heaviest (last) query tiles are scheduled first;
-//  * Q and K are stored transposed in shared memory, so each thread's 4x4
-//    block of scores costs two 16-byte shared loads per 16 FMAs; P is
-//    written transposed over K's buffer for the same reason in P.V;
-//  * the running max, denominator and the 4 x D/16 output accumulator stay
-//    in registers in fp32; a row's reductions are shuffles within the 16
-//    lanes that share it;
-//  * inputs are read through their [B, N, H, D] strides (no fold copy), and
-//    the ragged edge (N or N_kv not a multiple of 64) is masked in-kernel;
-//  * GQA: query head h reads kv head h / (H / H_kv), so K/V are never
-//    repeated in memory.
-//  * segment ids: one int32 per (batch row, position), shared by the heads;
-//    each thread keeps its 4 query rows' ids in registers and reads its 4
-//    key columns' ids with each key tile. The segmented kernel does the
-//    same tiles as the causal one and only masks more: a key tile that a
-//    row sees none of gives that row p = 1 on every masked column (the
-//    finite -1e30 minus itself), which the first visible tile's rescale
-//    alpha = exp(-1e30 - m) then erases, as in the reference. Every row
-//    sees itself, so no row ends with l = 0. A key tile whose id interval
-//    [min, max] does not meet the query tile's is skipped whole (for any
-//    order of the ids: disjoint intervals mean no equal pair); skipping
-//    it gives the same bits as masking it, since a masked tile adds
-//    exact zeros after a visible one and is erased before one. Packed
-//    sorted documents leave ~2/5 of the causal tile pairs at the
-//    training shape; shuffled ids leave all of them.
-// bf16 inputs are converted to fp32 on their way into shared memory.
+// Both designs:
+//  * exp2 with scale * log2(e) folded into one multiply; the running max
+//    lives in the log2 domain and the LSE is converted back on its way out:
+//    lse = (m2 + log2 l) * ln 2;
+//  * masked scores take the reference's finite NEG_INF (-1e30, in the log2
+//    domain too): a key tile that a row sees none of gives that row p = 1 on
+//    every masked column, which the next visible tile's rescale alpha =
+//    exp2(-1e30 - m) erases, as in the reference. Every row sees key 0 or
+//    itself, so no row ends with l = 0;
+//  * one CTA per (batch*head, query tile), heaviest (last) query tile
+//    first: the tile is the grid's slow axis (blockIdx.y), so the card
+//    hands out every head's last tile before any head's next one (with
+//    the tile as the fast axis, whole heads go in turn and the heavy tiles
+//    of the last heads run at the end, on a few SMs); K/V tiles of 64 keys
+//    stream up to the causal edge;
+//  * GQA: query head h reads kv head h / (H / H_kv); K/V are never repeated;
+//  * segment ids ([B, N] int32, nullptr = off): a key tile whose id interval
+//    [min, max] meets none of the CTA's rows is skipped whole (for any order
+//    of the ids: disjoint intervals mean no equal pair). Skipping it gives
+//    the same bits as masking it: a masked tile adds exact zeros after a
+//    visible one and is erased before one. Every warp computes the
+//    intervals itself, so the CTA agrees without a barrier.
+//
+// bf16 (namespace tc; building blocks in wgmma_bf16.cuh, the same as the
+// backward's dq kernel):
+//  * three warpgroups: two consumers of 64 query rows each (the wgmma M) and
+//    a producer whose first warp issues TMA loads; setmaxnreg moves
+//    registers from the producer (24) to the consumers (240);
+//  * Q's 128 rows load once (two 64-row boxes per 64 columns of D); K and V
+//    tiles and their segment ids stream through a ring of STAGES buffers
+//    guarded by mbarriers (full: the producer warp's 32 arrivals plus the
+//    tiles' bytes; empty: one arrival per consumer warp). Rank-4 tensor maps
+//    over the caller's strides: no fold copy, rows past N or N_kv arrive as
+//    zeros (the wrapper copies an operand TMA cannot read in place);
+//  * S = Q.K^T is an ss product, both operands K-major (probe form 4), into
+//    32 fp32 accumulators a thread; the masks and the online softmax work
+//    on the accumulator fragments (a row's max over the 4 lanes that share
+//    it; each lane keeps a partial row sum, reduced once at the end);
+//  * p = exp2(s - m) is rounded to bf16 unnormalised, where the reference
+//    rounds it (p.astype(v.dtype)), packed into A fragments, and O += P.V
+//    runs as an rs product with V read MN-major (probe form 6), m64n128 at
+//    D = 128. O is rescaled by alpha only after the previous P.V was waited
+//    on;
+//  * the producer and both consumers walk one tile sequence (the causal
+//    bound min(N_kv, q0 + 128) and the CTA-wide id intervals); a consumer
+//    warpgroup that a tile cannot reach (past its own 64-row causal edge,
+//    past N, or no equal ids) still takes it and hands it back without
+//    computing, so no side waits for a tile the other skipped;
+//  * O = acc / max(l, 1e-30) goes out as bf16 from the fragments; rows >= N
+//    are not written.
+//
+// float32 (CUDA cores, TF32 off):
+//  * 256 threads as 16 x 16; with 128-row query tiles thread (ty, tx)
+//    owns query rows ty + 16 i (i < 8) and, per key tile, keys tx + 16 j
+//    (j < 4): an 8 x 4 block of S (each 16-byte shared load of Q feeds 16
+//    FMAs, of K 32) and an 8 x D/16 block of O (per key, 2 loads of P and
+//    D/64 of V feed 8 * D/16 FMAs). A grid of 128-row tiles that leaves
+//    SMs idle (a short prefill: B = 1, N <= 1024 at 16 heads) takes 64-row
+//    tiles instead, 4 rows a thread;
+//  * Q, K and V stay row-major as they come from memory, copied with
+//    cp.async in 16-byte chunks (4-byte copies for an operand that is not
+//    16-byte aligned); Q's and K's chunks are XOR-swizzled by row % 8, so a
+//    quarter warp reading 8 consecutive rows hits 8 bank groups; the K/V
+//    tiles are double-buffered, tile j + 1 loading while tile j computes;
+//  * P goes through shared memory once, transposed and swizzled, behind one
+//    barrier; the row max is a shuffle over the 16 lanes that share a row,
+//    and the row sum is kept per lane and reduced at the end;
+//  * inputs are read through their [B, N, H, D] strides, and the ragged
+//    edge (N or N_kv not a multiple of the tile) is zero-filled and masked
+//    in-kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_ids.cuh"
+#include "wgmma_bf16.cuh"
+
 namespace {
 
-constexpr int BM = 64;         // query rows per CTA
-constexpr int BN = 64;         // keys per tile
-constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx) owns rows ty*4..+3
-constexpr int LDT = BM + 4;    // row stride of transposed tiles: keeps float4
-                               // alignment and spreads the transposing stores
+constexpr int BN = 64;          // keys per streamed tile
 constexpr float NEG_INF = -1e30f;
-static_assert(BM == BN, "id_range spans one 64-row tile of either side");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+struct Args {
+  int n, n_kv, heads, kv_heads;
+  long long sqb, sqn, sqh, skb, skn, skh, svb, svn, svh;
+  float scale;
+  int causal;
+  const int32_t* segs;   // [B, N] or nullptr
+  int vec;               // float32: every row start is 16-byte aligned
+};
+
+using ptseg::id_range;
+using ptseg::ranges_meet;
+static_assert(BN == 64, "id_range's default run of 64 rows is one key tile");
+
+// -- float32: CUDA cores ----------------------------------------------------
+
+constexpr int THREADS = 256;    // 16 x 16
+constexpr int RN = BN / 16;     // keys per thread
+
+// The float32 CTA's tile sequence: the first key tile at or after k0 and
+// before kv_end whose ids can meet the CTA's (q_ids), or kv_end if none.
+__device__ __forceinline__ int next_tile(int k0, int kv_end,
+                                         const int32_t* sb, int n_kv,
+                                         int2 q_ids) {
+  if (sb != nullptr)
+    while (k0 < kv_end && !ranges_meet(id_range(sb, k0, n_kv), q_ids))
+      k0 += BN;
+  return k0;
 }
 
-// (min, max) of ids[r0 .. min(r0 + 64, limit)). Every warp computes it
-// and gets the same answer, so the block agrees without a barrier.
-__device__ __forceinline__ int2 id_range(const int32_t* __restrict__ ids,
-                                         int r0, int limit) {
-  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
-  for (int r = r0 + (threadIdx.x & 31); r < min(r0 + BN, limit); r += 32) {
-    lo = min(lo, ids[r]);
-    hi = max(hi, ids[r]);
-  }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   ptwg::smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   ptwg::smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// float offset of the 16-byte chunk c of row r in a tile of W floats a row,
+// chunks XOR-swizzled by r % 8 when SWZ
+template <int W, bool SWZ>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return r * W + ((SWZ ? c ^ (r & 7) : c) << 2);
+}
+
+// rows [r0, r0 + rows) of a [.., D] operand with row stride ld into a
+// [rows][D] tile; rows at or past `limit` are zero-filled
+template <int D, bool SWZ>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long ld, int r0, int rows,
+                                          int limit, int vec) {
+  constexpr int C = D / 4;
+  for (int e = threadIdx.x; e < rows * C; e += THREADS) {
+    const int r = e / C, c = e % C;
+    const bool ok = r0 + r < limit;
+    const float* g = ok ? src + (r0 + r) * ld + 4 * c : src;
+    float* d = dst + chunk_at<D, SWZ>(r, c);
+    if (vec) {
+      cp_async16(d, g, ok);
+    } else {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+      for (int t = 0; t < 4; ++t) cp_async4(d + t, g + t, ok);
+    }
   }
-  return make_int2(lo, hi);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int n, int n_kv, int heads,
-                 int kv_heads, int64_t sqb, int64_t sqn, int64_t sqh,
-                 int64_t skb, int64_t skn, int64_t skh, int64_t svb,
-                 int64_t svn, int64_t svh, float scale, int causal,
-                 const int32_t* __restrict__ segs) {
-  constexpr int NC = D / 16;   // output columns per thread
+// BM query rows per CTA (64 or 128), BM / 16 per thread
+template <int D, int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Args a) {
+  constexpr int RM = BM / 16;   // query rows per thread
+  constexpr int NC = D / 16;    // output columns per thread
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  Q transposed
-  float* kt = qt + D * LDT;                      // [D][LDT]  K transposed
-  float* vs = kt + D * LDT;                      // [BN][D]
-  float* pt = kt;                                // [BN][LDT] P transposed
+  float* qs = reinterpret_cast<float*>(smem4);   // [BM][D], swizzled
+  float* ks = qs + BM * D;                       // [2][BN][D], swizzled
+  float* vs = ks + 2 * BN * D;                   // [2][BN][D]
+  float* pt = vs + 2 * BN * D;                   // [BN][BM] P^T, swizzled
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int kvh = h / (heads / kv_heads);
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + kvh * skh;
-  const T* vb = v + b * svb + kvh * svh;
-  // segment ids of this batch row ([B, N], q_len == kv_len), or nullptr
-  const int32_t* sb = segs != nullptr ? segs + int64_t(b) * n : nullptr;
-  int seg_q[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    seg_q[i] = sb != nullptr && row < n ? sb[row] : 0;
-  }
-  const int2 q_ids = sb != nullptr ? id_range(sb, q0, n) : make_int2(0, 0);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest first
+  const int bh = blockIdx.x;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int kvh = h / (a.heads / a.kv_heads);
+  const float* qb = q + b * a.sqb + h * a.sqh;
+  const float* kb = k + b * a.skb + kvh * a.skh;
+  const float* vb = v + b * a.svb + kvh * a.svh;
+  const int32_t* sb = a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
+  const float scale2 = a.scale * LOG2E;
 
-  for (int e = tid; e < BM * D; e += THREADS) {
-    const int r = e / D, d = e % D, row = q0 + r;
-    qt[d * LDT + r] = row < n ? to_f32(qb[row * sqn + d]) : 0.f;
-  }
-
-  float acc[4][NC];
-  float m_i[4], l_i[4];
+  int seg_q[RM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + 16 * i;
+    seg_q[i] = sb != nullptr && row < a.n ? sb[row] : 0;
+  }
+  const int2 q_ids =
+      sb != nullptr ? id_range(sb, q0, a.n, BM) : make_int2(0, 0);
+  const int kv_end = a.causal ? min(a.n_kv, q0 + BM) : a.n_kv;
+
+  float acc[RM][NC], m_i[RM], l_i[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(n_kv, q0 + BM) : n_kv;
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    if (sb != nullptr) {   // the whole block takes the same branch
-      const int2 k_ids = id_range(sb, k0, n_kv);
-      if (k_ids.y < q_ids.x || k_ids.x > q_ids.y) continue;   // no equal ids
-    }
-    __syncthreads();   // last tile's reads of pt/vs are done
-    for (int e = tid; e < BN * D; e += THREADS) {
-      const int r = e / D, d = e % D, col = k0 + r;
-      const bool ok = col < n_kv;
-      kt[d * LDT + r] = ok ? to_f32(kb[col * skn + d]) : 0.f;
-      vs[r * D + d] = ok ? to_f32(vb[col * svn + d]) : 0.f;
-    }
+  load_rows<D, true>(qs, qb, a.sqn, q0, BM, a.n, a.vec);
+  int k0 = next_tile(0, kv_end, sb, a.n_kv, q_ids);
+  if (k0 < kv_end) {
+    load_rows<D, true>(ks, kb, a.skn, k0, BN, a.n_kv, a.vec);
+    load_rows<D, false>(vs, vb, a.svn, k0, BN, a.n_kv, a.vec);
+  }
+  cp_async_commit();
+  // the swizzle of this thread's rows: (ty + 16 i) % 8 and (tx + 16 j) % 8
+  const int qsw = ty & 7, ksw = tx & 7;
+  for (int stage = 0; k0 < kv_end; stage ^= 1) {
+    cp_async_wait_all();
+    // tile k0 has landed for every thread, and every thread is done with
+    // the previous tile's P.V: its buffers and P^T are free
     __syncthreads();
+    const int k1 = next_tile(k0 + BN, kv_end, sb, a.n_kv, q_ids);
+    if (k1 < kv_end) {
+      load_rows<D, true>(ks + (stage ^ 1) * BN * D, kb, a.skn, k1, BN,
+                         a.n_kv, a.vec);
+      load_rows<D, false>(vs + (stage ^ 1) * BN * D, vb, a.svn, k1, BN,
+                          a.n_kv, a.vec);
+    }
+    cp_async_commit();
 
-    float s[4][4];
+    const float* kt = ks + stage * BN * D;
+    float s[RM][RN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * LDT + ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * LDT + tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
+      for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D / 4; ++c) {
+      float4 qa[RM], kc[RN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(
+            qs + (ty + 16 * i) * D + ((c ^ qsw) << 2));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+      for (int j = 0; j < RN; ++j)
+        kc[j] = *reinterpret_cast<const float4*>(
+            kt + (tx + 16 * j) * D + ((c ^ ksw) << 2));
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          float t = fmaf(qa[i].x, kc[j].x, s[i][j]);
+          t = fmaf(qa[i].y, kc[j].y, t);
+          t = fmaf(qa[i].z, kc[j].z, t);
+          s[i][j] = fmaf(qa[i].w, kc[j].w, t);
+        }
     }
 
-    int seg_k[4];
+    int seg_k[RN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx * 4 + j;
-      seg_k[j] = sb != nullptr && col < n_kv ? sb[col] : 0;
+    for (int j = 0; j < RN; ++j) {
+      const int col = k0 + tx + 16 * j;
+      seg_k[j] = sb != nullptr && col < a.n_kv ? sb[col] : 0;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty + 16 * i;
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        const bool ok = col < n_kv && (!causal || col <= row) &&
+      for (int j = 0; j < RN; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool ok = col < a.n_kv && (!a.causal || col <= row) &&
                         seg_q[i] == seg_k[j];
-        s[i][j] = ok ? s[i][j] * scale : NEG_INF;
+        s[i][j] = ok ? s[i][j] * scale2 : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_i[i], mx);
+      const float alpha = exp2f(m_i[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
+      for (int j = 0; j < RN; ++j) {
+        s[i][j] = exp2f(s[i][j] - m_new);
         sum += s[i][j];
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_i[i] - m_new);
       l_i[i] = alpha * l_i[i] + sum;
       m_i[i] = m_new;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
-
-    __syncthreads();   // every thread is done reading kt: it becomes pt
+    // P^T[key][slot]: this thread's rows sit at slots ty * RM + i, so its
+    // RM values of one key are RM / 4 16-byte chunks (swizzled by key % 8)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * LDT + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
+    for (int j = 0; j < RN; ++j) {
+      float* prow = pt + (tx + 16 * j) * BM;
+#pragma unroll
+      for (int u = 0; u < RM / 4; ++u)
+        *reinterpret_cast<float4*>(
+            prow + ((((RM / 4) * ty + u) ^ ksw) << 2)) =
+            make_float4(s[4 * u][j], s[4 * u + 1][j], s[4 * u + 2][j],
+                        s[4 * u + 3][j]);
+    }
+    __syncthreads();   // P^T is complete
 
+    const float* vt = vs + stage * BN * D;
 #pragma unroll 4
-    for (int c0 = 0; c0 < BN; ++c0) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pt + c0 * LDT + ty * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+    for (int key = 0; key < BN; ++key) {
+      const float* prow = pt + key * BM;
+      float p[RM];
+#pragma unroll
+      for (int u = 0; u < RM / 4; ++u) {
+        const float4 p4 = *reinterpret_cast<const float4*>(
+            prow + ((((RM / 4) * ty + u) ^ (key & 7)) << 2));
+        p[4 * u] = p4.x;
+        p[4 * u + 1] = p4.y;
+        p[4 * u + 2] = p4.z;
+        p[4 * u + 3] = p4.w;
+      }
 #pragma unroll
       for (int g = 0; g < D / 64; ++g) {
         const float4 v4 =
-            *reinterpret_cast<const float4*>(vs + c0 * D + g * 64 + tx * 4);
-        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+            *reinterpret_cast<const float4*>(vt + key * D + g * 64 + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][g * 4 + c] = fmaf(pv[i], vv[c], acc[i][g * 4 + c]);
+        for (int i = 0; i < RM; ++i) {
+          acc[i][4 * g] = fmaf(p[i], v4.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(p[i], v4.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p[i], v4.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p[i], v4.w, acc[i][4 * g + 3]);
+        }
       }
     }
+    k0 = k1;
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= n) continue;
-    const float l = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + ((int64_t(b) * n + row) * heads + h) * D;
+  for (int i = 0; i < RM; ++i) {
+    float l = l_i[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int row = q0 + ty + 16 * i;
+    if (row >= a.n) continue;
+    l = fmaxf(l, 1e-30f);
+    float* orow = o + ((int64_t(b) * a.n + row) * a.heads + h) * D;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        store(orow + g * 64 + tx * 4 + c, acc[i][g * 4 + c] / l);
-    if (tx == 0) lse[int64_t(bh) * n + row] = m_i[i] + logf(l);
+      *reinterpret_cast<float4*>(orow + g * 64 + tx * 4) =
+          make_float4(acc[i][4 * g] / l, acc[i][4 * g + 1] / l,
+                      acc[i][4 * g + 2] / l, acc[i][4 * g + 3] / l);
+    if (tx == 0) lse[int64_t(bh) * a.n + row] = (m_i[i] + log2f(l)) * LN2;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int batch, int n, int n_kv, int heads,
-                   int kv_heads, const long long* st, float scale,
-                   int causal, const int32_t* segs, cudaStream_t stream) {
-  const size_t smem = size_t(2 * D * LDT + BN * D) * sizeof(float);
-  auto kernel = flash_fwd_kernel<T, D>;
+template <int D, int BM>
+cudaError_t launch_f32_tiles(const void* q, const void* k, const void* v,
+                             void* o, void* lse, int batch, const Args& a,
+                             cudaStream_t stream) {
+  const size_t smem = size_t(BM * D + 4 * BN * D + BN * BM) * sizeof(float);
+  auto kernel = flash_fwd_f32_kernel<D, BM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BM - 1) / BM, batch * heads);
+  const dim3 grid(batch * a.heads, (a.n + BM - 1) / BM);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      n, n_kv, heads, kv_heads, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale, causal, segs);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), a);
   return cudaGetLastError();
+}
+
+// 128-row query tiles where they give every SM a CTA, else 64-row tiles:
+// twice the CTAs for a short prefill, at a 4 x 4 block of S a thread
+// (flash_timing.py's serving rows time both sides of the line)
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int batch, const Args& a,
+                       cudaStream_t stream) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  const long long ctas = (long long)batch * a.heads * ((a.n + 127) / 128);
+  if (ctas >= sms)
+    return launch_f32_tiles<D, 128>(q, k, v, o, lse, batch, a, stream);
+  return launch_f32_tiles<D, 64>(q, k, v, o, lse, batch, a, stream);
+}
+
+// -- bf16: wgmma + TMA ------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int ROWS = 64;                    // wgmma M, and a streamed tile
+constexpr int CONSUMERS = 2;                // consumer warpgroups per CTA
+constexpr int CTA_ROWS = CONSUMERS * ROWS;  // query rows of a CTA
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int STAGES = 3;                   // ring of streamed K/V tiles
+constexpr int BOX = ROWS * 64;              // elements of one 64 x 64 box
+constexpr uint32_t BOX_BYTES = BOX * 2;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(ROWS == BN, "a streamed tile is one key tile");
+
+template <int D>
+struct Smem {
+  bf16 q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
+  bf16 k[STAGES][D / 64][BOX];      // streamed key tiles
+  bf16 v[STAGES][D / 64][BOX];
+  int32_t seg[STAGES][ROWS];        // the key tile's segment ids
+  uint64_t full[STAGES], empty[STAGES], loaded;
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, float* __restrict__ lse,
+                       Args a) {
+  using namespace ptwg;
+  Smem<D>& s = aligned_smem<Smem<D>>();
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * CTA_ROWS;   // heaviest first
+  const int bh = blockIdx.x;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int kvh = h / (a.heads / a.kv_heads);
+  const int32_t* sb = a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
+  const int kv_end = a.causal ? min(a.n_kv, q0 + CTA_ROWS) : a.n_kv;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(&s.full[i], 32);               // the producer warp
+      bar_init(&s.empty[i], CONSUMERS * 4);   // every consumer warp
+    }
+    bar_init(&s.loaded, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  const int2 q_ids =
+      sb != nullptr ? id_range(sb, q0, a.n, CTA_ROWS) : make_int2(0, 0);
+
+  if (wg == CONSUMERS) {   // producer warpgroup: one warp issues the TMA
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp != CONSUMERS * 4) return;
+    if (lane == 0) {
+      bar_arrive_tx(&s.loaded, CONSUMERS * (D / 64) * BOX_BYTES);
+      for (int c = 0; c < CONSUMERS; ++c)
+        for (int j = 0; j < D / 64; ++j)
+          tma_load(s.q[c][j], &tq, &s.loaded, j * 64, h, q0 + c * ROWS, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < kv_end; k0 += ROWS) {
+      if (sb != nullptr && !ranges_meet(id_range(sb, k0, a.n_kv), q_ids))
+        continue;
+      bar_wait(&s.empty[stage], phase ^ 1);
+      if (sb != nullptr)
+        for (int r = lane; r < ROWS; r += 32)
+          s.seg[stage][r] = k0 + r < a.n_kv ? sb[k0 + r] : 0;
+      if (lane == 0) {
+        bar_arrive_tx(&s.full[stage], 2 * (D / 64) * BOX_BYTES);
+        for (int j = 0; j < D / 64; ++j) {
+          tma_load(s.k[stage][j], &tk, &s.full[stage], j * 64, kvh, k0, b);
+          tma_load(s.v[stage][j], &tv, &s.full[stage], j * 64, kvh, k0, b);
+        }
+      } else {
+        bar_arrive(&s.full[stage]);
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {   // consumer warpgroup wg: query rows wq0 .. wq0 + 63
+    regs_alloc<CONSUMER_REGS>();
+    const int wq0 = q0 + wg * ROWS;
+    const int r0 = wq0 + (warp & 3) * 16 + (lane >> 2);
+    const float scale2 = a.scale * LOG2E;
+    float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+    int seg_r[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 8 * hi;
+      seg_r[hi] = sb != nullptr && row < a.n ? sb[row] : 0;
+    }
+    const int2 w_ids =
+        sb != nullptr ? id_range(sb, wq0, a.n) : make_int2(0, 0);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    bar_wait(&s.loaded, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < kv_end; k0 += ROWS) {
+      bool mine = true;
+      if (sb != nullptr) {
+        const int2 k_ids = id_range(sb, k0, a.n_kv);
+        if (!ranges_meet(k_ids, q_ids)) continue;
+        mine = ranges_meet(k_ids, w_ids);
+      }
+      bar_wait(&s.full[stage], phase);
+      // warpgroup-uniform: rows past N, tiles past this warpgroup's causal
+      // edge and tiles of other documents would add nothing
+      if (mine && wq0 < a.n && (!a.causal || k0 < wq0 + ROWS)) {
+        float sa[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)   // S = Q . K^T
+          wgmma_ss<0>(sa, desc_kslice(s.q[wg][0], kk, BOX_BYTES),
+                      desc_kslice(s.k[stage][0], kk, BOX_BYTES), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sa);
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int hi = (i >> 1) & 1, row = r0 + 8 * hi;
+          const int c = acc_col(i, lane), col = k0 + c;
+          const bool ok = col < a.n_kv && (!a.causal || col <= row) &&
+                          (sb == nullptr || seg_r[hi] == s.seg[stage][c]);
+          sa[i] = ok ? sa[i] * scale2 : NEG_INF;
+          mx[hi] = fmaxf(mx[hi], sa[i]);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {   // the 4 lanes sharing a row
+          mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 1));
+          mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(0xffffffffu, mx[hi], 2));
+          const float m_new = fmaxf(m_r[hi], mx[hi]);
+          alpha[hi] = exp2f(m_r[hi] - m_new);
+          m_r[hi] = m_new;
+          l_r[hi] *= alpha[hi];
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {   // p, unnormalised
+          const int hi = (i >> 1) & 1;
+          sa[i] = exp2f(sa[i] - m_r[hi]);
+          l_r[hi] += sa[i];
+        }
+        uint32_t pf[4][4];   // p rounded to bf16
+        acc_to_frag(pf, sa);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // O += P . V, V read MN-major
+          wgmma_rs<1>(acc, pf[kk],
+                      desc_mnmajor(s.v[stage][0], BOX_BYTES) + kk * 128, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&s.empty[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      float l = l_r[hi];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l = fmaxf(l, 1e-30f);
+      const int row = r0 + 8 * hi;
+      if (row >= a.n) continue;
+      bf16* out = o + ((int64_t(b) * a.n + row) * a.heads + h) * D;
+#pragma unroll
+      for (int i = 2 * hi; i < D / 2; i += 4)
+        *reinterpret_cast<__nv_bfloat162*>(out + acc_col(i, lane)) =
+            __floats2bfloat162_rn(acc[i] / l, acc[i + 1] / l);
+      if ((lane & 3) == 0)
+        lse[int64_t(bh) * a.n + row] = (m_r[hi] + log2f(l)) * LN2;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int batch, const Args& a, cudaStream_t stream) {
+  CUtensorMap m[3];
+  cudaError_t err;
+  if ((err = ptwg::tile_map(&m[0], q, D, a.heads, a.n, batch, a.sqh, a.sqn,
+                            a.sqb, ROWS)) != cudaSuccess ||
+      (err = ptwg::tile_map(&m[1], k, D, a.kv_heads, a.n_kv, batch, a.skh,
+                            a.skn, a.skb, ROWS)) != cudaSuccess ||
+      (err = ptwg::tile_map(&m[2], v, D, a.kv_heads, a.n_kv, batch, a.svh,
+                            a.svn, a.svb, ROWS)) != cudaSuccess)
+    return err;
+  const size_t smem = sizeof(Smem<D>) + 1024;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * a.heads, (a.n + CTA_ROWS - 1) / CTA_ROWS);
+  kernel<<<grid, THREADS, smem, stream>>>(m[0], m[1], m[2],
+                                          static_cast<bf16*>(o),
+                                          static_cast<float*>(lse), a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// whether float32 rows can be copied in 16-byte chunks: the address and
+// every stride of an axis longer than 1, in multiples of 4 floats
+bool rows_aligned(const void* p, int len0, long long s0, int len1,
+                  long long s1, int len2, long long s2) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
+         (len0 == 1 || s0 % 4 == 0) && (len1 == 1 || s1 % 4 == 0) &&
+         (len2 == 1 || s2 % 4 == 0);
 }
 
 }  // namespace
@@ -271,10 +646,11 @@ const char* pt_error_string(int err) {
 }
 
 // q [B, N, H, D], k/v [B, N_kv, H_kv, D] with the given element strides for
-// the first three axes (the last is contiguous); o [B, N, H, D] contiguous;
-// lse [B*H, N] float32. dtype: 0 = float32, 1 = bfloat16. segs: [B, N]
-// int32 segment ids (needs n == n_kv), or nullptr for none. Returns the
-// launch's cudaError_t.
+// the first three axes (the last is contiguous; bf16 needs the addresses
+// and strides in multiples of 16 bytes, as TMA reads them); o [B, N, H, D]
+// contiguous; lse [B*H, N] float32. dtype: 0 = float32, 1 = bfloat16.
+// segs: [B, N] int32 segment ids (needs n == n_kv), or nullptr for none.
+// Returns the launch's cudaError_t.
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            void* o, void* lse, int batch, int n, int n_kv,
                            int heads, int kv_heads, int head_dim,
@@ -283,23 +659,22 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            long long svb, long long svn, long long svh,
                            float scale, int causal, int dtype,
                            const void* segs, void* stream) {
-  const long long st[9] = {sqb, sqn, sqh, skb, skn, skh, svb, svn, svh};
+  if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
+  const int vec = rows_aligned(q, batch, sqb, n, sqn, heads, sqh) &&
+                  rows_aligned(k, batch, skb, n_kv, skn, kv_heads, skh) &&
+                  rows_aligned(v, batch, svb, n_kv, svn, kv_heads, svh);
+  const Args a{n,     n_kv, heads, kv_heads, sqb,   sqn,
+               sqh,   skb,  skn,   skh,      svb,   svn,
+               svh,   scale, causal, static_cast<const int32_t*>(segs), vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* sg = static_cast<const int32_t*>(segs);
-  if (sg != nullptr && n != n_kv) return cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 128)
-    return launch<float, 128>(q, k, v, o, lse, batch, n, n_kv, heads,
-                              kv_heads, st, scale, causal, sg, s);
+    return launch_f32<128>(q, k, v, o, lse, batch, a, s);
   if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, o, lse, batch, n, n_kv, heads,
-                             kv_heads, st, scale, causal, sg, s);
+    return launch_f32<64>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, batch, n, n_kv,
-                                      heads, kv_heads, st, scale, causal, sg,
-                                      s);
+    return tc::launch<128>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, batch, n, n_kv, heads,
-                                     kv_heads, st, scale, causal, sg, s);
+    return tc::launch<64>(q, k, v, o, lse, batch, a, s);
   return cudaErrorInvalidValue;
 }
 

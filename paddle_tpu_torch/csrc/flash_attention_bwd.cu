@@ -105,6 +105,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_ids.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -116,25 +117,9 @@ constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-// (min, max) of ids[r0 .. min(r0 + count, limit)), or (INT_MAX, INT_MIN)
-// for none. Every warp computes it and gets the same answer, so the block
-// agrees without a barrier.
-__device__ __forceinline__ int2 id_range(const int32_t* __restrict__ ids,
-                                         int r0, int limit,
-                                         int count = TILE) {
-  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
-  for (int r = r0 + (threadIdx.x & 31); r < min(r0 + count, limit);
-       r += 32) {
-    lo = min(lo, ids[r]);
-    hi = max(hi, ids[r]);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-  return make_int2(lo, hi);
-}
+using ptseg::id_range;
+using ptseg::ranges_meet;
+static_assert(TILE == 64, "id_range's default run of 64 rows is one tile");
 
 // x rounded to T's precision (the reference's .astype(dtype) points):
 // the SIMT kernels run float32 only, where it is x
@@ -507,25 +492,6 @@ struct DkvSmem {
   int32_t seg[STAGES][ROWS];
   uint64_t full[STAGES], empty[STAGES], loaded;
 };
-
-// the dynamic shared memory, 1024-aligned (the launch adds 1024 bytes)
-template <typename S>
-__device__ __forceinline__ S& aligned_smem() {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t pad = (1024 - (ptwg::smem_u32(smem_raw) & 1023)) & 1023;
-  return *reinterpret_cast<S*>(smem_raw + pad);
-}
-
-__device__ __forceinline__ bool ranges_meet(int2 x, int2 y) {
-  return !(x.y < y.x || x.x > y.y);
-}
-
-// the column of accumulator element i of this thread within the
-// warpgroup's tile (its row is the thread's r0, or r0 + 8 when bit 1 of
-// i is set; wgmma_bf16.cuh gives the layout)
-__device__ __forceinline__ int acc_col(int i, int lane) {
-  return (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)

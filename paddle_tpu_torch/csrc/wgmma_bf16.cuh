@@ -1,9 +1,10 @@
 // bf16 warpgroup tensor-core building blocks for Hopper (sm_90a): wgmma,
 // its shared-memory descriptors, mbarriers and TMA tile loads. Header
-// only: no entry points. Used by csrc/flash_attention_bwd.cu (the bf16
-// dq and dk/dv kernels) and csrc/mma_probe.cu, which checks every form
-// the kernels use on its own (forms 4-6), where a wrong descriptor or
-// fragment layout shows as a wrong value of one form.
+// only: no entry points. Used by csrc/flash_attention.cu (the bf16
+// forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels)
+// and csrc/mma_probe.cu, which checks every form the kernels use on its
+// own (forms 4-6), where a wrong descriptor or fragment layout shows as a
+// wrong value of one form.
 //
 // Shared-memory tiles. Every operand tile is what one TMA load with
 // 128-byte swizzle writes: a box of 64 bf16 (128 bytes) by R rows,
@@ -219,6 +220,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "r"(accumulate), "n"(TRANS_B));
 }
 
+// the column of accumulator element i of this thread within the
+// warpgroup's tile (its row is the thread's 16 * (warp % 4) + lane / 4,
+// plus 8 when bit 1 of i is set)
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+}
+
 // two floats rounded to bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -234,6 +242,15 @@ __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[R / 8][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       a[s][j] = pack_bf16x2(d[8 * s + 2 * j], d[8 * s + 2 * j + 1]);
+}
+
+// the kernel's dynamic shared memory as an S, 1024-aligned for the
+// swizzled tiles (the launch asks for sizeof(S) + 1024 bytes)
+template <typename S>
+__device__ __forceinline__ S& aligned_smem() {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  return *reinterpret_cast<S*>(smem_raw + pad);
 }
 
 // -- warpgroup registers ------------------------------------------------

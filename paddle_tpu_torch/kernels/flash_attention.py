@@ -19,10 +19,12 @@ through their strides (last axis contiguous), mask ragged lengths
 themselves, and map GQA query heads onto their kv head, so the caller
 never folds, pads or repeats; dk/dv come back for the kv heads, summed
 over each group's query heads (what the reference's repeat_interleave
-VJP gives). The bf16 backward kernels load their tiles with TMA, which
-needs 16-byte aligned addresses and strides: an operand that breaks that
-is copied first and counted in ``tma_copies`` (the kernels are the only
-route; the copy is the remedy, never a fallback). ``FlashAttention`` is the ``torch.autograd.Function`` whose
+VJP gives). The bf16 kernels (forward, dq and dk/dv, on ``wgmma``) load
+their tiles with TMA, which needs 16-byte aligned addresses and strides:
+an operand that breaks that is copied first and counted in
+``tma_copies`` (the kernels are the only route; the copy is the remedy,
+never a fallback). The float32 kernels run on the CUDA cores and read
+any stride. ``FlashAttention`` is the ``torch.autograd.Function`` whose
 forward is ``flash_attention`` and whose backward is
 ``flash_attention_backward``.
 
@@ -59,8 +61,8 @@ dkv_launches = 0
 segmented_fwd_launches = 0
 segmented_dq_launches = 0
 segmented_dkv_launches = 0
-# bf16 operands the backward copied because TMA could not read them in
-# place (``tma_aligned``); 0 on every main path
+# bf16 operands the forward or backward copied because TMA could not
+# read them in place (``tma_aligned``); 0 on every main path
 tma_copies = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -169,8 +171,8 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
     -> ``(out [B, N, H, D], lse [B*H, N] float32)``.
 
     CUDA tensors launch the kernel (float32 or bfloat16, head_dim 64 or
-    128, last axis contiguous) or raise; CPU tensors take the plain
-    version."""
+    128, last axis contiguous; bf16 on ``wgmma`` with TMA loads, float32
+    on the CUDA cores) or raise; CPU tensors take the plain version."""
     _check_shapes(q, k, v)
     b, n, h, d = q.shape
     n_kv, h_kv = k.shape[1], k.shape[2]
@@ -199,6 +201,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         raise ValueError("flash_attention: B*H = %d exceeds the grid limit"
                          % (b * h))
     segs = _segments(segment_ids, q, k, "flash_attention")
+    q, k, v = _tma_operands(q, k, v)
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=dev)
     lib = _build.load("flash_attention", _SIGNATURES)
@@ -218,8 +221,8 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
 
 
 def tma_aligned(x):
-    """Whether the bf16 backward kernels' TMA loads read ``x`` ``[B, N, H,
-    D]`` (last axis contiguous) in place: its address and the byte stride
+    """Whether the bf16 kernels' TMA loads read ``x`` ``[B, N, H, D]``
+    (last axis contiguous) in place: its address and the byte stride
     of every other axis are multiples of 16 bytes. The stride of a
     length-1 axis is never used and does not count."""
     size = x.element_size()
