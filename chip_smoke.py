@@ -30,7 +30,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 against their plain versions, bf16 at the training shape,
                 a ragged vocab and float32, beside the port's unfused tail
   3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
-                kernel's int8 mode against their plain versions
+                kernel's int8 mode against their plain versions; with
+                phase 3 the history splits: one 2048-token slot beside 15
+                idle ones, lengths 255/256/257 at a 256-token split, a
+                256-page table of short histories, row tiles whose last
+                split is past row 0's horizon, and kernels 7 and 8 twice
+                on the same inputs bit for bit in fp32 and int8 (every
+                paged row prints the split plan it ran)
   3d. segments  the segment-id (packed sequence) mode of the flash
                 forward, dq and dk/dv kernels against their plain
                 versions: (a) the training shape, bf16, causal, each row
@@ -213,9 +219,10 @@ def kernel_name(mangled):
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
     args = []
     if mangled[i:i + 1] == "I":
-        for m in re.finditer(r"L[ib](\d+)E|(f)|13__nv_bfloat16",
+        for m in re.finditer(r"L[ib](\d+)E|(f)|13__nv_bfloat16|(a)",
                              mangled[i + 1:mangled.find("EE", i) + 1]):
-            args.append(m.group(1) or ("float" if m.group(2) else "bf16"))
+            args.append(m.group(1) or ("float" if m.group(2) else
+                                       "int8" if m.group(3) else "bf16"))
     return name + ("<%s>" % ", ".join(args) if args else "")
 
 
@@ -428,8 +435,24 @@ def pool_bytes(pools, pages, kv_heads, head_dim, block_size=16):
     return sum(pages) * block_size * per_token
 
 
+def split_of(plan):
+    """A split plan as the kernel rows print it."""
+    return {"kernel": plan.kernel, "tile_rows": plan.tile_rows,
+            "split_pages": plan.split_pages, "splits": plan.splits}
+
+
+def check_bitwise(name, fn, first):
+    """A second launch on the same inputs must give the first's bits (no
+    atomics in any sum)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        raise AssertionError(name + ": two launches differ")
+
+
 def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
-               head_dim=128, block_size=16, max_blocks=128, int8=False):
+               head_dim=128, block_size=16, max_blocks=128, int8=False,
+               bitwise=False):
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
     s = len(lens)
@@ -449,7 +472,14 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
     err = check_close(name, out[live], ref[live], TOL[dtype])
     if not bool((out[~live] == 0).all()):
         raise AssertionError(name + ": idle slots are not exactly zero")
-    row = {"case": name, "lens": lens, "max_abs_err": err}
+    row = {"case": name, "lens": lens, "max_blocks": max_blocks,
+           "split": split_of(pa.split_plan(s, 1, heads, kv_heads, max_blocks,
+                                           block_size, decode=True)),
+           "max_abs_err": err}
+    if bitwise:
+        check_bitwise(name, lambda: pa.paged_attention(
+            q, block_tables=bt, seq_lens=sl, **kv), out)
+        row["bitwise"] = True
     if int8:
         # the dequantized pages reconstruct the context: the int8 kernel
         # tracks the plain version on the unquantized pools
@@ -477,7 +507,8 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
 
 
 def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
-               head_dim=128, int8=False, block_size=16, max_blocks=128):
+               head_dim=128, int8=False, block_size=16, max_blocks=128,
+               bitwise=False):
     """Kernel 8 against its plain version: valid rows (ci < q_len) within
     the tolerance, every other row exactly zero."""
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
@@ -502,7 +533,13 @@ def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
     err = check_close(name, out[valid], ref[valid], TOL[dtype])
     if not bool((out[~valid] == 0).all()):
         raise AssertionError(name + ": rows past q_len are not exactly zero")
-    row = {"case": name, "hist": hist, "q_lens": q_lens, "max_abs_err": err}
+    row = {"case": name, "hist": hist, "q_lens": q_lens,
+           "split": split_of(pa.split_plan(s, chunk, heads, kv_heads,
+                                           max_blocks, block_size)),
+           "max_abs_err": err}
+    if bitwise:
+        check_bitwise(name, lambda: pa.mixed_paged_attention(q, **args), out)
+        row["bitwise"] = True
     if int8:
         k32, v32 = pools["fp32"]
         fp32 = pa.mixed_paged_attention_reference(
@@ -533,6 +570,16 @@ def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
 FLASH_NS = (8, 200, 512, 2048)
 PAGED_LENS = [0, 1, 15, 16, 17, 100, 257, 512, 777, 1000, 1023, 1500, 1999,
               2047, 2048, 0]
+# the paged kernels' split histories (split_plan: 16-page, 256-token
+# splits of the decode batch): one 2048-token slot beside 15 idle ones
+# (the critical path a single CTA walked alone before the split), lengths
+# at the edges of the first splits, and short histories in a 256-page
+# table (every split past a length exits at once)
+LONE_SLOT = [2048] + [0] * 15
+SPLIT_EDGE_LENS = [255, 256, 257, 511, 512, 513, 1, 0, 767, 768, 769, 16, 17,
+                   1023, 1024, 1025]
+SHORT_LENS = [1, 17, 100, 255, 256, 257, 300, 0, 5, 64, 33, 2, 0, 129, 200,
+              16]
 # training-path shapes: the llama1b training row's attention (B=8, N=1024,
 # H=16, D=128), then a ragged length, D=64, GQA and cross-length causal
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
@@ -571,11 +618,17 @@ def phase_kernels(seed):
         for kv_heads in (16, 4):
             rows["paged_attention"].append(paged_case(
                 gen, PAGED_LENS, 16, kv_heads, dtype,
-                timed=dtype is torch.float32))
+                timed=dtype is torch.float32, bitwise=True))
         for i, case in enumerate(FLASH_BWD_CASES):
             rows["flash_attention_bwd"].append(flash_bwd_case(
                 gen, dtype=dtype, timed=i == 0 and dtype is torch.bfloat16,
                 **case))
+    # the decode kernel's split cases, float32 (their int8 twins are in 3c)
+    rows["paged_attention"] += [
+        paged_case(gen, LONE_SLOT, 16, 16, torch.float32, timed=True,
+                   bitwise=True),
+        paged_case(gen, SPLIT_EDGE_LENS, 16, 16, torch.float32),
+        paged_case(gen, SHORT_LENS, 16, 16, torch.float32, max_blocks=256)]
     # the backward at the bench row's attention (phase 6c: 6 heads), timed
     rows["flash_attention_bwd"].append(flash_bwd_case(
         gen, dtype=torch.bfloat16, timed=True, **BENCH_BWD_CASE))
@@ -608,6 +661,15 @@ SUFFIX_PREFILL = dict(hist=[512], q_lens=[1000], chunk=1024, heads=16,
                       kv_heads=16)
 MIXED_GQA = dict(hist=[0, 37, 700, 1500], q_lens=[16, 1, 9, 16], chunk=16,
                  heads=32, kv_heads=8, head_dim=64)
+# row tiles whose last split lies wholly past row 0's horizon: row 0 of
+# slot 0 sees keys 0..255 (split 0 of 256 keys), its later rows reach
+# into split 1 (and slot 2's row 0 ends split 1, its rows 1-2 reach
+# split 2); once in the 16-row rows kernel, once in the 64-row tiles
+# kernel
+HORIZON_ROWS = dict(hist=[255, 0, 511], q_lens=[16, 0, 3], chunk=16,
+                    heads=16, kv_heads=16)
+HORIZON_TILES = dict(hist=[255], q_lens=[64], chunk=64, heads=16,
+                     kv_heads=16)
 
 
 def phase_tier2_kernels(seed):
@@ -619,19 +681,33 @@ def phase_tier2_kernels(seed):
     for dtype, key in ((f32, "mixed_paged_attention"),
                        (bf16, "mixed_paged_attention_bf16")):
         rows[key] += [
-            mixed_case(gen, dtype=dtype, timed=True, **MIXED_STEP),
-            mixed_case(gen, dtype=dtype, timed=dtype is f32,
+            mixed_case(gen, dtype=dtype, timed=True, bitwise=True,
+                       **MIXED_STEP),
+            mixed_case(gen, dtype=dtype, timed=dtype is f32, bitwise=True,
                        **SUFFIX_PREFILL),
             mixed_case(gen, dtype=dtype, **MIXED_GQA)]
     rows["mixed_paged_attention_int8"] += [
-        mixed_case(gen, dtype=f32, timed=True, int8=True, **MIXED_STEP),
-        mixed_case(gen, dtype=f32, timed=True, int8=True, **SUFFIX_PREFILL),
+        mixed_case(gen, dtype=f32, timed=True, int8=True, bitwise=True,
+                   **MIXED_STEP),
+        mixed_case(gen, dtype=f32, timed=True, int8=True, bitwise=True,
+                   **SUFFIX_PREFILL),
         mixed_case(gen, dtype=bf16, int8=True, **MIXED_STEP),
         mixed_case(gen, dtype=f32, int8=True, **MIXED_GQA)]
     rows["paged_attention_int8"] += [
-        paged_case(gen, PAGED_LENS, 16, 16, f32, timed=True, int8=True),
+        paged_case(gen, PAGED_LENS, 16, 16, f32, timed=True, int8=True,
+                   bitwise=True),
         paged_case(gen, PAGED_LENS, 16, 4, f32, int8=True),
         paged_case(gen, PAGED_LENS, 16, 16, bf16, int8=True)]
+    # the split cases (phase 3 has the decode kernel's float32 ones)
+    for case in (HORIZON_ROWS, HORIZON_TILES):
+        rows["mixed_paged_attention"].append(mixed_case(gen, dtype=f32,
+                                                        **case))
+        rows["mixed_paged_attention_int8"].append(mixed_case(
+            gen, dtype=f32, int8=True, **case))
+    rows["paged_attention_int8"] += [
+        paged_case(gen, LONE_SLOT, 16, 16, f32, int8=True, bitwise=True),
+        paged_case(gen, SPLIT_EDGE_LENS, 16, 16, f32, int8=True),
+        paged_case(gen, SHORT_LENS, 16, 16, f32, int8=True, max_blocks=256)]
     return rows
 
 
@@ -1836,13 +1912,13 @@ def tier2_numbers(name, cases):
                    bound_by=timed[0]["bound_by"], library_ms=None,
                    library=timed[0]["library"],
                    max_abs_err=max(fp32 or bf16),
-                   timed_case=timed[0]["case"])
+                   timed_case=timed[0]["case"], split=timed[0]["split"])
     if fp32 and bf16:
         numbers["max_abs_err_bf16"] = max(bf16)
     if len(timed) > 1:
         numbers["suffix_prefill"] = {
             k: timed[1][k] for k in ("case", "ms", "plain_ms", "bound_ms",
-                                     "bound_by")}
+                                     "bound_by", "split")}
     errs = [r["vs_unquantized_err"] for r in cases
             if "vs_unquantized_err" in r]
     if errs:
@@ -1979,6 +2055,13 @@ def summary(rows, paths):
                            max_abs_err=fp32_err, timed_case=timed["case"])
             if name == "flash_attention":
                 numbers.update(forward_bf16_numbers(rows))
+            if name == "paged_attention":
+                # the split plan, the lone 2048-token slot beside it, and
+                # ptxas's report of every paged kernel (split and combine)
+                lone = next(r for r in rows[name] if r["lens"] == LONE_SLOT)
+                numbers.update(split=timed["split"], lone_slot={
+                    k: lone[k] for k in ("ms", "plain_ms", "bound_ms")},
+                    ptxas=rows["ptxas"]["paged_attention"])
         out.append(dict(name=name, route="cuda", **meta,
                         launches=sum(by_path.values()),
                         launches_by_path=by_path, **numbers))

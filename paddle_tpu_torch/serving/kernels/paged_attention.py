@@ -24,6 +24,13 @@ for nothing else. The kernels emit exact zeros for idle slots and for
 mixed rows past ``q_len``; the plain versions emit finite values there.
 The engine ignores both, so comparisons cover valid rows only.
 
+The kernels cut each slot's history into splits of pages, one CTA each,
+and merge the splits' partials in a combine kernel. ``split_plan`` picks
+the kernel and the split from shapes alone (no length is read from the
+card, so a call never synchronises). ``*_split_reference`` compute the
+same split-then-merge in PyTorch; the CPU tests hold them against the
+reference, and nothing on the serving path calls them.
+
 Launch counters (plain integers, reset and read by ``chip_smoke.py``),
 one per kernel and pool mode: ``launches`` / ``int8_launches`` (decode),
 ``mixed_launches`` / ``mixed_int8_launches`` (mixed).
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -40,8 +48,21 @@ from ...kernels.quant import dequantize_int8_block
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-MAX_REP_X_D = 2048      # (H / Hkv) * D: the decode kernel's accumulators
 KV_INT8 = 2             # the C side's pool code for int8 (beside DTYPE_CODES)
+GRID_LIMIT = 65535      # a CUDA grid's y and z extent
+
+# The split plan's constants (csrc/paged_attention.cu): query rows per
+# tile of the decode, short mixed and tiles kernels (64, or 128 from
+# TALL_MIN_ROWS rows); the rows (H / Hkv * C a slot and kv head) from
+# which the mixed step takes the tiles kernel; pages per split of the rows
+# kernels, and the least pages per split of the tiles kernel; the H100's
+# 132 SMs times the CTAs that fit on one (the rows kernels take ~70 KB of
+# shared memory, the tiles kernel up to 224 KB).
+DECODE_ROWS, MIXED_ROWS, TILE_ROWS, TALL_TILE_ROWS = 8, 16, 64, 128
+TILED_MIN_ROWS, TALL_MIN_ROWS = 64, 512
+SPLIT_PAGES = 16
+TILE_SPLIT_PAGES = 16
+ROWS_WAVE, TILES_WAVE = 3 * 132, 132
 
 # kernel launches since the last reset, by kernel and pool mode
 launches = 0
@@ -51,9 +72,60 @@ mixed_int8_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pt_paged_attention": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P],
-    "pt_mixed_paged_attention": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P],
+    "pt_paged_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+    "pt_mixed_paged_attention": [_P] * 10 + [_I] * 10 + [_F, _I, _I, _P],
 }
+
+
+class SplitPlan(NamedTuple):
+    kernel: str        # "decode", "rows" (short mixed step) or "tiles"
+    tile_rows: int     # query rows per tile
+    tiles: int         # query-row tiles per (slot, kv head)
+    split_pages: int   # pages per split
+    splits: int        # splits per (row tile, slot, kv head)
+
+
+def split_plan(slots, chunk, heads, kv_heads, max_blocks, block_size,
+               decode=False):
+    """The kernel and the history split for a call, from shapes alone
+    (Python ints: nothing here may read a tensor on the card).
+
+    Decode takes the decode kernel (8-row tiles); a mixed step with fewer
+    than ``TILED_MIN_ROWS`` rows a slot and kv head the rows kernel
+    (16-row tiles), else the register-blocked tiles kernel (64-row tiles,
+    128 from ``TALL_MIN_ROWS`` rows).
+    A grid that already fills the card's CTA slots once takes one split:
+    the kernel then writes the output itself and no combine runs. Else the
+    rows kernels cut every history into splits of ``SPLIT_PAGES`` pages
+    (one long slot no longer walks its pages alone); the tiles kernel takes
+    as many splits of at least ``TILE_SPLIT_PAGES`` pages as fill the card.
+    Every page of the table lies in exactly one split."""
+    args = (slots, chunk, heads, kv_heads, max_blocks, block_size)
+    if not all(isinstance(x, int) and not isinstance(x, bool)
+               for x in args):
+        raise TypeError("split_plan takes Python ints (shapes only), got %r"
+                        % (args,))
+    if min(args) < 1 or heads % kv_heads:
+        raise ValueError("split_plan: bad shapes %r" % (args,))
+    rows = heads // kv_heads * chunk
+    if decode:
+        kernel, tile_rows, wave = "decode", DECODE_ROWS, ROWS_WAVE
+    elif rows >= TILED_MIN_ROWS:
+        kernel, wave = "tiles", TILES_WAVE
+        tile_rows = TALL_TILE_ROWS if rows >= TALL_MIN_ROWS else TILE_ROWS
+    else:
+        kernel, tile_rows, wave = "rows", MIXED_ROWS, ROWS_WAVE
+    tiles = -(-rows // tile_rows)
+    ctas = tiles * kv_heads * slots
+    if ctas >= wave:
+        split_pages = max_blocks
+    elif kernel == "tiles":
+        splits = min(-(-wave // ctas), -(-max_blocks // TILE_SPLIT_PAGES))
+        split_pages = -(-max_blocks // splits)
+    else:
+        split_pages = min(SPLIT_PAGES, max_blocks)
+    return SplitPlan(kernel, tile_rows, tiles, split_pages,
+                     -(-max_blocks // split_pages))
 
 
 def _check_pools(name, q, k_pool, v_pool, k_scale, v_scale):
@@ -164,6 +236,102 @@ def mixed_paged_attention_reference(q, k_pool, v_pool, block_tables,
                         v).to(q.dtype)
 
 
+def _split_merge(logits, visible, v, span, splits, eq):
+    """Split-then-merge attention over the key axis (the last of
+    ``logits``): each split of ``span`` keys keeps its own max ``m``, sum
+    ``l`` and unnormalised output ``o`` over its visible keys (a row that
+    sees none of a split keeps ``l = 0`` and weighs 0), then the splits
+    merge with weights ``exp(m_i - max m)``. ``eq`` contracts p with
+    ``v``; a row that sees no key at all comes out as zeros. Returns the
+    output and, for the tests, the partials ``(m, l, o)``, the merge
+    weights and the merged ``l``."""
+    parts = []
+    for i in range(splits):
+        keys = slice(i * span, (i + 1) * span)
+        lg, vis = logits[..., keys], visible[..., keys]
+        m = lg.masked_fill(~vis, NEG_INF).amax(-1, keepdim=True)
+        p = torch.exp(lg - m).masked_fill(~vis, 0.0)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      torch.einsum(eq, p, v[:, keys])))
+    m_all = torch.stack([m for m, l, _ in parts])
+    l_all = torch.stack([l for _, l, _ in parts])
+    m_max = m_all.masked_fill(l_all == 0, NEG_INF).amax(0)
+    w = torch.exp(m_all - m_max).masked_fill(l_all == 0, 0.0)
+    den = (w * l_all).sum(0)
+    num = sum(wi * o for wi, (_, _, o) in zip(w, parts))
+    return num / den.clamp_min(1e-30), parts, w, den
+
+
+def _split_view(k_pool, v_pool, block_tables, k_scale, v_scale, s, h):
+    """The dense fp32 context the split references work on: every slot's
+    pages gathered, int8 pages dequantized, kv heads repeated to H."""
+    _, bs, hkv, _ = k_pool.shape
+    m = block_tables.shape[1] * bs
+    bt = block_tables.long()
+    k = _gather(k_pool, k_scale, bt, s, m).float()
+    v = _gather(v_pool, v_scale, bt, s, m).float()
+    if h != hkv:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    return k, v, m
+
+
+def paged_attention_split_reference(q, k_pool, v_pool, block_tables,
+                                    seq_lens, scale=None, k_scale=None,
+                                    v_scale=None, split_pages=None):
+    """Plain PyTorch version of the decode kernel's split-then-merge:
+    per-split partials (O, m, l) over ``split_pages`` pages (default:
+    ``split_plan``'s), then the merge. Idle slots come out as zeros, as
+    from the kernel."""
+    _check_shapes(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
+                  v_scale)
+    s, h, d = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if split_pages is None:
+        split_pages = split_plan(s, 1, h, hkv, mb, bs, decode=True).split_pages
+    k, v, m = _split_view(k_pool, v_pool, block_tables, k_scale, v_scale, s,
+                          h)
+    logits = torch.einsum("shd,smhd->shm", q.float(), k) * scale
+    visible = (torch.arange(m, device=q.device)[None, None, :]
+               < seq_lens.to(q.device)[:, None, None]).expand_as(logits)
+    out = _split_merge(logits, visible, v, split_pages * bs,
+                       -(-mb // split_pages), "shm,smhd->shd")[0]
+    return out.to(q.dtype)
+
+
+def mixed_paged_attention_split_reference(q, k_pool, v_pool, block_tables,
+                                          hist_lens, q_lens, scale=None,
+                                          k_scale=None, v_scale=None,
+                                          split_pages=None):
+    """Plain PyTorch version of the mixed kernels' split-then-merge: row
+    (s, ci) sees keys ``0 .. hist + ci`` split into ``split_pages`` pages
+    (default: ``split_plan``'s); a later split wholly past a row's horizon
+    leaves that row ``l = 0`` and weight 0. Rows past ``q_len`` come out
+    as zeros, as from the kernels."""
+    _check_mixed_shapes(q, k_pool, v_pool, block_tables, hist_lens, q_lens,
+                        k_scale, v_scale)
+    s, c, h, d = q.shape
+    _, bs, hkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    if split_pages is None:
+        split_pages = split_plan(s, c, h, hkv, mb, bs).split_pages
+    k, v, m = _split_view(k_pool, v_pool, block_tables, k_scale, v_scale, s,
+                          h)
+    logits = torch.einsum("schd,smhd->shcm", q.float(), k) * scale
+    ci = torch.arange(c, device=q.device)
+    qpos = hist_lens.to(q.device).long()[:, None] + ci[None, :]   # [S, C]
+    visible = ((torch.arange(m, device=q.device)[None, None, :]
+                <= qpos[:, :, None])
+               & (ci[None, :, None] < q_lens.to(q.device)[:, None, None]))
+    visible = visible[:, None].expand_as(logits)                # [S,H,C,M]
+    out = _split_merge(logits, visible, v, split_pages * bs,
+                       -(-mb // split_pages), "shcm,smhd->shcd")[0]
+    return out.transpose(1, 2).to(q.dtype)                 # [S, C, H, D]
+
+
 def _kernel_args(name, q, k_pool, v_pool, k_scale, v_scale, ints):
     """Validate a CUDA launch (raising on what the kernel does not take)
     and return the pool code and the scale pointers. ``ints`` are the
@@ -200,22 +368,45 @@ def _kernel_args(name, q, k_pool, v_pool, k_scale, v_scale, ints):
     d = q.shape[-1]
     if d not in HEAD_DIMS:
         raise ValueError("%s: head_dim %d not in %s" % (name, d, HEAD_DIMS))
-    if q.shape[0] > 65535 or k_pool.shape[2] > 65535:
-        raise ValueError("%s: %d slots x %d kv heads exceed the grid limit"
-                         % (name, q.shape[0], k_pool.shape[2]))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("%s: inputs must be contiguous" % name)
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("%s: pools must be 16-byte aligned (cp.async)"
+                         % name)
     return kv_code, scale_ptrs
+
+
+def _launch_plan(name, q, rows, k_pool, block_tables, decode):
+    """The split plan of a CUDA launch, checked against the grid's limits,
+    and its partials' scratch (one fp32 ``torch.empty``: O, then m, then
+    l, for ``rows`` output rows and every split), or None for one split."""
+    _, bs, hkv, d = k_pool.shape
+    s, h = q.shape[0], q.shape[-2]
+    plan = split_plan(s, rows // (s * h), h, hkv, block_tables.shape[1], bs,
+                      decode=decode)
+    # the rows kernels' grid is (split, kv head, slot x tile), the tiles
+    # kernel's (slot x kv head x split, tile)
+    yz = ((plan.tiles,) if plan.kernel == "tiles"
+          else (hkv, s * plan.tiles))
+    if max(yz) > GRID_LIMIT:
+        raise ValueError("%s: a grid of %s exceeds the limit %d"
+                         % (name, yz, GRID_LIMIT))
+    scratch = None
+    if plan.splits > 1:
+        scratch = torch.empty(rows * plan.splits * (d + 2),
+                              dtype=torch.float32, device=q.device)
+    return plan, scratch
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
                     k_scale=None, v_scale=None):
     """q ``[S, H, D]`` over the paged history -> ``[S, H, D]``.
 
-    CUDA tensors launch the decode kernel (float32 or bfloat16 q; pools
-    of q's dtype, or int8 with float32 ``k_scale``/``v_scale``; head_dim
-    64 or 128; (H / Hkv) * D <= 2048; contiguous; int32 tables and
-    lengths) or raise; CPU tensors take the plain version."""
+    CUDA tensors launch the decode kernel, and with more than one split
+    the combine (float32 or bfloat16 q; pools of q's dtype, or int8 with
+    float32 ``k_scale``/``v_scale``; head_dim 64 or 128; contiguous,
+    16-byte aligned pools; int32 tables and lengths) or raise; CPU tensors
+    take the plain version."""
     _check_shapes(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
                   v_scale)
     s, h, d = q.shape
@@ -230,16 +421,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
     kv_code, (ks, vs) = _kernel_args(
         "paged_attention", q, k_pool, v_pool, k_scale, v_scale,
         (block_tables, seq_lens))
-    if (h // hkv) * d > MAX_REP_X_D:
-        raise ValueError("paged_attention: (H / Hkv) * D = %d exceeds %d"
-                         % ((h // hkv) * d, MAX_REP_X_D))
+    plan, scratch = _launch_plan("paged_attention", q, s * h, k_pool,
+                                 block_tables, decode=True)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention", _SIGNATURES)
     err = lib.pt_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        s, h, hkv, d, bs, block_tables.shape[1], scale,
-        _build.DTYPE_CODES[q.dtype], kv_code, _build.stream_handle(q.device))
+        None if scratch is None else scratch.data_ptr(),
+        s, h, hkv, d, bs, block_tables.shape[1], plan.split_pages,
+        plan.splits, scale, _build.DTYPE_CODES[q.dtype], kv_code,
+        _build.stream_handle(q.device))
     _build.check(lib, err, "paged_attention")
     global launches, int8_launches
     if k_scale is None:
@@ -255,10 +447,12 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
     ``[S, C, H, D]``; rows past ``q_len`` are zeros from the kernel and
     finite from the plain version.
 
-    CUDA tensors launch the mixed kernel (float32 or bfloat16 q; pools of
-    q's dtype, or int8 with float32 scales; head_dim 64 or 128;
-    contiguous; int32 tables and lengths; ``hist + q_len <= MB * bs``) or
-    raise; CPU tensors take the plain version."""
+    CUDA tensors launch the mixed rows or tiles kernel (``split_plan``),
+    and with more than one split the combine (float32 or bfloat16 q;
+    pools of q's dtype, or int8 with float32 scales; head_dim 64 or 128;
+    contiguous, 16-byte aligned pools; int32 tables and lengths;
+    ``hist + q_len <= MB * bs``) or raise; CPU tensors take the plain
+    version."""
     _check_mixed_shapes(q, k_pool, v_pool, block_tables, hist_lens, q_lens,
                         k_scale, v_scale)
     s, c, h, d = q.shape
@@ -274,12 +468,16 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
     kv_code, (ks, vs) = _kernel_args(
         "mixed_paged_attention", q, k_pool, v_pool, k_scale, v_scale,
         (block_tables, hist_lens, q_lens))
+    plan, scratch = _launch_plan("mixed_paged_attention", q, s * c * h,
+                                 k_pool, block_tables, decode=False)
     out = torch.empty_like(q)
     lib = _build.load("paged_attention", _SIGNATURES)
     err = lib.pt_mixed_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
         block_tables.data_ptr(), hist_lens.data_ptr(), q_lens.data_ptr(),
-        out.data_ptr(), s, c, h, hkv, d, bs, block_tables.shape[1], scale,
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        s, c, h, hkv, d, bs, block_tables.shape[1],
+        plan.tile_rows, plan.split_pages, plan.splits, scale,
         _build.DTYPE_CODES[q.dtype], kv_code, _build.stream_handle(q.device))
     _build.check(lib, err, "mixed_paged_attention")
     global mixed_launches, mixed_int8_launches
