@@ -24,11 +24,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 forward and the backward twice on the same inputs must
                 give the same bits, and the backward is timed at the
                 bench row's 6 heads too;
-                run the bf16 MMA form probe (all seven forms, mma.sync and
+                run the bf16 MMA form probe (all eight forms, mma.sync and
                 wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
                 against their plain versions, bf16 at the training shape,
-                a ragged vocab and float32, beside the port's unfused tail
+                ragged vocabs and float32 (two launches bit for bit),
+                beside the port's unfused tail and, as a yardstick,
+                torch.matmul of the same products over the same chunks
   3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
                 kernel's int8 mode against their plain versions; with
                 phase 3 the history splits: one 2048-token slot beside 15
@@ -919,6 +921,7 @@ FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
 def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.tools import fce_timing
 
     h = torch.randn((t_len, hid), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((hid, vocab), generator=gen, device="cuda")
@@ -940,6 +943,13 @@ def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
            "lse": check_close(name + " lse", lse, want_lse, FCE_FWD_TOL),
            "dh": check_close(name + " dh", dh, want_dh, FCE_BWD_TOL[dtype]),
            "dw": check_close(name + " dw", dw, want_dw, FCE_BWD_TOL[dtype])}
+    # one writer per output tile, a fixed order of summation: a second
+    # launch gives the same bits
+    again = (fc.fused_lm_head_ce_forward(h, w, safe)
+             + fc.fused_lm_head_ce_backward(h, w, safe, lse, g_t))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(again, (loss, lse, dh, dw))):
+        raise AssertionError(name + ": two launches differ")
     row = {"case": name, "max_abs_err": err,
            "chunk": fc.chunk_columns(vocab),
            "splits": fc.forward_splits(t_len, vocab)}
@@ -975,8 +985,17 @@ def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
         row["unfused_fwd_bwd_ms"] = time_ms(
             lambda: torch.autograd.grad(F.cross_entropy(hg @ wg, labels),
                                         (hg, wg)), iters, reps)
-        row["library"] = ("none: no single PyTorch call computes lm_head + "
-                          "CE without the logits")
+        # the yardstick: cuBLAS's torch.matmul of each kernel's products
+        # over the same vocab chunks (no PyTorch call computes the fused
+        # function without the logits)
+        row["library_ms"] = {
+            part: time_ms(fn, iters, reps) for part, fn in
+            fce_timing.library_products(h, w, fc.chunk_plan(vocab)).items()}
+        row["library"] = ("torch.matmul of the same products over the same "
+                          "vocab chunks (fwd h.W[:, c]; dh h.W[:, c] and "
+                          "dl.W[:, c]^T; dw h^T.dl), a yardstick: no single "
+                          "PyTorch call computes lm_head + CE without the "
+                          "logits")
         esize = h.element_size()
         reads = (h.numel() + w.numel()) * esize + t_len * 4
         product = 2 * t_len * hid * vocab
@@ -1928,9 +1947,10 @@ def tier2_numbers(name, cases):
     return numbers
 
 
-def fused_numbers(name, cases):
+def fused_numbers(name, cases, ptxas):
     """A fused-CE entry's numbers: the bf16 training shape's times and
-    errors, with the float32 case's time and bound beside them."""
+    errors, with the float32 case's time and bound beside them, and for
+    the backward ptxas's report of its bf16 wgmma kernels."""
     part = name.rsplit("_", 1)[1]
     timed = next(r for r in cases if "fwd_ms" in r
                  and r["case"].endswith("bfloat16"))
@@ -1939,16 +1959,24 @@ def fused_numbers(name, cases):
     err_key = "loss" if part == "fwd" else part
     plain, unfused = (("plain_fwd_ms", "unfused_fwd_ms") if part == "fwd"
                       else ("plain_bwd_ms", "unfused_fwd_bwd_ms"))
-    return dict(ms=timed[part + "_ms"], plain_ms=timed[plain],
-                bound_ms=timed[part]["bound_ms"],
-                bound_by=timed[part]["bound_by"], library_ms=None,
-                library=timed["library"], unfused_ms=timed[unfused],
-                max_abs_err=timed["max_abs_err"][err_key],
-                max_abs_err_fp32=max(r["max_abs_err"][err_key] for r in cases
-                                     if r["case"].endswith("float32")),
-                ms_fp32=fp32[part + "_ms"],
-                bound_ms_fp32=fp32[part]["bound_ms"],
-                timed_case_fp32=fp32["case"], timed_case=timed["case"])
+    numbers = dict(ms=timed[part + "_ms"], plain_ms=timed[plain],
+                   bound_ms=timed[part]["bound_ms"],
+                   bound_by=timed[part]["bound_by"],
+                   library_ms=timed["library_ms"][part],
+                   library=timed["library"], unfused_ms=timed[unfused],
+                   max_abs_err=timed["max_abs_err"][err_key],
+                   max_abs_err_fp32=max(
+                       r["max_abs_err"][err_key] for r in cases
+                       if r["case"].endswith("float32")),
+                   ms_fp32=fp32[part + "_ms"],
+                   bound_ms_fp32=fp32[part]["bound_ms"],
+                   timed_case_fp32=fp32["case"], timed_case=timed["case"])
+    wgmma = {"dh": ("fce_bwd_dl_wgmma", "fce_bwd_dh_wgmma"),
+             "dw": ("fce_bwd_dw_wgmma",)}   # the bf16 backward's kernels
+    if part in wgmma:
+        numbers["ptxas_bf16"] = [r for r in ptxas
+                                 if r["kernel"] in wgmma[part]]
+    return numbers
 
 
 def segmented_numbers(name, cases):
@@ -2004,7 +2032,8 @@ def summary(rows, paths):
         if name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
         elif name.startswith("fused_ce"):
-            numbers = fused_numbers(name, rows["fused_ce"])
+            numbers = fused_numbers(name, rows["fused_ce"],
+                                    rows["ptxas"]["fused_ce"])
         elif name == "mma_probe":
             timed = rows["mma_probe"][0]
             numbers = dict(ms=timed["ms"], plain_ms=timed["plain_ms"],

@@ -31,7 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
            "fused_ce", "mma_probe")
 # the csrc/ headers each source includes (hashed with it)
-HEADERS = {"fused_ce": ("mma_bf16.cuh",),
+HEADERS = {"fused_ce": ("mma_bf16.cuh", "wgmma_bf16.cuh"),
            "flash_attention": ("segment_ids.cuh", "wgmma_bf16.cuh"),
            "flash_attention_bwd": ("segment_ids.cuh", "wgmma_bf16.cuh"),
            "mma_probe": ("mma_bf16.cuh", "wgmma_bf16.cuh")}

@@ -14,50 +14,90 @@
 // V = 32000, bf16) one T x H x V product is 1.07e12 operations against
 // 0.16 GB of h and W: ~1.1 ms at the bf16 tensor-core peak against 0.05 ms
 // of bytes. All three are bound by arithmetic, so bf16 runs on the tensor
-// cores: warp-level mma.sync m16n8k16 with fp32 accumulators, fragments
-// through ldmatrix / ldmatrix.trans (csrc/mma_bf16.cuh, checked form by
-// form by csrc/mma_probe.cu). fp32 inputs run in full fp32 on the CUDA
-// cores (8 x 8 FMA register blocks; TF32 stays off, the reference's
-// 'highest' precision): correct, and slow.
+// cores; fp32 inputs run in full fp32 on the CUDA cores (8 x 8 FMA
+// register blocks; TF32 stays off, the reference's 'highest' precision):
+// correct, and slow.
 //
-// What the design does about it:
-//  * one block tile product for every step: 128 x 128 outputs, 32 deep per
-//    stage, two cp.async stages, 8 warps; the tile lands in shared memory
-//    as fp32 (aliasing the operand stages), where each kernel's epilogue
-//    reads it row by row. The TPU kernels' accumulators do not fit a block
-//    (dh: [256, H] fp32 = 2 MB; dW: [H, 1024] fp32 = 8 MB), so:
-//  * forward: grid (token tiles, vocab splits). Each block walks its share
-//    of the vocab tiles keeping per-row (max, sum-exp, gold) in shared
-//    memory, and writes them as partials [3, splits, T]; a second small
-//    kernel combines the splits per token (lse = M + log sum l_i e^(m_i-M),
-//    gold = sum of the one non-zero gold_i). The splits give the card
-//    ~1000 blocks at the training shape where token tiles alone give 64.
-//  * backward, one vocab chunk of C columns at a time (C = a multiple of
-//    32, at most 4096 and under V/4, so the workspace is T x C elements,
-//    64 MB at the training shape, never half of T x V):
-//      dl kernel:  recompute the logits tile, dl = (p - onehot) * g,
-//                  rounded to the input dtype (the reference's rounding
-//                  point; h and W share one dtype) -> workspace [T, C];
-//      dh kernel:  dh += dl . W[:, chunk]^T into an fp32 [T, H] buffer,
-//                  written as dh in h's dtype at the last chunk;
-//      dW kernel:  dW[:, chunk] = h^T . dl, the whole token axis in the
-//                  block's fp32 registers, written once in W's dtype.
-//    That is 3 products (dl's recompute, dh, dW) where the TPU kernels do
-//    4 (each of dh and dW recomputes the logits).
-//  * every output tile is written by one block, in a fixed order of
-//    summation: no atomics, deterministic.
-//  * ragged vocab: columns >= V are zero-filled operand rows, masked to
-//    -1e30 in the forward (nothing in lse) and give dl = 0 (nothing in dW);
-//    dW is [H, V]. Ragged T and H are masked the same way.
-//  * ignored rows arrive with label 0 and g = 0 (the wrapper), so dl = 0.
-//  * registers: __launch_bounds__(256, 2) caps a thread at 128; ptxas for
-//    sm_90a reports 122-128 in every instantiation, with an 8-byte spill
-//    in one of the two forward ones. At the training shape the bf16
-//    kernels run at ~210-220 TFLOP/s of mma.sync, 4.5-4.8x their bound:
-//    wgmma with TMA loads is the road to it.
+// Every kernel writes each output tile from one CTA, in a fixed order of
+// summation: no atomics, deterministic. Ragged T and H are masked; ignored
+// rows arrive with label 0 and g = 0 (the wrapper), so their dl is 0.
+//
+// Forward (both dtypes; bf16 on warp-level mma.sync m16n8k16 through
+// csrc/mma_bf16.cuh, checked form by form by csrc/mma_probe.cu): one
+// block tile product, tile_product (128 x 128 outputs, 32 deep per stage,
+// two cp.async stages, 8 warps), lands in shared memory as fp32 where the
+// epilogue reads it row by row. Grid (token tiles, vocab splits): each
+// block walks its share of the vocab tiles keeping per-row (max, sum-exp,
+// gold) in shared memory and writes them as partials [3, splits, T]; a
+// second small kernel combines the splits per token (lse = M + log sum
+// l_i e^(m_i-M), gold = sum of the one non-zero gold_i). The splits give
+// the card ~1000 blocks at the training shape where token tiles alone give
+// 64. Columns >= V are zero-filled and masked to -1e30 (nothing in lse).
+// __launch_bounds__(256, 2): 122-128 registers a thread.
+//
+// Backward, one vocab chunk of C columns at a time (C a multiple of 32,
+// at most 4096 and under V/4, so the workspace is T x C elements, 64 MB at
+// the training shape, never half of T x V), three products per chunk
+// where the TPU kernels do four (each of dh and dW recomputes the logits):
+//   dl:  recompute the logits tile, dl = (p - onehot) * g, rounded to the
+//        input dtype (the reference's rounding point; h and W share one
+//        dtype) -> workspace [T, C];
+//   dh:  dh += dl . W[:, chunk]^T into an fp32 [T, H] buffer, written as
+//        dh in h's dtype at the last chunk;
+//   dW:  dW[:, chunk] = h^T . dl over the whole token axis, written once in
+//        W's dtype; columns of dW >= V are never written.
+// fp32 runs each product through tile_product on the CUDA cores, as the
+// forward does. bf16 (namespace tc) runs all three through one
+// warp-specialized wgmma main loop, gemm(), building blocks in
+// csrc/wgmma_bf16.cuh:
+//  * 384 threads a CTA, one CTA an SM, persistent over the product's
+//    128 x 256 output tiles, M tile fastest: a producer warpgroup (24
+//    registers after setmaxnreg; its first warp issues the TMA, the other
+//    three leave) and two consumer warpgroups (240 registers) of 64 output
+//    rows each, on two m64n128k16 wgmma per k16 slice with 128 fp32
+//    accumulators a thread. (128 x 128 tiles were right first, and slower:
+//    the 256-wide B tile halves the A traffic per product.)
+//  * operands come as 64 x 64 bf16 boxes with 128-byte swizzle through
+//    rank-2 tensor maps into a ring of 4 stages (48 KB each: two A boxes,
+//    one per consumer, and four B boxes), guarded by full (one arrival
+//    plus the bytes) and empty (one arrival per consumer warp) mbarriers.
+//    The ring runs on across tiles, so the next tile's loads overlap this
+//    tile's epilogue.
+//  * each epilogue reads its accumulators in registers (the layout of
+//    wgmma_bf16.cuh) and writes bf16x2 pairs or fp32 pairs straight to
+//    device memory; nothing goes through an fp32 shared-memory tile. dh's
+//    epilogue loads the fp32 buffer's 16 pairs of a row half before it adds
+//    any, so their latencies overlap (a load just before each add left
+//    the tile waiting on one load at a time).
+//  Where trouble was likely, and what the design does:
+//   1. transpose-A: dW = h^T . dl reads h with the token axis (k) as the
+//      stored row, i.e. A MN-major; wgmma_ss takes a TRANS_A bit and
+//      desc_mnslice the slice, both checked by mma_probe.cu form 7 (A and
+//      B MN-major) before the dW kernel relies on them.
+//   2. tensor maps: a rank-2 matrix_map (base, rows, cols, row stride, 64
+//      x 64 boxes); every operand is a plain row-major matrix.
+//   3. chunk edges: the workspace's row stride is C, and where cw < C its
+//      columns cw..C still hold an earlier chunk's dl. The dl map that dh
+//      and dW read has extent cw, so TMA fills those columns with zeros.
+//   4. W tiles past the chunk: in the dl product a W box may run past c0 +
+//      cw (the next chunk's columns) or past V (zeros); exp(acc - lse) is
+//      not 0 there, so the epilogue stores only c < cw.
+//   5. ragged edges are exercised by chip_smoke.py's fused-CE cases: V =
+//      40000 (last chunk 3136) and V = 2000 (chunk 480, last chunk 80).
+//   6. registers: 128 accumulators plus the epilogue's exp, label
+//      compare and packing (dh: 32 more for the buffer's pairs) within
+//      240; chip_smoke.py phase 2 prints ptxas's registers and spill
+//      bytes of each kernel.
+//   7. alignment: the wrapper requires h and W contiguous, 16-byte
+//      aligned, H and V multiples of 8, so every TMA stride is a multiple
+//      of 16 bytes, as is the workspace's (C a multiple of 32).
+//   8. names keep the fce_ prefix (tools/train_profile.py groups by it).
+//   9. _build.HEADERS["fused_ce"] lists wgmma_bf16.cuh, so an edit to it
+//      rebuilds this library.
 // Inputs: h [T, H], W [H, V] contiguous, one dtype, H and V multiples of 8
 // (tiles move in 16-byte pieces), labels int32 [T] in [0, V).
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -71,11 +111,6 @@ using ptmma::THREADS;
 constexpr float NEG_INF = -1e30f;
 constexpr int LDC = BN + 8;   // fp32 output tile row stride in shared memory
 constexpr int C_BYTES = BM * LDC * static_cast<int>(sizeof(float));
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // -- the block tile product: C tile (fp32, shared, [BM][LDC]) ------------
 
@@ -262,20 +297,19 @@ __global__ void fce_fwd_combine(const float* __restrict__ part,
   loss[row] = x - gold;
 }
 
-// -- backward -------------------------------------------------------------
+// -- backward, float32: the CUDA cores ------------------------------------
 
 // grid (ceil(T / BM), ceil(cw / BN)): dl[t][c] for the chunk's columns
-// c0 + c, c < cw = min(C, V - c0), rounded to T, in a [T, ld_dl] workspace.
-template <typename T>
+// c0 + c, c < cw = min(C, V - c0), in a [T, ld_dl] workspace.
 __global__ void __launch_bounds__(THREADS, 2)
-    fce_bwd_dl(const T* __restrict__ h, const T* __restrict__ w,
+    fce_bwd_dl(const float* __restrict__ h, const float* __restrict__ w,
                const int* __restrict__ labels, const float* __restrict__ lse,
-               const float* __restrict__ g, T* __restrict__ dl, int t_len,
+               const float* __restrict__ g, float* __restrict__ dl, int t_len,
                int hid, int vocab, int c0, int cw, int ld_dl) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
-  const Operand<T> A{h, hid, t_len, hid};
-  const Operand<T> B{w + c0, vocab, cw, hid};
+  const Operand<float> A{h, hid, t_len, hid};
+  const Operand<float> B{w + c0, vocab, cw, hid};
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   tile_product<true, false>(cs, A, B, m0, n0, hid, smem);
@@ -289,26 +323,25 @@ __global__ void __launch_bounds__(THREADS, 2)
       const int c = n0 + lane + 32 * j;
       if (c < cw) {
         const float p = expf(cs[r * LDC + lane + 32 * j] - x);
-        store(dl + static_cast<long long>(row) * ld_dl + c,
-              (p - (c == label ? 1.f : 0.f)) * gt);
+        dl[static_cast<long long>(row) * ld_dl + c] =
+            (p - (c == label ? 1.f : 0.f)) * gt;
       }
     }
   }
 }
 
 // grid (ceil(T / BM), ceil(H / BN)): acc (+)= dl . W[:, chunk]^T; at the
-// last chunk the sum goes to dh in T instead. A = dl (K-major),
+// last chunk the sum goes to dh instead. A = dl (K-major),
 // B(k = v, n = j) = W[j][c0 + v] (K-major).
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-    fce_bwd_dh(const T* __restrict__ dl, const T* __restrict__ w,
-               float* __restrict__ acc, T* __restrict__ dh, int t_len,
+    fce_bwd_dh(const float* __restrict__ dl, const float* __restrict__ w,
+               float* __restrict__ acc, float* __restrict__ dh, int t_len,
                int hid, int vocab, int c0, int cw, int ld_dl, int first,
                int last) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
-  const Operand<T> A{dl, ld_dl, t_len, cw};
-  const Operand<T> B{w + c0, vocab, hid, cw};
+  const Operand<float> A{dl, ld_dl, t_len, cw};
+  const Operand<float> B{w + c0, vocab, hid, cw};
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   tile_product<true, true>(cs, A, B, m0, n0, cw, smem);
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
@@ -318,7 +351,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     float v = cs[r * LDC + c];
     if (!first) v += acc[i];
     if (last)
-      store(dh + i, v);
+      dh[i] = v;
     else
       acc[i] = v;
   }
@@ -326,24 +359,365 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // grid (ceil(H / BM), ceil(cw / BN)): dW[:, c0 + c] = h^T . dl over all T.
 // A(m = j, k = t) = h[t][j] (M-major), B(k = t, n = c) = dl[t][c] (N-major).
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-    fce_bwd_dw(const T* __restrict__ h, const T* __restrict__ dl,
-               T* __restrict__ dw, int t_len, int hid, int vocab, int c0,
+    fce_bwd_dw(const float* __restrict__ h, const float* __restrict__ dl,
+               float* __restrict__ dw, int t_len, int hid, int vocab, int c0,
                int cw, int ld_dl) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* cs = reinterpret_cast<float*>(smem);
-  const Operand<T> A{h, hid, hid, t_len};
-  const Operand<T> B{dl, ld_dl, cw, t_len};
+  const Operand<float> A{h, hid, hid, t_len};
+  const Operand<float> B{dl, ld_dl, cw, t_len};
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   tile_product<false, false>(cs, A, B, m0, n0, t_len, smem);
   for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
     const int r = e / BN, c = e % BN, row = m0 + r, col = n0 + c;
     if (row < hid && col < cw)
-      store(dw + static_cast<long long>(row) * vocab + c0 + col,
-            cs[r * LDC + c]);
+      dw[static_cast<long long>(row) * vocab + c0 + col] = cs[r * LDC + c];
   }
 }
+
+// -- backward, bf16: wgmma + TMA --------------------------------------------
+
+namespace tc {
+
+constexpr int CONSUMERS = 2;                  // consumer warpgroups
+constexpr int TM = CONSUMERS * 64;            // output rows of a tile
+constexpr int TN = 256;                       // output columns of a tile
+constexpr int NB = TN / 128;                  // m64n128 products per k16
+constexpr int KSTEP = 64;                     // k of one stage
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int STAGES = 4;
+constexpr int BOX = 64 * KSTEP;               // elements of one 64 x 64 box
+constexpr uint32_t BOX_BYTES = BOX * 2;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Smem {
+  bf16 a[STAGES][CONSUMERS][BOX];   // A: each consumer's 64 M x 64 K
+  bf16 b[STAGES][TN / 64][BOX];     // B: TN N x 64 K in 64-wide blocks
+  uint64_t full[STAGES], empty[STAGES];
+};
+
+// C[M, N] = A[M, K] . B[K, N] in TM x TN tiles, K in KSTEP stages
+struct Product {
+  int m_tiles, n_tiles, k_steps;
+  int b_col;   // B's first column in its map (c0 where B is W)
+};
+
+// box `mn` (64 M or N indices), k step `k` of an operand: a K-major one
+// holds M/N rows and k columns, an MN-major one k rows and M/N columns
+template <bool MN>
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int mn, int k,
+                                         int col0) {
+  if (MN)
+    ptwg::tma_load_2d(dst, map, bar, col0 + mn, k);
+  else
+    ptwg::tma_load_2d(dst, map, bar, col0 + k, mn);
+}
+
+template <bool MN>
+__device__ __forceinline__ uint64_t slice_desc(const bf16* box, int kk) {
+  return MN ? ptwg::desc_mnslice(box, kk, BOX_BYTES)
+            : ptwg::desc_kslice(box, kk, BOX_BYTES);
+}
+
+// the first of the two accumulator rows this thread holds, for a
+// warpgroup whose 64 rows start at m
+__device__ __forceinline__ int acc_row(int m) {
+  return m + 16 * ((threadIdx.x / 32) & 3) + (threadIdx.x & 31) / 4;
+}
+
+// The shared main loop. One CTA per SM walks tiles blockIdx.x,
+// + gridDim.x, ..., M tile fastest (the CTAs running at one time share
+// their B tiles); its producer warp keeps STAGES stages of TMA boxes in
+// flight (across tile boundaries, so the next tile's loads overlap this
+// one's epilogue) and each consumer warpgroup takes 64 rows of the tile
+// through two m64n128k16 products per k16 slice, then hands its fp32
+// accumulators, in registers, to `epi(first row, first column, acc)`.
+template <bool A_MN, bool B_MN, typename Epilogue>
+__device__ __forceinline__ void gemm(const CUtensorMap* ta,
+                                     const CUtensorMap* tb, const Product p,
+                                     const Epilogue& epi) {
+  using namespace ptwg;
+  Smem& s = aligned_smem<Smem>();
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int tiles = p.m_tiles * p.n_tiles;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      bar_init(&s.full[i], 1);                // the producer's one arrival
+      bar_init(&s.empty[i], CONSUMERS * 4);   // every consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  int stage = 0;
+  uint32_t phase = 0;
+  if (wg == CONSUMERS) {   // producer warpgroup: its first warp loads
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp != CONSUMERS * 4) return;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = t % p.m_tiles * TM, n0 = t / p.m_tiles * TN;
+      for (int k = 0; k < p.k_steps; ++k) {
+        bar_wait(&s.empty[stage], phase ^ 1);
+        if (lane == 0) {
+          bar_arrive_tx(&s.full[stage], (CONSUMERS + TN / 64) * BOX_BYTES);
+          for (int j = 0; j < CONSUMERS; ++j)
+            load_box<A_MN>(s.a[stage][j], ta, &s.full[stage], m0 + 64 * j,
+                           k * KSTEP, 0);
+          for (int j = 0; j < TN / 64; ++j)
+            load_box<B_MN>(s.b[stage][j], tb, &s.full[stage], n0 + 64 * j,
+                           k * KSTEP, p.b_col);
+        }
+        __syncwarp();
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {   // consumer warpgroup wg: rows 64 * wg .. of each tile
+    regs_alloc<CONSUMER_REGS>();
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      float acc[NB][64];
+      int prev = 0;
+      for (int k = 0; k < p.k_steps; ++k) {
+        bar_wait(&s.full[stage], phase);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KSTEP / 16; ++kk)
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb)
+            wgmma_ss<B_MN, A_MN>(
+                acc[nb], slice_desc<A_MN>(s.a[stage][wg], kk),
+                slice_desc<B_MN>(s.b[stage][2 * nb], kk), k > 0 || kk > 0);
+        wgmma_commit();
+        if (k > 0) {   // the previous stage's products are done with it
+          wgmma_wait<1>();
+          if (lane == 0) bar_arrive(&s.empty[prev]);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) bar_arrive(&s.empty[prev]);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+      epi(t % p.m_tiles * TM + 64 * wg, t / p.m_tiles * TN, acc);
+    }
+  }
+}
+
+// dl = (exp(acc - lse) - [c == label]) * g, rounded to bf16, into the
+// [T, ld] workspace; columns c >= cw (W's next chunk, or zeros past V)
+// get nothing, rows past T neither.
+struct DlEpilogue {
+  const int* labels;
+  const float* lse;
+  const float* g;
+  bf16* dl;
+  int t_len, c0, cw, ld;
+
+  __device__ __forceinline__ void operator()(int m, int n0,
+                                             const float (&acc)[NB][64]) const {
+    const int lane = threadIdx.x & 31;
+    float x[2], gt[2];
+    int label[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {   // both rows' loads first
+      const int row = acc_row(m) + 8 * hi;
+      const bool in = row < t_len;
+      x[hi] = in ? lse[row] * LOG2E : 0.f;
+      gt[hi] = in ? g[row] : 0.f;
+      label[hi] = in ? labels[row] - c0 : -1;
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = acc_row(m) + 8 * hi;
+      if (row >= t_len) continue;
+      bf16* out = dl + static_cast<long long>(row) * ld;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 2 * hi; i < 64; i += 4) {
+          const int c = n0 + 128 * nb + ptwg::acc_col(i, lane);
+          if (c >= cw) continue;   // cw is even: c + 1 < cw too
+          const float p0 = exp2f(fmaf(acc[nb][i], LOG2E, -x[hi]));
+          const float p1 = exp2f(fmaf(acc[nb][i + 1], LOG2E, -x[hi]));
+          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
+              (p0 - (c == label[hi] ? 1.f : 0.f)) * gt[hi],
+              (p1 - (c + 1 == label[hi] ? 1.f : 0.f)) * gt[hi]);
+        }
+    }
+  }
+};
+
+// dh (+)= acc: the chunk's sum joins the fp32 [T, H] buffer (first: is
+// it); at the last chunk the total goes to dh in bf16 instead. The
+// buffer's 16 pairs of a row half load before any is added, so their
+// latencies overlap.
+struct DhEpilogue {
+  float* buf;
+  bf16* dh;
+  int t_len, hid, first, last;
+
+  __device__ __forceinline__ void operator()(int m, int n0,
+                                             const float (&acc)[NB][64]) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = acc_row(m) + 8 * hi;
+      if (row >= t_len) continue;
+      float* brow = buf + static_cast<long long>(row) * hid;
+      bf16* drow = dh + static_cast<long long>(row) * hid;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        float2 old[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = n0 + 128 * nb + ptwg::acc_col(4 * j, lane);
+          old[j] = first || col >= hid
+                       ? make_float2(0.f, 0.f)
+                       : *reinterpret_cast<const float2*>(brow + col);
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int i = 4 * j + 2 * hi;
+          const int col = n0 + 128 * nb + ptwg::acc_col(i, lane);
+          if (col >= hid) continue;
+          const float x = acc[nb][i] + old[j].x, y = acc[nb][i + 1] + old[j].y;
+          if (last)
+            *reinterpret_cast<__nv_bfloat162*>(drow + col) =
+                __floats2bfloat162_rn(x, y);
+          else
+            *reinterpret_cast<float2*>(brow + col) = make_float2(x, y);
+        }
+      }
+    }
+  }
+};
+
+// dW[j][c0 + c] = acc rounded to bf16, for j < H and c < cw
+struct DwEpilogue {
+  bf16* dw;
+  int hid, vocab, c0, cw;
+
+  __device__ __forceinline__ void operator()(int m, int n0,
+                                             const float (&acc)[NB][64]) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = acc_row(m) + 8 * hi;
+      if (row >= hid) continue;
+      bf16* out = dw + static_cast<long long>(row) * vocab + c0;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 2 * hi; i < 64; i += 4) {
+          const int c = n0 + 128 * nb + ptwg::acc_col(i, lane);
+          if (c < cw)
+            *reinterpret_cast<__nv_bfloat162*>(out + c) =
+                __floats2bfloat162_rn(acc[nb][i], acc[nb][i + 1]);
+        }
+    }
+  }
+};
+
+// dl = h . W[:, chunk]: A = h (K-major), B = W (MN-major, from column c0)
+__global__ void __launch_bounds__(THREADS, 1)
+    fce_bwd_dl_wgmma(const __grid_constant__ CUtensorMap th,
+                     const __grid_constant__ CUtensorMap tw, const Product p,
+                     const DlEpilogue e) {
+  gemm<false, true>(&th, &tw, p, e);
+}
+
+// dh (+)= dl . W[:, chunk]^T: A = dl (K-major), B(k = v, n = j) =
+// W[j][c0 + v] (K-major)
+__global__ void __launch_bounds__(THREADS, 1)
+    fce_bwd_dh_wgmma(const __grid_constant__ CUtensorMap tl,
+                     const __grid_constant__ CUtensorMap tw, const Product p,
+                     const DhEpilogue e) {
+  gemm<false, false>(&tl, &tw, p, e);
+}
+
+// dW[:, chunk] = h^T . dl: A(m = j, k = t) = h[t][j] and B(k = t, n = c)
+// = dl[t][c], both MN-major
+__global__ void __launch_bounds__(THREADS, 1)
+    fce_bwd_dw_wgmma(const __grid_constant__ CUtensorMap th,
+                     const __grid_constant__ CUtensorMap tl, const Product p,
+                     const DwEpilogue e) {
+  gemm<true, true>(&th, &tl, p, e);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// C[m, n] over k: one CTA per SM, or per tile where there are fewer
+template <typename Kernel, typename Epilogue>
+cudaError_t launch(Kernel kernel, const CUtensorMap& ta,
+                   const CUtensorMap& tb, int m, int n, int k, int b_col,
+                   const Epilogue& e, cudaStream_t s) {
+  const Product p{(m + TM - 1) / TM, (n + TN - 1) / TN,
+                  (k + KSTEP - 1) / KSTEP, b_col};
+  const int smem = static_cast<int>(sizeof(Smem)) + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = p.m_tiles * p.n_tiles, sms = sm_count();
+  kernel<<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(ta, tb, p, e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dl(const void* h, const void* w, const int* labels,
+                      const float* lse, const float* g, void* dl, int t_len,
+                      int hid, int vocab, int c0, int cw, int ld_dl,
+                      cudaStream_t s) {
+  CUtensorMap th, tw;
+  cudaError_t err;
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+    return err;
+  const DlEpilogue e{labels, lse, g, static_cast<bf16*>(dl), t_len, c0, cw,
+                     ld_dl};
+  return launch(fce_bwd_dl_wgmma, th, tw, t_len, cw, hid, c0, e, s);
+}
+
+// the workspace's map stops at column cw: columns cw .. ld_dl - 1 still
+// hold an earlier chunk's dl and must read as zeros
+cudaError_t launch_dh(const void* dl, const void* w, float* acc, void* dh,
+                      int t_len, int hid, int vocab, int c0, int cw,
+                      int ld_dl, int first, int last, cudaStream_t s) {
+  CUtensorMap tl, tw;
+  cudaError_t err;
+  if ((err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64)) !=
+          cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+    return err;
+  const DhEpilogue e{acc, static_cast<bf16*>(dh), t_len, hid, first, last};
+  return launch(fce_bwd_dh_wgmma, tl, tw, t_len, hid, cw, c0, e, s);
+}
+
+cudaError_t launch_dw(const void* h, const void* dl, void* dw, int t_len,
+                      int hid, int vocab, int c0, int cw, int ld_dl,
+                      cudaStream_t s) {
+  CUtensorMap th, tl;
+  cudaError_t err;
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64)) != cudaSuccess)
+    return err;
+  const DwEpilogue e{static_cast<bf16*>(dw), hid, vocab, c0, cw};
+  return launch(fce_bwd_dw_wgmma, th, tl, hid, cw, t_len, 0, e, s);
+}
+
+}  // namespace tc
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel k, int bytes) {
@@ -374,43 +748,40 @@ cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t bwd_dl(const void* h, const void* w, const int* labels,
                    const float* lse, const float* g, void* dl, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<T, true, false>();
-  cudaError_t err = allow_smem(fce_bwd_dl<T>, smem);
+  constexpr int smem = smem_bytes<float, true, false>();
+  cudaError_t err = allow_smem(fce_bwd_dl, smem);
   if (err != cudaSuccess) return err;
-  fce_bwd_dl<T><<<grid_of(t_len, cw), THREADS, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), labels, lse, g,
-      static_cast<T*>(dl), t_len, hid, vocab, c0, cw, ld_dl);
+  fce_bwd_dl<<<grid_of(t_len, cw), THREADS, smem, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), labels, lse,
+      g, static_cast<float*>(dl), t_len, hid, vocab, c0, cw, ld_dl);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t bwd_dh(const void* dl, const void* w, float* acc, void* dh,
                    int t_len, int hid, int vocab, int c0, int cw, int ld_dl,
                    int first, int last, cudaStream_t s) {
-  constexpr int smem = smem_bytes<T, true, true>();
-  cudaError_t err = allow_smem(fce_bwd_dh<T>, smem);
+  constexpr int smem = smem_bytes<float, true, true>();
+  cudaError_t err = allow_smem(fce_bwd_dh, smem);
   if (err != cudaSuccess) return err;
-  fce_bwd_dh<T><<<grid_of(t_len, hid), THREADS, smem, s>>>(
-      static_cast<const T*>(dl), static_cast<const T*>(w), acc,
-      static_cast<T*>(dh), t_len, hid, vocab, c0, cw, ld_dl, first, last);
+  fce_bwd_dh<<<grid_of(t_len, hid), THREADS, smem, s>>>(
+      static_cast<const float*>(dl), static_cast<const float*>(w), acc,
+      static_cast<float*>(dh), t_len, hid, vocab, c0, cw, ld_dl, first, last);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t bwd_dw(const void* h, const void* dl, void* dw, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<T, false, false>();
-  cudaError_t err = allow_smem(fce_bwd_dw<T>, smem);
+  constexpr int smem = smem_bytes<float, false, false>();
+  cudaError_t err = allow_smem(fce_bwd_dw, smem);
   if (err != cudaSuccess) return err;
-  fce_bwd_dw<T><<<grid_of(hid, cw), THREADS, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const T*>(dl),
-      static_cast<T*>(dw), t_len, hid, vocab, c0, cw, ld_dl);
+  fce_bwd_dw<<<grid_of(hid, cw), THREADS, smem, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(dl),
+      static_cast<float*>(dw), t_len, hid, vocab, c0, cw, ld_dl);
   return cudaGetLastError();
 }
 
@@ -451,11 +822,11 @@ int pt_fused_ce_bwd_dl(const void* h, const void* w, const void* labels,
   const float* ls = static_cast<const float*>(lse);
   const float* gt = static_cast<const float*>(g);
   if (dtype == 0)
-    return bwd_dl<float>(h, w, lab, ls, gt, dl, t_len, hid, vocab, c0, cw,
-                         ld_dl, s);
+    return bwd_dl(h, w, lab, ls, gt, dl, t_len, hid, vocab, c0, cw, ld_dl,
+                  s);
   if (dtype == 1)
-    return bwd_dl<bf16>(h, w, lab, ls, gt, dl, t_len, hid, vocab, c0, cw,
-                        ld_dl, s);
+    return tc::launch_dl(h, w, lab, ls, gt, dl, t_len, hid, vocab, c0, cw,
+                         ld_dl, s);
   return cudaErrorInvalidValue;
 }
 
@@ -467,11 +838,11 @@ int pt_fused_ce_bwd_dh(const void* dl, const void* w, void* acc, void* dh,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(acc);
   if (dtype == 0)
-    return bwd_dh<float>(dl, w, a, dh, t_len, hid, vocab, c0, cw, ld_dl,
-                         first, last, s);
+    return bwd_dh(dl, w, a, dh, t_len, hid, vocab, c0, cw, ld_dl, first,
+                  last, s);
   if (dtype == 1)
-    return bwd_dh<bf16>(dl, w, a, dh, t_len, hid, vocab, c0, cw, ld_dl,
-                        first, last, s);
+    return tc::launch_dh(dl, w, a, dh, t_len, hid, vocab, c0, cw, ld_dl,
+                         first, last, s);
   return cudaErrorInvalidValue;
 }
 
@@ -481,9 +852,9 @@ int pt_fused_ce_bwd_dw(const void* h, const void* dl, void* dw, int t_len,
                        int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_dw<float>(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
+    return bwd_dw(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
   if (dtype == 1)
-    return bwd_dw<bf16>(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
+    return tc::launch_dw(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,10 @@
 // K-major; (5) nn, an ss product with B MN-major (the transpose bit) two
 // 64-wide blocks apart (LBO); (6) the chained form on wgmma: S = a.b^T
 // (ss), exp, the accumulator handed over as bf16 A fragments, and P.b as
-// an rs product with b read MN-major, as dk/dv computes P^T.dO.
+// an rs product with b read MN-major, as dk/dv computes P^T.dO. Form 7
+// is tn on wgmma, both operands MN-major (A with the transpose-A bit), each
+// loaded through a rank-2 tensor map: the form the fused CE backward's
+// dW = h^T . dl takes.
 //
 // What bounds it: each form is 2 * 512 * 512 * 128 = 6.7e7 operations on
 // ~1.3 MB, so at this size it is bound by bytes and by its launch; the
@@ -241,6 +244,43 @@ __global__ void __launch_bounds__(128)
   store_wg(o, out, PD, q0, 0);
 }
 
+// form 7: out = a^T . b, a [128, 512], b [128, 512]: a 64 x 128 tile per
+// block, both operands MN-major in boxes of 64 columns x 128 rows (A one
+// box, B two, 64-wide N blocks a box apart) through rank-2 maps
+__global__ void __launch_bounds__(128)
+    probe_wgmma_tn(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb, float* out) {
+  using namespace ptwg;
+  constexpr uint32_t MN_BOX = 2 * BOX_BYTES;   // 64 columns x 128 rows
+  unsigned char* smem = aligned_smem();
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = reinterpret_cast<bf16*>(smem + MN_BOX);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 3 * MN_BOX);
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 128;
+  if (threadIdx.x == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bar_arrive_tx(bar, 3 * MN_BOX);
+    tma_load_2d(as, &ta, bar, m0, 0);
+    for (int j = 0; j < 2; ++j)
+      tma_load_2d(bs + j * MN_BOX / 2, &tb, bar, n0 + j * 64, 0);
+  }
+  bar_wait(bar, 0);
+  float acc[64];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < PD / 16; ++kk)
+    wgmma_ss<1, 1>(acc, desc_mnslice(as, kk, MN_BOX),
+                   desc_mnslice(bs, kk, MN_BOX), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  store_wg(acc, out, PK, m0, n0);
+}
+
 // a [512, 128] (or b [128, 512] for form 5) as a tensor map of 64-column
 // boxes
 cudaError_t probe_map(CUtensorMap* map, const void* x, int rows, int cols,
@@ -252,12 +292,24 @@ cudaError_t probe_map(CUtensorMap* map, const void* x, int rows, int cols,
 cudaError_t launch_wgmma(int form, const void* a, const void* b, void* out,
                          cudaStream_t s) {
   CUtensorMap ta, tb;
-  cudaError_t err = probe_map(&ta, a, PQ, PD, 64);
+  cudaError_t err;
+  float* o = static_cast<float*>(out);
+  if (form == 7) {
+    const int smem = 6 * BOX_BYTES + 1024 + 64;
+    if ((err = ptwg::matrix_map(&ta, a, PD, PQ, PQ, PD)) != cudaSuccess ||
+        (err = ptwg::matrix_map(&tb, b, PD, PK, PK, PD)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(
+             probe_wgmma_tn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             smem)) != cudaSuccess)
+      return err;
+    probe_wgmma_tn<<<dim3(PQ / 64, PK / 128), 128, smem, s>>>(ta, tb, o);
+    return cudaGetLastError();
+  }
+  err = probe_map(&ta, a, PQ, PD, 64);
   if (err == cudaSuccess)
     err = form == 5 ? probe_map(&tb, b, PD, PK, PD)
                     : probe_map(&tb, b, PK, PD, 64);
   if (err != cudaSuccess) return err;
-  float* o = static_cast<float*>(out);
   if (form == 6) {
     const int smem = 4 * BOX_BYTES + 1024 + 64;
     err = cudaFuncSetAttribute(probe_wgmma_chained,
@@ -304,8 +356,9 @@ const char* pt_error_string(int err) {
 // form 2 tn: a [128, 512], b [128, 512] -> out [512, 512] = a^T . b
 // form 3 chained: a, b [512, 128] -> out [512, 128]
 //   = bf16(exp(a . b^T - 1)) . b
-// forms 4-6: forms 0, 1 and 3 on wgmma (4 nt ss, 5 nn ss with B
-//   MN-major, 6 chained ss -> exp -> bf16 -> rs)
+// forms 4-7: forms 0, 1, 3 and 2 on wgmma (4 nt ss, 5 nn ss with B
+//   MN-major, 6 chained ss -> exp -> bf16 -> rs, 7 tn ss with A and B
+//   MN-major through rank-2 tensor maps)
 // a, b contiguous bf16, out contiguous fp32. Returns the launch's error.
 int pt_mma_probe(int form, const void* a, const void* b, void* out,
                  void* stream) {
@@ -321,7 +374,8 @@ int pt_mma_probe(int form, const void* a, const void* b, void* out,
       return cudaGetLastError();
     case 4:
     case 5:
-    case 6: return launch_wgmma(form, a, b, out, s);
+    case 6:
+    case 7: return launch_wgmma(form, a, b, out, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,10 @@
 // bf16 warpgroup tensor-core building blocks for Hopper (sm_90a): wgmma,
 // its shared-memory descriptors, mbarriers and TMA tile loads. Header
 // only: no entry points. Used by csrc/flash_attention.cu (the bf16
-// forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels)
-// and csrc/mma_probe.cu, which checks every form the kernels use on its
-// own (forms 4-6), where a wrong descriptor or fragment layout shows as a
+// forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels),
+// csrc/fused_ce.cu (the bf16 lm_head + CE backward products) and
+// csrc/mma_probe.cu, which checks every form the kernels use on its own
+// (forms 4-7), where a wrong descriptor or fragment layout shows as a
 // wrong value of one form.
 //
 // Shared-memory tiles. Every operand tile is what one TMA load with
@@ -21,8 +22,9 @@
 //   * MN-major (the stored row is the contracted axis): rows are K
 //     indices, 8-row groups 1024 bytes apart (SBO), 64-wide M/N blocks
 //     `block_bytes` apart (LBO). A k16 slice is 16 rows further: desc +
-//     128 (2048 bytes) per slice. wgmma reads B MN-major with its
-//     transpose bit set.
+//     128 (2048 bytes) per slice (desc_mnslice). wgmma reads B MN-major
+//     with its transpose bit set, and A MN-major with the transpose-A
+//     bit (wgmma_ss<TRANS_B, 1>; A's 64-row M block is one box).
 //
 // Accumulators (m64nNk16, fp32): thread t of the warpgroup, warp w = t /
 // 32, lane l: d[4j + 2h + e] holds row 16w + l/4 + 8h, column 8j + 2(l%4)
@@ -36,12 +38,14 @@
 // TMA: the host encodes a rank-4 tensor map (head_dim, heads, rows,
 // batch) over the caller's strides (tile_map): a box is 64 columns x R
 // rows of one (batch, head); rows past the operand's length read as zeros
-// and never reach the next batch row. cuTensorMapEncodeTiled is a driver
-// function; the build links no libcuda, so the runtime hands its address
-// over (cudaGetDriverEntryPoint[ByVersion]). The global address and every
-// stride but the innermost must be multiples of 16 bytes (the Python
-// wrappers copy an operand that is not; a stride of a length-1 axis is
-// replaced here, since it is never used).
+// and never reach the next batch row. A plain matrix takes a rank-2 map
+// (matrix_map, tma_load_2d) whose extent can stop short of its row
+// stride: the columns past it read as zeros. cuTensorMapEncodeTiled is a
+// driver function; the build links no libcuda, so the runtime hands its
+// address over (cudaGetDriverEntryPoint[ByVersion]). The global address
+// and every stride but the innermost must be multiples of 16 bytes (the
+// Python wrappers copy an operand that is not; a stride of a length-1
+// axis is replaced here, since it is never used).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and the driver's enums (types only)
@@ -82,6 +86,13 @@ __device__ __forceinline__ uint64_t desc_kslice(const void* tile, int s,
          2 * (s & 3);
 }
 
+// the descriptor of k16 slice `s` of an MN-major operand, 16 stored rows
+// further per slice: B (wgmma's TRANS_B = 1) or A (TRANS_A = 1)
+__device__ __forceinline__ uint64_t desc_mnslice(const void* tile, int s,
+                                                 uint32_t block_bytes) {
+  return desc_mnmajor(tile, block_bytes) + 128 * s;
+}
+
 // -- wgmma ----------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -103,8 +114,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d = A . B (accumulate = 0) or d += A . B, one k16 slice. TRANS_B = 0:
-// B K-major; 1: B MN-major.
-template <int TRANS_B>
+// B K-major; 1: B MN-major. TRANS_A likewise for A (default K-major).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -114,7 +125,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -123,7 +134,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 template <int TRANS_B>
@@ -150,7 +162,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "r"(accumulate), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -164,7 +176,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -181,7 +193,8 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B),
+        "n"(TRANS_A));
 }
 
 template <int TRANS_B>
@@ -318,6 +331,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// box (c0 column, c1 row) of a rank-2 `map` (matrix_map) into `dst`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -363,6 +387,27 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int cols,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 matrix [rows, cols] with `ld` elements between rows (the columns
+// contiguous), read in boxes of 64 columns x box_rows rows, 128-byte
+// swizzle; columns past `cols` and rows past `rows` read as zeros, so a
+// map over the first `cols` columns of a wider buffer never shows the
+// rest. base and ld * 2 must be multiples of 16 bytes.
+inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows,
+                              int cols, long long ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(ld) * 2};
+  const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -10,8 +10,10 @@ stream W tile by tile and never build the logits:
 * ``fused_lm_head_ce_forward(h, w, labels) -> (loss, lse)`` launches the
   forward (per-split partial max / sum-exp / gold, then a combine);
 * ``fused_lm_head_ce_backward(h, w, labels, lse, g_t) -> (dh, dw)``
-  launches, per vocab chunk, the dl kernel and the dh product (the
-  reference's ``_dh_kernel``) and the dW product (its ``_dw_kernel``).
+  launches, per vocab chunk (``chunk_plan``), the dl kernel and the dh
+  product (the reference's ``_dh_kernel``) and the dW product (its
+  ``_dw_kernel``); in bf16 all three are one ``wgmma`` GEMM main loop
+  with TMA loads and their own epilogues, in float32 CUDA-core tiles.
 
 Each wrapper takes its plain version (``..._reference``, over the whole
 logits matrix in float32) for CPU tensors and launches the kernels or
@@ -99,6 +101,16 @@ def chunk_columns(vocab):
     ``MAX_CHUNK``, and under V/4, so the dl workspace ``[T, chunk]`` stays
     far below half of ``T x V``."""
     return max(32, min(MAX_CHUNK, (vocab - 1) // 4 // 32 * 32))
+
+
+def chunk_plan(vocab):
+    """The backward's vocab chunks, ``[(c0, cw), ...]``: ``chunk_columns(V)``
+    columns each, the last ``cw = V - c0`` wide; together they cover
+    ``[0, V)`` once. The kernels read the dl workspace ``[T, chunk]``
+    through a map of extent ``cw``, so columns a narrower last chunk
+    leaves from the one before read as zeros."""
+    chunk = chunk_columns(vocab)
+    return [(c0, min(chunk, vocab - c0)) for c0 in range(0, vocab, chunk)]
 
 
 def forward_splits(t_len, vocab):
@@ -207,8 +219,7 @@ def fused_lm_head_ce_backward(h, w, labels, lse, g_t, events=None):
     lib = _build.load("fused_ce", _SIGNATURES)
     stream = _build.stream_handle(dev)
     acc_ptr = None if acc is None else acc.data_ptr()
-    for c0 in range(0, vocab, chunk):
-        cw = min(chunk, vocab - c0)
+    for c0, cw in chunk_plan(vocab):
         _mark(events, "dh")
         err = lib.pt_fused_ce_bwd_dl(
             h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),

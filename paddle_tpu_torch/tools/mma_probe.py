@@ -6,10 +6,11 @@ Counterpart of ``tools/mosaic_probe.py``, which asks the TPU compiler
 whether it takes four bf16 dot forms at BQ = BK = 512, D = 128 with fp32
 results. Here each form runs through the fragment loads and ``mma.sync``
 building blocks of ``csrc/mma_bf16.cuh`` (``csrc/mma_probe.cu``), and
-three of them again through the ``wgmma`` and TMA building blocks of
-``csrc/wgmma_bf16.cuh`` that the bf16 flash-attention backward kernels
-use (nt with both operands K-major, nn with B MN-major, and the chained
-form with the accumulator handed over as the A operand). Unlike
+all four again through the ``wgmma`` and TMA building blocks of
+``csrc/wgmma_bf16.cuh`` that the bf16 flash-attention and fused CE
+backward kernels use (nt with both operands K-major, nn with B MN-major,
+the chained form with the accumulator handed over as the A operand, and
+tn with A and B MN-major through rank-2 tensor maps). Unlike
 the reference, its values are checked too: each result is held against
 the same product of the same bf16 values taken in float32 by PyTorch. One
 line per form, ``OK`` or ``FAIL``, as the reference prints them, with the
@@ -33,17 +34,18 @@ FORMS = (("nt bf16 (1,1)", 0, (BQ, D), (BK, D)),
          ("nt+cast+nn chained", 3, (BQ, D), (BK, D)),
          ("wgmma ss nt (K-major A, B)", 4, (BQ, D), (BK, D)),
          ("wgmma ss nn (B MN-major)", 5, (BQ, D), (D, BK)),
-         ("wgmma ss nt+cast+rs nn chained", 6, (BQ, D), (BK, D)))
+         ("wgmma ss nt+cast+rs nn chained", 6, (BQ, D), (BK, D)),
+         ("wgmma ss tn (A and B MN-major)", 7, (D, BQ), (D, BK)))
 # fp32 sums of 128 products taken in another order: a few fp32 ulps of
 # sums whose terms are ~1e-2. The chained form rounds exp(s - 1) to bf16 on
 # both sides; an s one fp32 ulp apart can round to the neighbouring bf16
 # (2^-8 relative) in a few of the 512 terms of each output.
-# The wgmma forms 4-6 take the same tolerances as their mma.sync
-# counterparts 0, 1 and 3: the same products, summed in another order.
+# The wgmma forms 4-7 take the same tolerances as their mma.sync
+# counterparts 0, 1, 3 and 2: the same products, summed in another order.
 TOL = {0: dict(atol=1e-5, rtol=1e-4), 1: dict(atol=1e-5, rtol=1e-4),
        2: dict(atol=1e-5, rtol=1e-4), 3: dict(atol=2e-3, rtol=1e-2),
        4: dict(atol=1e-5, rtol=1e-4), 5: dict(atol=1e-5, rtol=1e-4),
-       6: dict(atol=2e-3, rtol=1e-2)}
+       6: dict(atol=2e-3, rtol=1e-2), 7: dict(atol=1e-5, rtol=1e-4)}
 # the forms whose result is [512, 128] (the rest are [512, 512])
 CHAINED = (3, 6)
 
@@ -84,7 +86,7 @@ def plain(form, a, b):
         return a @ b.T
     if form in (1, 5):
         return a @ b
-    if form == 2:
+    if form in (2, 7):
         return a.T @ b
     p = torch.exp(a @ b.T - 1.0).to(torch.bfloat16).float()
     return p @ b

@@ -135,10 +135,13 @@ def test_bf16_backward_dispatches_only_to_the_wgmma_kernels():
 
 def test_probe_lists_every_wgmma_form_with_a_tolerance():
     forms = {code for _, code, _, _ in mma_probe.FORMS}
-    assert forms == set(range(7)) and set(mma_probe.TOL) == forms
+    assert forms == set(range(8)) and set(mma_probe.TOL) == forms
     gen = torch.Generator().manual_seed(0)
-    # each wgmma form computes what its mma.sync counterpart computes
-    for form, twin in ((4, 0), (5, 1), (6, 3)):
+    # each wgmma form computes what its mma.sync counterpart computes, at
+    # its twin's tolerance (form 7, tn with A MN-major: the dW product)
+    for form, twin in ((4, 0), (5, 1), (6, 3), (7, 2)):
+        assert mma_probe.FORMS[form][2:] == mma_probe.FORMS[twin][2:]
+        assert mma_probe.TOL[form] == mma_probe.TOL[twin]
         a, b = mma_probe.inputs(form, gen, "cpu")
         want = mma_probe.plain(form, a, b)
         assert want.shape == ((512, 128) if form == 6 else (512, 512))

@@ -1,0 +1,178 @@
+"""The host side of the fused lm_head + CE backward on wgmma, and its plain
+version against the JAX Pallas backward.
+
+The bf16 backward kernels (dl, dh and dW, one ``wgmma`` main loop with TMA
+loads in ``csrc/fused_ce.cu``) run only on the card, where chip_smoke.py
+holds them against the plain version. What surrounds them is Python and
+C text the CPU can check: the ctypes signatures against the C entry
+points, the dispatch of every bf16 launch to the wgmma kernels, the build's
+header list, the vocab chunk plan the wrapper walks, and the plain
+backward the kernels are held against.
+
+Tolerances. float32: dh and dW sum T or V products in another order than
+the Pallas kernels' vocab tiles, rtol 1e-4, atol 1e-7 (as
+``test_torch_fused_ce.py``). bfloat16: dl is rounded to bf16 at the same
+point on both sides, but a p one float32 ulp apart can round to the
+neighbouring bf16 (2^-8 relative) in a few elements, and dh and dW are
+rounded to bf16 themselves: atol 1e-2 x max|grad|, rtol 1e-2. The chunked
+walk in float32 against the plain version: 1e-5 relative, 1e-6 x
+max|grad| absolute (the same products, summed chunk by chunk).
+"""
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.kernels.fused_ce import _pallas_bwd, _pallas_fwd
+from paddle_tpu_torch import _build
+from paddle_tpu_torch.kernels import fused_ce as fc
+from test_torch_bwd_wgmma import _c_entry_points
+
+CSRC = Path(_build.CSRC)
+T, H = 512, 64
+F32_GRAD = dict(rtol=1e-4, atol=1e-7)
+BF16_GRAD = dict(rtol=1e-2, scale=1e-2)
+
+
+def _source():
+    text = (CSRC / "fused_ce.cu").read_text()
+    return text, text[text.index('extern "C" {'):]
+
+
+class TestHostSide:
+    def test_ctypes_signatures_match_the_c_entry_points(self):
+        found = _c_entry_points("fused_ce")
+        assert set(fc._SIGNATURES) <= set(found)
+        for name, argtypes in fc._SIGNATURES.items():
+            assert found[name] == len(argtypes), name
+
+    def test_bf16_backward_dispatches_only_to_the_wgmma_kernels(self):
+        text, entry = _source()
+        # every bf16 branch of the three backward entry points goes to tc::
+        bf16 = re.findall(r"if \(dtype == 1\)\s*return (\S+)\(", entry)
+        assert sorted(bf16) == ["fwd<bf16>", "tc::launch_dh", "tc::launch_dl",
+                                "tc::launch_dw"]
+        # each tc launcher starts its wgmma kernel, and only those call the
+        # shared main loop
+        tc = text[text.index("namespace tc {"):
+                  text.index("}  // namespace tc")]
+        assert sorted(re.findall(r"return launch\((\w+),", tc)) == [
+            "fce_bwd_dh_wgmma", "fce_bwd_dl_wgmma", "fce_bwd_dw_wgmma"]
+        assert len(re.findall(r"\bgemm<(?:true|false)", tc)) == 3
+        assert "tma_load_2d" in tc and "wgmma_ss<" in tc
+        # the CUDA-core backward takes float32 only: no bf16 instantiation
+        simt = text[text.index("// -- backward, float32"):
+                    text.index("// -- backward, bf16")]
+        for kernel in ("fce_bwd_dl", "fce_bwd_dh", "fce_bwd_dw"):
+            assert re.search(r"%s\(const float\* __restrict__" % kernel, simt)
+        assert "template" not in simt and "bf16" not in simt
+        assert not re.search(r"bwd_d[lhw]<\w", text)   # no <bf16> or <T>
+
+    def test_build_hashes_the_wgmma_header(self):
+        assert "wgmma_bf16.cuh" in _build.HEADERS["fused_ce"]
+        text, _ = _source()
+        assert '#include "wgmma_bf16.cuh"' in text
+
+    def test_kernel_names_keep_the_profile_prefix(self):
+        text, _ = _source()
+        kernels = re.findall(
+            r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+            text)
+        assert len(kernels) == 8
+        assert all(k.startswith("fce_") for k in kernels)
+
+
+@pytest.mark.parametrize("vocab,chunk,last", [(2000, 480, 80),
+                                              (32000, 4096, 3328),
+                                              (40000, 4096, 3136)])
+def test_chunk_plan_covers_the_vocab_once(vocab, chunk, last):
+    plan = fc.chunk_plan(vocab)
+    assert fc.chunk_columns(vocab) == chunk
+    assert [c0 for c0, _ in plan] == list(range(0, vocab, chunk))
+    assert sum(cw for _, cw in plan) == vocab
+    assert all(cw == chunk for _, cw in plan[:-1]) and plan[-1][1] == last
+    # TMA: the workspace's row stride and every chunk's first column and
+    # width are multiples of 16 bytes in bf16 (dW is written in pairs)
+    assert (chunk * 2) % 16 == 0
+    assert all(c0 % 8 == 0 and cw % 8 == 0 for c0, cw in plan)
+
+
+def _case(vocab, dtype, seed):
+    """h, w in ``dtype`` and safe labels, an upstream gradient with zeros
+    on ignored rows, and the Pallas forward's lse (one input for both)."""
+    rng = np.random.RandomState(seed)
+    h = (rng.randn(T, H) * 0.5).astype(np.float32)
+    w = (rng.randn(H, vocab) * 0.1).astype(np.float32)
+    labels = rng.randint(0, vocab, (T,)).astype(np.int32)
+    g = (rng.rand(T) / T).astype(np.float32)
+    g[::7] = 0.0
+    jh, jw = jnp.asarray(h, dtype), jnp.asarray(w, dtype)
+    _, lse = _pallas_fwd(jh, jw, jnp.asarray(labels), 256, 1024, True)
+    return jh, jw, labels, g, np.array(lse, np.float32)
+
+
+def _close(got, want, rtol, atol=0.0, scale=None):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    if scale is not None:
+        atol = scale * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_backward_matches_pallas_at_a_ragged_last_chunk(dtype):
+    """V = 1000: chunks of 224 columns and a last one of 104, and a vocab
+    the Pallas kernels pad to their 1024-column block."""
+    vocab = 1000
+    assert fc.chunk_plan(vocab)[-1] == (896, 104)
+    jh, jw, labels, g, lse = _case(vocab, dtype, seed=3)
+    want_dh, want_dw = _pallas_bwd(jh, jw, jnp.asarray(labels),
+                                   jnp.asarray(lse), jnp.asarray(g), 256,
+                                   1024, True)
+    tdtype = getattr(torch, dtype)
+    th = torch.from_numpy(np.array(jh, np.float32)).to(tdtype)
+    tw = torch.from_numpy(np.array(jw, np.float32)).to(tdtype)
+    dh, dw = fc.fused_lm_head_ce_backward(
+        th, tw, torch.from_numpy(labels), torch.from_numpy(lse),
+        torch.from_numpy(g))
+    assert dh.dtype == tdtype and dw.dtype == tdtype
+    tol = F32_GRAD if dtype == "float32" else BF16_GRAD
+    _close(dh, want_dh, **tol)
+    _close(dw, want_dw, **tol)
+
+
+@pytest.mark.parametrize("vocab", [1000, 2000])
+def test_chunked_walk_equals_the_plain_backward(vocab):
+    """The kernels' order in float32: per chunk, dl into a [T, chunk]
+    workspace that still holds the previous chunk's columns, the dh and dW
+    products reading it through an extent of cw (the tensor map's zero
+    fill), dh summed over chunks. It gives the plain version's dh and dW."""
+    jh, jw, labels, g, lse = _case(vocab, "float32", seed=4)
+    h = torch.from_numpy(np.array(jh))
+    w = torch.from_numpy(np.array(jw))
+    lab = torch.from_numpy(labels).long()
+    lse_t, g_t = torch.from_numpy(lse), torch.from_numpy(g)
+    chunk = fc.chunk_columns(vocab)
+    work = torch.full((T, chunk), 1e3)          # stale columns, never read
+    dh = torch.zeros(T, H)
+    dw = torch.full((H, vocab), float("nan"))   # every column written once
+    for c0, cw in fc.chunk_plan(vocab):
+        logits = h @ w[:, c0:c0 + cw]
+        onehot = (lab[:, None] == torch.arange(c0, c0 + cw)).float()
+        work[:, :cw] = (torch.exp(logits - lse_t[:, None]) - onehot) \
+            * g_t[:, None]
+        seen = torch.zeros_like(work)
+        seen[:, :cw] = work[:, :cw]              # the map's extent is cw
+        w_chunk = torch.zeros(H, chunk)
+        w_chunk[:, :cw] = w[:, c0:c0 + cw]
+        dh += seen @ w_chunk.T
+        dw[:, c0:c0 + cw] = (h.T @ seen)[:, :cw]
+    want_dh, want_dw = fc.fused_lm_head_ce_backward_reference(
+        h, w, lab.int(), lse_t, g_t)
+    for got, want in ((dh, want_dh), (dw, want_dw)):
+        np.testing.assert_allclose(
+            got.numpy(), want.numpy(), rtol=1e-5,
+            atol=1e-6 * float(want.abs().max()))
