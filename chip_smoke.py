@@ -28,7 +28,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
                 against their plain versions, bf16 at the training shape,
-                ragged vocabs and float32 (two launches bit for bit),
+                ragged vocabs, a ragged token count and float32 (two
+                launches bit for bit),
                 beside the port's unfused tail and, as a yardstick,
                 torch.matmul of the same products over the same chunks
   3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
@@ -910,10 +911,13 @@ def phase_segmented_kernels(seed):
 FCE_FWD_TOL = dict(atol=1e-3, rtol=1e-4)
 FCE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, scaled=True),
                torch.bfloat16: dict(atol=1e-2, rtol=1e-2, scaled=True)}
-# (T, H, V, dtype, timed): the training shape, ragged vocabs, float32
+# (T, H, V, dtype, timed): the training shape, ragged vocabs (the bf16
+# forward's last 256-column tile 64 and 208 wide), a ragged T (the last
+# 128-row tile 104 deep), float32
 FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
              (1024, 2048, 40000, torch.bfloat16, False),
              (512, 2048, 2000, torch.bfloat16, False),
+             (1000, 2048, 2000, torch.bfloat16, False),
              (512, 2048, 2000, torch.float32, False),
              (1024, 2048, 32000, torch.float32, True))
 
@@ -952,7 +956,7 @@ def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
         raise AssertionError(name + ": two launches differ")
     row = {"case": name, "max_abs_err": err,
            "chunk": fc.chunk_columns(vocab),
-           "splits": fc.forward_splits(t_len, vocab)}
+           "splits": fc.forward_splits(t_len, vocab, dtype)}
     if timed:
         iters, reps = (10, 5) if dtype is torch.bfloat16 else (3, 3)
         row["fwd_ms"] = time_ms(lambda: fc.fused_lm_head_ce_forward(
@@ -1949,8 +1953,8 @@ def tier2_numbers(name, cases):
 
 def fused_numbers(name, cases, ptxas):
     """A fused-CE entry's numbers: the bf16 training shape's times and
-    errors, with the float32 case's time and bound beside them, and for
-    the backward ptxas's report of its bf16 wgmma kernels."""
+    errors, with the float32 case's time and bound beside them, and
+    ptxas's report of the entry's bf16 wgmma kernels."""
     part = name.rsplit("_", 1)[1]
     timed = next(r for r in cases if "fwd_ms" in r
                  and r["case"].endswith("bfloat16"))
@@ -1971,11 +1975,10 @@ def fused_numbers(name, cases, ptxas):
                    ms_fp32=fp32[part + "_ms"],
                    bound_ms_fp32=fp32[part]["bound_ms"],
                    timed_case_fp32=fp32["case"], timed_case=timed["case"])
-    wgmma = {"dh": ("fce_bwd_dl_wgmma", "fce_bwd_dh_wgmma"),
-             "dw": ("fce_bwd_dw_wgmma",)}   # the bf16 backward's kernels
-    if part in wgmma:
-        numbers["ptxas_bf16"] = [r for r in ptxas
-                                 if r["kernel"] in wgmma[part]]
+    wgmma = {"fwd": ("fce_fwd_wgmma",),
+             "dh": ("fce_bwd_dl_wgmma", "fce_bwd_dh_wgmma"),
+             "dw": ("fce_bwd_dw_wgmma",)}   # the bf16 kernels of each part
+    numbers["ptxas_bf16"] = [r for r in ptxas if r["kernel"] in wgmma[part]]
     return numbers
 
 

@@ -22,18 +22,19 @@
 // summation: no atomics, deterministic. Ragged T and H are masked; ignored
 // rows arrive with label 0 and g = 0 (the wrapper), so their dl is 0.
 //
-// Forward (both dtypes; bf16 on warp-level mma.sync m16n8k16 through
-// csrc/mma_bf16.cuh, checked form by form by csrc/mma_probe.cu): one
-// block tile product, tile_product (128 x 128 outputs, 32 deep per stage,
-// two cp.async stages, 8 warps), lands in shared memory as fp32 where the
-// epilogue reads it row by row. Grid (token tiles, vocab splits): each
-// block walks its share of the vocab tiles keeping per-row (max, sum-exp,
-// gold) in shared memory and writes them as partials [3, splits, T]; a
-// second small kernel combines the splits per token (lse = M + log sum
-// l_i e^(m_i-M), gold = sum of the one non-zero gold_i). The splits give
-// the card ~1000 blocks at the training shape where token tiles alone give
-// 64. Columns >= V are zero-filled and masked to -1e30 (nothing in lse).
-// __launch_bounds__(256, 2): 122-128 registers a thread.
+// float32 (h and W float32) runs every product in full fp32 on the CUDA
+// cores, one block tile product, tile_product (128 x 128 outputs, 32 deep
+// per stage, two cp.async stages of csrc/mma_bf16.cuh's tiles, 8 x 8 FMA
+// register blocks), landing in shared memory as fp32 where the epilogues
+// read it. Forward: grid (token tiles, vocab splits), each block walks its
+// share of the vocab tiles keeping per-row (max, sum-exp, gold) in shared
+// memory and writes them as partials [3, splits, T], 1 <= splits <=
+// ceil(V / 128); __launch_bounds__(256, 2).
+//
+// Either dtype's forward ends in one small kernel, fce_fwd_combine, that
+// combines the splits per token: lse = M + log sum l_i e^(m_i - M), gold
+// = the sum of the one non-zero gold_i, loss = lse - gold, one thread a
+// row in a fixed order of summation. m_i and lse are in the natural log.
 //
 // Backward, one vocab chunk of C columns at a time (C a multiple of 32,
 // at most 4096 and under V/4, so the workspace is T x C elements, 64 MB at
@@ -46,10 +47,10 @@
 //        dh in h's dtype at the last chunk;
 //   dW:  dW[:, chunk] = h^T . dl over the whole token axis, written once in
 //        W's dtype; columns of dW >= V are never written.
-// fp32 runs each product through tile_product on the CUDA cores, as the
-// forward does. bf16 (namespace tc) runs all three through one
-// warp-specialized wgmma main loop, gemm(), building blocks in
-// csrc/wgmma_bf16.cuh:
+//
+// bfloat16 (namespace tc) runs all four products, the forward's logits and
+// the backward's three, through one warp-specialized wgmma main loop,
+// gemm(), building blocks in csrc/wgmma_bf16.cuh:
 //  * 384 threads a CTA, one CTA an SM, persistent over the product's
 //    128 x 256 output tiles, M tile fastest: a producer warpgroup (24
 //    registers after setmaxnreg; its first warp issues the TMA, the other
@@ -64,11 +65,19 @@
 //    The ring runs on across tiles, so the next tile's loads overlap this
 //    tile's epilogue.
 //  * each epilogue reads its accumulators in registers (the layout of
-//    wgmma_bf16.cuh) and writes bf16x2 pairs or fp32 pairs straight to
-//    device memory; nothing goes through an fp32 shared-memory tile. dh's
-//    epilogue loads the fp32 buffer's 16 pairs of a row half before it adds
-//    any, so their latencies overlap (a load just before each add left
-//    the tile waiting on one load at a time).
+//    wgmma_bf16.cuh) and writes partials, bf16x2 pairs or fp32 pairs
+//    straight to device memory; nothing goes through an fp32 shared-memory
+//    tile and no epilogue has a __syncthreads().
+//  * forward (fce_fwd_wgmma): C[T, V] = h . W in one product over the
+//    whole vocab, no chunks (at the training shape 64 x 125 = 8000 tiles
+//    over 132 CTAs). Its epilogue reduces each row of its 64 x 256 tile to
+//    (max, sum-exp, gold) in registers and the quad's shuffles, and one
+//    lane writes them to the partials at split = the N tile's index:
+//    splits = ceil(V / 256) exactly (12.3 MB of partials at the training
+//    shape). The max is known before the exp, so no tile rescales.
+//  * dh's epilogue loads the fp32 buffer's 16 pairs of a row half before
+//    it adds any, so their latencies overlap (a load just before each add
+//    left the tile waiting on one load at a time).
 //  Where trouble was likely, and what the design does:
 //   1. transpose-A: dW = h^T . dl reads h with the token axis (k) as the
 //      stored row, i.e. A MN-major; wgmma_ss takes a TRANS_A bit and
@@ -82,17 +91,35 @@
 //   4. W tiles past the chunk: in the dl product a W box may run past c0 +
 //      cw (the next chunk's columns) or past V (zeros); exp(acc - lse) is
 //      not 0 there, so the epilogue stores only c < cw.
-//   5. ragged edges are exercised by chip_smoke.py's fused-CE cases: V =
-//      40000 (last chunk 3136) and V = 2000 (chunk 480, last chunk 80).
-//   6. registers: 128 accumulators plus the epilogue's exp, label
-//      compare and packing (dh: 32 more for the buffer's pairs) within
-//      240; chip_smoke.py phase 2 prints ptxas's registers and spill
-//      bytes of each kernel.
-//   7. alignment: the wrapper requires h and W contiguous, 16-byte
+//   5. columns past V in the forward: TMA's zeros would add exp(0 - max)
+//      to the last tile's sum, so the forward epilogue leaves every column
+//      c >= V out of the max and the sum, which is what the reference's
+//      finite -1e30 gives (exp to exactly 0). Every tile holds a column
+//      < V, so no row's max stays -1e30.
+//   6. rows past T: TMA zero-fills them; no epilogue writes them.
+//   7. the log domain: the forward's max stays in the natural log, as the
+//      combine and the backward (lse * LOG2E in the dl epilogue) read it;
+//      only the exponent goes through ex2.approx, as fmaf(x, LOG2E, -max *
+//      LOG2E).
+//   8. ragged edges are exercised by chip_smoke.py's fused-CE cases: V =
+//      40000 (last chunk 3136, last forward tile 64 columns wide), V =
+//      2000 (chunk 480, last chunk 80, last forward tile 208 wide) and T =
+//      1000 (the last 128-row tile 104 rows deep).
+//   9. registers: 128 accumulators plus the epilogue's exp, label
+//      compare and packing (dh: 32 more for the buffer's pairs; the
+//      forward: two rows' max, sum, gold and label) within 240;
+//      chip_smoke.py phase 2 prints ptxas's registers and spill bytes of
+//      each kernel.
+//  10. determinism: one writer per partial and per output element, sums in
+//      a fixed order (a thread's values, then xor 1, then xor 2; the
+//      combine's loop over splits), no atomics: two launches give the same
+//      bits.
+//  11. alignment: the wrapper requires h and W contiguous, 16-byte
 //      aligned, H and V multiples of 8, so every TMA stride is a multiple
 //      of 16 bytes, as is the workspace's (C a multiple of 32).
-//   8. names keep the fce_ prefix (tools/train_profile.py groups by it).
-//   9. _build.HEADERS["fused_ce"] lists wgmma_bf16.cuh, so an edit to it
+//  12. names keep the fce_ prefix (tools/train_profile.py groups by it,
+//      tools/fce_timing.py counts fce_fwd* as the forward).
+//  13. _build.HEADERS["fused_ce"] lists wgmma_bf16.cuh, so an edit to it
 //      rebuilds this library.
 // Inputs: h [T, H], W [H, V] contiguous, one dtype, H and V multiples of 8
 // (tiles move in 16-byte pieces), labels int32 [T] in [0, V).
@@ -112,19 +139,22 @@ constexpr float NEG_INF = -1e30f;
 constexpr int LDC = BN + 8;   // fp32 output tile row stride in shared memory
 constexpr int C_BYTES = BM * LDC * static_cast<int>(sizeof(float));
 
-// -- the block tile product: C tile (fp32, shared, [BM][LDC]) ------------
+// -- the block tile product (float32): C tile (fp32, shared, [BM][LDC]) ----
 
-// fp32 on the CUDA cores: thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16 i and cols tx + 16 j, i, j < 8; same two-stage cp.async pipeline
-// and tiles as ptmma::block_mma.
+// C tile [BM][LDC] in shared memory (aliasing the operand stages) =
+// A[m0:+BM, :K] . B[:K, n0:+BN] on the CUDA cores; every thread may read
+// it on return. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i
+// and cols tx + 16 j, i, j < 8; two cp.async stages of ptmma's tiles.
 template <bool AK, bool BKM>
-__device__ __forceinline__ void block_fma(float* cs, const Operand<float>& A,
-                                          const Operand<float>& B, int m0,
-                                          int n0, int K, float* smem) {
+__device__ __forceinline__ void tile_product(float* cs,
+                                             const Operand<float>& A,
+                                             const Operand<float>& B, int m0,
+                                             int n0, int K, void* stages) {
   constexpr int A_ELEMS = ptmma::tile_elems<float, AK, BM>();
   constexpr int B_ELEMS = ptmma::tile_elems<float, BKM, BN>();
   constexpr int LDA = ptmma::tile_ld<float, AK, BM>();
   constexpr int LDB = ptmma::tile_ld<float, BKM, BN>();
+  float* smem = static_cast<float*>(stages);
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float acc[8][8];
 #pragma unroll
@@ -172,32 +202,11 @@ __device__ __forceinline__ void block_fma(float* cs, const Operand<float>& A,
   __syncthreads();
 }
 
-// C tile [BM][LDC] in shared memory (aliasing the operand stages) =
-// A[m0:+BM, :K] . B[:K, n0:+BN]; every thread may read it on return.
 template <bool AK, bool BKM>
-__device__ __forceinline__ void tile_product(float* cs,
-                                             const Operand<bf16>& A,
-                                             const Operand<bf16>& B, int m0,
-                                             int n0, int K, void* smem) {
-  float acc[4][4][4];
-  ptmma::block_mma<AK, BKM>(acc, A, B, m0, n0, K, static_cast<bf16*>(smem));
-  __syncthreads();   // cs aliases the stages the last slice was read from
-  ptmma::store_acc(acc, cs, LDC, 0, 0, BM, BN);
-  __syncthreads();
-}
-template <bool AK, bool BKM>
-__device__ __forceinline__ void tile_product(float* cs,
-                                             const Operand<float>& A,
-                                             const Operand<float>& B, int m0,
-                                             int n0, int K, void* smem) {
-  block_fma<AK, BKM>(cs, A, B, m0, n0, K, static_cast<float*>(smem));
-}
-
-template <typename T, bool AK, bool BKM>
 __host__ __device__ constexpr int smem_bytes() {
-  constexpr int stages = 2 * (ptmma::tile_elems<T, AK, BM>() +
-                              ptmma::tile_elems<T, BKM, BN>()) *
-                         static_cast<int>(sizeof(T));
+  constexpr int stages = 2 * (ptmma::tile_elems<float, AK, BM>() +
+                              ptmma::tile_elems<float, BKM, BN>()) *
+                         static_cast<int>(sizeof(float));
   return stages > C_BYTES ? stages : C_BYTES;
 }
 
@@ -212,21 +221,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// -- forward ------------------------------------------------------------
+// -- forward, float32: the CUDA cores --------------------------------------
 
 // grid (ceil(T / BM), splits): block (x, y) walks vocab tiles
 // y * per_split .. and leaves per-row partial (max, sum-exp, gold) in
 // part[0 / 1 / 2][y][T]. Logits: A = h (K-major), B = W (N-major).
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-    fce_fwd_partial(const T* __restrict__ h, const T* __restrict__ w,
+    fce_fwd_partial(const float* __restrict__ h, const float* __restrict__ w,
                     const int* __restrict__ labels, float* __restrict__ part,
                     int t_len, int hid, int vocab, int per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float m_s[BM], l_s[BM], g_s[BM];
   float* cs = reinterpret_cast<float*>(smem);
-  const Operand<T> A{h, hid, t_len, hid};
-  const Operand<T> B{w, vocab, vocab, hid};
+  const Operand<float> A{h, hid, t_len, hid};
+  const Operand<float> B{w, vocab, vocab, hid};
   const int m0 = blockIdx.x * BM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x < BM) {
@@ -295,6 +303,14 @@ __global__ void fce_fwd_combine(const float* __restrict__ part,
   const float x = m + logf(l);
   lse[row] = x;
   loss[row] = x - gold;
+}
+
+// loss and lse from the partials [3, splits, T], one thread a row
+cudaError_t combine(const float* part, float* loss, float* lse, int t_len,
+                    int splits, cudaStream_t s) {
+  fce_fwd_combine<<<(t_len + 255) / 256, 256, 0, s>>>(part, loss, lse, t_len,
+                                                      splits);
+  return cudaGetLastError();
 }
 
 // -- backward, float32: the CUDA cores ------------------------------------
@@ -376,7 +392,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
-// -- backward, bf16: wgmma + TMA --------------------------------------------
+// -- bf16, forward and backward: wgmma + TMA ------------------------------
 
 namespace tc {
 
@@ -512,6 +528,86 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta,
   }
 }
 
+// 2^x, flushing results below 2^-126 to 0: the forward's sum-exp has a
+// term of 1 (the max), so what the flush drops is far below its ulp
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The forward's partials of one tile: per row, over the tile's 256
+// columns, (max, sum of exp(x - max), gold logit) into part[0 / 1 / 2]
+// [split = n0 / TN][row], all in registers. A row's columns lie on the four
+// lanes of a quad (ptwg::acc_col), so each reduction is the thread's own
+// 64 values, then two xor shuffles; lane 0 of the quad writes. Columns >=
+// V (TMA zeros) take no part, as the reference's -1e30 would (a tile
+// wholly inside the vocab skips the test); rows >= T are not written. The
+// max is in the natural log (the combine takes expf(m_i - M) and logf),
+// the sum 2^((x - max) * log2(e)).
+struct FwdEpilogue {
+  const int* labels;
+  float* part;   // [3, splits, T]
+  int t_len, vocab, splits;
+
+  __device__ __forceinline__ void operator()(int m, int n0,
+                                             const float (&acc)[NB][64]) const {
+    const int lane = threadIdx.x & 31;
+    const int cols = vocab - n0;   // this tile's columns inside the vocab
+    const bool full = cols >= TN;
+    int label[2];
+    float mx[2], sum[2], gold[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = acc_row(m) + 8 * hi;
+      label[hi] = row < t_len ? labels[row] - n0 : -1;
+      mx[hi] = NEG_INF;
+      sum[hi] = 0.f;
+      gold[hi] = 0.f;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {   // element i is row half (i >> 1) & 1
+        const int hi = (i >> 1) & 1, c = 128 * nb + ptwg::acc_col(i, lane);
+        if (full || c < cols) mx[hi] = fmaxf(mx[hi], acc[nb][i]);
+        if (c == label[hi]) gold[hi] = acc[nb][i];
+      }
+    float ml[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(~0u, mx[hi], 1));
+      mx[hi] = fmaxf(mx[hi], __shfl_xor_sync(~0u, mx[hi], 2));
+      ml[hi] = mx[hi] * LOG2E;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int hi = (i >> 1) & 1, c = 128 * nb + ptwg::acc_col(i, lane);
+        if (full || c < cols) sum[hi] += ex2(fmaf(acc[nb][i], LOG2E, -ml[hi]));
+      }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {   // the quad's sums, in a fixed order
+      sum[hi] += __shfl_xor_sync(~0u, sum[hi], 1);
+      sum[hi] += __shfl_xor_sync(~0u, sum[hi], 2);
+      gold[hi] += __shfl_xor_sync(~0u, gold[hi], 1);   // one lane's is not 0
+      gold[hi] += __shfl_xor_sync(~0u, gold[hi], 2);
+    }
+    if (lane & 3) return;
+    const long long plane = static_cast<long long>(splits) * t_len;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = acc_row(m) + 8 * hi;
+      if (row >= t_len) continue;
+      const long long i = static_cast<long long>(n0 / TN) * t_len + row;
+      part[i] = mx[hi];
+      part[plane + i] = sum[hi];
+      part[2 * plane + i] = gold[hi];
+    }
+  }
+};
+
 // dl = (exp(acc - lse) - [c == label]) * g, rounded to bf16, into the
 // [T, ld] workspace; columns c >= cw (W's next chunk, or zeros past V)
 // get nothing, rows past T neither.
@@ -627,6 +723,15 @@ struct DwEpilogue {
   }
 };
 
+// the forward's logits h . W over the whole vocab: A = h (K-major),
+// B = W (MN-major)
+__global__ void __launch_bounds__(THREADS, 1)
+    fce_fwd_wgmma(const __grid_constant__ CUtensorMap th,
+                  const __grid_constant__ CUtensorMap tw, const Product p,
+                  const FwdEpilogue e) {
+  gemm<false, true>(&th, &tw, p, e);
+}
+
 // dl = h . W[:, chunk]: A = h (K-major), B = W (MN-major, from column c0)
 __global__ void __launch_bounds__(THREADS, 1)
     fce_bwd_dl_wgmma(const __grid_constant__ CUtensorMap th,
@@ -674,6 +779,24 @@ cudaError_t launch(Kernel kernel, const CUtensorMap& ta,
   const int tiles = p.m_tiles * p.n_tiles, sms = sm_count();
   kernel<<<tiles < sms ? tiles : sms, THREADS, smem, s>>>(ta, tb, p, e);
   return cudaGetLastError();
+}
+
+// one product over the whole vocab, one split per TN-column tile (the
+// wrapper passes splits = ceil(V / TN)), then the combine
+cudaError_t launch_fwd(const void* h, const void* w, const int* labels,
+                       float* loss, float* lse, float* part, int t_len,
+                       int hid, int vocab, int splits, cudaStream_t s) {
+  if (splits != (vocab + TN - 1) / TN) return cudaErrorInvalidValue;
+  CUtensorMap th, tw;
+  cudaError_t err;
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+    return err;
+  const FwdEpilogue e{labels, part, t_len, vocab, splits};
+  if ((err = launch(fce_fwd_wgmma, th, tw, t_len, vocab, hid, 0, e, s)) !=
+      cudaSuccess)
+    return err;
+  return combine(part, loss, lse, t_len, splits, s);
 }
 
 cudaError_t launch_dl(const void* h, const void* w, const int* labels,
@@ -729,30 +852,27 @@ dim3 grid_of(int rows, int cols) {
   return dim3((rows + BM - 1) / BM, (cols + BN - 1) / BN);
 }
 
-template <typename T>
 cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
                 float* lse, float* part, int t_len, int hid, int vocab,
                 int splits, cudaStream_t s) {
-  constexpr int smem = smem_bytes<T, true, false>();
-  cudaError_t err = allow_smem(fce_fwd_partial<T>, smem);
+  constexpr int smem = smem_bytes<true, false>();
+  cudaError_t err = allow_smem(fce_fwd_partial, smem);
   if (err != cudaSuccess) return err;
   const int v_tiles = (vocab + BN - 1) / BN;
   const int per_split = (v_tiles + splits - 1) / splits;
-  fce_fwd_partial<T><<<dim3((t_len + BM - 1) / BM, splits), THREADS, smem, s>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w), labels, part, t_len,
-      hid, vocab, per_split);
+  fce_fwd_partial<<<dim3((t_len + BM - 1) / BM, splits), THREADS, smem, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), labels,
+      part, t_len, hid, vocab, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  fce_fwd_combine<<<(t_len + 255) / 256, 256, 0, s>>>(part, loss, lse, t_len,
-                                                      splits);
-  return cudaGetLastError();
+  return combine(part, loss, lse, t_len, splits, s);
 }
 
 cudaError_t bwd_dl(const void* h, const void* w, const int* labels,
                    const float* lse, const float* g, void* dl, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<float, true, false>();
+  constexpr int smem = smem_bytes<true, false>();
   cudaError_t err = allow_smem(fce_bwd_dl, smem);
   if (err != cudaSuccess) return err;
   fce_bwd_dl<<<grid_of(t_len, cw), THREADS, smem, s>>>(
@@ -764,7 +884,7 @@ cudaError_t bwd_dl(const void* h, const void* w, const int* labels,
 cudaError_t bwd_dh(const void* dl, const void* w, float* acc, void* dh,
                    int t_len, int hid, int vocab, int c0, int cw, int ld_dl,
                    int first, int last, cudaStream_t s) {
-  constexpr int smem = smem_bytes<float, true, true>();
+  constexpr int smem = smem_bytes<true, true>();
   cudaError_t err = allow_smem(fce_bwd_dh, smem);
   if (err != cudaSuccess) return err;
   fce_bwd_dh<<<grid_of(t_len, hid), THREADS, smem, s>>>(
@@ -776,7 +896,7 @@ cudaError_t bwd_dh(const void* dl, const void* w, float* acc, void* dh,
 cudaError_t bwd_dw(const void* h, const void* dl, void* dw, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<float, false, false>();
+  constexpr int smem = smem_bytes<false, false>();
   cudaError_t err = allow_smem(fce_bwd_dw, smem);
   if (err != cudaSuccess) return err;
   fce_bwd_dw<<<grid_of(hid, cw), THREADS, smem, s>>>(
@@ -795,7 +915,8 @@ const char* pt_error_string(int err) {
 
 // h [T, H], w [H, V] contiguous, dtype 0 = float32, 1 = bfloat16; labels
 // [T] int32 in [0, V); loss, lse [T] float32; part [3, splits, T] float32
-// scratch, 1 <= splits <= ceil(V / 128). Two launches (partials, combine).
+// scratch, 1 <= splits <= ceil(V / 128) in float32 and splits =
+// ceil(V / 256) in bfloat16. Two launches (partials, combine).
 int pt_fused_ce_fwd(const void* h, const void* w, const void* labels,
                     void* loss, void* lse, void* part, int t_len, int hid,
                     int vocab, int splits, int dtype, void* stream) {
@@ -805,9 +926,10 @@ int pt_fused_ce_fwd(const void* h, const void* w, const void* labels,
   float* ls = static_cast<float*>(lse);
   float* pa = static_cast<float*>(part);
   if (dtype == 0)
-    return fwd<float>(h, w, lab, lo, ls, pa, t_len, hid, vocab, splits, s);
+    return fwd(h, w, lab, lo, ls, pa, t_len, hid, vocab, splits, s);
   if (dtype == 1)
-    return fwd<bf16>(h, w, lab, lo, ls, pa, t_len, hid, vocab, splits, s);
+    return tc::launch_fwd(h, w, lab, lo, ls, pa, t_len, hid, vocab, splits,
+                          s);
   return cudaErrorInvalidValue;
 }
 

@@ -4,12 +4,12 @@
 // which asks whether the TPU compiler takes four bf16 dot forms at
 // BQ = BK = 512, D = 128 with fp32 results: nt (contracting dims (1,1)),
 // nn ((1,0)), tn ((0,0)) and nt -> exp -> cast -> nn chained. Here each
-// form runs through the building blocks of csrc/mma_bf16.cuh that the
-// fused lm_head + cross-entropy kernels use (ldmatrix / ldmatrix.trans
-// fragment loads, mma.sync m16n8k16 bf16 -> fp32, the register hand-over
-// of acc_to_a), and tools/mma_probe.py holds each result against the same
-// product taken in fp32 by PyTorch: a wrong fragment layout shows here as
-// a wrong value of one form, not as a wrong loss.
+// form runs through the building blocks of csrc/mma_bf16.cuh (ldmatrix /
+// ldmatrix.trans fragment loads, mma.sync m16n8k16 bf16 -> fp32, the
+// register hand-over of acc_to_a), and tools/mma_probe.py holds each
+// result against the same product taken in fp32 by PyTorch: a wrong
+// fragment layout shows here as a wrong value of one form, not as a wrong
+// loss.
 //
 // Forms 4-6 do the same for the warpgroup forms of csrc/wgmma_bf16.cuh
 // that the bf16 flash-attention backward kernels use, each operand tile
@@ -20,7 +20,8 @@
 // an rs product with b read MN-major, as dk/dv computes P^T.dO. Form 7
 // is tn on wgmma, both operands MN-major (A with the transpose-A bit), each
 // loaded through a rank-2 tensor map: the form the fused CE backward's
-// dW = h^T . dl takes.
+// dW = h^T . dl takes (its forward's h . W and dl take form 5's operand
+// form, B MN-major).
 //
 // What bounds it: each form is 2 * 512 * 512 * 128 = 6.7e7 operations on
 // ~1.3 MB, so at this size it is bound by bytes and by its launch; the

@@ -2,8 +2,8 @@
 // its shared-memory descriptors, mbarriers and TMA tile loads. Header
 // only: no entry points. Used by csrc/flash_attention.cu (the bf16
 // forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels),
-// csrc/fused_ce.cu (the bf16 lm_head + CE backward products) and
-// csrc/mma_probe.cu, which checks every form the kernels use on its own
+// csrc/fused_ce.cu (the bf16 lm_head + CE forward and backward products)
+// and csrc/mma_probe.cu, which checks every form the kernels use on its own
 // (forms 4-7), where a wrong descriptor or fragment layout shows as a
 // wrong value of one form.
 //

@@ -8,7 +8,9 @@ training shape, plus fp32 copies in the loss and its gradient) and then
 stream W tile by tile and never build the logits:
 
 * ``fused_lm_head_ce_forward(h, w, labels) -> (loss, lse)`` launches the
-  forward (per-split partial max / sum-exp / gold, then a combine);
+  forward (per-split partial max / sum-exp / gold, then a combine); in
+  bf16 the partials come from the same ``wgmma`` GEMM main loop as the
+  backward's, one split per 256-column tile of the whole vocab;
 * ``fused_lm_head_ce_backward(h, w, labels, lse, g_t) -> (dh, dw)``
   launches, per vocab chunk (``chunk_plan``), the dl kernel and the dh
   product (the reference's ``_dh_kernel``) and the dW product (its
@@ -47,8 +49,9 @@ DEFAULT_IGNORE_INDEX = -100
 # vocab columns a backward chunk covers at most (the dl workspace is
 # [T, chunk] in the input dtype: 64 MB at T = 8192 in bf16)
 MAX_CHUNK = 4096
-_TILE = 128          # the kernels' block tile (rows and columns)
-_BLOCKS = 8 * 132    # forward blocks to aim for: 8 per SM of an H100
+_TILE = 128          # the float32 kernels' block tile (rows and columns)
+_BLOCKS = 8 * 132    # float32 forward blocks to aim for: 8 per SM of an H100
+_WGMMA_TILE_N = 256  # vocab columns of the bf16 kernels' tile (tc::TN)
 
 fwd_launches = 0
 dh_launches = 0
@@ -113,9 +116,13 @@ def chunk_plan(vocab):
     return [(c0, min(chunk, vocab - c0)) for c0 in range(0, vocab, chunk)]
 
 
-def forward_splits(t_len, vocab):
-    """Vocab splits of the forward grid: about ``_BLOCKS`` blocks over the
-    token tiles, at most one split per vocab tile."""
+def forward_splits(t_len, vocab, dtype=torch.float32):
+    """Vocab splits of the forward's partials. float32: about ``_BLOCKS``
+    blocks over the token tiles, at most one split per vocab tile.
+    bfloat16: one split per 256-column tile of the ``wgmma`` product,
+    ``ceil(V / 256)``, the count the C side requires."""
+    if dtype == torch.bfloat16:
+        return -(-vocab // _WGMMA_TILE_N)
     t_tiles = -(-t_len // _TILE)
     return max(1, min(-(-vocab // _TILE), -(-_BLOCKS // t_tiles)))
 
@@ -147,7 +154,7 @@ def fused_lm_head_ce_forward(h, w, labels):
     t_len, hid = h.shape
     vocab = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    splits = forward_splits(t_len, vocab)
+    splits = forward_splits(t_len, vocab, h.dtype)
     dev = h.device
     loss = torch.empty(t_len, dtype=torch.float32, device=dev)
     lse = torch.empty(t_len, dtype=torch.float32, device=dev)

@@ -8,7 +8,7 @@ results. Here each form runs through the fragment loads and ``mma.sync``
 building blocks of ``csrc/mma_bf16.cuh`` (``csrc/mma_probe.cu``), and
 all four again through the ``wgmma`` and TMA building blocks of
 ``csrc/wgmma_bf16.cuh`` that the bf16 flash-attention and fused CE
-backward kernels use (nt with both operands K-major, nn with B MN-major,
+kernels use (nt with both operands K-major, nn with B MN-major,
 the chained form with the accumulator handed over as the A operand, and
 tn with A and B MN-major through rank-2 tensor maps). Unlike
 the reference, its values are checked too: each result is held against
