@@ -89,7 +89,27 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 label-smoothed loss and run_steps (2 windows of K = 2) on
                 the card and on the CPU: losses and the first step's
                 gradients must agree
-  8. summary    one JSON line of per-kernel numbers, then the result line
+  8. quant and  run after phase 5b on the phase-4 llama1b and its CPU copy:
+     benchmark  (a) the int8-weight GEMM (csrc/w8_gemm.cu) against its
+                plain version at M = 1, 5, 16, 256 x (2048->2048,
+                2048->5504, 5504->2048) on layer 0's weights, two launches
+                bit for bit, timed at M = 16 and 256 beside its bound and
+                torch.matmul on the dequantized and on the fp32 weight;
+                (b) weight-only int8 decode (FLAGS_serving_quant_weights),
+                alone and with prefix cache + chunked prefill + int8 KV:
+                greedy tokens equal to the CPU copy's with the same flags
+                (or diverging at a near-tie), exactly 7 x 22 int8 GEMM
+                launches a decode or mixed step and none in prefill;
+                (c) paddle_tpu_torch.tools.serving_benchmark in-process, 32
+                requests a row at 4 a second (prompts 128-1536, 64 new
+                tokens, 16 slots, 2048 pages): flags off, prefix cache +
+                chunked prefill over 4 shared 512-token prefixes (tails
+                128-1024), int8 weights, and a resilience row (256 pages, max queue 8,
+                deadline 30 s, a prefill and a decode fault); every request
+                terminal and, with the admission rejects, all of them;
+                goodput within throughput; the resilience row preempted and
+                fired both faults, the others shed nothing
+  9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c and 6d also holds the
 bf16 kernels' TMA operand copies (``tma_copies``, forward and backward) at
@@ -592,7 +612,8 @@ FLASH_BWD_CASES = (dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
                    dict(n=256, heads=16, head_dim=64),
                    dict(n=512, heads=16, kv_heads=4, head_dim=128),
                    dict(n=128, n_kv=256, heads=16, head_dim=128))
-# the bench row's attention (phase 6c: bench_config(), 6 heads x 128)
+# the bench row's attention (phase 6c: train_benchmark.bench_config(),
+# 6 heads x 128)
 BENCH_BWD_CASE = dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=6, head_dim=128)
 # the forward alone beyond the serving buckets: GQA, non-causal,
 # cross-length causal both ways and operands that are not 16-byte aligned
@@ -1116,11 +1137,12 @@ def phase_slice(seed):
     return model, check_prompt, outs[check_id], launches
 
 
-def attention_counters():
+def launch_counters():
     """Every attention kernel's launch counter, by summary entry (the
-    float32 and bfloat16 modes of the mixed kernel share one counter), and
-    the backward's TMA operand copies."""
+    float32 and bfloat16 modes of the mixed kernel share one counter), the
+    int8-weight GEMM's, and the backward's TMA operand copies."""
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import quant
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
     return {"flash_attention": fa.launches,
@@ -1134,13 +1156,15 @@ def attention_counters():
             "mixed_paged_attention": pa.mixed_launches,
             "mixed_paged_attention_bf16": pa.mixed_launches,
             "mixed_paged_attention_int8": pa.mixed_int8_launches,
+            "int8_weight_matmul": quant.launches,
             # not a kernel: operand copies the bf16 forward and backward
             # made for TMA, which every main path's exact count holds at 0
             "tma_copies": fa.tma_copies}
 
 
-def reset_attention_counters():
+def reset_launch_counters():
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import quant
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
@@ -1148,6 +1172,7 @@ def reset_attention_counters():
     fa.segmented_dkv_launches = fa.tma_copies = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
+    quant.launches = 0
 
 
 def tier2_engine(model, prefix, chunked, quant_kv, device=None, **kw):
@@ -1211,13 +1236,13 @@ def tier2_run(model, prompts, tag, prefix, chunked, quant_kv):
                           num_blocks=num_blocks, **TIER2_GEOMETRY)
     ids = [engine.add_request(p, max_new_tokens=TIER2_NEW_TOKENS)
            for p in prompts]
-    reset_attention_counters()
+    reset_launch_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = attention_counters()
+    launches = launch_counters()
     st = engine.stats()
     per = [engine.request_metrics(i) for i in ids]
     name = "[tier2 %s]" % tag
@@ -1390,6 +1415,256 @@ def phase_e2e(model, prompt, card_tokens):
     return cpu_model
 
 
+# -- phase 8: weight-only int8 decode and the serving benchmark --------------
+
+# int8-weight GEMM vs its plain version (x @ dequantize_int8_weight in fp32,
+# TF32 off): the same dequantized products, summed in another order (a
+# K-long fp32 dot split across warps and CTAs) -- 1e-4 x max|y| + rtol 1e-4
+W8_TOL = dict(atol=1e-4, rtol=1e-4, scaled=True)
+W8_MS = (1, 5, 16, 256)
+# llama1b's projections (K -> N) and their count a layer: q/k/v/o, gate/up,
+# down
+W8_SHAPES = ((2048, 2048, 4, "q_proj"), (2048, 5504, 2, "gate_proj"),
+             (5504, 2048, 1, "down_proj"))
+# phase 8(c): the benchmark tool's rows on llama1b (32 requests a row).
+# The shared-prefix row's tails are 128-1024 tokens, so its prompts (512 +
+# tail) stay within the other rows' 1536 and, with 64 new tokens, within
+# max_model_len 2048
+BENCH_COMMON = ["--preset", "llama1b", "--device", "cuda", "--max-slots",
+                "16", "--num-blocks", "2048", "--rate", "4", "--prompt-len",
+                "128", "1536", "--max-new", "64", "64", "--requests", "32"]
+BENCH_ROWS = (
+    ("flags off", []),
+    ("prefix+chunked", ["--prefix-cache", "--chunked-prefill",
+                        "--shared-prefix-tokens", "512", "--prefix-groups",
+                        "4", "--prompt-len", "128", "1024"]),
+    ("quant weights", ["--quant-weights"]),
+    ("resilience", ["--num-blocks", "256", "--max-queue", "8",
+                    "--deadline-s", "30", "--fault-schedule",
+                    "serving.prefill:error@3;serving.decode:error@5"]))
+
+
+def w8_case(x, q, scales, w, tag, timed):
+    from paddle_tpu_torch.kernels import quant
+
+    got = quant.int8_weight_matmul(x, q, scales)
+    again = quant.int8_weight_matmul(x, q, scales)
+    want = quant.int8_weight_matmul_reference(x, q, scales)
+    torch.cuda.synchronize()
+    row = {"case": tag, "mkn": [x.shape[0], x.shape[1], q.shape[1]],
+           "max_abs_err": check_close(tag, got, want, W8_TOL),
+           "bitwise": bool(torch.equal(got, again))}
+    if not row["bitwise"]:
+        raise AssertionError("%s: two launches differ" % tag)
+    if timed:
+        m, k = x.shape
+        n = q.shape[1]
+        deq = quant.dequantize_int8_weight(q, scales)
+        nbytes = (q.numel() + scales.numel() * 4 + x.numel() * 4
+                  + m * n * 4)
+        row.update(ms=time_ms(lambda: quant.int8_weight_matmul(x, q, scales)),
+                   plain_ms=time_ms(
+                       lambda: quant.int8_weight_matmul_reference(x, q,
+                                                                  scales)),
+                   library_ms=time_ms(lambda: torch.matmul(x, deq)),
+                   library_fp32_weight_ms=time_ms(lambda: torch.matmul(x, w)),
+                   split=dict(zip(("chunk", "splits"),
+                                  quant.w8_plan(m, n, k))),
+                   **bound(nbytes, 2 * m * n * k, torch.float32))
+    log("[w8] " + json.dumps(row))
+    return row
+
+
+def phase_w8_kernel(seed, model):
+    """Phase 8(a): the int8-weight GEMM against its plain version at the
+    decode and mixed steps' shapes on llama1b's layer-0 weights, two
+    launches bit for bit; timed at M = 16 and 256 beside its bound,
+    torch.matmul on the dequantized weight and on the fp32 weight."""
+    from paddle_tpu_torch.kernels import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    layer = model.llama.layers[0]
+    weights = {"q_proj": layer.self_attn.q_proj.weight,
+               "gate_proj": layer.mlp.gate_proj.weight,
+               "down_proj": layer.mlp.down_proj.weight}
+    rows = []
+    with torch.no_grad():
+        for k, n, _, name in W8_SHAPES:
+            w = weights[name].detach()
+            q, scales = quant.quantize_int8_weight(w)
+            for m in W8_MS:
+                x = torch.randn(m, k, generator=gen, device="cuda")
+                rows.append(w8_case(x, q, scales, w, "%s M=%d K=%d N=%d b=%d"
+                                    % (name, m, k, n, quant.weight_block(k)),
+                                    timed=m in (16, 256)))
+    return rows
+
+
+def w8_layer_numbers(rows):
+    """One layer's seven projections (``W8_SHAPES``), summed at the decode
+    batch (M = 16) and the mixed step (M = 256); the error over every
+    case."""
+    keys = ("ms", "plain_ms", "library_ms", "library_fp32_weight_ms",
+            "bound_ms", "bytes_ms", "operations_ms")
+
+    def layer(m):
+        out = dict.fromkeys(keys, 0.0)
+        for k, n, count, _ in W8_SHAPES:
+            row = next(r for r in rows if r["mkn"] == [m, k, n])
+            for key in keys:
+                out[key] += count * row[key]
+        out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["operations_ms"]
+                           else "operations")
+        return out
+
+    decode = layer(16)
+    return dict(ms=decode["ms"], plain_ms=decode["plain_ms"],
+                bound_ms=decode["bound_ms"], bound_by=decode["bound_by"],
+                library_ms=decode["library_ms"],
+                library="torch.matmul on the dequantized fp32 weight (a "
+                        "yardstick: the port never calls it)",
+                library_fp32_weight_ms=decode["library_fp32_weight_ms"],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                timed_case="one llama1b layer's 7 projections, M = 16 "
+                           "(the decode step)",
+                mixed_step=dict(case="the same, M = 256 (the mixed step)",
+                                **{k: v for k, v in layer(256).items()
+                                   if k not in ("bytes_ms",
+                                                "operations_ms")}),
+                timed=[r for r in rows if "ms" in r])
+
+
+def quant_engine(model, prefix, chunked, quant_kv, device=None, **kw):
+    """tier2_engine with FLAGS_serving_quant_weights on (latched at
+    construction, cleared again right after)."""
+    from paddle_tpu_torch.core import flags
+
+    flags.set_flags({"FLAGS_serving_quant_weights": True})
+    try:
+        return tier2_engine(model, prefix, chunked, quant_kv, device=device,
+                            **kw)
+    finally:
+        flags.set_flags({"FLAGS_serving_quant_weights": False})
+
+
+def phase_quant_decode(seed, model, cpu_model):
+    """Phase 8(b): weight-only int8 decode on llama1b, alone and with
+    prefix cache + chunked prefill + int8 KV, on the card and on the CPU
+    copy with the same flags: the same greedy tokens (or a divergence at a
+    near-tie), and on the card 7 x 22 int8 GEMM launches a decode or
+    mixed step and none in prefill."""
+    rng = np.random.default_rng(seed + 8)
+    vocab = model.config.vocab_size
+    layers = model.config.num_hidden_layers
+    base = rng.integers(0, vocab, 48).tolist()
+    prompts = [base + rng.integers(0, vocab, 8).tolist(),
+               rng.integers(0, vocab, 37).tolist(),
+               base[:40] + rng.integers(0, vocab, 10).tolist()]
+    paths = {}
+    for tag, flags_on in (("quant weights", False),
+                          ("quant weights+prefix+chunked+int8", True)):
+        runs = {}
+        for device, m in ((None, model), ("cpu", cpu_model)):
+            t0 = time.perf_counter()
+            engine = quant_engine(m, flags_on, flags_on, flags_on,
+                                  device=device, max_slots=3, block_size=16,
+                                  num_blocks=64, max_model_len=256,
+                                  prefill_chunk=16)
+            if device is None:
+                reset_launch_counters()
+            ids = [engine.add_request(p, max_new_tokens=8) for p in prompts]
+            engine.run()
+            if device is None:
+                torch.cuda.synchronize()
+                launches = launch_counters()
+            st = engine.stats()
+            runs[device] = [engine.output(i) for i in ids]
+            log("[quant decode] %s %s: %s (%.1f s; %d decode steps, %d "
+                "mixed)" % ("card" if device is None else "cpu ", tag,
+                            runs[device], time.perf_counter() - t0,
+                            st["decode_steps"], st["mixed_steps"]))
+            if device is None:
+                want = layers * 7 * st["decode_steps"]
+                if launches["int8_weight_matmul"] != want:
+                    raise AssertionError(
+                        "[quant decode] %s: %d int8 GEMM launches, expected "
+                        "%d (7 x %d layers x %d steps, none in prefill)"
+                        % (tag, launches["int8_weight_matmul"], want, layers,
+                           st["decode_steps"]))
+                paths["quant decode " + tag] = launches
+            del engine
+        same = [diverges_at_near_tie("[quant decode] %s card vs cpu" % tag,
+                                     cpu_model, p, w, g)
+                for p, w, g in zip(prompts, runs["cpu"], runs[None])]
+        log("[quant decode] %s: %d of %d token sequences identical, %d int8 "
+            "GEMM launches" % (tag, sum(same), len(same),
+                               paths["quant decode " + tag][
+                                   "int8_weight_matmul"]))
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_bench_row(tag, report):
+    """Phase 8(c)'s accounting: every request terminal and, with the
+    admission rejects, all of them; goodput within throughput; the
+    resilience row preempted and fired both faults; the others shed
+    nothing."""
+    rows = report["requests_detail"]
+    states = [r["status"] for r in rows]
+    rejected = sum(report["rejected_at_admission"].values())
+    problems = []
+    if not all(s in ("finished", "expired", "shed", "failed")
+               for s in states):
+        problems.append("a request is not terminal: %s" % states)
+    if len(rows) + rejected != report["workload"]["requests"]:
+        problems.append("%d requests + %d rejects != %d" % (
+            len(rows), rejected, report["workload"]["requests"]))
+    if not report["goodput_tok_s"] <= report["value"]:
+        problems.append("goodput %s > throughput %s" % (
+            report["goodput_tok_s"], report["value"]))
+    if tag == "resilience":
+        fired = report["faults_injected"] or {}
+        if report["preemptions"] <= 0:
+            problems.append("no preemption")
+        if sorted(fired.values()) != [1, 1]:
+            problems.append("faults fired: %s" % fired)
+        errors = [r.get("error") or "" for r in rows
+                  if r["status"] == "failed"]
+        if not all("InjectedFault" in e for e in errors):
+            problems.append("a request failed of itself: %s" % errors)
+    elif report["requests_shed_total"] or rejected \
+            or states.count("finished") != len(rows):
+        problems.append("shed %s, rejected %s, states %s" % (
+            report["shed_by_reason"], rejected, states))
+    if problems:
+        raise AssertionError("[bench %s] %s" % (tag, "; ".join(problems)))
+
+
+def phase_serving_bench(seed, model):
+    """Phase 8(c): paddle_tpu_torch.tools.serving_benchmark in-process on
+    the phase-4 llama1b, four rows, each with its accounting checked and
+    its launch counts read around it."""
+    from paddle_tpu_torch.tools import serving_benchmark
+
+    reports, paths = {}, {}
+    for tag, extra in BENCH_ROWS:
+        args = serving_benchmark.parser().parse_args(
+            BENCH_COMMON + ["--seed", str(seed)] + extra)
+        reset_launch_counters()
+        report = serving_benchmark.run(args, model=model)
+        torch.cuda.synchronize()
+        paths["bench " + tag] = launch_counters()
+        log("[bench %s] %s" % (tag, json.dumps(
+            {k: v for k, v in report.items() if k != "requests_detail"})))
+        check_bench_row(tag, report)
+        reports[tag] = report
+        torch.cuda.empty_cache()
+    if paths["bench quant weights"]["int8_weight_matmul"] <= 0:
+        raise AssertionError("[bench quant weights] the int8 GEMM was never "
+                             "launched")
+    return reports, paths
+
+
 # -- phase 6 / 7 -------------------------------------------------------------
 
 def lm_loss(vocab):
@@ -1433,7 +1708,7 @@ def phase_train(seed, fused=False):
                 tag, cfg.num_hidden_layers, cfg.hidden_size,
                 cfg.intermediate_size, time.perf_counter() - t0))
 
-        reset_attention_counters()
+        reset_launch_counters()
         fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
         times = []
         for _ in range(TRAIN_STEPS):
@@ -1441,7 +1716,7 @@ def phase_train(seed, fused=False):
             losses.append(step(ids, labels))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
-        launches = dict(attention_counters(), fused_ce_fwd=fc.fwd_launches,
+        launches = dict(launch_counters(), fused_ce_fwd=fc.fwd_launches,
                         fused_ce_dh=fc.dh_launches,
                         fused_ce_dw=fc.dw_launches)
     finally:
@@ -1504,7 +1779,8 @@ def check_fused_train(plain, fused):
 # -- phase 6c: the reference's bench row, fused, through run_steps ------------
 
 # bench.py:80-86 with BENCH_FUSE=1 (the TPU branch's config), 8 x 1024,
-# K = 10 stacked batches per run_steps window (bench.py:132-162)
+# K = 10 stacked batches per run_steps window (bench.py:132-162), run by
+# the port's train benchmark tool (paddle_tpu_torch/tools/train_benchmark)
 BENCH_K, BENCH_WINDOWS = 10, 2
 # run_steps against 10 calls from the same state: the same kernels on the
 # same inputs; the losses are float32 means of bf16 logits, so they may
@@ -1512,84 +1788,35 @@ BENCH_K, BENCH_WINDOWS = 10, 2
 WINDOW_LOSS_RTOL = 2.0 ** -8
 
 
-def bench_config():
-    from paddle_tpu_torch.models import LlamaConfig
-
-    return LlamaConfig(vocab_size=32000, hidden_size=768,
-                       intermediate_size=2048, num_hidden_layers=12,
-                       num_attention_heads=6, max_position_embeddings=2048,
-                       dtype="bfloat16", fuse_attention_qkv=True,
-                       fuse_mlp=True)
-
-
 def phase_bench_fused(seed):
-    """Phase 6c."""
-    from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW
-    from paddle_tpu_torch.parallel import TrainStep
+    """Phase 6c: ``train_benchmark.run`` (a warm-up window, the timed
+    windows, then the same K batches as K calls from the same state), with
+    the attention kernels' exact launch counts over all of its steps."""
+    from paddle_tpu_torch.tools import train_benchmark
 
     tag = "[bench fused]"
-    cfg = bench_config()
-
-    def fresh_step():
-        """The model from the seed (the same starting state each time)
-        and its train step."""
-        model = LlamaForCausalLM(cfg, generator=torch.Generator(
-            device="cuda").manual_seed(seed + 6))
-        return TrainStep(model, lm_loss(cfg.vocab_size),
-                         AdamW(learning_rate=1e-4,
-                               parameters=model.parameters()))
-
+    reset_launch_counters()
     t0 = time.perf_counter()
-    step = fresh_step()
-    params = sum(p.numel() for p in step.model.parameters())
-    rng = np.random.default_rng(seed + 6)
-    ids, labels = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (BENCH_K, TRAIN_BATCH, TRAIN_SEQ))).cuda()
-        for _ in range(2))
-    torch.cuda.reset_peak_memory_stats()
-    window_losses = [step.run_steps(ids, labels).item()]   # warm-up window
+    result = train_benchmark.run(preset="bench", fuse=True, device="cuda",
+                                 seed=seed + 6, k=BENCH_K,
+                                 windows=BENCH_WINDOWS, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ)
+    launches = launch_counters()
+    cfg = train_benchmark.bench_config()
     log("%s fused llama (%d layers, hidden %d, %d heads x %d, FFN %d), "
-        "warm-up window of %d steps in %.1f s" % (
+        "%d steps in %.1f s" % (
             tag, cfg.num_hidden_layers, cfg.hidden_size,
             cfg.num_attention_heads, cfg.head_dim, cfg.intermediate_size,
-            BENCH_K, time.perf_counter() - t0))
-    reset_attention_counters()
-    times = []
-    for _ in range(BENCH_WINDOWS):
-        t1 = time.perf_counter()
-        loss = step.run_steps(ids, labels)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        window_losses.append(loss.item())
-    launches = attention_counters()
-    window_peak = torch.cuda.max_memory_allocated() / 1e9
-
-    # the first window's 10 batches again, one call each, from the state
-    # the warm-up window started from (one model on the card at a time,
-    # so the two peaks compare)
-    del step
-    torch.cuda.empty_cache()
-    call_step = fresh_step()
-    torch.cuda.reset_peak_memory_stats()
-    call_losses, call_times = [], []
-    for i in range(BENCH_K):
-        t1 = time.perf_counter()
-        call_losses.append(call_step(ids[i], labels[i]).item())
-        torch.cuda.synchronize()
-        call_times.append(time.perf_counter() - t1)
-    call_peak = torch.cuda.max_memory_allocated() / 1e9
-
-    layers = cfg.num_hidden_layers
-    steps = BENCH_K * BENCH_WINDOWS
+            result["steps"], time.perf_counter() - t0))
     want = dict.fromkeys(launches, 0)
     for name in ("flash_attention", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        want[name] = layers * steps
+        want[name] = cfg.num_hidden_layers * result["steps"]
     if launches != want:
         raise AssertionError("%s launches %s, expected %s"
                              % (tag, launches, want))
-    losses = window_losses + call_losses
+    window_losses = result["run_steps"]["window_losses"]
+    losses = window_losses + result["calls"]["losses"]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("%s non-finite loss: %s" % (tag, losses))
     # each window trains on the same 10 batches again, so its last loss
@@ -1597,28 +1824,14 @@ def phase_bench_fused(seed):
     if not all(a > b for a, b in zip(window_losses, window_losses[1:])):
         raise AssertionError("%s loss did not fall from window to window: "
                              "%s" % (tag, window_losses))
-    gap = abs(call_losses[-1] - window_losses[0])
+    gap = result["window_vs_calls_loss_gap"]
     if gap > WINDOW_LOSS_RTOL * abs(window_losses[0]):
         raise AssertionError(
             "%s the warm-up window's last loss %.6f differs from the 10th "
             "call's %.6f by more than rtol %g" % (
-                tag, window_losses[0], call_losses[-1], WINDOW_LOSS_RTOL))
-    window_ms = statistics.median(times) * 1e3 / BENCH_K
-    call_ms = statistics.median(call_times[1:]) * 1e3
-    result = {
-        "params": params, "batch": [TRAIN_BATCH, TRAIN_SEQ], "k": BENCH_K,
-        "run_steps": {"step_ms": window_ms,
-                      "window_s_each": times,
-                      "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / window_ms
-                      * 1e3,
-                      "peak_mem_gb": window_peak,
-                      "window_losses": window_losses},
-        "calls": {"step_ms": call_ms,
-                  "step_ms_each": [t * 1e3 for t in call_times],
-                  "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / call_ms * 1e3,
-                  "peak_mem_gb": call_peak, "losses": call_losses},
-        "window_vs_calls_loss_gap": gap,
-        "launches": launches}
+                tag, window_losses[0], result["calls"]["losses"][-1],
+                WINDOW_LOSS_RTOL))
+    result["launches"] = launches
     log(tag + " " + json.dumps(result))
     return result
 
@@ -1650,20 +1863,20 @@ def phase_varlen(seed):
              ("seq_lens", dict(seq_lens=lens), np.broadcast_to(
                  segment_ids_from_lens(lens, TRAIN_SEQ),
                  (TRAIN_BATCH, TRAIN_SEQ)).copy()))
-    reset_attention_counters()
+    reset_launch_counters()
     runs = []
     for how, kw, ids in calls:
         leaves = [torch.randn(shape, generator=gen, device="cuda")
                   .bfloat16().requires_grad_() for _ in range(3)]
         dout = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        before = attention_counters()
+        before = launch_counters()
         out = F.variable_length_attention(*leaves, **kw)
         out.backward(dout)
         torch.cuda.synchronize()
-        after = attention_counters()
+        after = launch_counters()
         grew = {k: after[k] - before[k] for k in after}
         runs.append((how, leaves, dout, out.detach(), ids, grew))
-    launches = attention_counters()
+    launches = launch_counters()
 
     result = {"shape": list(shape), "dtype": "bfloat16", "causal": True,
               "seq_lens": lens, "tail": TRAIN_SEQ - total, "calls": {}}
@@ -1857,7 +2070,7 @@ def phase_train_e2e_variant(seed):
                                  % (tag, name, diff, TRAIN_GRAD_RTOL, scale))
 
 
-# -- phase 8 ----------------------------------------------------------------
+# -- phase 9 ----------------------------------------------------------------
 
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
@@ -1913,6 +2126,11 @@ KERNELS = {
         source=BWD_SOURCE,
         replaces="paddle_tpu/kernels/flash_attention.py:366",
         mode="segment ids"),
+    "int8_weight_matmul": dict(
+        source="paddle_tpu_torch/csrc/w8_gemm.cu",
+        replaces="none: the reference's dequantize is fused by XLA "
+                 "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
+        mode="float32 x, int8 weight, fp32 block scales"),
 }
 # the float32 and bfloat16 modes of the mixed kernel share one counter
 SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches (float32 and "
@@ -2032,7 +2250,9 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name.endswith("_segmented"):
+        if name == "int8_weight_matmul":
+            numbers = w8_layer_numbers(rows["int8_weight_matmul"])
+        elif name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
         elif name.startswith("fused_ce"):
             numbers = fused_numbers(name, rows["fused_ce"],
@@ -2119,6 +2339,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     tier2 = phase_tier2_slice(args.seed, model)
     phase_tier2_e2e(args.seed, model, cpu_model)
+    rows["int8_weight_matmul"] = phase_w8_kernel(args.seed, model)
+    quant_paths = phase_quant_decode(args.seed, model, cpu_model)
+    torch.cuda.empty_cache()
+    _, bench_paths = phase_serving_bench(args.seed, model)
     del model, cpu_model
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
@@ -2138,6 +2362,8 @@ def main(argv=None):
              "bench_fused": bench["launches"], "varlen": varlen["launches"]}
     paths.update({"tier2 " + tag: run["launches"]
                   for tag, run in tier2.items()})
+    paths.update(quant_paths)
+    paths.update(bench_paths)
     log(json.dumps(summary(rows, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

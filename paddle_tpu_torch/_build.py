@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
-           "fused_ce", "mma_probe")
+           "fused_ce", "mma_probe", "w8_gemm")
 # the csrc/ headers each source includes (hashed with it)
 HEADERS = {"fused_ce": ("mma_bf16.cuh", "wgmma_bf16.cuh"),
            "flash_attention": ("segment_ids.cuh", "wgmma_bf16.cuh"),

@@ -24,6 +24,11 @@ _DEFAULTS = {
     "FLAGS_serving_chunked_prefill": False,
     # int8 KV pages with per-(page, position, head) fp32 scale planes
     "FLAGS_serving_quant_kv": False,
+    # weight-only int8 decode: the attention and MLP projection weights
+    # quantized once at construction (block scales along the input axis);
+    # the decode and mixed steps multiply through the int8-weight GEMM,
+    # prefill keeps the fp32 weights
+    "FLAGS_serving_quant_weights": False,
 }
 
 _flags = {}

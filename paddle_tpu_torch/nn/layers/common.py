@@ -5,6 +5,11 @@ so ``y = x @ W``: the reference's weights load without a transpose, and
 the product is the same orientation the reference's XLA matmul computes.
 The Llama path uses no bias, so this slice's ``Linear`` has none.
 
+Inside ``kernels.quant.int8_weight_routes(table)`` (the serving engine's
+weight-only int8 decode, ``FLAGS_serving_quant_weights``), a ``Linear``
+found in ``table`` multiplies through its int8 copy with
+``int8_weight_matmul`` instead of its fp32 weight.
+
 Initialisation draws from an explicit ``torch.Generator`` with the
 reference's laws: XavierNormal for ``Linear`` (std
 ``sqrt(2 / (in + out))``), N(0, 1) for ``Embedding``. The numbers differ
@@ -16,6 +21,8 @@ import math
 
 import torch
 from torch import nn
+
+from ...kernels.quant import int8_weight_matmul, routed_int8_weight
 
 
 def _normal(shape, std, generator, device, dtype):
@@ -35,6 +42,9 @@ class Linear(nn.Module):
                               generator, device, dtype)
 
     def forward(self, x):
+        qw = routed_int8_weight(self)
+        if qw is not None:
+            return int8_weight_matmul(x, *qw)
         return torch.matmul(x, self.weight)
 
     def extra_repr(self):

@@ -30,18 +30,55 @@ never changes a live engine):
 - ``FLAGS_serving_quant_kv``: the page pools are int8 with fp32 scale
   planes, quantized at write time and dequantized inside the attention
   kernels.
+- ``FLAGS_serving_quant_weights``: weight-only int8 decode. The 2-D
+  ``weight`` of every attention and MLP projection (``_quantizable_weight``)
+  is quantized once, here, with block scales along its input axis
+  (``kernels/quant.py``). The decode and mixed steps run inside
+  ``int8_weight_routes``, so each of those projections multiplies through
+  ``int8_weight_matmul`` (``csrc/w8_gemm.cu`` on the card: 7 launches a
+  layer a step); prefill and the suffix prefill keep the fp32 weights,
+  which stay beside the int8 copies. The embedding, ``lm_head`` and the
+  norms stay fp32.
+
+Resilience (all off unless asked; the counterpart of the reference's):
+
+- ``max_queue``: ``add_request`` raises ``QueueFullError`` (and counts a
+  ``queue_full`` shed) once that many requests wait; after ``drain()`` it
+  raises ``DrainingError``. Neither request is enqueued nor gets an id.
+- ``default_deadline_s`` / ``add_request(deadline_s=...)``: a queue TTL.
+  A request still waiting past it is closed EXPIRED (reason
+  ``deadline``); an admitted request runs to its end.
+- ``max_preemptions``: a request preempted that many times is no longer
+  a victim; when no eligible victim remains, the request that needs the
+  pages is shed (SHED, reason ``preempt_cap``) instead of livelocking.
+- Poison quarantine and the fault sites of ``resilience/faultinject``:
+  ``serving.step`` (a transient at the top of ``step()``: the iteration
+  is skipped), ``serving.prefill`` (one request's prefill raised: that
+  request is FAILED, reason ``poison``) and ``serving.decode`` (a batched
+  decode or mixed step raised: with one row, that request is FAILED; with
+  several, every row is requeued and re-admitted one at a time until the
+  failing one is named).
+
+The reference also rebuilds the pools after a failed step
+(``_recover_consumed_pools``): its compiled steps donate their input
+pools, so a step that fails mid-run leaves them deleted. The port writes
+its pools in place and never loses them. An injected fault fires before
+any write, and a step that fails after writing some layers' K/V leaves
+``seq_lens`` where it was, so the rows' retry (after their re-admission)
+writes the same positions again before anything reads them; with the
+prefix cache, only full pages of computed tokens enter the tree.
 
 The engine owns the paged KV cache; the model sees one view per layer
 through its external-cache hook. The pools are updated in place. Greedy
 decoding (argmax) only, which is what lets the tests hold the port's
 tokens equal to the reference engine's.
 
-Not in this slice: weight-only int8 decode, fault injection, poison
-quarantine, deadlines and load shedding, record/replay, and the monitor
-and memory planes.
+Not in this slice: record/replay, the OOM site and its forensics, and
+the monitor, trace and memory planes.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -49,6 +86,8 @@ import torch
 
 from ..core import flags
 from ..device import resolve_device
+from ..kernels.quant import int8_weight_routes, quantize_int8_weight
+from ..resilience import faultinject as _fi
 from .kv_cache import (PagedDecodeView, PagedKVCache, PagedMixedView,
                        PagedPrefillView)
 from .metrics import EngineMetrics, now
@@ -56,13 +95,54 @@ from .prefix_cache import RadixPrefixCache
 from .scheduler import Request, RequestState, Scheduler
 
 
+class AdmissionError(RuntimeError):
+    """A request rejected at admission (load shed): never enqueued, no id
+    assigned."""
+
+    reason = "admission"
+
+
+class QueueFullError(AdmissionError):
+    """The bounded admission queue is full (``max_queue``)."""
+
+    reason = "queue_full"
+
+
+class DrainingError(AdmissionError):
+    """The engine is draining (``Engine.drain()``): work already accepted
+    completes, new admissions are rejected."""
+
+    reason = "draining"
+
+
+# weight-only int8 decode (FLAGS_serving_quant_weights): the 2-D projection
+# weights of the attention and MLP stacks, the reference's names
+# (paddle_tpu/serving/engine.py); embeddings, lm_head and norms stay fp32
+_QUANT_PROJ_SEGMENTS = frozenset((
+    "q_proj", "k_proj", "v_proj", "o_proj", "qkv_proj",       # llama attn
+    "gate_proj", "up_proj", "down_proj", "gate_up_proj",      # llama mlp
+    "qkv", "proj", "fc1", "fc2",                              # gpt
+))
+
+
+def _quantizable_weight(name, val):
+    parts = name.split(".")
+    return (getattr(val, "ndim", 0) == 2 and parts[-1] == "weight"
+            and any(p in _QUANT_PROJ_SEGMENTS for p in parts[:-1]))
+
+
 class Engine:
     def __init__(self, model, max_slots=4, num_blocks=64, block_size=16,
-                 max_model_len=None, prefill_chunk=16, device=None):
+                 max_model_len=None, max_queue=None,
+                 default_deadline_s=None, max_preemptions=None,
+                 prefill_chunk=16, device=None):
         """``device`` defaults to the card and raises without one; the
         model's parameters must already live on that device.
         ``prefill_chunk`` is the mixed step's row width under chunked
-        prefill."""
+        prefill. ``max_queue``, ``default_deadline_s`` and
+        ``max_preemptions`` are the resilience bounds (module docstring);
+        they are plain attributes, read on every call, so a caller may set
+        them after a warm-up."""
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError("Engine on %s got a model on %s"
@@ -80,6 +160,7 @@ class Engine:
         self.block_size = block_size
         self.max_model_len = max_model_len
         self.quant_kv = bool(flags.flag("FLAGS_serving_quant_kv"))
+        self.quant_weights = bool(flags.flag("FLAGS_serving_quant_weights"))
         self.chunked_prefill = bool(
             flags.flag("FLAGS_serving_chunked_prefill"))
         self.prefill_chunk = int(prefill_chunk)
@@ -102,15 +183,46 @@ class Engine:
         self.metrics = EngineMetrics(max_slots)
         self.requests = {}
         self._next_id = 0
+        self.max_queue = max_queue
+        self.default_deadline_s = default_deadline_s
+        self.max_preemptions = max_preemptions
+        self._draining = False
+        # poison quarantine: ids of the requests that were rows of a failed
+        # batched step, re-admitted one at a time so the next failure names
+        # a single request; a member leaves at its terminal state
+        self._quarantine = set()
+        # weight-only int8 decode: Linear -> (q, scales), built once here
+        self.quant_weight_table = {}
+        if self.quant_weights:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if _quantizable_weight(name, p):
+                        module = model.get_submodule(name.rpartition(".")[0])
+                        self.quant_weight_table[module] = \
+                            quantize_int8_weight(p)
         # slot_tokens[s]: the slot's last generated token, not yet written
         # to KV: the next decode step's input for that slot
         self._slot_tokens = np.zeros((max_slots,), np.int64)
 
     # -- public API -------------------------------------------------------
 
-    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None):
-        """Queue a request and return its id. Raises ValueError for a
-        request that could never run alone."""
+    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
+                    deadline_s=None):
+        """Queue a request and return its id. Raises DrainingError or
+        QueueFullError when shedding load (the request is not enqueued and
+        gets no id), and ValueError for a request that could never run
+        alone. ``deadline_s`` (default ``default_deadline_s``) is its
+        queue TTL."""
+        if self._draining:
+            self.metrics.on_request_shed("draining")
+            raise DrainingError("engine is draining: new admissions "
+                                "rejected")
+        if self.max_queue is not None \
+                and len(self.scheduler.queue) >= self.max_queue:
+            self.metrics.on_request_shed("queue_full")
+            raise QueueFullError(
+                "admission queue full (%d waiting, max_queue=%d)"
+                % (len(self.scheduler.queue), self.max_queue))
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -124,13 +236,16 @@ class Engine:
                 "request needs %d pages but the pool only has %d usable "
                 "blocks" % (self.cache.pages_needed(total),
                             self.cache.allocator.usable_blocks))
-        req = Request(self._next_id, prompt, max_new_tokens, eos_token_id)
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        req = Request(self._next_id, prompt, max_new_tokens, eos_token_id,
+                      deadline_s=deadline_s)
         self._next_id += 1
         self.requests[req.id] = req
         self.metrics.on_request_in()
         if max_new_tokens == 0:
             req.finish()
-            self.metrics.on_request_finished()
+            self.metrics.on_request_finished(len(req.generated))
             return req.id
         self.scheduler.add(req)
         return req.id
@@ -139,9 +254,18 @@ class Engine:
         return self.scheduler.has_work()
 
     def step(self):
-        """One engine iteration: admit + prefill, grow pages (reclaiming
-        or preempting on exhaustion), one batched decode step, or under
-        chunked prefill one mixed step. Returns has_work()."""
+        """One engine iteration: expire waiting requests past their
+        deadline, admit + prefill, grow pages (reclaiming or preempting on
+        exhaustion), one batched decode step, or under chunked prefill one
+        mixed step. Returns has_work()."""
+        try:
+            # an engine-level transient between requests: nothing owned it,
+            # no request is harmed, the iteration is skipped
+            if _fi.is_enabled():
+                _fi.fire("serving.step")
+        except _fi.InjectedFault:
+            return self.has_work()
+        self._expire_waiting()
         self._admit_and_prefill()
         self._grow_or_preempt()
         if self.chunked_prefill:
@@ -163,29 +287,87 @@ class Engine:
             pass
         return {rid: list(r.generated) for rid, r in self.requests.items()}
 
+    @property
+    def draining(self):
+        return self._draining
+
+    def drain(self):
+        """Stop admitting, finish everything already accepted (the slots
+        and the queue) and return the outputs. Afterwards the engine holds
+        no work, every accepted request is terminal, and ``add_request``
+        keeps raising DrainingError. Waiting requests still honour their
+        deadlines."""
+        self._draining = True
+        return self.run()
+
     def output(self, rid):
         return list(self.requests[rid].generated)
 
     def request_metrics(self, rid):
         return self.requests[rid].metrics.to_dict()
 
+    def request_status(self, rid):
+        """One request's state and machine-readable reason (finished,
+        expired, shed, failed, or a live state)."""
+        r = self.requests[rid]
+        return {"id": rid, "state": r.state.value,
+                "reason": r.status_reason,
+                "output_tokens": len(r.generated),
+                "preemptions": r.metrics.preemptions,
+                "error": repr(r.error) if r.error is not None else None}
+
     def stats(self):
         return self.metrics.to_dict()
 
     # -- lifecycle --------------------------------------------------------
 
+    def _expire_waiting(self):
+        """Queue TTL: waiting requests past their deadline are closed
+        EXPIRED (shed reason ``expired``) before admission spends anything
+        on them."""
+        for req in self.scheduler.expire_waiting():
+            req.close(RequestState.EXPIRED, "deadline")
+            self._quarantine.discard(req.id)
+            self.metrics.on_request_shed("expired")
+
     def _admit_and_prefill(self):
         while True:
+            if self._quarantine and self.scheduler.slots_active() > 0:
+                # a poison bisect is open: one request at a time, so a
+                # failing step names a single request
+                return
             admitted = self.scheduler.admit_next()
             if admitted is None:
                 return
+            slot, req = admitted
             self.metrics.on_admission()
             if self.chunked_prefill:
                 # the prompt streams through the mixed steps from
-                # prefill_pos on; the request holds its slot in PREFILL
+                # prefill_pos on; the request holds its slot in PREFILL.
+                # Admission is the last point a prefill fault is this one
+                # request's, so the per-request site fires here
+                try:
+                    if _fi.is_enabled():
+                        _fi.fire("serving.prefill", request=req.id,
+                                 slot=slot)
+                except Exception as e:      # poison: fail it, keep serving
+                    self._fail_request(req, e)
+                    continue
                 self.metrics.on_prefill_run()
                 continue
-            self._prefill_request(*admitted)
+            try:
+                self._prefill_request(slot, req)
+            except Exception as e:  # the request's own step failed, not
+                self._fail_request(req, e)      # the engine
+
+    def _fail_request(self, req, exc):
+        """Poison quarantine: one request's step raised; fail it with a
+        terminal status and keep serving the others."""
+        if req.slot is not None:
+            self.scheduler.release(req)
+        req.close(RequestState.FAILED, "poison", error=exc)
+        self._quarantine.discard(req.id)
+        self.metrics.on_request_shed("poison")
 
     def _bucket(self, n):
         """Prefill length bucket: next power of two (>= 8), capped at
@@ -200,6 +382,9 @@ class Engine:
         return min(p, max(cap, n))
 
     def _prefill_request(self, slot, req):
+        # the per-request site: a fault here is this request's alone
+        if _fi.is_enabled():
+            _fi.fire("serving.prefill", request=req.id, slot=slot)
         t0 = time.perf_counter()
         tokens = req.resume_tokens
         n = len(tokens)
@@ -258,7 +443,8 @@ class Engine:
         pages exist and, with the prefix cache, are exclusively owned
         (copy-on-write). On exhaustion: first reclaim pages only the
         prefix cache holds, then preempt the most recently admitted other
-        request."""
+        request, and when every other request is at the preemption cap,
+        shed this one."""
         rows = (self.scheduler.occupied() if self.chunked_prefill
                 else self.scheduler.active())
         for slot, req in rows:
@@ -286,23 +472,48 @@ class Engine:
                         - self.cache.allocator.free_blocks, 1)
                     if self.prefix_cache.reclaim(shortfall):
                         continue
-                if self.scheduler.preempt_victim(
-                        slot, include_prefill=self.chunked_prefill) is None:
+                victim = self.scheduler.preempt_victim(
+                    slot, self.max_preemptions,
+                    include_prefill=self.chunked_prefill)
+                if victim is None:
+                    if any(i != slot for i, _ in self.scheduler.occupied()):
+                        # every other running request is at the cap: shed
+                        # this grower rather than livelock the pool
+                        self.scheduler.release(req)
+                        req.close(RequestState.SHED, "preempt_cap")
+                        self._quarantine.discard(req.id)
+                        self.metrics.on_request_shed("preempt_cap")
+                        break
                     raise RuntimeError(
                         "KV pool exhausted by a single request; "
                         "add_request validation should have caught this")
                 self.metrics.on_preemption()
 
+    def _weight_routes(self):
+        """The decode and mixed steps' context: the int8 projections with
+        FLAGS_serving_quant_weights latched, else nothing."""
+        if self.quant_weight_table:
+            return int8_weight_routes(self.quant_weight_table)
+        return contextlib.nullcontext()
+
     def _decode_once(self, active):
         t0 = time.perf_counter()
-        bt = torch.tensor(self.cache.block_tables, device=self.device)
-        lens = torch.tensor(self.cache.seq_lens, device=self.device)
-        toks = torch.tensor(self._slot_tokens, device=self.device)
-        with torch.no_grad():
-            views = [PagedDecodeView(p, bt, lens, self.block_size)
-                     for p in self.cache.pools]
-            logits = self.model.generate_step(toks[:, None], views, lens)
-            out = logits[:, -1].float().argmax(dim=-1).cpu().numpy()
+        try:
+            # the batched site: a failure is not one request's until the
+            # quarantine serializes the batch
+            if _fi.is_enabled():
+                _fi.fire("serving.decode", batch=len(active))
+            bt = torch.tensor(self.cache.block_tables, device=self.device)
+            lens = torch.tensor(self.cache.seq_lens, device=self.device)
+            toks = torch.tensor(self._slot_tokens, device=self.device)
+            with torch.no_grad(), self._weight_routes():
+                views = [PagedDecodeView(p, bt, lens, self.block_size)
+                         for p in self.cache.pools]
+                logits = self.model.generate_step(toks[:, None], views, lens)
+                out = logits[:, -1].float().argmax(dim=-1).cpu().numpy()
+        except Exception as e:      # poison quarantine (_on_decode_failure)
+            self._on_decode_failure(active, e)
+            return
         self.metrics.on_decode_step(len(active), time.perf_counter() - t0)
         self._note_quant_step()
         for slot, req in active:
@@ -331,17 +542,25 @@ class Engine:
             else:
                 tokens[slot, 0] = self._slot_tokens[slot]
                 q_lens[slot] = 1
-        bt = torch.tensor(self.cache.block_tables, device=self.device)
-        lens = torch.tensor(self.cache.seq_lens, device=self.device)
-        ql = torch.tensor(q_lens, device=self.device)
-        with torch.no_grad():
-            views = [PagedMixedView(p, bt, lens, ql, self.block_size)
-                     for p in self.cache.pools]
-            logits = self.model.generate_step(
-                torch.tensor(tokens, device=self.device), views, lens)
-            last = logits[torch.arange(self.max_slots, device=self.device),
-                          (ql.long() - 1).clamp(min=0)]
-            out = last.float().argmax(dim=-1).cpu().numpy()
+        try:
+            # the same batched site as the decode step
+            if _fi.is_enabled():
+                _fi.fire("serving.decode", batch=len(rows))
+            bt = torch.tensor(self.cache.block_tables, device=self.device)
+            lens = torch.tensor(self.cache.seq_lens, device=self.device)
+            ql = torch.tensor(q_lens, device=self.device)
+            with torch.no_grad(), self._weight_routes():
+                views = [PagedMixedView(p, bt, lens, ql, self.block_size)
+                         for p in self.cache.pools]
+                logits = self.model.generate_step(
+                    torch.tensor(tokens, device=self.device), views, lens)
+                last = logits[torch.arange(self.max_slots,
+                                           device=self.device),
+                              (ql.long() - 1).clamp(min=0)]
+                out = last.float().argmax(dim=-1).cpu().numpy()
+        except Exception as e:
+            self._on_decode_failure(rows, e)
+            return
         self.metrics.on_mixed_step(len(rows), int(q_lens.sum()),
                                    time.perf_counter() - t0)
         self._note_quant_step()
@@ -375,6 +594,28 @@ class Engine:
             alloc.usable_blocks - alloc.free_blocks,
             read_pages * self._quant_page_bytes * len(self.cache.pools))
 
+    def _on_decode_failure(self, rows, exc):
+        """A batched decode or mixed step raised. With one row the poison
+        is named: fail it, keep the engine. With several, requeue them all
+        (preempt-by-recompute keeps their greedy tokens) and quarantine
+        them: re-admitted one at a time until the set clears, so the next
+        failure is one request's. Every quarantined request then runs alone
+        to its end (the reference's choice: re-batching an exonerated
+        request beside a still-quarantined poison would make the next
+        failure unattributable again)."""
+        if len(rows) == 1:
+            self._fail_request(rows[0][1], exc)
+            return
+        for slot, req in reversed(list(rows)):
+            if self.scheduler.slots[slot] is not req:
+                continue
+            self.scheduler.release(req)
+            req.state = RequestState.PREEMPTED
+            req.metrics.preemptions += 1
+            self.scheduler.requeue_front(req)
+            self._quarantine.add(req.id)
+            self.metrics.on_preemption()
+
     def _accept_token(self, req, tok):
         req.generated.append(tok)
         self._slot_tokens[req.slot] = tok
@@ -383,4 +624,5 @@ class Engine:
                                   and tok == req.eos_token_id):
             self.scheduler.release(req)
             req.finish()
-            self.metrics.on_request_finished()
+            self._quarantine.discard(req.id)    # survived its solo decode
+            self.metrics.on_request_finished(len(req.generated))

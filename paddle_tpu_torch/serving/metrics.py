@@ -1,6 +1,6 @@
 """Serving metrics: per-request latency breakdown and engine counters
 (counterpart of paddle_tpu/serving/metrics.py, without the monitor
-registry or trace spans).
+registry, trace spans or the perf-attribution gauges).
 
 per request (``RequestMetrics.to_dict()``):
   queue_time_s     arrival -> first admission
@@ -15,6 +15,13 @@ per request (``RequestMetrics.to_dict()``):
 
 engine (``EngineMetrics.to_dict()``):
   requests_in / requests_finished / preemptions
+  requests_shed / shed_by_reason
+                               requests that ended without full service
+                               (expired / queue_full / draining /
+                               preempt_cap / poison), in all and by reason
+  finished_output_tokens       output tokens of finished requests only
+  goodput_tok_s                finished_output_tokens / wall time since
+                               the first admission
   prefill_runs / decode_steps / output_tokens
   prefill_tokens / prefill_s   prompt tokens prefilled (resumes included,
                                padding excluded) and host seconds spent in
@@ -112,6 +119,8 @@ class EngineMetrics:
         self.start_t = None
         self.requests_in = 0
         self.requests_finished = 0
+        self.requests_shed = 0
+        self.shed_by_reason = {}
         self.preemptions = 0
         self.prefill_runs = 0
         self.prefill_tokens = 0
@@ -120,6 +129,7 @@ class EngineMetrics:
         self.decode_tokens = 0
         self.decode_s = 0.0
         self.output_tokens = 0
+        self.finished_output_tokens = 0
         self._occupancy_sum = 0
         self.mixed_steps = 0
         self.mixed_tokens = 0
@@ -137,8 +147,15 @@ class EngineMetrics:
     def on_request_in(self):
         self.requests_in += 1
 
-    def on_request_finished(self):
+    def on_request_finished(self, output_tokens=0):
         self.requests_finished += 1
+        self.finished_output_tokens += int(output_tokens)
+
+    def on_request_shed(self, reason):
+        """One request ended without full service (expired / queue_full /
+        draining / preempt_cap / poison)."""
+        self.requests_shed += 1
+        self.shed_by_reason[reason] = self.shed_by_reason.get(reason, 0) + 1
 
     def on_preemption(self):
         self.preemptions += 1
@@ -198,6 +215,8 @@ class EngineMetrics:
         return {
             "requests_in": self.requests_in,
             "requests_finished": self.requests_finished,
+            "requests_shed": self.requests_shed,
+            "shed_by_reason": dict(self.shed_by_reason),
             "preemptions": self.preemptions,
             "prefill_runs": self.prefill_runs,
             "prefill_tokens": self.prefill_tokens,
@@ -206,8 +225,11 @@ class EngineMetrics:
             "decode_tokens": self.decode_tokens,
             "decode_s": self.decode_s,
             "output_tokens": self.output_tokens,
+            "finished_output_tokens": self.finished_output_tokens,
             "wall_s": wall,
             "throughput_tok_s": self.output_tokens / wall if wall else 0.0,
+            "goodput_tok_s": (self.finished_output_tokens / wall
+                              if wall else 0.0),
             "slot_occupancy": (self._occupancy_sum
                                / (self.decode_steps * self.max_slots)
                                if self.decode_steps else 0.0),

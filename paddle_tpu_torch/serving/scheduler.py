@@ -1,10 +1,13 @@
 """Request lifecycle and FCFS continuous-batching scheduler
-(counterpart of paddle_tpu/serving/scheduler.py, without trace hooks or
-deadlines).
+(counterpart of paddle_tpu/serving/scheduler.py, without trace hooks).
 
 Lifecycle: QUEUED -> PREFILL -> DECODING -> FINISHED, with
 PREFILL/DECODING -> PREEMPTED when the page pool runs dry (the victim
-waits at the queue front until re-admission re-prefills it).
+waits at the queue front until re-admission re-prefills it). Three
+terminal states end a request without full service, each with a
+machine-readable ``status_reason`` (``Request.close``): EXPIRED (its
+queue-TTL deadline passed while it waited), SHED (load shedding: the
+preemption cap) and FAILED (poison: its own step raised).
 
 Policies (kept simple and deterministic, so outputs are reproducible):
 
@@ -42,10 +45,14 @@ class RequestState(Enum):
     DECODING = "decoding"
     PREEMPTED = "preempted"
     FINISHED = "finished"
+    EXPIRED = "expired"      # queue-TTL deadline passed while waiting
+    SHED = "shed"            # load shed (the preemption cap)
+    FAILED = "failed"        # poison: its own step raised; engine lives
 
 
 class Request:
-    def __init__(self, rid, prompt, max_new_tokens, eos_token_id=None):
+    def __init__(self, rid, prompt, max_new_tokens, eos_token_id=None,
+                 deadline_s=None):
         self.id = rid
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
@@ -55,6 +62,13 @@ class Request:
         self.slot = None
         self.admit_seq = None      # monotone admission stamp (victim pick)
         self.metrics = RequestMetrics(now(), len(self.prompt))
+        # queue-TTL deadline (monotonic, absolute): a request still WAITING
+        # (queued or preempted) past it is closed EXPIRED; once admitted it
+        # runs to its end
+        self.deadline_t = (None if deadline_s is None
+                           else self.metrics.arrival_t + float(deadline_s))
+        self.status_reason = None  # terminal detail of EXPIRED/SHED/FAILED
+        self.error = None          # the exception of a FAILED request
         # prefix cache / chunked prefill (0 and unused with the flags off),
         # both reset at every (re-)admission: cached_tokens = tokens of the
         # resume prompt served from the radix cache (prefill starts there);
@@ -76,6 +90,16 @@ class Request:
         self.state = RequestState.FINISHED
         self.metrics.on_finish(now(), len(self.generated))
 
+    def close(self, state, reason, error=None):
+        """Terminal close for EXPIRED / SHED / FAILED: stamps the finish
+        time and the output count; the latency figures of such a request
+        are not service latencies."""
+        self.state = state
+        self.status_reason = reason
+        self.error = error
+        self.metrics.finish_t = now()
+        self.metrics.output_tokens = len(self.generated)
+
 
 class Scheduler:
     def __init__(self, max_slots, cache, prefix_cache=None):
@@ -91,6 +115,18 @@ class Scheduler:
 
     def requeue_front(self, req):
         self.queue.appendleft(req)
+
+    def expire_waiting(self):
+        """Remove the waiting requests (QUEUED or PREEMPTED: they hold no
+        slot) whose deadline passed and return them, oldest first, for the
+        engine to close EXPIRED. Admitted requests are never expired."""
+        t = now()
+        expired = [r for r in self.queue
+                   if r.deadline_t is not None and t >= r.deadline_t]
+        if expired:
+            dead = set(map(id, expired))
+            self.queue = deque(r for r in self.queue if id(r) not in dead)
+        return expired
 
     def has_work(self):
         return bool(self.queue) or any(r is not None for r in self.slots)
@@ -178,14 +214,20 @@ class Scheduler:
         self.slots[slot] = None
         req.slot = None
 
-    def preempt_victim(self, exclude_slot, include_prefill=False):
+    def preempt_victim(self, exclude_slot, max_preemptions=None,
+                       include_prefill=False):
         """Preempt the most recently admitted running request other than
         ``exclude_slot`` and requeue it at the front. Returns the victim,
-        or None when there is no other candidate. ``include_prefill``
-        widens the candidates to mid-prefill chunk rows (chunked prefill);
-        without it only decoding requests are candidates."""
+        or None when no other candidate is eligible. With
+        ``max_preemptions`` set, a request preempted that many times is no
+        longer a candidate: it runs to its end, which breaks the
+        preempt-recompute livelock. ``include_prefill`` widens the
+        candidates to mid-prefill chunk rows (chunked prefill); without it
+        only decoding requests are candidates."""
         pool = self.occupied() if include_prefill else self.active()
-        candidates = [r for i, r in pool if i != exclude_slot]
+        candidates = [r for i, r in pool if i != exclude_slot
+                      and (max_preemptions is None
+                           or r.metrics.preemptions < max_preemptions)]
         if not candidates:
             return None
         victim = max(candidates, key=lambda r: r.admit_seq)
