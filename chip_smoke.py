@@ -91,9 +91,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 gradients must agree
   8. quant and  run after phase 5b on the phase-4 llama1b and its CPU copy:
      benchmark  (a) the int8-weight GEMM (csrc/w8_gemm.cu) against its
-                plain version at M = 1, 5, 16, 256 x (2048->2048,
-                2048->5504, 5504->2048) on layer 0's weights, two launches
-                bit for bit, timed at M = 16 and 256 beside its bound and
+                plain version at M = 1, 5, 16, 17 (cluster split-K) and 64,
+                256 (register-tiled) x (2048->2048, 2048->5504, 5504->2048
+                and the fused 2048->6144, 2048->11008) on layer 0's
+                weights, and off the vector path (N = 24, K = 36 and 5504),
+                two launches bit for bit, timed at M = 16 and 256 (CUDA
+                events and profiler device time) beside its bound and
                 torch.matmul on the dequantized and on the fp32 weight;
                 (b) weight-only int8 decode (FLAGS_serving_quant_weights),
                 alone and with prefix cache + chunked prefill + int8 KV:
@@ -1421,11 +1424,21 @@ def phase_e2e(model, prompt, card_tokens):
 # TF32 off): the same dequantized products, summed in another order (a
 # K-long fp32 dot split across warps and CTAs) -- 1e-4 x max|y| + rtol 1e-4
 W8_TOL = dict(atol=1e-4, rtol=1e-4, scaled=True)
-W8_MS = (1, 5, 16, 256)
+# both sides of the regime threshold (kernels/quant.py W8_SMALL_M = 32):
+# the cluster split-K kernel at 1, 5, 16, 17; the register-tiled GEMM at
+# 64 and 256
+W8_MS = (1, 5, 16, 17, 64, 256)
+W8_TIMED_MS = (16, 256)         # the decode batch and the mixed step
 # llama1b's projections (K -> N) and their count a layer: q/k/v/o, gate/up,
-# down
+# down; then the fused variants' qkv_proj and gate_up_proj (count 0: not in
+# the unfused layer's sum)
 W8_SHAPES = ((2048, 2048, 4, "q_proj"), (2048, 5504, 2, "gate_proj"),
-             (5504, 2048, 1, "down_proj"))
+             (5504, 2048, 1, "down_proj"), (2048, 6144, 0, "qkv_proj"),
+             (2048, 11008, 0, "gate_up_proj"))
+# off the vector path: N not a multiple of 16 (random weights), one with
+# the one-scale-per-column block (K = 36) and one split into a cluster of
+# more than 8
+W8_EDGE_SHAPES = ((36, 24), (5504, 24))
 # phase 8(c): the benchmark tool's rows on llama1b (32 requests a row).
 # The shared-prefix row's tails are 128-1024 tokens, so its prompts (512 +
 # tail) stay within the other rows' 1536 and, with 64 new tokens, within
@@ -1444,68 +1457,115 @@ BENCH_ROWS = (
                     "serving.prefill:error@3;serving.decode:error@5"]))
 
 
+def w8_device_ms(fn, calls=10, tries=5):
+    """The int8-weight GEMM's own device time per call, from the profiler
+    (every CUDA kernel whose name holds "w8_gemm"); a window in which the
+    profiler recorded fewer launches than were made is measured again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and "w8_gemm" in evt.key]
+        if sum(evt.count for evt in evts) == calls:
+            break
+    else:
+        raise AssertionError("[w8] the profiler recorded %d of %d launches"
+                             % (sum(e.count for e in evts), calls))
+    return sum(evt.self_device_time_total for evt in evts) / 1e3 / calls
+
+
 def w8_case(x, q, scales, w, tag, timed):
     from paddle_tpu_torch.kernels import quant
 
+    m, k = x.shape
+    n = q.shape[1]
     got = quant.int8_weight_matmul(x, q, scales)
     again = quant.int8_weight_matmul(x, q, scales)
     want = quant.int8_weight_matmul_reference(x, q, scales)
     torch.cuda.synchronize()
-    row = {"case": tag, "mkn": [x.shape[0], x.shape[1], q.shape[1]],
+    bm, chunk, splits = quant.w8_plan(m, n, k)
+    row = {"case": tag, "mkn": [m, k, n],
+           "regime": "cluster split-K" if bm == quant.W8_SMALL_BM
+           else "register-tiled GEMM",
+           "plan": dict(bm=bm, chunk=chunk, splits=splits),
            "max_abs_err": check_close(tag, got, want, W8_TOL),
            "bitwise": bool(torch.equal(got, again))}
     if not row["bitwise"]:
         raise AssertionError("%s: two launches differ" % tag)
     if timed:
-        m, k = x.shape
-        n = q.shape[1]
         deq = quant.dequantize_int8_weight(q, scales)
         nbytes = (q.numel() + scales.numel() * 4 + x.numel() * 4
                   + m * n * 4)
-        row.update(ms=time_ms(lambda: quant.int8_weight_matmul(x, q, scales)),
+
+        def kernel():
+            return quant.int8_weight_matmul(x, q, scales)
+
+        row.update(ms=time_ms(kernel), device_ms=w8_device_ms(kernel),
                    plain_ms=time_ms(
                        lambda: quant.int8_weight_matmul_reference(x, q,
                                                                   scales)),
                    library_ms=time_ms(lambda: torch.matmul(x, deq)),
                    library_fp32_weight_ms=time_ms(lambda: torch.matmul(x, w)),
-                   split=dict(zip(("chunk", "splits"),
-                                  quant.w8_plan(m, n, k))),
                    **bound(nbytes, 2 * m * n * k, torch.float32))
     log("[w8] " + json.dumps(row))
     return row
 
 
 def phase_w8_kernel(seed, model):
-    """Phase 8(a): the int8-weight GEMM against its plain version at the
-    decode and mixed steps' shapes on llama1b's layer-0 weights, two
-    launches bit for bit; timed at M = 16 and 256 beside its bound,
-    torch.matmul on the dequantized weight and on the fp32 weight."""
+    """Phase 8(a): the int8-weight GEMM against its plain version on
+    llama1b's layer-0 weights at the decode and mixed steps' shapes, on
+    both sides of the regime threshold, the fused qkv_proj / gate_up_proj
+    shapes and the non-vector path; two launches bit for bit; timed at
+    M = 16 and 256 (CUDA events and profiler device time) beside its
+    bound, torch.matmul on the dequantized weight and on the fp32 weight."""
     from paddle_tpu_torch.kernels import quant
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     layer = model.llama.layers[0]
-    weights = {"q_proj": layer.self_attn.q_proj.weight,
-               "gate_proj": layer.mlp.gate_proj.weight,
-               "down_proj": layer.mlp.down_proj.weight}
+    attn, mlp = layer.self_attn, layer.mlp
+    weights = {"q_proj": attn.q_proj.weight,
+               "gate_proj": mlp.gate_proj.weight,
+               "down_proj": mlp.down_proj.weight,
+               "qkv_proj": torch.cat([attn.q_proj.weight, attn.k_proj.weight,
+                                      attn.v_proj.weight], dim=1),
+               "gate_up_proj": torch.cat([mlp.gate_proj.weight,
+                                          mlp.up_proj.weight], dim=1)}
     rows = []
     with torch.no_grad():
         for k, n, _, name in W8_SHAPES:
-            w = weights[name].detach()
+            w = weights[name].detach().contiguous()
             q, scales = quant.quantize_int8_weight(w)
             for m in W8_MS:
                 x = torch.randn(m, k, generator=gen, device="cuda")
                 rows.append(w8_case(x, q, scales, w, "%s M=%d K=%d N=%d b=%d"
                                     % (name, m, k, n, quant.weight_block(k)),
-                                    timed=m in (16, 256)))
+                                    timed=m in W8_TIMED_MS))
+            del w, q, scales
+        for k, n in W8_EDGE_SHAPES:
+            w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+            q, scales = quant.quantize_int8_weight(w)
+            for m in W8_MS:
+                x = torch.randn(m, k, generator=gen, device="cuda")
+                rows.append(w8_case(x, q, scales, w, "edge M=%d K=%d N=%d b=%d"
+                                    % (m, k, n, quant.weight_block(k)),
+                                    timed=False))
+    torch.cuda.empty_cache()
     return rows
 
 
 def w8_layer_numbers(rows):
-    """One layer's seven projections (``W8_SHAPES``), summed at the decode
-    batch (M = 16) and the mixed step (M = 256); the error over every
-    case."""
-    keys = ("ms", "plain_ms", "library_ms", "library_fp32_weight_ms",
-            "bound_ms", "bytes_ms", "operations_ms")
+    """One layer's seven projections (``W8_SHAPES`` with a count), summed at
+    the decode batch (M = 16, the cluster split-K regime) and the mixed
+    step (M = 256, the register-tiled GEMM); the error over every case."""
+    keys = ("ms", "device_ms", "plain_ms", "library_ms",
+            "library_fp32_weight_ms", "bound_ms", "bytes_ms", "operations_ms")
 
     def layer(m):
         out = dict.fromkeys(keys, 0.0)
@@ -1518,7 +1578,17 @@ def w8_layer_numbers(rows):
         return out
 
     decode = layer(16)
-    return dict(ms=decode["ms"], plain_ms=decode["plain_ms"],
+    mixed = layer(256)
+    log("[w8] one layer's 7 projections: M = 16 (cluster split-K) %.4f ms "
+        "(device %.4f), bound %.4f, torch.matmul fp32 weight %.4f; M = 256 "
+        "(register-tiled) %.4f ms (device %.4f), bound %.4f, torch.matmul "
+        "fp32 weight %.4f" % (
+            decode["ms"], decode["device_ms"], decode["bound_ms"],
+            decode["library_fp32_weight_ms"], mixed["ms"],
+            mixed["device_ms"], mixed["bound_ms"],
+            mixed["library_fp32_weight_ms"]))
+    return dict(ms=decode["ms"], device_ms=decode["device_ms"],
+                plain_ms=decode["plain_ms"],
                 bound_ms=decode["bound_ms"], bound_by=decode["bound_by"],
                 library_ms=decode["library_ms"],
                 library="torch.matmul on the dequantized fp32 weight (a "
@@ -1526,9 +1596,10 @@ def w8_layer_numbers(rows):
                 library_fp32_weight_ms=decode["library_fp32_weight_ms"],
                 max_abs_err=max(r["max_abs_err"] for r in rows),
                 timed_case="one llama1b layer's 7 projections, M = 16 "
-                           "(the decode step)",
-                mixed_step=dict(case="the same, M = 256 (the mixed step)",
-                                **{k: v for k, v in layer(256).items()
+                           "(the decode step, cluster split-K)",
+                mixed_step=dict(case="the same, M = 256 (the mixed step, "
+                                     "register-tiled GEMM)",
+                                **{k: v for k, v in mixed.items()
                                    if k not in ("bytes_ms",
                                                 "operations_ms")}),
                 timed=[r for r in rows if "ms" in r])

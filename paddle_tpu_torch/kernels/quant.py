@@ -21,9 +21,11 @@ visible after dequantization instead of being clipped finite.
   same int8 planes and the same scales bit for bit.
 
 ``int8_weight_matmul(x, q, scales)`` is ``x @ dequantize_int8_weight(q,
-scales)``. For CUDA tensors it launches ``csrc/w8_gemm.cu`` (fp32 x; the
-dequantize happens in registers, so only the int8 planes and the scales
-are read) or raises; for CPU tensors it runs the plain version. The
+scales)``. For CUDA tensors it launches ``csrc/w8_gemm.cu`` (fp32 x; each
+int8 element is dequantized once a CTA, so only the int8 planes and the
+scales are read from device memory) in the regime and with the K splits
+that ``w8_plan`` picks from the shapes, or raises; for CPU tensors it runs
+the plain version. The
 reference has no Pallas kernel here: its decode step dequantizes inside
 the traced step and XLA fuses the multiply into the matmul's operand read.
 ``launches`` counts the kernel's launches (a plain integer, reset and read
@@ -39,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import functools
 
 import torch
 
@@ -48,20 +51,33 @@ from .. import _build
 QMAX = 127.0
 DEFAULT_BLOCK = 256
 
-# The GEMM's tiling (csrc/w8_gemm.cu): output rows and columns a CTA
-# computes, the most k rows a CTA takes, the fewest a split is cut to, and
-# the H100's 132 SMs (one CTA fits on an SM).
-W8_TM, W8_TN = 16, 256
-W8_MAX_CHUNK, W8_MIN_CHUNK = 1024, 128
-W8_WAVE = 132
+# The GEMM's plan (csrc/w8_gemm.cu). Small M (at most W8_SMALL_M rows):
+# 16-row x 128-column CTAs whose K chunk is a multiple of W8_SMALL_KT rows
+# (12 warps x 8). Larger M: bm-row CTAs (W8_LARGE_BM) of W8_LARGE_BN
+# columns, K chunks of W8_KT-row stages. At most W8_MAX_CLUSTER splits of K
+# a tile (one cluster), none below W8_MIN_CHUNK rows.
+W8_SMALL_M, W8_SMALL_BM, W8_SMALL_BN, W8_SMALL_WARPS = 32, 16, 128, 12
+W8_SMALL_KT = W8_SMALL_WARPS * 8
+W8_LARGE_BM, W8_LARGE_BN, W8_KT = (64, 128), 128, 32
+W8_MAX_CLUSTER, W8_MIN_CHUNK = 16, 128
+# The SMs that clusters of c CTAs (index c - 1) fill at once, one CTA an
+# SM, on an H100 SXM (w8_cluster_ctas, printed by tools/w8_timing.py
+# --clusters): the GPCs' sizes leave some SMs out of clusters larger than 2.
+W8_CLUSTER_SMS = (132, 132, 117, 120, 110, 102, 105, 120,
+                  81, 70, 77, 84, 91, 98, 105, 112)
+# a CTA's ramp (first loads, the reductions) in k rows of its own work, by
+# regime, and the cost of a 64-row tile's FMA against a 128-row one's, in
+# eighths: tuned against the split counts tools/w8_timing.py --sweep times
+W8_SMALL_RAMP, W8_LARGE_RAMP, W8_BM64_COST = 160, 32, 10
 
 # kernel launches since the last reset
 launches = 0
+# the loaded csrc/w8_gemm.cu, once built
+_lib = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"pt_w8_gemm": [_P] * 6 + [_I] * 6 + [_P]}
-# per CUDA device: the split-K tile counters the kernel leaves at zero
-_counters = {}
+_SIGNATURES = {"pt_w8_gemm": [_P] * 4 + [_I] * 7 + [_P],
+               "pt_w8_cluster_ctas": [_I] * 3 + [_P]}
 
 
 def _group_scales(amax):
@@ -167,25 +183,48 @@ def int8_weight_matmul_reference(x, q, scales):
     return torch.matmul(x, dequantize_int8_weight(q, scales, x.dtype))
 
 
+@functools.lru_cache(maxsize=None)
 def w8_plan(m, n, k):
-    """``(chunk, splits)``: the k rows a CTA takes and the splits of K, from
-    shapes alone. The output tiles (``W8_TM x W8_TN``) are split along K
-    until the grid fills the card once, no split shorter than
-    ``W8_MIN_CHUNK`` rows, and none longer than ``W8_MAX_CHUNK`` (its x
-    chunk is staged in shared memory)."""
-    tiles = -(-n // W8_TN) * -(-m // W8_TM)
-    splits = max(-(-k // W8_MAX_CHUNK),
-                 min(-(-W8_WAVE // tiles), -(-k // W8_MIN_CHUNK)))
-    chunk = -(-k // splits)
-    return chunk, -(-k // chunk)
+    """``(bm, chunk, splits)`` from the shapes alone, integers only: the
+    rows a CTA computes (``W8_SMALL_BM`` in the small-M regime, cluster
+    split-K over registers; else 64 or 128, the register-tiled GEMM), and K
+    cut into ``splits`` chunks of ``chunk`` rows (a multiple of the
+    regime's granule). The ``splits`` CTAs of one output tile form a
+    cluster, so ``splits <= W8_MAX_CLUSTER``.
+
+    Each candidate is costed as the busiest SM's work: clusters of
+    ``splits`` CTAs fill ``W8_CLUSTER_SMS[splits - 1]`` SMs at once, so a
+    grid of ``ctas`` takes ``ceil(ctas / that)`` rounds, each a CTA's rows
+    x columns x (chunk + the regime's ramp) of FMAs; the cheapest wins, the
+    fewest splits on a tie."""
+    if m <= W8_SMALL_M:
+        shapes = [(W8_SMALL_BM, W8_SMALL_BN, W8_SMALL_KT, W8_SMALL_RAMP, 8)]
+    else:
+        low, high = W8_LARGE_BM
+        shapes = [(low, W8_LARGE_BN, W8_KT, W8_LARGE_RAMP, W8_BM64_COST)]
+        if m > low:
+            shapes.append((high, W8_LARGE_BN, W8_KT, W8_LARGE_RAMP, 8))
+    best = None
+    for bm, bn, granule, ramp, eighths in shapes:
+        tiles = -(-n // bn) * -(-m // bm)
+        for splits in range(1, W8_MAX_CLUSTER + 1):
+            chunk = -(-k // (splits * granule)) * granule
+            if -(-k // chunk) != splits:
+                continue             # fewer non-empty splits: seen already
+            if splits > 1 and chunk < W8_MIN_CHUNK:
+                break
+            rounds = -(-tiles * splits // W8_CLUSTER_SMS[splits - 1])
+            cost = rounds * bm * bn * (chunk + ramp) * eighths
+            if best is None or cost < best[0]:
+                best = (cost, bm, chunk, splits)
+    return best[1:]
 
 
-def _tile_counters(device, tiles):
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
+def _library():
+    global _lib
+    if _lib is None:
+        _lib = _build.load("w8_gemm", _SIGNATURES)
+    return _lib
 
 
 def int8_weight_matmul(x, q, scales):
@@ -220,23 +259,29 @@ def int8_weight_matmul(x, q, scales):
     out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    chunk, splits = w8_plan(m, n, k)
-    partial = counters = None
-    if splits > 1:
-        partial = torch.empty(splits * m * n, dtype=torch.float32,
-                              device=dev)
-        counters = _tile_counters(dev, -(-n // W8_TN) * -(-m // W8_TM))
-    lib = _build.load("w8_gemm", _SIGNATURES)
+    bm, chunk, splits = w8_plan(m, n, k)
+    lib = _library()
     err = lib.pt_w8_gemm(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        m, n, k, k // scales.shape[0], chunk, splits,
+        m, n, k, k // scales.shape[0], bm, chunk, splits,
         _build.stream_handle(dev))
     _build.check(lib, err, "int8_weight_matmul")
     global launches
     launches += 1
     return out
+
+
+def w8_cluster_ctas(bm, splits, vec=True):
+    """The CTAs the card runs at once of a grid of the kernel for ``bm``
+    whose clusters hold ``splits`` CTAs (``cudaOccupancyMaxActiveClusters``
+    x splits, on the current CUDA device): what ``W8_CLUSTER_SMS`` records
+    for an H100 SXM."""
+    lib = _library()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.pt_w8_cluster_ctas(bm, splits, int(vec),
+                                              ctypes.byref(out)),
+                 "w8_cluster_ctas")
+    return out.value
 
 
 _ROUTES = contextvars.ContextVar("int8_weight_routes", default=None)

@@ -1,7 +1,8 @@
 """Where the serving engine's device time goes, on one GPU.
 
     python3 -m paddle_tpu_torch.tools.serving_profile [--seed N] [--steps N]
-        [--prefix-cache] [--chunked-prefill] [--quant-kv] [--prefill-chunk N]
+        [--prefix-cache] [--chunked-prefill] [--quant-kv] [--quant-weights]
+        [--prefill-chunk N]
 
 Builds llama1b (float32, random weights from --seed) behind
 ``serving.Engine(max_slots=16, block_size=16, num_blocks=2048,
@@ -11,8 +12,8 @@ tokens. Two windows run under ``torch.profiler``: the first engine step
 For each window it prints one JSON line: the host wall time, the summed
 device kernel time, the device busy share (kernel time over wall time),
 and the kernels with the most device time, grouped into the serving
-path's parts (paged and mixed paged attention, flash attention, GEMMs,
-other).
+path's parts (paged and mixed paged attention, flash attention, the
+int8-weight GEMM ``w8``, the other GEMMs, other).
 
 The tier-2 flags switch the engine's paths as ``FLAGS_serving_*`` do
 (latched at construction). With ``--prefix-cache`` the prompts are the
@@ -22,7 +23,10 @@ prefix), so the first window's prefills are suffix prefills over cached
 pages. With ``--chunked-prefill`` every step is one mixed step of
 ``--prefill-chunk``-token rows: the first window is the first mixed step
 and the second ``--steps`` more. ``--quant-kv`` makes the pages int8
-(the same page count, so the bytes shrink).
+(the same page count, so the bytes shrink). ``--quant-weights`` multiplies
+the 7 projections a layer of every decode and mixed step through the
+int8-weight GEMM (``FLAGS_serving_quant_weights``), whose kernels form the
+``w8`` group.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from ..models import LlamaConfig, LlamaForCausalLM
 from ..serving import Engine
 
 _FLAGS = ("FLAGS_serving_prefix_cache", "FLAGS_serving_chunked_prefill",
-          "FLAGS_serving_quant_kv")
+          "FLAGS_serving_quant_kv", "FLAGS_serving_quant_weights")
 
 
 def _group(name):
@@ -49,6 +53,8 @@ def _group(name):
         return "paged_attention"
     if "flash_fwd" in name:
         return "flash_attention"
+    if "w8_gemm" in name:
+        return "w8"
     if "gemm" in name.lower() or "gemv" in name.lower():
         return "gemm"
     return "other"
@@ -94,6 +100,9 @@ def main(argv=None):
                     help="FLAGS_serving_chunked_prefill: mixed steps only")
     ap.add_argument("--quant-kv", action="store_true",
                     help="FLAGS_serving_quant_kv: int8 KV pages")
+    ap.add_argument("--quant-weights", action="store_true",
+                    help="FLAGS_serving_quant_weights: int8 projection "
+                         "weights in decode and mixed steps")
     ap.add_argument("--prefill-chunk", type=int, default=16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -102,7 +111,8 @@ def main(argv=None):
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
     flags.set_flags(dict(zip(_FLAGS, (args.prefix_cache,
-                                      args.chunked_prefill, args.quant_kv))))
+                                      args.chunked_prefill, args.quant_kv,
+                                      args.quant_weights))))
     try:
         engine = Engine(model, max_slots=16, block_size=16, num_blocks=2048,
                         max_model_len=2048, prefill_chunk=args.prefill_chunk)

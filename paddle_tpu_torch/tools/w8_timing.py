@@ -1,6 +1,7 @@
 """Time the int8-weight GEMM (kernel 10) of one checkout on one GPU.
 
     python3 paddle_tpu_torch/tools/w8_timing.py [ROOT] [--seed N]
+        [--sweep] [--clusters]
 
 Imports ``paddle_tpu_torch`` from ROOT (default: the checkout that holds
 this file), so that two checkouts, for instance a parent commit unpacked
@@ -18,8 +19,18 @@ slower side), ``device_ms`` from ``torch.profiler`` (the kernel's own
 device time per call), the plain version's ``plain_ms`` and, as
 yardsticks, ``torch.matmul`` on the dequantized weight
 (``matmul_dequantized_ms``) and on the fp32 weight (``matmul_fp32_ms``),
-beside the card's bound. One JSON line with the card's name and power
-limit.
+beside the card's bound and the tree's plan for the shape; and, per M,
+one llama1b layer's seven projections summed (``layers``: q/k/v/o at
+2048 -> 2048, gate/up at 2048 -> 5504, down at 5504 -> 2048). One JSON
+line with the card's name and power limit.
+
+Two options read the plan's inputs on the card (a tree whose
+``kernels/quant.py`` has ``w8_cluster_ctas``): ``--clusters`` prints,
+for each regime's kernel (``bm`` 16, 64, 128), the CTAs that grids with
+clusters of 1..16 CTAs run at once (``cluster_ctas``: the plan's
+``W8_CLUSTER_SMS``); ``--sweep`` times every split count the plan could
+pick (each regime's ``bm`` at M = 16, both at 256) by profiler device
+time, with the CTAs each grid launches (``sweep``).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ import sys
 from pathlib import Path
 
 SHAPES = ((2048, 2048), (2048, 5504), (5504, 2048))
+PER_LAYER = {(2048, 2048): 4, (2048, 5504): 2, (5504, 2048): 1}
 ROWS = (16, 256)
 HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 
@@ -53,22 +65,69 @@ def time_ms(fn, iters=10, reps=5):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=10):
+def device_ms(fn, calls=10, tries=3):
     """The device time of the kernel (every CUDA kernel whose name holds
-    "w8_gemm") per call, from the profiler."""
+    "w8_gemm") per call, from the profiler. A window in which the profiler
+    recorded fewer launches than were made is measured again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(evt.self_device_time_total for evt in prof.key_averages()
-             if evt.device_type == torch.autograd.DeviceType.CUDA
-             and "w8_gemm" in evt.key)
-    return us / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and "w8_gemm" in evt.key]
+        if sum(evt.count for evt in evts) == calls:
+            break
+    else:
+        raise RuntimeError("w8_timing: the profiler recorded %d of %d "
+                           "launches" % (sum(e.count for e in evts), calls))
+    return sum(evt.self_device_time_total for evt in evts) / 1e3 / calls
+
+
+def sweep(quant, gen):
+    """Every split count of each shape's regime(s), forced through the C
+    entry point: ``{m, k, n, bm, chunk, splits, ctas, device_ms}``."""
+    import torch
+
+    from paddle_tpu_torch import _build
+
+    lib = quant._library()
+    rows = []
+    for k, n in SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+        q, scales = quant.quantize_int8_weight(w)
+        for m in ROWS:
+            x = torch.randn(m, k, generator=gen, device="cuda")
+            y = torch.empty(m, n, device="cuda")
+            bms = ((quant.W8_SMALL_BM,) if m <= quant.W8_SMALL_M
+                   else quant.W8_LARGE_BM)
+            for bm in bms:
+                small = bm == quant.W8_SMALL_BM
+                granule = quant.W8_SMALL_KT if small else quant.W8_KT
+                bn = quant.W8_SMALL_BN if small else quant.W8_LARGE_BN
+                for splits in range(1, quant.W8_MAX_CLUSTER + 1):
+                    chunk = -(-k // (splits * granule)) * granule
+                    if -(-k // chunk) != splits:
+                        continue
+
+                    def kernel(bm=bm, chunk=chunk, splits=splits):
+                        _build.check(lib, lib.pt_w8_gemm(
+                            x.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                            y.data_ptr(), m, n, k, k // scales.shape[0], bm,
+                            chunk, splits, _build.stream_handle(x.device)),
+                            "w8_timing sweep")
+
+                    rows.append(dict(
+                        m=m, k=k, n=n, bm=bm, chunk=chunk, splits=splits,
+                        ctas=splits * -(-n // bn) * -(-m // bm),
+                        device_ms=device_ms(kernel)))
+    return rows
 
 
 def main(argv=None):
@@ -76,6 +135,10 @@ def main(argv=None):
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", action="store_true",
+                    help="time every split count of each shape")
+    ap.add_argument("--clusters", action="store_true",
+                    help="the CTAs a grid of each cluster size runs at once")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -106,7 +169,8 @@ def main(argv=None):
                 return quant.int8_weight_matmul(x, q, scales)
 
             out["rows"].append({
-                "m": m, "k": k, "n": n, "ms": time_ms(kernel),
+                "m": m, "k": k, "n": n, "plan": list(quant.w8_plan(m, n, k)),
+                "ms": time_ms(kernel),
                 "device_ms": device_ms(kernel),
                 "plain_ms": time_ms(
                     lambda: quant.int8_weight_matmul_reference(x, q,
@@ -116,6 +180,20 @@ def main(argv=None):
                 "matmul_fp32_ms": time_ms(lambda: torch.matmul(x, w)),
                 "bound_ms": max(nbytes / HBM_BYTES_PER_S,
                                 2 * m * n * k / FP32_FLOPS) * 1e3})
+    if args.clusters:
+        out["cluster_ctas"] = {
+            str(bm): [quant.w8_cluster_ctas(bm, c)
+                      for c in range(1, quant.W8_MAX_CLUSTER + 1)]
+            for bm in (quant.W8_SMALL_BM, 64, 128)}
+    if args.sweep:
+        out["sweep"] = sweep(quant, gen)
+    keys = ("ms", "device_ms", "plain_ms", "matmul_dequantized_ms",
+            "matmul_fp32_ms", "bound_ms")
+    out["layers"] = [
+        dict(m=m, **{key: sum(PER_LAYER[(r["k"], r["n"])] * r[key]
+                              for r in out["rows"] if r["m"] == m)
+                     for key in keys})
+        for m in ROWS]
     print(json.dumps(out), flush=True)
     return 0
 

@@ -8,8 +8,12 @@ reference.
   zero and non-finite columns.
 - ``int8_weight_matmul``'s CPU path (its plain version) agrees with the
   reference's ``x @ dequantize_int8_weight`` (jnp, 'highest') within
-  1e-5 x max|y| (fp32 sums in another order), and the wrapper refuses a
-  tensor that is on neither the CPU nor a card.
+  1e-5 x max|y| (fp32 sums in another order), the fused qkv_proj and
+  gate_up_proj shapes included, and the wrapper refuses a tensor that is
+  on neither the CPU nor a card.
+- The kernel's plan (``w8_plan``) and, read from ``csrc/w8_gemm.cu``, its
+  C signature, tile constants, cluster launch and the absence of atomics
+  and per-launch scratch.
 - The engine with the flag gives the JAX engine's greedy tokens and
   counters, per flag combination (off, prefix, chunked, prefix + chunked
   + int8 KV; never across combinations: ROADMAP C.1), quantizes the same
@@ -18,7 +22,6 @@ reference.
   projection through ``int8_weight_matmul`` in decode and mixed steps
   only.
 """
-import itertools
 
 import jax
 import jax.numpy as jnp
@@ -155,9 +158,12 @@ def test_block_codec_bit_for_bit(block):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 512, 24), (5, 384, 16),
-                                   (16, 100, 12), (3, 2048, 40)])
+                                   (16, 100, 12), (3, 2048, 40),
+                                   (2, 2048, 6144), (1, 2048, 11008)],
+                         ids=["b256", "b128", "fallback100", "k2048",
+                              "qkv_proj", "gate_up_proj"])
 def test_int8_weight_matmul_matches_reference(m, k, n):
-    rng = np.random.RandomState(m + k)
+    rng = np.random.RandomState(m + k + n)
     w = (rng.randn(k, n) * 0.05).astype(np.float32)
     x = rng.randn(2, m, k).astype(np.float32)
     jq, js = jquant.quantize_int8_weight(jnp.asarray(w))
@@ -184,44 +190,162 @@ def test_int8_weight_matmul_never_falls_back():
     assert quant.launches == launches   # the plain path counts nothing
 
 
-def test_w8_plan():
-    """The split plan fills the card once and keeps every chunk within the
-    kernel's shared-memory stage (ints only: shapes, never tensors)."""
-    for m, n, k in itertools.product((1, 16, 256, 4096), (24, 2048, 5504),
-                                     (36, 2048, 5504)):
-        chunk, splits = quant.w8_plan(m, n, k)
-        assert chunk * splits >= k > chunk * (splits - 1)
-        assert chunk <= quant.W8_MAX_CHUNK
-        tiles = -(-n // quant.W8_TN) * -(-m // quant.W8_TM)
-        if k > quant.W8_MAX_CHUNK and splits > -(-k // quant.W8_MAX_CHUNK):
-            assert tiles * (splits - 1) < quant.W8_WAVE
-    assert quant.w8_plan(16, 2048, 2048) == (128, 16)
-    assert quant.w8_plan(256, 2048, 5504) == (918, 6)
+# llama1b's projections (K -> N), the fused qkv_proj and gate_up_proj, an N
+# off the vector path and the one-scale-per-column fallback block
+PLAN_SHAPES = [(2048, 2048), (2048, 5504), (5504, 2048), (2048, 6144),
+               (2048, 11008), (2048, 24), (36, 24)]
 
 
-def test_kernel_source_matches_its_wrapper():
-    """What the CPU cannot run, read from the source: the ctypes
-    signature of ``pt_w8_gemm`` and the tiling constants ``w8_plan``
-    assumes, and the build registers the source."""
-    import re
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 64, 256, 4096])
+@pytest.mark.parametrize("k,n", PLAN_SHAPES,
+                         ids=["%d-%d" % s for s in PLAN_SHAPES])
+def test_w8_plan(m, k, n):
+    """The plan is integers from the shapes alone; it takes the cluster
+    split-K regime exactly at M <= W8_SMALL_M; its grid covers every
+    output tile once and every k row once (per split and, in the small
+    regime, per warp); a cluster holds at most W8_MAX_CLUSTER CTAs."""
+    plan = quant.w8_plan(m, n, k)
+    assert all(type(v) is int for v in plan)
+    bm, chunk, splits = plan
+    small = m <= quant.W8_SMALL_M
+    assert (bm == quant.W8_SMALL_BM) == small
+    assert small or bm in quant.W8_LARGE_BM
+    bn = quant.W8_SMALL_BN if small else quant.W8_LARGE_BN
+    granule = quant.W8_SMALL_KT if small else quant.W8_KT
+    assert chunk % granule == 0 and 1 <= splits <= quant.W8_MAX_CLUSTER
+    assert splits == -(-k // chunk)
+    assert splits == 1 or chunk >= quant.W8_MIN_CHUNK
+    # the grid (splits, ceil(N / bn), ceil(M / bm)): each output element
+    # in exactly one tile
+    cover = np.zeros((m, n), np.int32)
+    for ty in range(-(-m // bm)):
+        for tx in range(-(-n // bn)):
+            cover[ty * bm:(ty + 1) * bm, tx * bn:(tx + 1) * bn] += 1
+    assert (cover == 1).all()
+    # each k row in exactly one split, and one warp's run of it
+    rows = np.zeros(k, np.int32)
+    for z in range(splits):
+        lo, hi = z * chunk, min(k, (z + 1) * chunk)
+        assert lo < hi
+        if small:
+            per = chunk // quant.W8_SMALL_WARPS
+            assert per % 8 == 0
+            for w in range(quant.W8_SMALL_WARPS):
+                b = min(k, lo + w * per)
+                rows[b:min(k, b + per)] += 1
+        else:
+            rows[lo:hi] += 1
+    assert (rows == 1).all()
+    # the cost model's clusters fit what the card schedules at once
+    assert len(quant.W8_CLUSTER_SMS) == quant.W8_MAX_CLUSTER
+
+
+def _source():
     from pathlib import Path
 
     from paddle_tpu_torch import _build
+    return (Path(_build.CSRC) / "w8_gemm.cu").read_text()
 
-    src = (Path(_build.CSRC) / "w8_gemm.cu").read_text()
-    assert "w8_gemm" in _build.SOURCES
-    proto = re.search(r"int pt_w8_gemm\(([^)]*)\)", src).group(1)
-    kinds = ["p" if "*" in a else "i" for a in proto.split(",")]
-    want = ["p" if t is quant._P else "i"
-            for t in quant._SIGNATURES["pt_w8_gemm"]]
-    assert kinds == want
-    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
-    assert int(consts["kBM"]) == quant.W8_TM
-    assert consts["kTN"] == "32 * kCols" and int(consts["kCols"]) * 32 \
-        == quant.W8_TN
-    assert int(consts["kMaxChunk"]) == quant.W8_MAX_CHUNK
-    # no float atomics: the split partials are summed in a fixed order
-    assert re.findall(r"atomicAdd\((\w+)", src) == ["counters"]
+
+def _consts(src):
+    import re
+    return dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+
+
+def _source_signature():
+    """The C entry points' argument kinds against the wrapper's ctypes."""
+    import re
+    for fn, argtypes in quant._SIGNATURES.items():
+        proto = re.search(r"int %s\(([^)]*)\)" % fn, _source()).group(1)
+        kinds = ["p" if "*" in a else "i" for a in proto.split(",")]
+        assert kinds == ["p" if t is quant._P else "i" for t in argtypes]
+
+
+def _source_constants():
+    """The tile constants the plan assumes are the source's."""
+    c = _consts(_source())
+    assert int(c["kSmallBM"]) == quant.W8_SMALL_BM
+    assert int(c["kSmallBN"]) == quant.W8_SMALL_BN
+    assert int(c["kSmallWarps"]) == quant.W8_SMALL_WARPS
+    assert int(c["kSmallWarps"]) * int(c["kSmallRows"]) == quant.W8_SMALL_KT
+    assert c["kSmallKT"] == "kSmallWarps * kSmallRows"
+    assert int(c["kKT"]) == quant.W8_KT
+    assert int(c["kMaxCluster"]) == quant.W8_MAX_CLUSTER
+    assert int(c["kLargeBN"]) == quant.W8_LARGE_BN
+
+
+def _source_no_float_atomics():
+    """No atomics at all: the split partials meet in shared memory, in a
+    fixed order, so two launches give the same bits."""
+    import re
+    src = _source()
+    assert re.search(r"\batomic\w*\s*\(", src) is None
+    assert "map_shared_rank" in src and src.count("cluster.sync();") == 2
+
+
+def _source_cluster_limit():
+    """A cluster of more than 8 CTAs needs the non-portable attribute; the
+    source sets it before any cluster launch."""
+    src = _source()
+    assert quant.W8_MAX_CLUSTER <= 16
+    if quant.W8_MAX_CLUSTER > 8:
+        assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cudaOccupancyMaxActiveClusters" in src
+
+
+def _source_no_scratch():
+    """The wrapper allocates its output and nothing else a launch, and the
+    C entry takes no scratch pointer."""
+    import ast
+    import inspect
+    import textwrap
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(
+        quant.int8_weight_matmul)))
+    allocs = [n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+              and n.func.attr in ("empty", "zeros", "full", "empty_like",
+                                  "zeros_like", "new_empty", "new_zeros")]
+    assert allocs == ["empty"]
+    assert quant._SIGNATURES["pt_w8_gemm"].count(quant._P) == 5  # x q s y st
+    assert not hasattr(quant, "_counters")
+
+
+def _source_built():
+    """The build compiles the source; it includes no csrc/ header."""
+    from paddle_tpu_torch import _build
+    assert "w8_gemm" in _build.SOURCES and "w8_gemm" not in _build.HEADERS
+
+
+SOURCE_CHECKS = {"signature": _source_signature,
+                 "constants": _source_constants,
+                 "no_float_atomics": _source_no_float_atomics,
+                 "cluster_limit": _source_cluster_limit,
+                 "no_scratch": _source_no_scratch,
+                 "built": _source_built}
+
+
+@pytest.mark.parametrize("check", sorted(SOURCE_CHECKS))
+def test_kernel_source_matches_its_wrapper(check):
+    """What the CPU cannot run, read from the source and the wrapper."""
+    SOURCE_CHECKS[check]()
+
+
+def test_serving_profile_groups_the_int8_gemm():
+    """The profile tool puts the int8-weight GEMM's kernels (both regimes)
+    in their own group, apart from the other GEMMs, and latches
+    ``--quant-weights`` with the engine's flag."""
+    from paddle_tpu_torch.tools import serving_profile
+
+    for name in ("void (anonymous namespace)::small::w8_gemm_small<true>"
+                 "(float const*, signed char const*, float const*, "
+                 "float*, int, int, int, int, int)",
+                 "void (anonymous namespace)::large::w8_gemm_large<128, 8, "
+                 "1, true>(float const*, ...)"):
+        assert serving_profile._group(name) == "w8"
+    assert serving_profile._group("sm90_xmma_gemm_f32f32_f32f32") == "gemm"
+    assert "FLAGS_serving_quant_weights" in serving_profile._FLAGS
 
 
 # ---------------------------------------------------------------------------
