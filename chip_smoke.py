@@ -22,8 +22,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 16-byte aligned (O and the LSE), and timed
                 in bf16 at the training shape with 16 and 6 heads; the
                 forward and the backward twice on the same inputs must
-                give the same bits, and the backward is timed at the
-                bench row's 6 heads too;
+                give the same bits; the backward is timed at the training
+                shape in both dtypes (beside torch SDPA's backward) and
+                at the bench row's 6 heads, and also run on operands that
+                are not 16-byte aligned, whose dq/dk/dv must equal the
+                aligned copies' bit for bit;
                 run the bf16 MMA form probe (all eight forms, mma.sync and
                 wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
@@ -78,6 +81,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 list with a padded tail: each call launches exactly one
                 segmented forward, dq and dk/dv and agrees with the plain
                 version
+  6e. train32  the llama1b training row at the config's default dtype,
+                float32 (LlamaConfig.llama1b_train(dtype="float32"), TF32
+                off): phase 6's path, one warm-up and 2 timed steps, finite
+                and falling loss, per step exactly 32 forward, 16 dq and 16
+                dk/dv launches (the float32 CUDA-core kernels), none
+                segmented, no TMA copy; step ms, tokens/s, peak memory
   7. train e2e  the same widths at 2 layers in float32, 2 AdamW steps on
                 the card and on a CPU copy (plain path): losses and the
                 first step's gradients must agree
@@ -114,7 +123,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 fired both faults, the others shed nothing
   9. summary    one JSON line of per-kernel numbers, then the result line
 
-Every exact launch count of phases 4, 4b, 6, 6b, 6c and 6d also holds the
+Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d and 6e also holds the
 bf16 kernels' TMA operand copies (``tma_copies``, forward and backward) at
 0, fused QKV views included.
 
@@ -364,15 +373,24 @@ def causal_pairs(heads, n, n_kv):
 
 
 def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
-                   kv_heads=None, timed=False):
+                   kv_heads=None, timed=False, offset=0):
+    """The dq and dk/dv kernels against their plain version; two launches
+    on the same inputs must give the same bits (no atomics). With
+    ``offset``, q/k/v/dO are views ``offset`` elements into rows of
+    head_dim + 4, not 16-byte aligned (float32 takes the kernels' 4-byte
+    copies, bf16 the wrapper's TMA copies): dq, dk and dv must equal the
+    aligned copies' bit for bit. With ``timed``, their times beside the
+    plain version's, torch SDPA's backward and the bounds."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     n_kv = n if n_kv is None else n_kv
     kv_heads = heads if kv_heads is None else kv_heads
 
     def rand(length, h):
-        return torch.randn((batch, length, h, head_dim), generator=gen,
-                           device="cuda").to(dtype)
+        pad = 4 if offset else 0
+        x = torch.randn((batch, length, h, head_dim + pad), generator=gen,
+                        device="cuda").to(dtype)
+        return x[..., offset:offset + head_dim]
 
     q, k, v = rand(n, heads), rand(n_kv, kv_heads), rand(n_kv, kv_heads)
     dout = rand(n, heads)
@@ -381,8 +399,9 @@ def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
     want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
                                                  causal=True)
     torch.cuda.synchronize()
-    name = "flash_bwd B=%d N=%d Nkv=%d H=%d Hkv=%d D=%d %s" % (
-        batch, n, n_kv, heads, kv_heads, head_dim, str(dtype).split(".")[-1])
+    name = "flash_bwd B=%d N=%d Nkv=%d H=%d Hkv=%d D=%d %s%s" % (
+        batch, n, n_kv, heads, kv_heads, head_dim,
+        "misaligned " if offset else "", str(dtype).split(".")[-1])
     err = [check_close("%s d%s" % (name, part), x, y, BWD_TOL[dtype])
            for part, x, y in zip("qkv", got, want)]
     row = {"case": name, "max_abs_err": {"dq": err[0],
@@ -394,11 +413,23 @@ def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
         raise AssertionError("%s: two launches differ (dq, dk, dv equal: "
                              "%s)" % (name, same))
     row["deterministic"] = True
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(batch * heads, n).contiguous()
+    args = (q, k, v, dout, lse, delta)
+    if offset:
+        aligned = [x.contiguous() for x in (q, k, v, dout)] + [lse, delta]
+        same = [torch.equal(a, b) for a, b in zip(
+            (fa.flash_attention_bwd_dq(*args, causal=True),
+             *fa.flash_attention_bwd_dkv(*args, causal=True)),
+            (fa.flash_attention_bwd_dq(*aligned, causal=True),
+             *fa.flash_attention_bwd_dkv(*aligned, causal=True)))]
+        if not all(same):
+            raise AssertionError("%s: misaligned operands differ from their "
+                                 "aligned copies (dq, dk, dv equal: %s)"
+                                 % (name, same))
+        row["aligned_bitwise"] = True
     if timed:
         esize = q.element_size()
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
-            .reshape(batch * heads, n).contiguous()
-        args = (q, k, v, dout, lse, delta)
         row["dq_ms"] = time_ms(
             lambda: fa.flash_attention_bwd_dq(*args, causal=True))
         row["dkv_ms"] = time_ms(
@@ -607,14 +638,21 @@ SPLIT_EDGE_LENS = [255, 256, 257, 511, 512, 513, 1, 0, 767, 768, 769, 16, 17,
 SHORT_LENS = [1, 17, 100, 255, 256, 257, 300, 0, 5, 64, 33, 2, 0, 129, 200,
               16]
 # training-path shapes: the llama1b training row's attention (B=8, N=1024,
-# H=16, D=128), then a ragged length, D=64, GQA and cross-length causal
+# H=16, D=128; timed in both dtypes), then a ragged length, D=64, GQA,
+# cross-length causal and operands that are not 16-byte aligned, at a
+# short N (float32 dq's 64-row tiles) and at the training row (its 128-row
+# tiles, the ones every float32 training step launches)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 5
+TRAIN_STEPS_FP32 = 2   # phase 6e: a float32 step takes ~1.2 s (SGEMMs)
 FLASH_BWD_CASES = (dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
                         head_dim=128),
                    dict(n=200, heads=16, head_dim=128),
                    dict(n=256, heads=16, head_dim=64),
                    dict(n=512, heads=16, kv_heads=4, head_dim=128),
-                   dict(n=128, n_kv=256, heads=16, head_dim=128))
+                   dict(n=128, n_kv=256, heads=16, head_dim=128),
+                   dict(n=200, heads=16, kv_heads=4, head_dim=128, offset=1),
+                   dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=16,
+                        head_dim=128, offset=1))
 # the bench row's attention (phase 6c: train_benchmark.bench_config(),
 # 6 heads x 128)
 BENCH_BWD_CASE = dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=6, head_dim=128)
@@ -648,8 +686,7 @@ def phase_kernels(seed):
                 timed=dtype is torch.float32, bitwise=True))
         for i, case in enumerate(FLASH_BWD_CASES):
             rows["flash_attention_bwd"].append(flash_bwd_case(
-                gen, dtype=dtype, timed=i == 0 and dtype is torch.bfloat16,
-                **case))
+                gen, dtype=dtype, timed=i == 0, **case))
     # the decode kernel's split cases, float32 (their int8 twins are in 3c)
     rows["paged_attention"] += [
         paged_case(gen, LONE_SLOT, 16, 16, torch.float32, timed=True,
@@ -1746,17 +1783,21 @@ def lm_loss(vocab):
     return loss_fn
 
 
-def phase_train(seed, fused=False):
+def phase_train(seed, fused=False, dtype="bfloat16"):
     """Phase 6, or with ``fused`` phase 6b: the same row with
-    FLAGS_fused_lm_head_ce on and the loss computed inside the model."""
+    FLAGS_fused_lm_head_ce on and the loss computed inside the model; with
+    ``dtype="float32"`` phase 6e: the row at the config's default dtype,
+    2 timed steps."""
     from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
-    tag = "[train fused]" if fused else "[train]"
-    cfg = LlamaConfig.llama1b_train()
+    tag = ("[train fused]" if fused else "[train]" if dtype == "bfloat16"
+           else "[train %s]" % dtype)
+    steps = TRAIN_STEPS if dtype == "bfloat16" else TRAIN_STEPS_FP32
+    cfg = LlamaConfig.llama1b_train(dtype=dtype)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
@@ -1774,15 +1815,15 @@ def phase_train(seed, fused=False):
         torch.cuda.reset_peak_memory_stats()
         losses = [step(ids, labels)]   # warm-up: cuBLAS handles, AdamW slots
         torch.cuda.synchronize()
-        log("%s llama1b bf16 (%d layers, hidden %d, FFN %d, recompute) "
+        log("%s llama1b %s (%d layers, hidden %d, FFN %d, recompute) "
             "built and warmed up in %.1f s" % (
-                tag, cfg.num_hidden_layers, cfg.hidden_size,
+                tag, dtype, cfg.num_hidden_layers, cfg.hidden_size,
                 cfg.intermediate_size, time.perf_counter() - t0))
 
         reset_launch_counters()
         fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
         times = []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             t1 = time.perf_counter()
             losses.append(step(ids, labels))
             torch.cuda.synchronize()
@@ -1798,12 +1839,12 @@ def phase_train(seed, fused=False):
     # recompute runs each layer's forward twice per step; no segmented
     # launch
     want = dict.fromkeys(launches, 0)
-    want.update({"flash_attention": 2 * layers * TRAIN_STEPS,
-                 "flash_attention_bwd_dq": layers * TRAIN_STEPS,
-                 "flash_attention_bwd_dkv": layers * TRAIN_STEPS})
+    want.update({"flash_attention": 2 * layers * steps,
+                 "flash_attention_bwd_dq": layers * steps,
+                 "flash_attention_bwd_dkv": layers * steps})
     if fused:
         for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
-            want[name] = TRAIN_STEPS
+            want[name] = steps
     if launches != want:
         raise AssertionError("%s launches %s, expected %s"
                              % (tag, launches, want))
@@ -1819,7 +1860,8 @@ def phase_train(seed, fused=False):
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / median,
         "losses": losses,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}
+        "dtype": dtype, "launches": launches,
+        "launches_per_step": {k: n / steps for k, n in launches.items()}}
     log(tag + " " + json.dumps(result))
     return result
 
@@ -2339,30 +2381,39 @@ def summary(rows, paths):
         elif name.endswith("_int8") or name.startswith("mixed"):
             numbers = tier2_numbers(name, rows[name])
         elif name.startswith("flash_attention_bwd"):
-            # the bf16 training shape; the plain and library times cover
-            # dq, dk and dv together
+            # the bf16 training shape, the float32 one beside it; the plain
+            # and library times cover dq, dk and dv together
             part = name.rsplit("_", 1)[1]
             cases = rows["flash_attention_bwd"]
-            timed = next(r for r in cases if part in r)
+            timed = [r for r in cases if part in r]
+            bf16 = next(r for r in timed if " H=16 " in r["case"]
+                        and r["case"].endswith("bfloat16"))
+            fp32 = next(r for r in timed if r["case"].endswith("float32"))
+            bench = next(r for r in timed if " H=6 " in r["case"])
+
+            def brief(r):
+                return dict(case=r["case"], ms=r[part + "_ms"],
+                            plain_ms=r["plain_ms"],
+                            bound_ms=r[part]["bound_ms"],
+                            bound_by=r[part]["bound_by"],
+                            library_ms=r["library_ms"])
+
             fp32_err = max(r["max_abs_err"][part] for r in cases
                            if r["case"].endswith("float32"))
             bf16_err = max(r["max_abs_err"][part] for r in cases
                            if r["case"].endswith("bfloat16"))
-            bench = next(r for r in cases if part in r and r is not timed)
-            numbers = dict(ms=timed[part + "_ms"], plain_ms=timed["plain_ms"],
-                           bound_ms=timed[part]["bound_ms"],
-                           bound_by=timed[part]["bound_by"],
-                           library_ms=timed["library_ms"],
+            ptxas = rows["ptxas"]["flash_attention_bwd"]
+            numbers = dict(ms=bf16[part + "_ms"], plain_ms=bf16["plain_ms"],
+                           bound_ms=bf16[part]["bound_ms"],
+                           bound_by=bf16[part]["bound_by"],
+                           library_ms=bf16["library_ms"],
                            max_abs_err=fp32_err, max_abs_err_bf16=bf16_err,
-                           timed_case=timed["case"],
-                           bench_row=dict(case=bench["case"],
-                                          ms=bench[part + "_ms"],
-                                          plain_ms=bench["plain_ms"],
-                                          bound_ms=bench[part]["bound_ms"],
-                                          library_ms=bench["library_ms"]),
-                           ptxas_bf16=[
-                               r for r in rows["ptxas"]["flash_attention_bwd"]
-                               if "_%s_wgmma" % part in r["kernel"]])
+                           timed_case=bf16["case"], fp32_train=brief(fp32),
+                           bench_row=brief(bench),
+                           ptxas_bf16=[r for r in ptxas if "_%s_wgmma" % part
+                                       in r["kernel"]],
+                           ptxas_fp32=[r for r in ptxas if "_%s_f32" % part
+                                       in r["kernel"]])
         else:
             # the timed fp32 case with the most work: llama1b's largest
             # prefill bucket, and the decode batch without GQA
@@ -2425,12 +2476,15 @@ def main(argv=None):
     torch.cuda.empty_cache()
     varlen = phase_varlen(args.seed)
     torch.cuda.empty_cache()
+    train32 = phase_train(args.seed, dtype="float32")
+    torch.cuda.empty_cache()
     phase_train_e2e(args.seed)
     phase_train_e2e(args.seed, fused=True)
     phase_train_e2e_variant(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
-             "bench_fused": bench["launches"], "varlen": varlen["launches"]}
+             "bench_fused": bench["launches"], "varlen": varlen["launches"],
+             "train_fp32": train32["launches"]}
     paths.update({"tier2 " + tag: run["launches"]
                   for tag, run in tier2.items()})
     paths.update(quant_paths)

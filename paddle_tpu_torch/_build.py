@@ -32,8 +32,10 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
            "fused_ce", "mma_probe", "w8_gemm")
 # the csrc/ headers each source includes (hashed with it)
 HEADERS = {"fused_ce": ("mma_bf16.cuh", "wgmma_bf16.cuh"),
-           "flash_attention": ("segment_ids.cuh", "wgmma_bf16.cuh"),
-           "flash_attention_bwd": ("segment_ids.cuh", "wgmma_bf16.cuh"),
+           "flash_attention": ("f32_tiles.cuh", "segment_ids.cuh",
+                               "wgmma_bf16.cuh"),
+           "flash_attention_bwd": ("f32_tiles.cuh", "segment_ids.cuh",
+                                   "wgmma_bf16.cuh"),
            "mma_probe": ("mma_bf16.cuh", "wgmma_bf16.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

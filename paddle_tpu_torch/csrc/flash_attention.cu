@@ -90,6 +90,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_tiles.cuh"
 #include "segment_ids.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -118,65 +119,10 @@ static_assert(BN == 64, "id_range's default run of 64 rows is one key tile");
 constexpr int THREADS = 256;    // 16 x 16
 constexpr int RN = BN / 16;     // keys per thread
 
-// The float32 CTA's tile sequence: the first key tile at or after k0 and
-// before kv_end whose ids can meet the CTA's (q_ids), or kv_end if none.
-__device__ __forceinline__ int next_tile(int k0, int kv_end,
-                                         const int32_t* sb, int n_kv,
-                                         int2 q_ids) {
-  if (sb != nullptr)
-    while (k0 < kv_end && !ranges_meet(id_range(sb, k0, n_kv), q_ids))
-      k0 += BN;
-  return k0;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   ptwg::smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   ptwg::smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// float offset of the 16-byte chunk c of row r in a tile of W floats a row,
-// chunks XOR-swizzled by r % 8 when SWZ
-template <int W, bool SWZ>
-__device__ __forceinline__ int chunk_at(int r, int c) {
-  return r * W + ((SWZ ? c ^ (r & 7) : c) << 2);
-}
-
-// rows [r0, r0 + rows) of a [.., D] operand with row stride ld into a
-// [rows][D] tile; rows at or past `limit` are zero-filled
-template <int D, bool SWZ>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long ld, int r0, int rows,
-                                          int limit, int vec) {
-  constexpr int C = D / 4;
-  for (int e = threadIdx.x; e < rows * C; e += THREADS) {
-    const int r = e / C, c = e % C;
-    const bool ok = r0 + r < limit;
-    const float* g = ok ? src + (r0 + r) * ld + 4 * c : src;
-    float* d = dst + chunk_at<D, SWZ>(r, c);
-    if (vec) {
-      cp_async16(d, g, ok);
-    } else {
-#pragma unroll
-      for (int t = 0; t < 4; ++t) cp_async4(d + t, g + t, ok);
-    }
-  }
-}
+using ptf32::cp_async_commit;
+using ptf32::cp_async_wait_all;
+using ptf32::load_rows;
+using ptseg::next_tile;
 
 // BM query rows per CTA (64 or 128), BM / 16 per thread
 template <int D, int BM>
@@ -223,11 +169,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  load_rows<D, true>(qs, qb, a.sqn, q0, BM, a.n, a.vec);
-  int k0 = next_tile(0, kv_end, sb, a.n_kv, q_ids);
+  load_rows<D, true, THREADS>(qs, qb, a.sqn, q0, BM, a.n, a.vec);
+  int k0 = next_tile<BN>(0, kv_end, sb, a.n_kv, q_ids);
   if (k0 < kv_end) {
-    load_rows<D, true>(ks, kb, a.skn, k0, BN, a.n_kv, a.vec);
-    load_rows<D, false>(vs, vb, a.svn, k0, BN, a.n_kv, a.vec);
+    load_rows<D, true, THREADS>(ks, kb, a.skn, k0, BN, a.n_kv, a.vec);
+    load_rows<D, false, THREADS>(vs, vb, a.svn, k0, BN, a.n_kv, a.vec);
   }
   cp_async_commit();
   // the swizzle of this thread's rows: (ty + 16 i) % 8 and (tx + 16 j) % 8
@@ -237,12 +183,12 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // tile k0 has landed for every thread, and every thread is done with
     // the previous tile's P.V: its buffers and P^T are free
     __syncthreads();
-    const int k1 = next_tile(k0 + BN, kv_end, sb, a.n_kv, q_ids);
+    const int k1 = next_tile<BN>(k0 + BN, kv_end, sb, a.n_kv, q_ids);
     if (k1 < kv_end) {
-      load_rows<D, true>(ks + (stage ^ 1) * BN * D, kb, a.skn, k1, BN,
-                         a.n_kv, a.vec);
-      load_rows<D, false>(vs + (stage ^ 1) * BN * D, vb, a.svn, k1, BN,
-                          a.n_kv, a.vec);
+      load_rows<D, true, THREADS>(ks + (stage ^ 1) * BN * D, kb, a.skn, k1,
+                                  BN, a.n_kv, a.vec);
+      load_rows<D, false, THREADS>(vs + (stage ^ 1) * BN * D, vb, a.svn, k1,
+                                   BN, a.n_kv, a.vec);
     }
     cp_async_commit();
 
@@ -389,24 +335,17 @@ cudaError_t launch_f32_tiles(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// 128-row query tiles where they give every SM a CTA, else 64-row tiles:
-// twice the CTAs for a short prefill, at a 4 x 4 block of S a thread
-// (flash_timing.py's serving rows time both sides of the line)
-
+// 128-row query tiles, or 64-row ones for a grid that leaves SMs idle,
+// at a 4 x 4 block of S a thread (ptf32::query_tile_rows)
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int batch, const Args& a,
                        cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  const long long ctas = (long long)batch * a.heads * ((a.n + 127) / 128);
-  if (ctas >= sms)
+  int rows = 0;
+  const cudaError_t err =
+      ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
+  if (err != cudaSuccess) return err;
+  if (rows == 128)
     return launch_f32_tiles<D, 128>(q, k, v, o, lse, batch, a, stream);
   return launch_f32_tiles<D, 64>(q, k, v, o, lse, batch, a, stream);
 }
@@ -628,15 +567,6 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// whether float32 rows can be copied in 16-byte chunks: the address and
-// every stride of an axis longer than 1, in multiples of 4 floats
-bool rows_aligned(const void* p, int len0, long long s0, int len1,
-                  long long s1, int len2, long long s2) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-         (len0 == 1 || s0 % 4 == 0) && (len1 == 1 || s1 % 4 == 0) &&
-         (len2 == 1 || s2 % 4 == 0);
-}
-
 }  // namespace
 
 extern "C" {
@@ -660,6 +590,7 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            float scale, int causal, int dtype,
                            const void* segs, void* stream) {
   if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
+  using ptf32::rows_aligned;
   const int vec = rows_aligned(q, batch, sqb, n, sqn, heads, sqh) &&
                   rows_aligned(k, batch, skb, n_kv, skn, kv_heads, skh) &&
                   rows_aligned(v, batch, svb, n_kv, svn, kv_heads, svh);

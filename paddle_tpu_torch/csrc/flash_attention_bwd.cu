@@ -81,107 +81,81 @@
 //   5. lse and delta are per query, a column of S^T in dk/dv: rows past N
 //      get P = 0 from the mask, whatever the producer's zero fill holds.
 //
-// float32 (SIMT, the first design, kept for float32 only):
-//  * dq: one CTA per (64-row query tile, batch*head), looping over the key
-//    tiles up to the diagonal; the heaviest (last) query tiles go first. Q
-//    and dO stay in shared memory (transposed); each key tile is read once
-//    into K^T, K and V^T. dq is written once, after the loop: no atomics.
-//  * dk/dv: one CTA per (64-key tile, batch*kv_head), looping over the
-//    query heads of its GQA group and, for each, over the query tiles at
-//    or below the diagonal; the heaviest (first) key tiles go first.
-//  * every product is a 4 x 4 register block per thread over transposed
-//    tiles (two 16-byte shared loads per 16 FMAs); P and dS are written
-//    over the Q^T / dO^T (dk/dv) or V^T (dq) buffers once those are read,
-//    so the dk/dv kernel fits its six tiles in 200 KB at D = 128.
-//    __launch_bounds__(256, 1): one 8-warp CTA per SM, up to 255
-//    registers a thread, 0 bytes of stack and spills on sm_90a.
-//  * inputs are read through their [B, N, H, D] strides and the ragged edge
-//    (N or N_kv not a multiple of 64) is masked in-kernel.
-//  * segment ids ([B, N] int32, nullptr = off): each thread keeps the ids
-//    of the rows or keys fixed for its CTA in registers and reads the
-//    other side's ids with each tile; a (query tile, key tile) pair whose
-//    id intervals do not meet is skipped whole, bit-exactly, as above.
+// float32 (CUDA cores, TF32 off; the section "-- float32: CUDA cores"):
+//  What bounds them: a visible (query, key) pair costs the dq kernel 3
+//  products of 2 * D operations (S, dP, dS.K: 768 at D = 128) and the
+//  dk/dv kernel 4 (S, dP, P^T.dO, dS^T.Q: 1024), at the fp32 CUDA cores'
+//  67 TFLOP/s; the bytes (each operand read once, ~0.34 / 0.40 GB at the
+//  llama1b training shape) take a tenth of that time. At B = 8, N = 1024,
+//  H = 16, D = 128, causal (67.17 M visible pairs) the bounds are 0.770 ms
+//  (dq) and 1.027 ms (dk/dv).
+//  What held the first design, and what this one does about it:
+//   1. synchronous scalar tile loads, one float at a time with a divide
+//      and a modulo each, stored transposed with a 4-way bank conflict,
+//      K (dq) and Q, dO (dk/dv) stored twice, nothing in flight while the
+//      tile computed. Now: tiles stay row-major as they come from memory,
+//      copied once by cp.async in 16-byte chunks (4-byte copies where the
+//      host finds an operand's rows not 16-byte aligned: rows_vec), their
+//      chunks XOR-swizzled by row % 8, so 8 consecutive rows hit 8
+//      different bank groups both when a thread reads along D and when a
+//      warp reads one row (csrc/f32_tiles.cuh, the forward's loads); the
+//      streamed tiles are double-buffered, tile j + 1 landing while tile
+//      j computes.
+//   2. 4 x 4 register blocks over transposed tiles, P and dS written over
+//      operand tiles, two products walked one after the other. Now thread
+//      (ty, tx) of 16 x 16 owns rows ty + 16 i and columns tx + 16 j of S
+//      and dP (dot_tiles: RM + RN 16-byte loads per 4 RM RN FMAs, float4
+//      along D as the forward), then P and dS go to shared memory once,
+//      transposed and swizzled, behind one barrier (store_t), and dq +=
+//      dS.K, or dv += P^T.dO and dk += dS^T.Q in one walk over the query
+//      tile, run as the forward's P.V loop (acc_tiles: per key or query,
+//      RM / 4 loads of P and D / 64 of the operand feed RM * D / 16 FMAs a
+//      product). The dq kernel takes 128-row tiles (8 x 2 blocks of S,
+//      8 x D/16 of dq) where the grid gives every SM a CTA, else 64-row
+//      ones (4 x 4), 1.7-1.9x faster there (ptf32::query_tile_rows, the
+//      forward's rule; PERF.md section 6); the dk/dv kernel holds 64 keys (4 x 4 blocks): dk and
+//      dv need 2 * D accumulators a key, so 128 keys would be 128
+//      registers a thread at D = 128. Larger blocks were tried and kept
+//      out (PERF.md section 6): 8 x 4 a thread, each half of the CTA taking
+//      one of S and dP, cut the shared loads of the products by a
+//      quarter, and skipping the blocks past the causal diagonal cut the
+//      FMAs by 4-10 %; neither moved the time.
+//   3. lse and delta of each streamed query read from device memory
+//      inside the dk/dv tile loop. Now they come in with their query tile
+//      (and its segment ids) by cp.async into the ring; the dq kernel's
+//      rows keep theirs in registers, and the key tile's ids ride its ring.
+//   4. the tile index on blockIdx.x, so "heaviest first" held only within
+//      a head. Now it is blockIdx.y, as the forward's: the card hands out
+//      every head's heaviest tile (dq: the last query tile; dk/dv: the
+//      first key tile) before any head's next (7-13 % of the time at the
+//      causal training shape, PERF.md section 6).
+//   5. a `T` template parameter and its rounding and store helpers, left
+//      from when bf16 ran here: gone; these kernels are float32 only.
+//  Kept: one CTA per (query tile, batch*head) for dq and per (key tile,
+//  batch*kv_head) for dk/dv, each output row written once, no atomics; the
+//  GQA group's query heads summed inside the dk/dv CTA in a fixed order,
+//  so repeated launches give the same bits; P = exp2(S * scale * log2 e -
+//  lse * log2 e); masked pairs (causal, ragged, other segment) get P = 0,
+//  so dS = 0; rows or keys past N or N_kv are zero-filled and masked;
+//  segment ids skip a (query tile, key tile) pair whose id intervals do
+//  not meet (ptseg::id_range / ranges_meet), which adds exact zeros
+//  otherwise: the bits of the unskipped kernel, and all-zero ids give the
+//  non-segmented bits. __launch_bounds__(256, 1): one CTA an SM (208-226
+//  KB of shared memory at D = 128), up to 255 registers a thread;
+//  chip_smoke.py phase 2 prints ptxas's registers and spills.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "f32_tiles.cuh"
 #include "segment_ids.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
-constexpr int TILE = 64;       // query rows or keys per tile
-constexpr int THREADS = 256;   // 16 x 16: thread (ty, tx) owns rows ty*4..+3
-constexpr int LDT = TILE + 4;  // row stride of transposed tiles
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-using ptseg::id_range;
-using ptseg::ranges_meet;
-static_assert(TILE == 64, "id_range's default run of 64 rows is one tile");
-
-// x rounded to T's precision (the reference's .astype(dtype) points):
-// the SIMT kernels run float32 only, where it is x
-template <typename T>
-__device__ __forceinline__ float round_as(float x) { return x; }
-
-// Rows r0..r0+63 of one head of a [.., rows, D] operand (`rs` elements
-// between rows), transposed into t[D][LDT] and, where rm is given, also
-// row-major into rm[TILE][D]. Rows at or past `limit` read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ base,
-                                          int64_t rs, int r0, int limit,
-                                          float* t, float* rm) {
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, d = e % D, row = r0 + r;
-    const float x = row < limit ? to_f32(base[row * rs + d]) : 0.f;
-    t[d * LDT + r] = x;
-    if (rm != nullptr) rm[r * D + d] = x;
-  }
-}
-
-// acc[i][j] += sum_d a[d][ra + i] * b[d][rb + j] over transposed tiles
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ra, int rb, float (&acc)[4][4]) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(a + d * LDT + ra);
-    const float4 y = *reinterpret_cast<const float4*>(b + d * LDT + rb);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
-  }
-}
-
-// acc[i][g*4 + c] += sum_r p[r][ri + i] * m[r][g*64 + cx*4 + c], where p is
-// [TILE][LDT] and m is [TILE][D] row-major
-template <int D>
-__device__ __forceinline__ void tile_acc(const float* p, const float* m,
-                                         int ri, int cx,
-                                         float (&acc)[4][D / 16]) {
-#pragma unroll 4
-  for (int r = 0; r < TILE; ++r) {
-    const float4 p4 = *reinterpret_cast<const float4*>(p + r * LDT + ri);
-    const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const float4 m4 =
-          *reinterpret_cast<const float4*>(m + r * D + g * 64 + cx * 4);
-      const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[i][g * 4 + c] = fmaf(pv[i], mv[c], acc[i][g * 4 + c]);
-    }
-  }
-}
-
+// The bf16 kernels take Args by value: an int added to it (128 -> 136
+// bytes) slowed them by ~45 % on the card (PERF.md section 6), so the float32
+// kernels' copy flag (rows_vec) is a kernel parameter of its own.
 struct Args {
   int n, n_kv, heads, kv_heads;
   int64_t sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh;
@@ -190,262 +164,462 @@ struct Args {
   const int32_t* segs;   // [B, N] segment ids (n == n_kv), or nullptr
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    Args a) {
-  constexpr int NC = D / 16;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);   // [D][LDT]  Q^T
-  float* ot = qt + D * LDT;                      // [D][LDT]  dO^T
-  float* kt = ot + D * LDT;                      // [D][LDT]  K^T
-  float* vt = kt + D * LDT;                      // [D][LDT]  V^T
-  float* ks = vt + D * LDT;                      // [TILE][D] K
-  float* dst = vt;                               // [TILE][LDT] dS^T
+using ptseg::id_range;
+using ptseg::ranges_meet;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y;
+// -- float32: CUDA cores ------------------------------------------------
+
+constexpr int THREADS = 256;   // 16 x 16
+constexpr float LOG2E = 1.4426950408889634f;
+
+using ptf32::cp_async_commit;
+using ptf32::cp_async_wait_all;
+using ptf32::load_rows;
+using ptf32::load_vec;
+using ptseg::next_tile;
+
+// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two swizzled
+// [.., D] tiles: per 4 columns of D, RM + RN 16-byte shared loads feed
+// 4 * RM * RN FMAs
+template <int D, int RM, int RN>
+__device__ __forceinline__ void dot_tiles(const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          int ty, int tx,
+                                          float (&s)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) s[i][j] = 0.f;
+  const int asw = ty & 7, bsw = tx & 7;
+#pragma unroll 4
+  for (int c = 0; c < D / 4; ++c) {
+    float4 x[RM], y[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * D +
+                                              ((c ^ asw) << 2));
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * D +
+                                              ((c ^ bsw) << 2));
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        float t = fmaf(x[i].x, y[j].x, s[i][j]);
+        t = fmaf(x[i].y, y[j].y, t);
+        t = fmaf(x[i].z, y[j].z, t);
+        s[i][j] = fmaf(x[i].w, y[j].w, t);
+      }
+  }
+}
+
+// v[i][j] (row ty + 16 i, column tx + 16 j) into t[column][slot], a
+// transposed tile of 16 * RM slots a column: this thread's rows sit at
+// slots RM * ty + i, RM / 4 16-byte chunks swizzled by column % 8
+template <int RM, int RN>
+__device__ __forceinline__ void store_t(float* t, const float (&v)[RM][RN],
+                                        int ty, int tx) {
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    float* col = t + (tx + 16 * j) * (16 * RM);
+#pragma unroll
+    for (int u = 0; u < RM / 4; ++u)
+      *reinterpret_cast<float4*>(col + ((((RM / 4) * ty + u) ^ (tx & 7))
+                                        << 2)) =
+          make_float4(v[4 * u][j], v[4 * u + 1][j], v[4 * u + 2][j],
+                      v[4 * u + 3][j]);
+  }
+}
+
+// acc[i][4 g + c] += sum_r t[r][slot of row ty + 16 i] * m[r][64 g + 4 tx
+// + c] over the R columns of a store_t tile and the R rows of a swizzled
+// [R][D] tile; with t2, m2 and acc2 a second such product in the same pass
+// (dk/dv: one walk over the query tile for dv and dk)
+template <int D, int RM, int R, bool TWO>
+__device__ __forceinline__ void acc_tiles(const float* __restrict__ t,
+                                          const float* __restrict__ m,
+                                          float (&acc)[RM][D / 16],
+                                          const float* __restrict__ t2,
+                                          const float* __restrict__ m2,
+                                          float (&acc2)[RM][D / 16], int ty,
+                                          int tx) {
+#pragma unroll 4
+  for (int r = 0; r < R; ++r) {
+    const int sw = r & 7;
+    float p[RM], p2[RM];
+#pragma unroll
+    for (int u = 0; u < RM / 4; ++u) {
+      const int at = r * (16 * RM) + ((((RM / 4) * ty + u) ^ sw) << 2);
+      const float4 p4 = *reinterpret_cast<const float4*>(t + at);
+      p[4 * u] = p4.x;
+      p[4 * u + 1] = p4.y;
+      p[4 * u + 2] = p4.z;
+      p[4 * u + 3] = p4.w;
+      if (TWO) {
+        const float4 q4 = *reinterpret_cast<const float4*>(t2 + at);
+        p2[4 * u] = q4.x;
+        p2[4 * u + 1] = q4.y;
+        p2[4 * u + 2] = q4.z;
+        p2[4 * u + 3] = q4.w;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      const int at = r * D + (((16 * g + tx) ^ sw) << 2);
+      const float4 v4 = *reinterpret_cast<const float4*>(m + at);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        acc[i][4 * g] = fmaf(p[i], v4.x, acc[i][4 * g]);
+        acc[i][4 * g + 1] = fmaf(p[i], v4.y, acc[i][4 * g + 1]);
+        acc[i][4 * g + 2] = fmaf(p[i], v4.z, acc[i][4 * g + 2]);
+        acc[i][4 * g + 3] = fmaf(p[i], v4.w, acc[i][4 * g + 3]);
+      }
+      if (TWO) {
+        const float4 w4 = *reinterpret_cast<const float4*>(m2 + at);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          acc2[i][4 * g] = fmaf(p2[i], w4.x, acc2[i][4 * g]);
+          acc2[i][4 * g + 1] = fmaf(p2[i], w4.y, acc2[i][4 * g + 1]);
+          acc2[i][4 * g + 2] = fmaf(p2[i], w4.z, acc2[i][4 * g + 2]);
+          acc2[i][4 * g + 3] = fmaf(p2[i], w4.w, acc2[i][4 * g + 3]);
+        }
+      }
+    }
+  }
+}
+
+// The dk/dv CTA's tile sequence: from (hq, q0) on, the first query tile of
+// the group's head hq, then of the next heads from q_begin, whose ids can
+// meet the CTA's keys (k_ids); hq == rep when none is left.
+template <int BQ>
+__device__ __forceinline__ void next_query_tile(int& hq, int& q0, int rep,
+                                                int q_begin,
+                                                const int32_t* sb, int n,
+                                                int2 k_ids) {
+  for (; hq < rep; ++hq, q0 = q_begin) {
+    q0 = next_tile<BQ>(q0, n, sb, n, k_ids);
+    if (q0 < n) return;
+  }
+}
+
+// dq for BM query rows (64 or 128) of one (batch, head), streaming BN-key
+// tiles of K and V (and their segment ids) through a two-stage ring
+template <int D, int BM, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, Args a, int vec) {
+  constexpr int RM = BM / 16, RN = BN / 16, NC = D / 16;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);   // [BM][D]
+  float* os = qs + BM * D;                       // [BM][D] dO
+  float* ks = os + BM * D;                       // [2][BN][D]
+  float* vs = ks + 2 * BN * D;                   // [2][BN][D]
+  float* dst = vs + 2 * BN * D;                  // [BN][BM] dS^T
+  int32_t* segk = reinterpret_cast<int32_t*>(dst + BN * BM);   // [2][BN]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest first
+  const int bh = blockIdx.x;
   const int b = bh / a.heads, h = bh % a.heads;
   const int kvh = h / (a.heads / a.kv_heads);
-  const T* kb = k + b * a.skb + kvh * a.skh;
-  const T* vb = v + b * a.svb + kvh * a.svh;
-
-  load_tile<T, D>(q + b * a.sqb + h * a.sqh, a.sqn, q0, a.n, qt, nullptr);
-  load_tile<T, D>(dout + b * a.sob + h * a.soh, a.son, q0, a.n, ot, nullptr);
+  const float* kb = k + b * a.skb + kvh * a.skh;
+  const float* vb = v + b * a.svb + kvh * a.svh;
   const int32_t* sb =
       a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
-  float lse_r[4], delta_r[4];
-  int seg_q[4];
+  const float scale2 = a.scale * LOG2E;
+
+  float lse2[RM], dlt[RM];
+  int seg_q[RM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + 16 * i;
     const int64_t at = int64_t(bh) * a.n + row;
-    lse_r[i] = row < a.n ? lse[at] : 0.f;
-    delta_r[i] = row < a.n ? delta[at] : 0.f;
-    seg_q[i] = sb != nullptr && row < a.n ? sb[row] : 0;
+    const bool in = row < a.n;
+    lse2[i] = in ? lse[at] * LOG2E : 0.f;
+    dlt[i] = in ? delta[at] : 0.f;
+    seg_q[i] = sb != nullptr && in ? sb[row] : 0;
   }
-  const int2 q_ids = sb != nullptr ? id_range(sb, q0, a.n) : make_int2(0, 0);
-  float acc[4][NC];
+  const int2 q_ids =
+      sb != nullptr ? id_range(sb, q0, a.n, BM) : make_int2(0, 0);
+  const int kv_end = a.causal ? min(a.n_kv, q0 + BM) : a.n_kv;
+  float acc[RM][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
-  const int kv_end = a.causal ? min(a.n_kv, q0 + TILE) : a.n_kv;
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
-    if (sb != nullptr) {   // the whole block takes the same branch
-      const int2 k_ids = id_range(sb, k0, a.n_kv);
-      if (k_ids.y < q_ids.x || k_ids.x > q_ids.y) continue;   // no equal ids
-    }
-    __syncthreads();   // the last tile's reads of ks and dst are done
-    load_tile<T, D>(kb, a.skn, k0, a.n_kv, kt, ks);
-    load_tile<T, D>(vb, a.svn, k0, a.n_kv, vt, nullptr);
+  auto load_keys = [&](int stage, int k0) {
+    load_rows<D, true, THREADS>(ks + stage * BN * D, kb, a.skn, k0, BN,
+                                a.n_kv, vec);
+    load_rows<D, true, THREADS>(vs + stage * BN * D, vb, a.svn, k0, BN,
+                                a.n_kv, vec);
+    if (sb != nullptr)
+      load_vec<THREADS>(segk + stage * BN, sb, k0, BN, a.n_kv);
+  };
+  load_rows<D, true, THREADS>(qs, q + b * a.sqb + h * a.sqh, a.sqn, q0, BM,
+                              a.n, vec);
+  load_rows<D, true, THREADS>(os, dout + b * a.sob + h * a.soh, a.son, q0,
+                              BM, a.n, vec);
+  int k0 = next_tile<BN>(0, kv_end, sb, a.n_kv, q_ids);
+  if (k0 < kv_end) load_keys(0, k0);
+  cp_async_commit();
+  for (int stage = 0; k0 < kv_end; stage ^= 1) {
+    cp_async_wait_all();
+    // tile k0 has landed for every thread, and every thread is done with
+    // the previous tile's dS.K: its buffers and dS^T are free
     __syncthreads();
+    const int k1 = next_tile<BN>(k0 + BN, kv_end, sb, a.n_kv, q_ids);
+    if (k1 < kv_end) load_keys(stage ^ 1, k1);
+    cp_async_commit();
 
-    float s[4][4], dp[4][4];
+    const float* kt = ks + stage * BN * D;
+    float s[RM][RN], dp[RM][RN];
+    dot_tiles<D, RM, RN>(qs, kt, ty, tx, s);                      // S
+    dot_tiles<D, RM, RN>(os, vs + stage * BN * D, ty, tx, dp);   // dP
+    int seg_k[RN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < RN; ++j)
+      seg_k[j] = sb != nullptr ? segk[stage * BN + tx + 16 * j] : 0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_dot<D>(qt, kt, ty * 4, tx * 4, s);
-    tile_dot<D>(ot, vt, ty * 4, tx * 4, dp);
-    int seg_k[4];
+    for (int i = 0; i < RM; ++i) {
+      const int row = q0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = k0 + tx * 4 + j;
-      seg_k[j] = sb != nullptr && col < a.n_kv ? sb[col] : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
+      for (int j = 0; j < RN; ++j) {
+        const int col = k0 + tx + 16 * j;
         const bool ok = row < a.n && col < a.n_kv &&
                         (!a.causal || col <= row) && seg_q[i] == seg_k[j];
-        const float p = ok ? expf(s[i][j] * a.scale - lse_r[i]) : 0.f;
-        s[i][j] = round_as<T>(p * (dp[i][j] - delta_r[i]));   // dS
+        const float p = ok ? exp2f(fmaf(s[i][j], scale2, -lse2[i])) : 0.f;
+        s[i][j] = p * (dp[i][j] - dlt[i]);   // dS
       }
     }
-
-    __syncthreads();   // every thread is done reading vt: it becomes dst
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(dst + (tx * 4 + j) * LDT + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-    tile_acc<D>(dst, ks, ty * 4, tx, acc);
+    store_t<RM, RN>(dst, s, ty, tx);
+    __syncthreads();   // dS^T is complete
+    acc_tiles<D, RM, BN, false>(dst, kt, acc, dst, kt, acc, ty,
+                                tx);   // dq += dS . K
+    k0 = k1;
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + 16 * i;
     if (row >= a.n) continue;
-    T* out = dq + ((int64_t(b) * a.n + row) * a.heads + h) * D;
+    float* out = dq + ((int64_t(b) * a.n + row) * a.heads + h) * D;
 #pragma unroll
     for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        store(out + g * 64 + tx * 4 + c, acc[i][g * 4 + c] * a.scale);
+      *reinterpret_cast<float4*>(out + 64 * g + 4 * tx) = make_float4(
+          acc[i][4 * g] * a.scale, acc[i][4 * g + 1] * a.scale,
+          acc[i][4 * g + 2] * a.scale, acc[i][4 * g + 3] * a.scale);
   }
 }
 
-template <typename T, int D>
+// dk and dv for BK keys of one (batch, kv head), streaming BQ-query tiles
+// of Q and dO with their lse, delta and segment ids through a two-stage
+// ring, over the query heads of the GQA group in order
+template <int D, int BK, int BQ>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, Args a) {
-  constexpr int NC = D / 16;
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         Args a, int vec) {
+  constexpr int RM = BK / 16, RN = BQ / 16, NC = D / 16;
   extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);   // [D][LDT]  K^T
-  float* vt = kt + D * LDT;                      // [D][LDT]  V^T
-  float* qt = vt + D * LDT;                      // [D][LDT]  Q^T
-  float* ot = qt + D * LDT;                      // [D][LDT]  dO^T
-  float* qs = ot + D * LDT;                      // [TILE][D] Q
-  float* os = qs + TILE * D;                     // [TILE][D] dO
-  float* pb = qt;                                // [TILE][LDT] P, query-major
-  float* db = ot;                                // [TILE][LDT] dS, query-major
+  float* ks = reinterpret_cast<float*>(smem4);   // [BK][D]
+  float* vs = ks + BK * D;                       // [BK][D]
+  float* qs = vs + BK * D;                       // [2][BQ][D]
+  float* os = qs + 2 * BQ * D;                   // [2][BQ][D] dO
+  float* pt = os + 2 * BQ * D;                   // [BQ][BK] P^T
+  float* dst = pt + BQ * BK;                     // [BQ][BK] dS^T
+  float* rowv = dst + BQ * BK;   // [2][3][BQ]: lse, delta, segment ids
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * TILE;
-  const int b = blockIdx.y / a.kv_heads, kvh = blockIdx.y % a.kv_heads;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int k0 = blockIdx.y * BK;   // the first key tiles are the heaviest
+  const int b = blockIdx.x / a.kv_heads, kvh = blockIdx.x % a.kv_heads;
   const int rep = a.heads / a.kv_heads;
-
-  load_tile<T, D>(k + b * a.skb + kvh * a.skh, a.skn, k0, a.n_kv, kt,
-                  nullptr);
-  load_tile<T, D>(v + b * a.svb + kvh * a.svh, a.svn, k0, a.n_kv, vt,
-                  nullptr);
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[j][c] = acc_v[j][c] = 0.f;
   const int32_t* sb =
       a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
-  int seg_k[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = k0 + ty * 4 + j;
-    seg_k[j] = sb != nullptr && col < a.n_kv ? sb[col] : 0;
-  }
-  const int2 k_ids = sb != nullptr ? id_range(sb, k0, a.n_kv) : make_int2(0, 0);
+  const float scale2 = a.scale * LOG2E;
 
-  // causal: query tiles that end before key k0 see none of this tile
-  const int q_begin = a.causal ? (k0 / TILE) * TILE : 0;
-  for (int hq = 0; hq < rep; ++hq) {
+  int seg_k[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int key = k0 + ty + 16 * i;
+    seg_k[i] = sb != nullptr && key < a.n_kv ? sb[key] : 0;
+  }
+  const int2 k_ids =
+      sb != nullptr ? id_range(sb, k0, a.n_kv, BK) : make_int2(0, 0);
+  float acc_k[RM][NC], acc_v[RM][NC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  auto load_queries = [&](int stage, int hq, int q0) {
     const int h = kvh * rep + hq;
     const int64_t bh = int64_t(b) * a.heads + h;
-    const T* qb = q + b * a.sqb + h * a.sqh;
-    const T* ob = dout + b * a.sob + h * a.soh;
-    for (int q0 = q_begin; q0 < a.n; q0 += TILE) {
-      if (sb != nullptr) {   // the whole block takes the same branch
-        const int2 q_ids = id_range(sb, q0, a.n);
-        if (q_ids.y < k_ids.x || q_ids.x > k_ids.y) continue;   // no equal ids
-      }
-      __syncthreads();   // the last tile's reads of pb, db, qs, os are done
-      load_tile<T, D>(qb, a.sqn, q0, a.n, qt, qs);
-      load_tile<T, D>(ob, a.son, q0, a.n, ot, os);
-      __syncthreads();
+    float* vecs = rowv + stage * 3 * BQ;
+    load_rows<D, true, THREADS>(qs + stage * BQ * D,
+                                q + b * a.sqb + h * a.sqh, a.sqn, q0, BQ,
+                                a.n, vec);
+    load_rows<D, true, THREADS>(os + stage * BQ * D,
+                                dout + b * a.sob + h * a.soh, a.son, q0, BQ,
+                                a.n, vec);
+    load_vec<THREADS>(vecs, lse + bh * a.n, q0, BQ, a.n);
+    load_vec<THREADS>(vecs + BQ, delta + bh * a.n, q0, BQ, a.n);
+    if (sb != nullptr) load_vec<THREADS>(vecs + 2 * BQ, sb, q0, BQ, a.n);
+  };
+  load_rows<D, true, THREADS>(ks, k + b * a.skb + kvh * a.skh, a.skn, k0, BK,
+                              a.n_kv, vec);
+  load_rows<D, true, THREADS>(vs, v + b * a.svb + kvh * a.svh, a.svn, k0, BK,
+                              a.n_kv, vec);
+  // causal: query tiles that end before key k0 see none of these keys
+  const int q_begin = a.causal ? (k0 / BQ) * BQ : 0;
+  int hq = 0, q0 = q_begin;
+  next_query_tile<BQ>(hq, q0, rep, q_begin, sb, a.n, k_ids);
+  if (hq < rep) load_queries(0, hq, q0);
+  cp_async_commit();
+  for (int stage = 0; hq < rep; stage ^= 1) {
+    cp_async_wait_all();
+    // tile (hq, q0) has landed, and every thread is done with the last
+    // tile's products: its buffers, P^T and dS^T are free
+    __syncthreads();
+    int hq1 = hq, q1 = q0 + BQ;
+    next_query_tile<BQ>(hq1, q1, rep, q_begin, sb, a.n, k_ids);
+    if (hq1 < rep) load_queries(stage ^ 1, hq1, q1);
+    cp_async_commit();
 
-      // s[j][i], dp[j][i]: key k0 + ty*4 + j, query q0 + tx*4 + i
-      float s[4][4], dp[4][4], pr[4][4];
+    const float* qt = qs + stage * BQ * D;
+    const float* ot = os + stage * BQ * D;
+    const float* vecs = rowv + stage * 3 * BQ;
+    // s[i][j], dp[i][j]: key k0 + ty + 16 i, query q0 + tx + 16 j
+    float s[RM][RN], dp[RM][RN];
+    dot_tiles<D, RM, RN>(ks, qt, ty, tx, s);    // S^T = K . Q^T
+    dot_tiles<D, RM, RN>(vs, ot, ty, tx, dp);   // dP^T = V . dO^T
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < RN; ++j) {
+      const int c = tx + 16 * j, col = q0 + c;
+      const float lse2 = vecs[c] * LOG2E, dlt = vecs[BQ + c];
+      const int seg = sb != nullptr
+                          ? reinterpret_cast<const int32_t*>(vecs)[2 * BQ + c]
+                          : 0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-      tile_dot<D>(kt, qt, ty * 4, tx * 4, s);
-      tile_dot<D>(vt, ot, ty * 4, tx * 4, dp);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + tx * 4 + i;
-        const float lse_i = row < a.n ? lse[bh * a.n + row] : 0.f;
-        const float delta_i = row < a.n ? delta[bh * a.n + row] : 0.f;
-        const int seg_i = sb != nullptr && row < a.n ? sb[row] : 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = k0 + ty * 4 + j;
-          const bool ok = row < a.n && col < a.n_kv &&
-                          (!a.causal || col <= row) && seg_i == seg_k[j];
-          const float p = ok ? expf(s[j][i] * a.scale - lse_i) : 0.f;
-          pr[j][i] = round_as<T>(p);
-          s[j][i] = round_as<T>(p * (dp[j][i] - delta_i));   // dS
-        }
+      for (int i = 0; i < RM; ++i) {
+        const int key = k0 + ty + 16 * i;
+        const bool ok = col < a.n && key < a.n_kv &&
+                        (!a.causal || key <= col) && seg_k[i] == seg;
+        const float p = ok ? exp2f(fmaf(s[i][j], scale2, -lse2)) : 0.f;
+        s[i][j] = p;
+        dp[i][j] = p * (dp[i][j] - dlt);   // dS
       }
-
-      __syncthreads();   // done reading qt and ot: they become pb and db
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        *reinterpret_cast<float4*>(pb + (tx * 4 + i) * LDT + ty * 4) =
-            make_float4(pr[0][i], pr[1][i], pr[2][i], pr[3][i]);
-        *reinterpret_cast<float4*>(db + (tx * 4 + i) * LDT + ty * 4) =
-            make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
-      }
-      __syncthreads();
-      tile_acc<D>(pb, os, ty * 4, tx, acc_v);
-      tile_acc<D>(db, qs, ty * 4, tx, acc_k);
     }
+    store_t<RM, RN>(pt, s, ty, tx);
+    store_t<RM, RN>(dst, dp, ty, tx);
+    __syncthreads();   // P^T and dS^T are complete
+    // dv += P^T . dO and dk += dS^T . Q
+    acc_tiles<D, RM, BQ, true>(pt, ot, acc_v, dst, qt, acc_k, ty, tx);
+    hq = hq1;
+    q0 = q1;
   }
+  cp_async_wait_all();
 
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int key = k0 + ty * 4 + j;
+  for (int i = 0; i < RM; ++i) {
+    const int key = k0 + ty + 16 * i;
     if (key >= a.n_kv) continue;
     const int64_t at = ((int64_t(b) * a.n_kv + key) * a.kv_heads + kvh) * D;
 #pragma unroll
-    for (int g = 0; g < D / 64; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = g * 64 + tx * 4 + c;
-        store(dk + at + d, acc_k[j][g * 4 + c] * a.scale);
-        store(dv + at + d, acc_v[j][g * 4 + c]);
-      }
+    for (int g = 0; g < D / 64; ++g) {
+      const int d = 64 * g + 4 * tx;
+      *reinterpret_cast<float4*>(dk + at + d) = make_float4(
+          acc_k[i][4 * g] * a.scale, acc_k[i][4 * g + 1] * a.scale,
+          acc_k[i][4 * g + 2] * a.scale, acc_k[i][4 * g + 3] * a.scale);
+      *reinterpret_cast<float4*>(dv + at + d) =
+          make_float4(acc_v[i][4 * g], acc_v[i][4 * g + 1],
+                      acc_v[i][4 * g + 2], acc_v[i][4 * g + 3]);
+    }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int batch, const Args& a,
-                      cudaStream_t stream) {
-  const size_t smem = size_t(4 * D * LDT + TILE * D) * sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+template <int D, int BM, int BN>
+cudaError_t launch_dq_f32_tiles(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, int batch,
+                                const Args& a, int vec, cudaStream_t stream) {
+  const size_t smem =
+      size_t(2 * BM * D + 4 * BN * D + BN * BM + 2 * BN) * sizeof(float);
+  auto kernel = flash_bwd_dq_f32_kernel<D, BM, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + TILE - 1) / TILE, batch * a.heads);
+  const dim3 grid(batch * a.heads, (a.n + BM - 1) / BM);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), a);
+      static_cast<float*>(dq), a, vec);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int batch, const Args& a,
-                       cudaStream_t stream) {
-  const size_t smem = size_t(4 * D * LDT + 2 * TILE * D) * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+// 128 query rows or, for a grid that leaves SMs idle, 64
+// (ptf32::query_tile_rows); 128-row tiles stream 32-key tiles, so that Q,
+// dO and the K/V ring fit
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, int batch,
+                          const Args& a, int vec, cudaStream_t stream) {
+  int rows = 0;
+  const cudaError_t err =
+      ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
+  if (err != cudaSuccess) return err;
+  if (rows == 128)
+    return launch_dq_f32_tiles<D, 128, 32>(q, k, v, dout, lse, delta, dq,
+                                           batch, a, vec, stream);
+  return launch_dq_f32_tiles<D, 64, 64>(q, k, v, dout, lse, delta, dq, batch,
+                                        a, vec, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int batch,
+                           const Args& a, int vec, cudaStream_t stream) {
+  constexpr int BK = 64, BQ = 64;
+  const size_t smem =
+      size_t(2 * BK * D + 4 * BQ * D + 2 * BQ * BK + 6 * BQ) * sizeof(float);
+  auto kernel = flash_bwd_dkv_f32_kernel<D, BK, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n_kv + TILE - 1) / TILE, batch * a.kv_heads);
+  const dim3 grid(batch * a.kv_heads, (a.n_kv + BK - 1) / BK);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), a);
+      static_cast<float*>(dk), static_cast<float*>(dv), a, vec);
   return cudaGetLastError();
+}
+
+// whether the float32 kernels may copy every row of q, k, v and dO in
+// 16-byte chunks (st: their strides, as the entry points take them)
+int rows_vec(const void* q, const void* k, const void* v, const void* dout,
+             int batch, int n, int n_kv, int heads, int kv_heads,
+             const long long* st) {
+  using ptf32::rows_aligned;
+  return rows_aligned(q, batch, st[0], n, st[1], heads, st[2]) &&
+         rows_aligned(k, batch, st[3], n_kv, st[4], kv_heads, st[5]) &&
+         rows_aligned(v, batch, st[6], n_kv, st[7], kv_heads, st[8]) &&
+         rows_aligned(dout, batch, st[9], n, st[10], heads, st[11]);
 }
 
 Args make_args(int n, int n_kv, int heads, int kv_heads, const long long* st,
@@ -923,11 +1097,13 @@ int pt_flash_attention_bwd_dq(
                             svb, svn, svh, sob, son, soh};
   if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
   const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
+  const int vec = rows_vec(q, k, v, dout, batch, n, n_kv, heads, kv_heads, st);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
-    return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, batch, a, s);
+    return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, batch, a, vec,
+                              s);
   if (dtype == 0 && head_dim == 64)
-    return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, batch, a, s);
+    return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, batch, a, vec, s);
   if (dtype == 1 && head_dim == 128)
     return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, a, s);
   if (dtype == 1 && head_dim == 64)
@@ -949,13 +1125,14 @@ int pt_flash_attention_bwd_dkv(
                             svb, svn, svh, sob, son, soh};
   if (segs != nullptr && n != n_kv) return cudaErrorInvalidValue;
   const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
+  const int vec = rows_vec(q, k, v, dout, batch, n, n_kv, heads, kv_heads, st);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 128)
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, batch,
-                                  a, s);
+    return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, batch, a,
+                               vec, s);
   if (dtype == 0 && head_dim == 64)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, batch, a,
-                                 s);
+    return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, batch, a,
+                              vec, s);
   if (dtype == 1 && head_dim == 128)
     return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, a,
                                s);

@@ -1,8 +1,9 @@
 // Segment ids in the flash kernels (csrc/flash_attention.cu,
-// csrc/flash_attention_bwd.cu): the id interval of a run of rows, and
-// whether two intervals meet. A (query tile, key tile) pair whose
-// intervals do not meet has no equal pair for any order of the ids, so
-// the kernels skip it whole. Header only: no entry points.
+// csrc/flash_attention_bwd.cu): the id interval of a run of rows, whether
+// two intervals meet, and the float32 kernels' tile sequence over them. A
+// (query tile, key tile) pair whose intervals do not meet has no equal
+// pair for any order of the ids, so the kernels skip it whole. Header
+// only: no entry points.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +32,19 @@ __device__ __forceinline__ int2 id_range(const int32_t* __restrict__ ids,
 
 __device__ __forceinline__ bool ranges_meet(int2 x, int2 y) {
   return !(x.y < y.x || x.x > y.y);
+}
+
+// A float32 flash CTA's tile sequence: the first tile of BN rows at or
+// after r0 and before end whose ids can meet the CTA's (ids), or end if
+// none; without ids (sb == nullptr) r0 itself.
+template <int BN>
+__device__ __forceinline__ int next_tile(int r0, int end,
+                                         const int32_t* __restrict__ sb,
+                                         int limit, int2 ids) {
+  if (sb != nullptr)
+    while (r0 < end && !ranges_meet(id_range(sb, r0, limit, BN), ids))
+      r0 += BN;
+  return r0;
 }
 
 }  // namespace ptseg

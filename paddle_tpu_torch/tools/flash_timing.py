@@ -1,6 +1,7 @@
 """Time the flash-attention kernels of one checkout on one GPU.
 
     python3 paddle_tpu_torch/tools/flash_timing.py [ROOT] [--seed N]
+        [--shapes NAME ...] [--clocks]
 
 Imports ``paddle_tpu_torch`` from ROOT (default: the checkout that holds
 this file), so that two checkouts, for instance a parent commit unpacked
@@ -12,10 +13,13 @@ clock shows as a difference between the two runs of one tree.
 
 It times the forward, dq and dk/dv kernels and, beside them, torch
 SDPA's forward on the same inputs (CUDA events, median of 5 x 10
-launches after a warm-up, as ``chip_smoke.py``) at seven shapes:
+launches after a warm-up, as ``chip_smoke.py``; ``*_ms``), and the
+kernels' own device time from ``torch.profiler`` (``*_device_ms``, per
+launch over 10 launches), at eight shapes:
 
   train    the llama1b training row's attention: B=8, N=1024, H=16,
            D=128, bf16, causal
+  train32  the same in float32, the llama1b config's default dtype
   bench    the reference's bench row: the same with H=6
   packed   the training shape with each row packing documents of 64-512
            tokens (segment ids, as ``chip_smoke.py`` phase 3d (a); SDPA
@@ -26,8 +30,15 @@ launches after a warm-up, as ``chip_smoke.py``) at seven shapes:
   shuffled float32, B=1, N=2048, H=16, non-causal, 8 shuffled ids (phase
            3d (b); SDPA with a dense boolean mask)
 
-and prints one JSON line: ``{"root", "device", "power_limit", shape:
-{"fwd_ms", "dq_ms", "dkv_ms", "sdpa_ms"}}``.
+At the float32 shapes SDPA's backward is timed too (``sdpa_bwd_ms``:
+``autograd.grad`` of one SDPA forward, dq, dk and dv together).
+``--shapes`` times only the shapes named. ``--clocks`` runs dq and dk/dv
+back to back for a second each at the float32 shapes while
+``nvidia-smi`` samples the SM clock and the power draw every 50 ms, and
+adds their medians (``dq_clocks``, ``dkv_clocks``). It prints one JSON
+line: ``{"root", "device", "power_limit", shape: {"fwd_ms", "dq_ms",
+"dkv_ms", "sdpa_ms", "fwd_device_ms", "dq_device_ms", "dkv_device_ms"[,
+"sdpa_bwd_ms"]}}``.
 """
 from __future__ import annotations
 
@@ -36,10 +47,12 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 # shape: (batch, sequence, heads, dtype, causal, segment ids)
 SHAPES = {"train": (8, 1024, 16, "bfloat16", True, None),
+          "train32": (8, 1024, 16, "float32", True, None),
           "bench": (8, 1024, 6, "bfloat16", True, None),
           "packed": (8, 1024, 16, "bfloat16", True, "packed"),
           "serving": (1, 2048, 16, "float32", True, None),
@@ -89,11 +102,74 @@ def time_ms(fn, iters=10, reps=5):
     return statistics.median(times)
 
 
+def device_ms(fn, name, calls=10, tries=3):
+    """The device time per call of the CUDA kernels whose names hold
+    ``name``, from the profiler. A window in which the profiler recorded
+    fewer launches than were made is measured again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = [evt for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and name in evt.key]
+        if sum(evt.count for evt in evts) == calls:
+            break
+    else:
+        raise RuntimeError("flash_timing: the profiler recorded %d of %d "
+                           "%s launches" % (sum(e.count for e in evts),
+                                            calls, name))
+    return sum(evt.self_device_time_total for evt in evts) / 1e3 / calls
+
+
+def clocks(fn, seconds=1.0):
+    """The median SM clock (MHz) and power draw (W) of ``nvidia-smi``'s
+    samples, every 50 ms, while ``fn`` runs back to back for ``seconds``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(x) for x in line.split(",")])
+        except ValueError:   # a partial last line or "[N/A]"
+            continue
+    if not samples:
+        raise RuntimeError("flash_timing: nvidia-smi gave no samples")
+    return {"sm_mhz": statistics.median(x[0] for x in samples),
+            "power_w": statistics.median(x[1] for x in samples),
+            "samples": len(samples)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shapes", nargs="+", choices=sorted(SHAPES),
+                    default=list(SHAPES))
+    ap.add_argument("--clocks", action="store_true",
+                    help="the SM clock and power draw under dq and dk/dv")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -114,7 +190,8 @@ def main(argv=None):
     row = {"root": root, "device": torch.cuda.get_device_name(0),
            "power_limit": power.stdout.strip().splitlines()[0]}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, (batch, n, heads, dtype, causal, ids) in SHAPES.items():
+    for name in args.shapes:
+        batch, n, heads, dtype, causal, ids = SHAPES[name]
         shape = (batch, n, heads, HEAD_DIM)
         q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
                          .to(getattr(torch, dtype)) for _ in range(4))
@@ -133,14 +210,34 @@ def main(argv=None):
             .reshape(batch * heads, n).contiguous()
         bwd = (q, k, v, dout, lse, delta, causal, None, segs)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def fwd():
+            return fa.flash_attention(q, k, v, causal, segment_ids=segs)
+
+        def dq():
+            return fa.flash_attention_bwd_dq(*bwd)
+
+        def dkv():
+            return fa.flash_attention_bwd_dkv(*bwd)
+
+        def library(qt=qt, kt=kt, vt=vt):
+            return (sdpa(qt, kt, vt, is_causal=causal) if mask is None
+                    else sdpa(qt, kt, vt, attn_mask=mask))
+
         row[name] = {
-            "fwd_ms": time_ms(lambda: fa.flash_attention(
-                q, k, v, causal, segment_ids=segs)),
-            "dq_ms": time_ms(lambda: fa.flash_attention_bwd_dq(*bwd)),
-            "dkv_ms": time_ms(lambda: fa.flash_attention_bwd_dkv(*bwd)),
-            "sdpa_ms": time_ms(
-                lambda: sdpa(qt, kt, vt, is_causal=causal) if mask is None
-                else sdpa(qt, kt, vt, attn_mask=mask))}
+            "fwd_ms": time_ms(fwd), "dq_ms": time_ms(dq),
+            "dkv_ms": time_ms(dkv), "sdpa_ms": time_ms(library),
+            "fwd_device_ms": device_ms(fwd, "flash_fwd"),
+            "dq_device_ms": device_ms(dq, "flash_bwd_dq"),
+            "dkv_device_ms": device_ms(dkv, "flash_bwd_dkv")}
+        if dtype == "float32":
+            leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            lib_out = library(*leaves)
+            row[name]["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, dout.transpose(1, 2), retain_graph=True))
+            if args.clocks:
+                row[name]["dq_clocks"] = clocks(dq)
+                row[name]["dkv_clocks"] = clocks(dkv)
     print(json.dumps(row), flush=True)
     return 0
 

@@ -1,7 +1,7 @@
 """Where a training step's device time goes, on one GPU.
 
     python3 -m paddle_tpu_torch.tools.train_profile [--seed N]
-        [--fused-ce | --bench-row]
+        [--fused-ce | --bench-row | --float32]
 
 Builds the llama1b training row (``LlamaConfig.llama1b_train()``: 953M
 parameters in bfloat16, per-layer recompute, random weights from
@@ -11,7 +11,10 @@ without the profiler (``unprofiled_wall_ms``) and runs a fourth under
 ``torch.profiler``. With ``--fused-ce`` the row runs as the reference's
 ``FLAGS_fused_lm_head_ce`` configuration: the flag on and
 ``TrainStep(model, None, opt, labels_to_model=True)``, so the loss tail
-goes through the fused lm_head + CE kernels. With ``--bench-row`` it
+goes through the fused lm_head + CE kernels. With ``--float32`` the row
+runs at the config's default dtype, float32 (``LlamaConfig``'s default;
+``chip_smoke.py`` phase 6e): SGEMMs in full float32 and the flash kernels'
+float32 CUDA-core modes. With ``--bench-row`` it
 profiles the reference's own training row instead (``bench.py:70-162``
 with ``BENCH_FUSE=1``: hidden 768, 12 layers, 6 heads x 128, FFN 2048,
 fused QKV and gate/up projections, bf16, no recompute, 8 x 1024 per
@@ -151,10 +154,14 @@ def main(argv=None):
                       help="FLAGS_fused_lm_head_ce on, loss inside the model")
     mode.add_argument("--bench-row", action="store_true",
                       help="the reference's bench row through run_steps")
+    mode.add_argument("--float32", action="store_true",
+                      help="the llama1b row at its default float32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
-    cfg = bench_row_config() if args.bench_row else LlamaConfig.llama1b_train()
+    dtype = "float32" if args.float32 else "bfloat16"
+    cfg = (bench_row_config() if args.bench_row
+           else LlamaConfig.llama1b_train(dtype=dtype))
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
@@ -192,9 +199,9 @@ def main(argv=None):
                   % (BENCH_K, cfg.hidden_size, cfg.num_hidden_layers,
                      cfg.num_attention_heads, BATCH, SEQ))
     else:
-        window = ("1 train step, llama1b bf16 recompute, %d x %d%s"
-                  % (BATCH, SEQ, ", fused lm_head + CE" if args.fused_ce
-                     else ""))
+        window = ("1 train step, llama1b %s recompute, %d x %d%s"
+                  % (dtype, BATCH, SEQ, ", fused lm_head + CE"
+                     if args.fused_ce else ""))
     row = {"window": window, "loss": loss.item(),
            "unprofiled_wall_ms": unprofiled_ms,
            "device": torch.cuda.get_device_name(0)}
