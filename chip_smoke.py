@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   1. device     require CUDA, print the card's name and power limit
   2. build      compile every kernel from csrc/ (one nvcc per source, in
                 parallel) and print the build seconds and, per kernel,
-                ptxas's registers and spill bytes
+                ptxas's registers and spill bytes (the fused CE kernels'
+                float32 modes must spill none)
   3. kernels    hold each kernel against its plain PyTorch version on the
                 card at the serving and training paths' shapes, in float32
                 and bfloat16, and time the kernel, the plain version and
@@ -30,9 +31,11 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 run the bf16 MMA form probe (all eight forms, mma.sync and
                 wgmma, must be OK)
                 and hold the fused lm_head + CE kernels (forward, dh, dW)
-                against their plain versions, bf16 at the training shape,
-                ragged vocabs, a ragged token count and float32 (two
-                launches bit for bit),
+                against their plain versions, bf16 and float32 at the
+                training shape, ragged vocabs, a ragged token count and
+                float32 at T = 1024 (two launches bit for bit; timed at
+                the training shape in both dtypes and at T = 1024 in
+                float32),
                 beside the port's unfused tail and, as a yardstick,
                 torch.matmul of the same products over the same chunks
   3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
@@ -87,6 +90,12 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and falling loss, per step exactly 32 forward, 16 dq and 16
                 dk/dv launches (the float32 CUDA-core kernels), none
                 segmented, no TMA copy; step ms, tokens/s, peak memory
+  6f. train32  phase 6e with FLAGS_fused_lm_head_ce on and
+      fused     TrainStep(labels_to_model=True): per step exactly one
+                fused-CE forward, dh and dW launch (their float32 CUDA-core
+                modes) besides 6e's attention launches, a first loss
+                within 1e-5 relative of 6e's and a lower peak memory; step
+                ms, tokens/s and peak memory beside 6e's
   7. train e2e  the same widths at 2 layers in float32, 2 AdamW steps on
                 the card and on a CPU copy (plain path): losses and the
                 first step's gradients must agree
@@ -123,7 +132,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 fired both faults, the others shed nothing
   9. summary    one JSON line of per-kernel numbers, then the result line
 
-Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d and 6e also holds the
+Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e and 6f also holds the
 bf16 kernels' TMA operand copies (``tma_copies``, forward and backward) at
 0, fused QKV views included.
 
@@ -281,6 +290,12 @@ def ptxas_report(text):
     return rows
 
 
+# the fused lm_head + CE kernels' float32 modes (phase 2 holds them at 0
+# spill bytes)
+FCE_FP32_KERNELS = ("fce_fwd_partial", "fce_fwd_combine", "fce_bwd_dl",
+                    "fce_bwd_dh", "fce_bwd_dh64", "fce_bwd_dw")
+
+
 def phase_build():
     """Build every kernel and print ptxas's registers and spills for each
     (the bf16 forward and backward kernels' consumer warpgroups run at 240
@@ -301,6 +316,13 @@ def phase_build():
                     row.get("stack"), row.get("spill_stores"),
                     row.get("spill_loads")))
         report[name] = rows
+    # the fused CE kernels' float32 modes run at the register cap (8 x 16
+    # accumulators a thread): a spill there is a regression, not a detail
+    spilled = [r["kernel"] for r in report.get("fused_ce", ())
+               if r["kernel"] in FCE_FP32_KERNELS
+               and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spilled:
+        raise AssertionError("float32 fused-CE kernels spill: %s" % spilled)
     return report
 
 
@@ -974,13 +996,19 @@ FCE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, scaled=True),
                torch.bfloat16: dict(atol=1e-2, rtol=1e-2, scaled=True)}
 # (T, H, V, dtype, timed): the training shape, ragged vocabs (the bf16
 # forward's last 256-column tile 64 and 208 wide), a ragged T (the last
-# 128-row tile 104 deep), float32
+# 128-row tile 104 deep), float32: the float32 training shape (phase 6f's
+# loss tail; 128-row dh tiles), T = 1024 (64-row dh tiles), a ragged T
+# and vocab (last vocab tile and chunk 80 wide) and a ragged vocab (last
+# vocab tile 64 wide, last chunk 3136)
 FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
              (1024, 2048, 40000, torch.bfloat16, False),
              (512, 2048, 2000, torch.bfloat16, False),
              (1000, 2048, 2000, torch.bfloat16, False),
-             (512, 2048, 2000, torch.float32, False),
-             (1024, 2048, 32000, torch.float32, True))
+             (TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.float32, True),
+             (1024, 2048, 32000, torch.float32, True),
+             (1000, 2048, 2000, torch.float32, False),
+             (1024, 2048, 40000, torch.float32, False),
+             (512, 2048, 2000, torch.float32, False))
 
 
 def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
@@ -1787,15 +1815,15 @@ def phase_train(seed, fused=False, dtype="bfloat16"):
     """Phase 6, or with ``fused`` phase 6b: the same row with
     FLAGS_fused_lm_head_ce on and the loss computed inside the model; with
     ``dtype="float32"`` phase 6e: the row at the config's default dtype,
-    2 timed steps."""
+    2 timed steps, and with both phase 6f."""
     from paddle_tpu_torch.core import flags
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel import TrainStep
 
-    tag = ("[train fused]" if fused else "[train]" if dtype == "bfloat16"
-           else "[train %s]" % dtype)
+    tag = "[train%s%s]" % ("" if dtype == "bfloat16" else " " + dtype,
+                           " fused" if fused else "")
     steps = TRAIN_STEPS if dtype == "bfloat16" else TRAIN_STEPS_FP32
     cfg = LlamaConfig.llama1b_train(dtype=dtype)
     t0 = time.perf_counter()
@@ -1870,19 +1898,26 @@ def phase_train(seed, fused=False, dtype="bfloat16"):
 # bf16 before cross_entropy, the fused kernels keep them float32; the two
 # means over 8192 tokens may differ by up to one bf16 ulp (2^-8) of the loss
 FUSED_LOSS_RTOL = 2.0 ** -8
+# phase 6f's against 6e's: the same float32 hidden states and weights, and
+# float32 logits on both sides summed in another order (cuBLAS's SGEMM and
+# a whole-row log-softmax vs the kernels' k order and vocab tiles): the
+# per-token lse (~10.4) agree to a few float32 ulps, their mean closer
+FUSED32_LOSS_RTOL = 1e-5
 
 
-def check_fused_train(plain, fused):
+def check_fused_train(plain, fused, rtol=FUSED_LOSS_RTOL):
     got, want = fused["losses"][0], plain["losses"][0]
-    log("[train fused] first loss %.6f vs unfused %.6f; step %.2f vs %.2f "
+    tag = "[train fused]" if fused["dtype"] == "bfloat16" else \
+        "[train %s fused]" % fused["dtype"]
+    log("%s first loss %.6f vs unfused %.6f; step %.2f vs %.2f "
         "ms; %.0f vs %.0f tokens/s; peak %.2f vs %.2f GB" % (
-            got, want, fused["step_ms"], plain["step_ms"],
+            tag, got, want, fused["step_ms"], plain["step_ms"],
             fused["tokens_per_s"], plain["tokens_per_s"],
             fused["peak_mem_gb"], plain["peak_mem_gb"]))
-    if abs(got - want) > FUSED_LOSS_RTOL * abs(want):
+    if abs(got - want) > rtol * abs(want):
         raise AssertionError("fused first loss %.6f differs from the "
                              "unfused %.6f by more than rtol %g"
-                             % (got, want, FUSED_LOSS_RTOL))
+                             % (got, want, rtol))
     if not fused["peak_mem_gb"] < plain["peak_mem_gb"]:
         raise AssertionError("fused peak memory %.3f GB is not below the "
                              "unfused %.3f GB" % (fused["peak_mem_gb"],
@@ -2284,13 +2319,19 @@ def tier2_numbers(name, cases):
 
 def fused_numbers(name, cases, ptxas):
     """A fused-CE entry's numbers: the bf16 training shape's times and
-    errors, with the float32 case's time and bound beside them, and
-    ptxas's report of the entry's bf16 wgmma kernels."""
+    errors, with the float32 T = 1024 case's time and bound beside them
+    and the float32 training shape's numbers (``train32``), and ptxas's
+    report of the entry's bf16 wgmma kernels and float32 kernels."""
     part = name.rsplit("_", 1)[1]
     timed = next(r for r in cases if "fwd_ms" in r
                  and r["case"].endswith("bfloat16"))
     fp32 = next(r for r in cases if "fwd_ms" in r
+                and r["case"].startswith("fused_ce T=1024 ")
                 and r["case"].endswith("float32"))
+    train32 = next(r for r in cases if "fwd_ms" in r
+                   and r["case"].startswith("fused_ce T=%d "
+                                            % (TRAIN_BATCH * TRAIN_SEQ))
+                   and r["case"].endswith("float32"))
     err_key = "loss" if part == "fwd" else part
     plain, unfused = (("plain_fwd_ms", "unfused_fwd_ms") if part == "fwd"
                       else ("plain_bwd_ms", "unfused_fwd_bwd_ms"))
@@ -2305,11 +2346,23 @@ def fused_numbers(name, cases, ptxas):
                        if r["case"].endswith("float32")),
                    ms_fp32=fp32[part + "_ms"],
                    bound_ms_fp32=fp32[part]["bound_ms"],
-                   timed_case_fp32=fp32["case"], timed_case=timed["case"])
+                   library_ms_fp32=fp32["library_ms"][part],
+                   timed_case_fp32=fp32["case"], timed_case=timed["case"],
+                   train32=dict(case=train32["case"],
+                                ms=train32[part + "_ms"],
+                                plain_ms=train32[plain],
+                                bound_ms=train32[part]["bound_ms"],
+                                bound_by=train32[part]["bound_by"],
+                                library_ms=train32["library_ms"][part],
+                                unfused_ms=train32[unfused]))
     wgmma = {"fwd": ("fce_fwd_wgmma",),
              "dh": ("fce_bwd_dl_wgmma", "fce_bwd_dh_wgmma"),
              "dw": ("fce_bwd_dw_wgmma",)}   # the bf16 kernels of each part
+    simt = {"fwd": ("fce_fwd_partial", "fce_fwd_combine"),
+            "dh": ("fce_bwd_dl", "fce_bwd_dh", "fce_bwd_dh64"),
+            "dw": ("fce_bwd_dw",)}          # the float32 ones
     numbers["ptxas_bf16"] = [r for r in ptxas if r["kernel"] in wgmma[part]]
+    numbers["ptxas_fp32"] = [r for r in ptxas if r["kernel"] in simt[part]]
     return numbers
 
 
@@ -2478,13 +2531,17 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train32 = phase_train(args.seed, dtype="float32")
     torch.cuda.empty_cache()
+    train32_fused = phase_train(args.seed, fused=True, dtype="float32")
+    check_fused_train(train32, train32_fused, FUSED32_LOSS_RTOL)
+    torch.cuda.empty_cache()
     phase_train_e2e(args.seed)
     phase_train_e2e(args.seed, fused=True)
     phase_train_e2e_variant(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
-             "train_fp32": train32["launches"]}
+             "train_fp32": train32["launches"],
+             "train_fp32_fused": train32_fused["launches"]}
     paths.update({"tier2 " + tag: run["launches"]
                   for tag, run in tier2.items()})
     paths.update(quant_paths)

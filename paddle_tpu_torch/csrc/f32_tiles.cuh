@@ -67,9 +67,11 @@ __device__ __forceinline__ void load_vec(void* dst, const void* src, int r0,
   }
 }
 
-// the query rows a CTA of the float32 forward and dq kernels: 128 where a
-// grid of 128-row tiles gives every SM a CTA, else 64, twice the CTAs for
-// a short sequence (flash_timing.py's serving rows time both sides)
+// the query rows a CTA of the float32 flash forward and dq kernels, and
+// the token rows of the fused CE's float32 dh kernel (batch_heads: its
+// column tiles): 128 where a grid of 128-row tiles gives every SM a CTA,
+// else 64, twice the CTAs for a short sequence (flash_timing.py's serving
+// rows and fce_timing.py's fp32 and train32 rows time both sides)
 inline cudaError_t query_tile_rows(long long batch_heads, int n, int* rows) {
   static int sms = 0;
   if (sms == 0) {

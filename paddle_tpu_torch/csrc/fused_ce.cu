@@ -14,22 +14,38 @@
 // V = 32000, bf16) one T x H x V product is 1.07e12 operations against
 // 0.16 GB of h and W: ~1.1 ms at the bf16 tensor-core peak against 0.05 ms
 // of bytes. All three are bound by arithmetic, so bf16 runs on the tensor
-// cores; fp32 inputs run in full fp32 on the CUDA cores (8 x 8 FMA
-// register blocks; TF32 stays off, the reference's 'highest' precision):
-// correct, and slow.
+// cores; fp32 inputs run in full fp32 on the CUDA cores (TF32 stays off,
+// the reference's 'highest' precision), at the training shape 16 ms a
+// product at the fp32 peak.
 //
 // Every kernel writes each output tile from one CTA, in a fixed order of
 // summation: no atomics, deterministic. Ragged T and H are masked; ignored
 // rows arrive with label 0 and g = 0 (the wrapper), so their dl is 0.
 //
-// float32 (h and W float32) runs every product in full fp32 on the CUDA
-// cores, one block tile product, tile_product (128 x 128 outputs, 32 deep
-// per stage, two cp.async stages of csrc/mma_bf16.cuh's tiles, 8 x 8 FMA
-// register blocks), landing in shared memory as fp32 where the epilogues
-// read it. Forward: grid (token tiles, vocab splits), each block walks its
-// share of the vocab tiles keeping per-row (max, sum-exp, gold) in shared
-// memory and writes them as partials [3, splits, T], 1 <= splits <=
-// ceil(V / 128); __launch_bounds__(256, 2).
+// float32 (h and W float32): the forward and dl/dh products run on
+// csrc/f32_gemm.cuh's main loop (8 x 16 outputs a thread in 128 x 128
+// tiles of 128 threads, both operands k-slow in shared memory, 128-bit
+// fragment reads; its head says why), each with a register epilogue that
+// takes the thread's accumulators four columns at a time:
+//  * forward (fce_fwd_partial): grid (token tiles, vocab splits), the
+//    split count from kernels/fused_ce.py forward_splits (the fewest
+//    tile-times of the busiest CTA slot). Each CTA walks its split's vocab
+//    tiles on one loop, and each thread folds its columns into a running
+//    (max, sum-exp, gold) of its 8 rows in shared memory (its own slots:
+//    no barrier a tile); at the end the 8 lanes that share a row merge
+//    theirs by xor shuffles and write the partials [3, splits, T].
+//  * dl (fce_bwd_dl): the chunk's logits tile -> (p - onehot) * g as
+//    float4 stores into the workspace.
+//  * dh (fce_bwd_dh): dl . W^T, both operands K-major, (+)= the fp32
+//    buffer; where 128-row tiles would leave SMs without a CTA (T = 1024)
+//    fce_bwd_dh64 takes 64-row tiles of 8 x 8 a thread, twice the CTAs,
+//    by ptf32::query_tile_rows (csrc/f32_tiles.cuh), the float32 flash
+//    kernels' rule.
+//  * dW (fce_bwd_dw) keeps the first CUDA-core block tile product,
+//    tile_product (128 x 128, 32 deep per stage, two cp.async stages of
+//    csrc/mma_bf16.cuh's tiles, 8 x 8 FMA register blocks with scalar
+//    shared reads, landing in shared memory as an fp32 C tile), reading
+//    h^T (A MN-major), a form the new loop does not take.
 //
 // Either dtype's forward ends in one small kernel, fce_fwd_combine, that
 // combines the splits per token: lse = M + log sum l_i e^(m_i - M), gold
@@ -123,6 +139,8 @@
 //      rebuilds this library.
 // Inputs: h [T, H], W [H, V] contiguous, one dtype, H and V multiples of 8
 // (tiles move in 16-byte pieces), labels int32 [T] in [0, V).
+#include "f32_gemm.cuh"
+#include "f32_tiles.cuh"
 #include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -136,6 +154,7 @@ using ptmma::Operand;
 using ptmma::THREADS;
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int LDC = BN + 8;   // fp32 output tile row stride in shared memory
 constexpr int C_BYTES = BM * LDC * static_cast<int>(sizeof(float));
 
@@ -202,6 +221,7 @@ __device__ __forceinline__ void tile_product(float* cs,
   __syncthreads();
 }
 
+// shared memory (bytes) of tile_product's two stages, or of its C tile
 template <bool AK, bool BKM>
 __host__ __device__ constexpr int smem_bytes() {
   constexpr int stages = 2 * (ptmma::tile_elems<float, AK, BM>() +
@@ -210,78 +230,102 @@ __host__ __device__ constexpr int smem_bytes() {
   return stages > C_BYTES ? stages : C_BYTES;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(~0u, x, o);
-  return x;
-}
-
 // -- forward, float32: the CUDA cores --------------------------------------
 
+// the forward's and dl's tile (A = h K-major, B = W N-major) and dh's
+// (A = dl, B = W^T, both K-major): 128 x 128 outputs, 8 x 16 a thread
+using Wide = ptf32gemm::Shape<BM, BN, 16, false>;
+using WideT = ptf32gemm::Shape<BM, BN, 16, true>;
+// dh's where WideT's grid would leave SMs without a CTA: 64 x 128, 8 x 8
+using Narrow = ptf32gemm::Shape<64, BN, 8, true>;
+using ptf32gemm::Mat;
+// a forward thread's running state: (max, sum-exp, gold) of its 8 rows
+constexpr int FWD_STATE = 3 * 8;
+constexpr int FWD_SMEM = Wide::SMEM_BYTES + FWD_STATE * Wide::THREADS * 4;
+
+// (m, l) of two partial softmax sums over disjoint columns, in one sum:
+// the max, and each sum rescaled to it (both -1e30 gives (-1e30, 0))
+__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
+  const float x = fmaxf(m, m2);
+  l = l * expf(m - x) + l2 * expf(m2 - x);
+  m = x;
+}
+
+// The forward's epilogue: each thread folds its logits, four columns at a
+// time, into the running (max, sum-exp, gold) of its 8 rows, kept in
+// shared memory as st[q][THREADS] (the thread's own column: no barrier).
+// Columns >= V take no part (the reference's -1e30, exp to exactly 0; V
+// is a multiple of 8, so four columns are all in or all out); the max is
+// in the natural log, as the combine reads it.
+struct FwdTile {
+  float* st;          // [FWD_STATE][Wide::THREADS]
+  const int* label;   // the CTA's rows' labels, -1 past T
+  int m0, vocab;
+
+  __device__ __forceinline__ void operator()(int i, int row, int col,
+                                             float4 v) const {
+    if (col >= vocab) return;
+    const int lab = label[row - m0] - col;
+    float* mine = st + threadIdx.x;
+    float& m = mine[i * Wide::THREADS];
+    float& l = mine[(8 + i) * Wide::THREADS];
+    const float x = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+    l = l * expf(m - x) + ((expf(v.x - x) + expf(v.y - x)) +
+                           (expf(v.z - x) + expf(v.w - x)));
+    m = x;
+    if (lab >= 0 && lab < 4)
+      mine[(16 + i) * Wide::THREADS] += lab == 0   ? v.x
+                                        : lab == 1 ? v.y
+                                        : lab == 2 ? v.z
+                                                   : v.w;
+  }
+};
+
 // grid (ceil(T / BM), splits): block (x, y) walks vocab tiles
-// y * per_split .. and leaves per-row partial (max, sum-exp, gold) in
-// part[0 / 1 / 2][y][T]. Logits: A = h (K-major), B = W (N-major).
-__global__ void __launch_bounds__(THREADS, 2)
+// y * per_split .. on one f32_gemm loop (A = h K-major, B = W N-major),
+// each thread keeping its rows' running state over its columns; at the
+// end the 8 column lanes of a row merge theirs in a fixed order (xor 1,
+// 2, 4: a warp spans the tile's 128 columns) and lane 0 writes the
+// per-row partial (max, sum-exp, gold) to part[0 / 1 / 2][y][T].
+__global__ void __launch_bounds__(Wide::THREADS, 2)
     fce_fwd_partial(const float* __restrict__ h, const float* __restrict__ w,
                     const int* __restrict__ labels, float* __restrict__ part,
                     int t_len, int hid, int vocab, int per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float m_s[BM], l_s[BM], g_s[BM];
-  float* cs = reinterpret_cast<float*>(smem);
-  const Operand<float> A{h, hid, t_len, hid};
-  const Operand<float> B{w, vocab, vocab, hid};
-  const int m0 = blockIdx.x * BM;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x < BM) {
-    m_s[threadIdx.x] = NEG_INF;
-    l_s[threadIdx.x] = 0.f;
-    g_s[threadIdx.x] = 0.f;
-  }
+  __shared__ int label_s[BM];
+  float* st = reinterpret_cast<float*>(smem + Wide::SMEM_BYTES);
+  const int m0 = blockIdx.x * BM, tid = threadIdx.x;
+  if (tid < BM) label_s[tid] = m0 + tid < t_len ? labels[m0 + tid] : -1;
+#pragma unroll
+  for (int q = 0; q < FWD_STATE; ++q)
+    st[q * Wide::THREADS + tid] = q < 8 ? NEG_INF : 0.f;
+  __syncthreads();
   const int tiles = (vocab + BN - 1) / BN;
-  const int split = blockIdx.y;
-  const int v_end = min(tiles, (split + 1) * per_split);
-  for (int vt = split * per_split; vt < v_end; ++vt) {
-    const int n0 = vt * BN;
-    tile_product<true, false>(cs, A, B, m0, n0, hid, smem);
-    for (int rr = 0; rr < BM / 8; ++rr) {
-      const int r = warp * (BM / 8) + rr, row = m0 + r;
-      if (row >= t_len) break;
-      const int label = labels[row];
-      float s[4], tmax = NEG_INF, gold = 0.f;
+  const int nt0 = blockIdx.y * per_split;
+  const FwdTile epi{st, label_s, m0, vocab};
+  ptf32gemm::gemm<Wide>(
+      Mat{h, hid, t_len, hid}, Mat{w, vocab, vocab, hid}, m0, nt0,
+      min(tiles, nt0 + per_split), hid, reinterpret_cast<float*>(smem), epi);
+  const int lane = tid & 31;
+  const int row = m0 + (tid >> 5) * ptf32gemm::WARP_M + (lane >> 3) * 4;
+  const long long plane = static_cast<long long>(gridDim.y) * t_len;
+  float* out = part + static_cast<long long>(blockIdx.y) * t_len;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + lane + 32 * j;
-        s[j] = col < vocab ? cs[r * LDC + lane + 32 * j] : NEG_INF;
-        tmax = fmaxf(tmax, s[j]);
-        if (col == label) gold = s[j];
-      }
-      tmax = warp_max(tmax);
-      const float m_old = m_s[r], m_new = fmaxf(m_old, tmax);
-      float sum = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    float m = st[i * Wide::THREADS + tid];
+    float l = st[(8 + i) * Wide::THREADS + tid];
+    float g = st[(16 + i) * Wide::THREADS + tid];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[j] - m_new);
-      sum = warp_sum(sum);
-      gold = warp_sum(gold);
-      if (lane == 0) {
-        l_s[r] = expf(m_old - m_new) * l_s[r] + sum;
-        m_s[r] = m_new;
-        g_s[r] += gold;
-      }
+    for (int o = 1; o < 8; o <<= 1) {
+      merge(m, l, __shfl_xor_sync(~0u, m, o), __shfl_xor_sync(~0u, l, o));
+      g += __shfl_xor_sync(~0u, g, o);
     }
-    __syncthreads();   // the next tile's copies overwrite cs
-  }
-  if (threadIdx.x < BM && m0 + threadIdx.x < t_len) {
-    const long long i =
-        static_cast<long long>(blockIdx.y) * t_len + m0 + threadIdx.x;
-    const long long plane = static_cast<long long>(gridDim.y) * t_len;
-    part[i] = m_s[threadIdx.x];
-    part[plane + i] = l_s[threadIdx.x];
-    part[2 * plane + i] = g_s[threadIdx.x];
+    const int r = row + (i & 3) + 16 * (i >> 2);
+    if ((lane & 7) == 0 && r < t_len) {
+      out[r] = m;
+      out[plane + r] = l;
+      out[2 * plane + r] = g;
+    }
   }
 }
 
@@ -315,66 +359,105 @@ cudaError_t combine(const float* part, float* loss, float* lse, int t_len,
 
 // -- backward, float32: the CUDA cores ------------------------------------
 
-// grid (ceil(T / BM), ceil(cw / BN)): dl[t][c] for the chunk's columns
-// c0 + c, c < cw = min(C, V - c0), in a [T, ld_dl] workspace.
-__global__ void __launch_bounds__(THREADS, 2)
+// dl[t][c] = (exp(l - lse) - [c == label]) * g for the chunk's columns
+// c0 + c, c < cw, as float4 stores into the [T, ld] workspace; rows past T
+// and columns past cw (W's next chunk, or zeros past V) get nothing (cw is
+// a multiple of 8: four columns are all in or all out).
+struct DlTile {
+  const int* labels;
+  const float* lse;
+  const float* g;
+  float* dl;
+  int t_len, c0, cw, ld;
+
+  __device__ __forceinline__ void operator()(int, int row, int col,
+                                             float4 v) const {
+    if (row >= t_len || col >= cw) return;
+    const float x = lse[row], gt = g[row];
+    const int lab = labels[row] - c0 - col;
+    v.x = (expf(v.x - x) - (lab == 0 ? 1.f : 0.f)) * gt;
+    v.y = (expf(v.y - x) - (lab == 1 ? 1.f : 0.f)) * gt;
+    v.z = (expf(v.z - x) - (lab == 2 ? 1.f : 0.f)) * gt;
+    v.w = (expf(v.w - x) - (lab == 3 ? 1.f : 0.f)) * gt;
+    *reinterpret_cast<float4*>(dl + static_cast<long long>(row) * ld + col) =
+        v;
+  }
+};
+
+// dh (+)= acc: the chunk's sum joins the fp32 [T, H] buffer (first: is
+// it); at the last chunk the total goes to dh instead. float4 pieces (H is
+// a multiple of 8).
+struct DhTile {
+  float* buf;
+  float* dh;
+  int t_len, hid, first, last;
+
+  __device__ __forceinline__ void operator()(int, int row, int col,
+                                             float4 v) const {
+    if (row >= t_len || col >= hid) return;
+    const long long at = static_cast<long long>(row) * hid + col;
+    if (!first) {
+      const float4 o = *reinterpret_cast<const float4*>(buf + at);
+      v.x += o.x;
+      v.y += o.y;
+      v.z += o.z;
+      v.w += o.w;
+    }
+    *reinterpret_cast<float4*>((last ? dh : buf) + at) = v;
+  }
+};
+
+// grid (ceil(T / BM), ceil(cw / BN)): dl for the chunk's columns c0 + c,
+// c < cw = min(C, V - c0), in a [T, ld_dl] workspace; A = h (K-major),
+// B = W[:, c0:] (N-major), on the f32_gemm loop.
+__global__ void __launch_bounds__(Wide::THREADS, 2)
     fce_bwd_dl(const float* __restrict__ h, const float* __restrict__ w,
                const int* __restrict__ labels, const float* __restrict__ lse,
                const float* __restrict__ g, float* __restrict__ dl, int t_len,
                int hid, int vocab, int c0, int cw, int ld_dl) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* cs = reinterpret_cast<float*>(smem);
-  const Operand<float> A{h, hid, t_len, hid};
-  const Operand<float> B{w + c0, vocab, cw, hid};
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  tile_product<true, false>(cs, A, B, m0, n0, hid, smem);
-  for (int rr = 0; rr < BM / 8; ++rr) {
-    const int r = warp * (BM / 8) + rr, row = m0 + r;
-    if (row >= t_len) break;
-    const float x = lse[row], gt = g[row];
-    const int label = labels[row] - c0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + lane + 32 * j;
-      if (c < cw) {
-        const float p = expf(cs[r * LDC + lane + 32 * j] - x);
-        dl[static_cast<long long>(row) * ld_dl + c] =
-            (p - (c == label ? 1.f : 0.f)) * gt;
-      }
-    }
-  }
+  const DlTile epi{labels, lse, g, dl, t_len, c0, cw, ld_dl};
+  ptf32gemm::gemm<Wide>(
+      Mat{h, hid, t_len, hid}, Mat{w + c0, vocab, cw, hid}, blockIdx.x * BM,
+      blockIdx.y, blockIdx.y + 1, hid, reinterpret_cast<float*>(smem), epi);
 }
 
 // grid (ceil(T / BM), ceil(H / BN)): acc (+)= dl . W[:, chunk]^T; at the
-// last chunk the sum goes to dh instead. A = dl (K-major),
-// B(k = v, n = j) = W[j][c0 + v] (K-major).
-__global__ void __launch_bounds__(THREADS, 2)
+// last chunk the sum goes to dh instead. A = dl (K-major, extent cw: the
+// workspace's columns cw.. still hold an earlier chunk's dl and are never
+// read), B(k = v, n = j) = W[j][c0 + v] (K-major), on the f32_gemm loop.
+__global__ void __launch_bounds__(WideT::THREADS, 2)
     fce_bwd_dh(const float* __restrict__ dl, const float* __restrict__ w,
                float* __restrict__ acc, float* __restrict__ dh, int t_len,
                int hid, int vocab, int c0, int cw, int ld_dl, int first,
                int last) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* cs = reinterpret_cast<float*>(smem);
-  const Operand<float> A{dl, ld_dl, t_len, cw};
-  const Operand<float> B{w + c0, vocab, hid, cw};
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  tile_product<true, true>(cs, A, B, m0, n0, cw, smem);
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int r = e / BN, c = e % BN, row = m0 + r, col = n0 + c;
-    if (row >= t_len || col >= hid) continue;
-    const long long i = static_cast<long long>(row) * hid + col;
-    float v = cs[r * LDC + c];
-    if (!first) v += acc[i];
-    if (last)
-      dh[i] = v;
-    else
-      acc[i] = v;
-  }
+  const DhTile epi{acc, dh, t_len, hid, first, last};
+  ptf32gemm::gemm<WideT>(
+      Mat{dl, ld_dl, t_len, cw}, Mat{w + c0, vocab, hid, cw},
+      blockIdx.x * BM, blockIdx.y, blockIdx.y + 1, cw,
+      reinterpret_cast<float*>(smem), epi);
+}
+
+// fce_bwd_dh on Narrow tiles (64 rows, 8 x 8 a thread): twice the CTAs and
+// warps, for a grid of Wide tiles that would leave SMs without a CTA
+// (ptf32::query_tile_rows)
+__global__ void __launch_bounds__(Narrow::THREADS, 4)
+    fce_bwd_dh64(const float* __restrict__ dl, const float* __restrict__ w,
+                 float* __restrict__ acc, float* __restrict__ dh, int t_len,
+                 int hid, int vocab, int c0, int cw, int ld_dl, int first,
+                 int last) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const DhTile epi{acc, dh, t_len, hid, first, last};
+  ptf32gemm::gemm<Narrow>(
+      Mat{dl, ld_dl, t_len, cw}, Mat{w + c0, vocab, hid, cw},
+      blockIdx.x * 64, blockIdx.y, blockIdx.y + 1, cw,
+      reinterpret_cast<float*>(smem), epi);
 }
 
 // grid (ceil(H / BM), ceil(cw / BN)): dW[:, c0 + c] = h^T . dl over all T.
-// A(m = j, k = t) = h[t][j] (M-major), B(k = t, n = c) = dl[t][c] (N-major).
+// A(m = j, k = t) = h[t][j] (M-major), B(k = t, n = c) = dl[t][c] (N-major),
+// on the first CUDA-core block tile product (tile_product<false, false>).
 __global__ void __launch_bounds__(THREADS, 2)
     fce_bwd_dw(const float* __restrict__ h, const float* __restrict__ dl,
                float* __restrict__ dw, int t_len, int hid, int vocab, int c0,
@@ -406,7 +489,6 @@ constexpr int STAGES = 4;
 constexpr int BOX = 64 * KSTEP;               // elements of one 64 x 64 box
 constexpr uint32_t BOX_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
-constexpr float LOG2E = 1.4426950408889634f;
 
 struct Smem {
   bf16 a[STAGES][CONSUMERS][BOX];   // A: each consumer's 64 M x 64 K
@@ -855,14 +937,14 @@ dim3 grid_of(int rows, int cols) {
 cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
                 float* lse, float* part, int t_len, int hid, int vocab,
                 int splits, cudaStream_t s) {
-  constexpr int smem = smem_bytes<true, false>();
-  cudaError_t err = allow_smem(fce_fwd_partial, smem);
+  cudaError_t err = allow_smem(fce_fwd_partial, FWD_SMEM);
   if (err != cudaSuccess) return err;
   const int v_tiles = (vocab + BN - 1) / BN;
   const int per_split = (v_tiles + splits - 1) / splits;
-  fce_fwd_partial<<<dim3((t_len + BM - 1) / BM, splits), THREADS, smem, s>>>(
-      static_cast<const float*>(h), static_cast<const float*>(w), labels,
-      part, t_len, hid, vocab, per_split);
+  fce_fwd_partial<<<dim3((t_len + BM - 1) / BM, splits), Wide::THREADS,
+                    FWD_SMEM, s>>>(static_cast<const float*>(h),
+                                   static_cast<const float*>(w), labels, part,
+                                   t_len, hid, vocab, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return combine(part, loss, lse, t_len, splits, s);
@@ -872,24 +954,30 @@ cudaError_t bwd_dl(const void* h, const void* w, const int* labels,
                    const float* lse, const float* g, void* dl, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<true, false>();
-  cudaError_t err = allow_smem(fce_bwd_dl, smem);
-  if (err != cudaSuccess) return err;
-  fce_bwd_dl<<<grid_of(t_len, cw), THREADS, smem, s>>>(
+  fce_bwd_dl<<<grid_of(t_len, cw), Wide::THREADS, Wide::SMEM_BYTES, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(w), labels, lse,
       g, static_cast<float*>(dl), t_len, hid, vocab, c0, cw, ld_dl);
   return cudaGetLastError();
 }
 
+// 128-row tiles where their grid gives every SM a CTA, else 64-row ones
+// (twice the CTAs): ptf32::query_tile_rows, the float32 flash kernels' rule
 cudaError_t bwd_dh(const void* dl, const void* w, float* acc, void* dh,
                    int t_len, int hid, int vocab, int c0, int cw, int ld_dl,
                    int first, int last, cudaStream_t s) {
-  constexpr int smem = smem_bytes<true, true>();
-  cudaError_t err = allow_smem(fce_bwd_dh, smem);
+  int rows = BM;
+  cudaError_t err = ptf32::query_tile_rows((hid + BN - 1) / BN, t_len, &rows);
   if (err != cudaSuccess) return err;
-  fce_bwd_dh<<<grid_of(t_len, hid), THREADS, smem, s>>>(
-      static_cast<const float*>(dl), static_cast<const float*>(w), acc,
-      static_cast<float*>(dh), t_len, hid, vocab, c0, cw, ld_dl, first, last);
+  const float* l = static_cast<const float*>(dl);
+  const float* wf = static_cast<const float*>(w);
+  float* d = static_cast<float*>(dh);
+  if (rows == BM)
+    fce_bwd_dh<<<grid_of(t_len, hid), WideT::THREADS, WideT::SMEM_BYTES, s>>>(
+        l, wf, acc, d, t_len, hid, vocab, c0, cw, ld_dl, first, last);
+  else
+    fce_bwd_dh64<<<dim3((t_len + 63) / 64, (hid + BN - 1) / BN),
+                   Narrow::THREADS, Narrow::SMEM_BYTES, s>>>(
+        l, wf, acc, d, t_len, hid, vocab, c0, cw, ld_dl, first, last);
   return cudaGetLastError();
 }
 

@@ -38,6 +38,7 @@ parallelism in the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,7 +51,8 @@ DEFAULT_IGNORE_INDEX = -100
 # [T, chunk] in the input dtype: 64 MB at T = 8192 in bf16)
 MAX_CHUNK = 4096
 _TILE = 128          # the float32 kernels' block tile (rows and columns)
-_BLOCKS = 8 * 132    # float32 forward blocks to aim for: 8 per SM of an H100
+_RESIDENT = 2        # float32 forward CTAs an SM holds (128 threads of
+                     # ~250 registers, 48 KB of shared memory each)
 _WGMMA_TILE_N = 256  # vocab columns of the bf16 kernels' tile (tc::TN)
 
 fwd_launches = 0
@@ -116,15 +118,28 @@ def chunk_plan(vocab):
     return [(c0, min(chunk, vocab - c0)) for c0 in range(0, vocab, chunk)]
 
 
-def forward_splits(t_len, vocab, dtype=torch.float32):
-    """Vocab splits of the forward's partials. float32: about ``_BLOCKS``
-    blocks over the token tiles, at most one split per vocab tile.
-    bfloat16: one split per 256-column tile of the ``wgmma`` product,
-    ``ceil(V / 256)``, the count the C side requires."""
+@functools.lru_cache(maxsize=64)
+def forward_splits(t_len, vocab, dtype=torch.float32, sms=132):
+    """Vocab splits of the forward's partials. float32: each CTA walks
+    ``ceil(vocab tiles / splits)`` tiles of 128 columns, and the count
+    finishing soonest on ``sms`` SMs of ``_RESIDENT`` CTAs each wins: the
+    fewest waves x tiles a CTA walks, then the fewest splits (longer walks,
+    fewer partials; no split left empty). bfloat16: one split per
+    256-column tile of the ``wgmma`` product, ``ceil(V / 256)``, the count
+    the C side requires."""
     if dtype == torch.bfloat16:
         return -(-vocab // _WGMMA_TILE_N)
     t_tiles = -(-t_len // _TILE)
-    return max(1, min(-(-vocab // _TILE), -(-_BLOCKS // t_tiles)))
+    v_tiles = -(-vocab // _TILE)
+    slots = _RESIDENT * sms
+
+    def cost(splits):
+        return (-(-t_tiles * splits // slots)) * -(-v_tiles // splits)
+    return min(range(1, v_tiles + 1), key=lambda s: (cost(s), s))
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -- forward ------------------------------------------------------------------
@@ -154,8 +169,8 @@ def fused_lm_head_ce_forward(h, w, labels):
     t_len, hid = h.shape
     vocab = w.shape[1]
     labels = labels.to(torch.int32).contiguous()
-    splits = forward_splits(t_len, vocab, h.dtype)
     dev = h.device
+    splits = forward_splits(t_len, vocab, h.dtype, _sm_count(dev))
     loss = torch.empty(t_len, dtype=torch.float32, device=dev)
     lse = torch.empty(t_len, dtype=torch.float32, device=dev)
     part = torch.empty((3, splits, t_len), dtype=torch.float32, device=dev)

@@ -1,6 +1,7 @@
 """Time the fused lm_head + CE kernels of one checkout on one GPU.
 
     python3 paddle_tpu_torch/tools/fce_timing.py [ROOT] [--seed N]
+        [--rows NAME ...] [--clocks]
 
 Imports ``paddle_tpu_torch`` from ROOT (default: the checkout that holds
 this file), so that two checkouts, for instance a parent commit unpacked
@@ -10,11 +11,14 @@ tree's package first). Comparing two trees: run it in the order parent,
 change, change, parent in one command, so that a drift of the card's
 clock shows as a difference between the two runs of one tree.
 
-Two rows, through the tree's public wrappers (``kernels.fused_ce``), on
-random inputs from --seed with 1/8 of the rows ignored:
+Three rows, through the tree's public wrappers (``kernels.fused_ce``), on
+random inputs from --seed with 1/8 of the rows ignored (``--rows`` picks
+some):
 
   train   T = 8192, H = 2048, V = 32000, bfloat16: the llama1b training
           row's loss tail (8 x 1024 tokens)
+  train32 the same in float32: the float32 fused step's loss tail
+          (``chip_smoke.py`` phase 6f)
   fp32    T = 1024, H = 2048, V = 32000, float32
 
 Per row, for kernel 4 (``fwd``: ``fused_lm_head_ce_forward``), kernel 5
@@ -35,8 +39,12 @@ kernel 6 (``dw``: its dW launches):
 
 and the port's unfused tail beside them (``unfused_fwd_ms``: ``h @ W``
 then ``F.cross_entropy``; ``unfused_fwd_bwd_ms``: with the gradients of
-h and W). It prints one JSON line: ``{"root", "device", "power_limit",
-"train": {...}, "fp32": {...}}``.
+h and W). ``--clocks`` runs the forward, the dl + dh launches and the dW
+launches each back to back for a second while ``nvidia-smi`` samples the
+SM clock and the power draw every 50 ms, and adds their medians
+(``clocks``: ``{fwd, dh, dw}``). It prints one JSON line: ``{"root",
+"device", "power_limit", "train": {...}, "train32": {...}, "fp32":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import sys
 from pathlib import Path
 
 ROWS = {"train": (8192, 2048, 32000, "bfloat16"),
+        "train32": (8192, 2048, 32000, "float32"),
         "fp32": (1024, 2048, 32000, "float32")}
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # profiler kernel names of each fused-CE kernel, by the table's number
@@ -120,7 +129,53 @@ def library_products(h, w, plan):
     return {"fwd": fwd, "dh": dh, "dw": dw}
 
 
-def time_row(fc, F, gen, t_len, hid, vocab, dtype_name):
+def vocab_chunks(fc, vocab):
+    """The backward's chunks ``[(c0, cw)]``, spelled out: trees before
+    ``chunk_plan`` lack it."""
+    chunk = fc.chunk_columns(vocab)
+    return [(c0, min(chunk, vocab - c0)) for c0 in range(0, vocab, chunk)]
+
+
+def backward_parts(fc, h, w, labels, lse, g_t):
+    """``{dh, dw}``: callables making the backward wrapper's dl + dh
+    launches, or its dW launches, alone over the vocab chunks (through the
+    tree's C entry points, as the wrapper calls them)."""
+    import torch
+    from paddle_tpu_torch import _build
+
+    t_len, hid = h.shape
+    vocab = w.shape[1]
+    chunk = fc.chunk_columns(vocab)
+    plan = vocab_chunks(fc, vocab)
+    dl = torch.empty((t_len, chunk), dtype=h.dtype, device=h.device)
+    acc = torch.empty((t_len, hid), device=h.device)
+    out = torch.empty_like(h), torch.empty_like(w)
+    code = _build.DTYPE_CODES[h.dtype]
+    lib = _build.load("fused_ce", fc._SIGNATURES)
+    stream = _build.stream_handle(h.device)
+    labels = labels.to(torch.int32)
+
+    def dh():
+        for c0, cw in plan:
+            _build.check(lib, lib.pt_fused_ce_bwd_dl(
+                h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                g_t.data_ptr(), dl.data_ptr(), t_len, hid, vocab, c0, cw,
+                chunk, code, stream), "dl")
+            _build.check(lib, lib.pt_fused_ce_bwd_dh(
+                dl.data_ptr(), w.data_ptr(), acc.data_ptr(),
+                out[0].data_ptr(), t_len, hid, vocab, c0, cw, chunk,
+                int(c0 == 0), int(c0 + cw == vocab), code, stream), "dh")
+
+    def dw():
+        for c0, cw in plan:
+            _build.check(lib, lib.pt_fused_ce_bwd_dw(
+                h.data_ptr(), dl.data_ptr(), out[1].data_ptr(), t_len, hid,
+                vocab, c0, cw, chunk, code, stream), "dw")
+
+    return {"dh": dh, "dw": dw}
+
+
+def time_row(fc, F, gen, t_len, hid, vocab, dtype_name, with_clocks=False):
     import torch
 
     dtype = getattr(torch, dtype_name)
@@ -157,11 +212,16 @@ def time_row(fc, F, gen, t_len, hid, vocab, dtype_name):
     row["device_ms"] = device_ms(both)
     product = 2.0 * t_len * hid * vocab / PEAK_FLOPS[dtype_name] * 1e3
     row["bound_ms"] = {"fwd": product, "dh": 2 * product, "dw": product}
-    # the backward's chunks, spelled out: trees before chunk_plan lack it
-    chunk = fc.chunk_columns(vocab)
-    plan = [(c0, min(chunk, vocab - c0)) for c0 in range(0, vocab, chunk)]
     row["library_ms"] = {part: time_ms(fn, iters, reps) for part, fn in
-                         library_products(h, w, plan).items()}
+                         library_products(h, w, vocab_chunks(fc, vocab))
+                         .items()}
+    if with_clocks:
+        from paddle_tpu_torch.tools.flash_timing import clocks
+
+        parts = backward_parts(fc, h, w, safe, lse, g_t)
+        row["clocks"] = {
+            "fwd": clocks(lambda: fc.fused_lm_head_ce_forward(h, w, safe)),
+            "dh": clocks(parts["dh"]), "dw": clocks(parts["dw"])}
     hg = h.detach().requires_grad_()
     wg = w.detach().requires_grad_()
     row["unfused_fwd_ms"] = time_ms(
@@ -177,6 +237,10 @@ def main(argv=None):
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rows", nargs="+", choices=list(ROWS),
+                    default=list(ROWS))
+    ap.add_argument("--clocks", action="store_true",
+                    help="the SM clock and power draw under each kernel")
     args = ap.parse_args(argv)
     root = str(Path(args.root).resolve())
     sys.path.insert(0, root)
@@ -196,8 +260,8 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     out = {"root": root, "device": torch.cuda.get_device_name(0),
            "power_limit": power.stdout.strip().splitlines()[0]}
-    for name, shape in ROWS.items():
-        out[name] = time_row(fc, F, gen, *shape)
+    for name in args.rows:
+        out[name] = time_row(fc, F, gen, *ROWS[name], args.clocks)
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return 0

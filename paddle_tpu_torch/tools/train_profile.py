@@ -1,7 +1,7 @@
 """Where a training step's device time goes, on one GPU.
 
     python3 -m paddle_tpu_torch.tools.train_profile [--seed N]
-        [--fused-ce | --bench-row | --float32]
+        [--fused-ce | --bench-row] [--float32]
 
 Builds the llama1b training row (``LlamaConfig.llama1b_train()``: 953M
 parameters in bfloat16, per-layer recompute, random weights from
@@ -14,7 +14,9 @@ without the profiler (``unprofiled_wall_ms``) and runs a fourth under
 goes through the fused lm_head + CE kernels. With ``--float32`` the row
 runs at the config's default dtype, float32 (``LlamaConfig``'s default;
 ``chip_smoke.py`` phase 6e): SGEMMs in full float32 and the flash kernels'
-float32 CUDA-core modes. With ``--bench-row`` it
+float32 CUDA-core modes; with ``--fused-ce`` too, the float32 fused step
+(``chip_smoke.py`` phase 6f), whose loss tail runs the fused kernels'
+float32 modes. With ``--bench-row`` it
 profiles the reference's own training row instead (``bench.py:70-162``
 with ``BENCH_FUSE=1``: hidden 768, 12 layers, 6 heads x 128, FFN 2048,
 fused QKV and gate/up projections, bf16, no recompute, 8 x 1024 per
@@ -154,9 +156,12 @@ def main(argv=None):
                       help="FLAGS_fused_lm_head_ce on, loss inside the model")
     mode.add_argument("--bench-row", action="store_true",
                       help="the reference's bench row through run_steps")
-    mode.add_argument("--float32", action="store_true",
-                      help="the llama1b row at its default float32")
+    ap.add_argument("--float32", action="store_true",
+                    help="the llama1b row at its default float32 (alone or "
+                         "with --fused-ce)")
     args = ap.parse_args(argv)
+    if args.bench_row and args.float32:
+        ap.error("--bench-row is the reference's bf16 row: no --float32")
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device")
     dtype = "float32" if args.float32 else "bfloat16"

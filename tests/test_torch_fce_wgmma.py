@@ -114,8 +114,10 @@ class TestHostSide:
         kernels = re.findall(
             r"__global__ void (?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
             text)
-        assert len(kernels) == 9
-        assert "fce_fwd_wgmma" in kernels
+        # four wgmma kernels, the combine, and the float32 forward, dl, dh
+        # (128- and 64-row tiles) and dW
+        assert len(kernels) == 10
+        assert "fce_fwd_wgmma" in kernels and "fce_bwd_dh64" in kernels
         assert all(k.startswith("fce_") for k in kernels)
 
 
