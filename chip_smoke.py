@@ -998,8 +998,9 @@ FCE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, scaled=True),
 # forward's last 256-column tile 64 and 208 wide), a ragged T (the last
 # 128-row tile 104 deep), float32: the float32 training shape (phase 6f's
 # loss tail; 128-row dh tiles), T = 1024 (64-row dh tiles), a ragged T
-# and vocab (last vocab tile and chunk 80 wide) and a ragged vocab (last
-# vocab tile 64 wide, last chunk 3136)
+# and vocab (last vocab tile and chunk 80 wide), a ragged vocab (last
+# vocab tile 64 wide, last chunk 3136) and a ragged H (dW's last 128-row
+# tile and dh's last 128-column one 8 deep)
 FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
              (1024, 2048, 40000, torch.bfloat16, False),
              (512, 2048, 2000, torch.bfloat16, False),
@@ -1008,7 +1009,8 @@ FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
              (1024, 2048, 32000, torch.float32, True),
              (1000, 2048, 2000, torch.float32, False),
              (1024, 2048, 40000, torch.float32, False),
-             (512, 2048, 2000, torch.float32, False))
+             (512, 2048, 2000, torch.float32, False),
+             (1000, 1032, 2000, torch.float32, False))
 
 
 def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):

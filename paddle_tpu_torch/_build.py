@@ -31,8 +31,7 @@ BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("flash_attention", "flash_attention_bwd", "paged_attention",
            "fused_ce", "mma_probe", "w8_gemm")
 # the csrc/ headers each source includes (hashed with it)
-HEADERS = {"fused_ce": ("f32_gemm.cuh", "f32_tiles.cuh", "mma_bf16.cuh",
-                        "wgmma_bf16.cuh"),
+HEADERS = {"fused_ce": ("f32_gemm.cuh", "f32_tiles.cuh", "wgmma_bf16.cuh"),
            "flash_attention": ("f32_tiles.cuh", "segment_ids.cuh",
                                "wgmma_bf16.cuh"),
            "flash_attention_bwd": ("f32_tiles.cuh", "segment_ids.cuh",

@@ -1,19 +1,20 @@
-// Float32 block products on Hopper's CUDA cores: the main loop of
-// csrc/fused_ce.cu's float32 forward (kernel 4) and dl/dh (kernel 5). Full
-// fp32 FMAs, no TF32 (the reference's 'highest' precision). Header only:
-// no entry points.
+// Float32 block products on Hopper's CUDA cores: the main loop of every
+// float32 kernel of csrc/fused_ce.cu, the forward (kernel 4), dl/dh (kernel
+// 5) and dW (kernel 6). Full fp32 FMAs, no TF32 (the reference's 'highest'
+// precision). Header only: no entry points.
 //
-// What held the loop it replaces (tile_product, csrc/fused_ce.cu, still
-// dW's): per k a thread read 16 scalar floats for its 8 x 8 FMAs. An LDS
-// is served a quarter warp (8 lanes, 128 bytes) a wavefront, broadcast or
-// not, so a warp's wavefronts per k are the floats a thread reads: 16,
-// as many cycles as its 64 FFMAs take on four schedulers. The shared pipe
-// and the FMA issue tie, at about half the fp32 peak; 128-bit reads of the
-// same 8 x 8 tile left it there (measured: PERF.md, section 6).
+// What held the loop it replaced (tile_product, the first CUDA-core block
+// product of csrc/fused_ce.cu): per k a thread read 16 scalar floats for
+// its 8 x 8 FMAs. An LDS is served a quarter warp (8 lanes, 128 bytes) a
+// wavefront, broadcast or not, so a warp's wavefronts per k are the floats
+// a thread reads: 16, as many cycles as its 64 FFMAs take on four
+// schedulers. The shared pipe and the FMA issue tie, at about half the
+// fp32 peak; 128-bit reads of the same 8 x 8 tile left it there (measured:
+// PERF.md, section 6).
 //
 // Design:
-//  * a thread owns 8 x TN outputs (TN = 16 in the forward, dl and dh: 24
-//    floats a k for 128 FFMAs, the shared pipe a quarter idle; 8 in dh's
+//  * a thread owns 8 x TN outputs (TN = 16 in the forward, dl, dh and dW:
+//    24 floats a k for 128 FFMAs, the shared pipe a quarter idle; 8 in dh's
 //    64-row tiles), as 2 x TN / 4 quadrants of 4 x 4: rows r + {0..3}
 //    and r + 16 + {0..3}, columns c + 32 q + {0..3}. A warp's lanes are 4
 //    (rows) x 8 (columns), a warp owns 32 x 8 TN outputs. ~250 registers
@@ -26,19 +27,21 @@
 //  * every operand goes through registers, loaded one stage ahead as
 //    float4 (__ldg) and stored after this stage's FMAs; one barrier a
 //    stage of BK = 16, two stages. A K-major operand (k contiguous in
-//    device memory: h, dl, and W read as W^T in dh) is read 4 lanes a row
-//    (coalesced: 32 rows a load cost 32 L1 wavefronts, 4 x the shared
-//    traffic of a stage's FMAs' reads in the first design) and stored
-//    transposed, skewed so the stores hit 32 banks (Stage below). An
-//    N-major one (W in the forward and dl) is stored as it lies (4 % faster
-//    than cp.async in the forward, which then needs no staging registers).
+//    device memory: h in the forward and dl, dl and W read as W^T in dh)
+//    is read 4 lanes a row (coalesced: 32 rows a load cost 32 L1
+//    wavefronts, 4 x the shared traffic of a stage's FMAs' reads in the
+//    first design) and stored transposed, skewed so the stores hit 32
+//    banks (Stage below). An MN-major one (W in the forward and dl; both of
+//    dW's, h read as h^T and dl, whose k is the token axis) is stored as it
+//    lies (4 % faster than cp.async in the forward, which then needs no
+//    staging registers).
 //  * a CTA may walk several N tiles of one M tile (the forward's vocab
 //    tiles). The loop runs over (tile, stage) pairs, so the next tile's
 //    first stage loads while this tile's epilogue runs.
 //  * each tile ends in the epilogue's calls, one a row and column quad of
-//    the thread's accumulators, in registers. Every output element has one
-//    writer and its sum runs over k in order: no atomics, two launches
-//    give the same bits.
+//    the thread's accumulators, in registers: no C tile in shared memory
+//    and no barrier for it. Every output element has one writer and its
+//    sum runs over k in order: no atomics, two launches give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -135,15 +138,16 @@ struct Stage<ROWS, THREADS, false> {
 };
 
 // A BM x BN block tile of threads owning 8 x TN outputs (warps of WARP_M x
-// 8 TN), over A K-major and B K-major (B_K) or N-major, two stages.
-template <int BM_, int BN_, int TN_, bool B_K_>
+// 8 TN), over A K-major (A_K) or M-major and B K-major (B_K) or N-major,
+// two stages.
+template <int BM_, int BN_, int TN_, bool A_K_, bool B_K_>
 struct Shape {
   static constexpr int BM = BM_, BN = BN_, TN = TN_;
-  static constexpr bool B_K = B_K_;
+  static constexpr bool A_K = A_K_, B_K = B_K_;
   static constexpr int WARP_N = 8 * TN;
   static constexpr int WARPS_M = BM / WARP_M;
   static constexpr int THREADS = 32 * WARPS_M * (BN / WARP_N);
-  using SA = Stage<BM, THREADS, true>;
+  using SA = Stage<BM, THREADS, A_K>;
   using SB = Stage<BN, THREADS, B_K>;
   static constexpr int A_FLOATS = BK * SA::LD;
   static constexpr int STAGE = A_FLOATS + BK * SB::LD;   // floats
@@ -162,9 +166,10 @@ __device__ __forceinline__ void gemm(const Mat& A, const Mat& B, int m0,
   constexpr int BM = S::BM, BN = S::BN, TN = S::TN;
   constexpr int LDA = S::SA::LD, LDB = S::SB::LD;
   constexpr int SKA = S::SA::SKEW, SKB = S::SB::SKEW;
-  // the k loop's unroll: half a stage over an N-major B (measured: the
-  // forward's FMAs ran 4 % faster so), all of it over a K-major one
-  constexpr int UNROLL = S::B_K ? BK : BK / 2;
+  // the k loop's unroll: half a stage where A is K-major and B N-major
+  // (measured: the forward's and dl's FMAs ran 4 % faster so), all of it
+  // otherwise (dh; dW, both operands MN-major: 9 % faster than by half)
+  constexpr int UNROLL = S::A_K && !S::B_K ? BK / 2 : BK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = warp % S::WARPS_M * WARP_M + (lane >> 3) * 4;
   const int col = warp / S::WARPS_M * S::WARP_N + (lane & 7) * 4;

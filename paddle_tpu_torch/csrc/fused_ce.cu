@@ -22,11 +22,11 @@
 // summation: no atomics, deterministic. Ragged T and H are masked; ignored
 // rows arrive with label 0 and g = 0 (the wrapper), so their dl is 0.
 //
-// float32 (h and W float32): the forward and dl/dh products run on
-// csrc/f32_gemm.cuh's main loop (8 x 16 outputs a thread in 128 x 128
-// tiles of 128 threads, both operands k-slow in shared memory, 128-bit
-// fragment reads; its head says why), each with a register epilogue that
-// takes the thread's accumulators four columns at a time:
+// float32 (h and W float32): the forward and all three backward products
+// run on csrc/f32_gemm.cuh's main loop (8 x 16 outputs a thread in 128 x
+// 128 tiles of 128 threads, two CTAs an SM, both operands k-slow in shared
+// memory, 128-bit fragment reads; its head says why), each with a register
+// epilogue that takes the thread's accumulators four columns at a time:
 //  * forward (fce_fwd_partial): grid (token tiles, vocab splits), the
 //    split count from kernels/fused_ce.py forward_splits (the fewest
 //    tile-times of the busiest CTA slot). Each CTA walks its split's vocab
@@ -41,11 +41,10 @@
 //    fce_bwd_dh64 takes 64-row tiles of 8 x 8 a thread, twice the CTAs,
 //    by ptf32::query_tile_rows (csrc/f32_tiles.cuh), the float32 flash
 //    kernels' rule.
-//  * dW (fce_bwd_dw) keeps the first CUDA-core block tile product,
-//    tile_product (128 x 128, 32 deep per stage, two cp.async stages of
-//    csrc/mma_bf16.cuh's tiles, 8 x 8 FMA register blocks with scalar
-//    shared reads, landing in shared memory as an fp32 C tile), reading
-//    h^T (A MN-major), a form the new loop does not take.
+//  * dW (fce_bwd_dw): h^T . dl over all T, both operands MN-major (the
+//    token axis is k, and both h and dl hold it as their slow axis), so
+//    both stages are stored as they lie; float4 stores straight into dW,
+//    one writer an element.
 //
 // Either dtype's forward ends in one small kernel, fce_fwd_combine, that
 // combines the splits per token: lse = M + log sum l_i e^(m_i - M), gold
@@ -141,103 +140,26 @@
 // (tiles move in 16-byte pieces), labels int32 [T] in [0, V).
 #include "f32_gemm.cuh"
 #include "f32_tiles.cuh"
-#include "mma_bf16.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using ptmma::BK;
-using ptmma::BM;
-using ptmma::BN;
-using ptmma::Operand;
-using ptmma::THREADS;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int LDC = BN + 8;   // fp32 output tile row stride in shared memory
-constexpr int C_BYTES = BM * LDC * static_cast<int>(sizeof(float));
-
-// -- the block tile product (float32): C tile (fp32, shared, [BM][LDC]) ----
-
-// C tile [BM][LDC] in shared memory (aliasing the operand stages) =
-// A[m0:+BM, :K] . B[:K, n0:+BN] on the CUDA cores; every thread may read
-// it on return. Thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i
-// and cols tx + 16 j, i, j < 8; two cp.async stages of ptmma's tiles.
-template <bool AK, bool BKM>
-__device__ __forceinline__ void tile_product(float* cs,
-                                             const Operand<float>& A,
-                                             const Operand<float>& B, int m0,
-                                             int n0, int K, void* stages) {
-  constexpr int A_ELEMS = ptmma::tile_elems<float, AK, BM>();
-  constexpr int B_ELEMS = ptmma::tile_elems<float, BKM, BN>();
-  constexpr int LDA = ptmma::tile_ld<float, AK, BM>();
-  constexpr int LDB = ptmma::tile_ld<float, BKM, BN>();
-  float* smem = static_cast<float*>(stages);
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int steps = (K + BK - 1) / BK;
-  ptmma::load_tile_async<float, AK, BM>(smem, A, m0, 0);
-  ptmma::load_tile_async<float, BKM, BN>(smem + A_ELEMS, B, n0, 0);
-  ptmma::cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    float* cur = smem + (s & 1) * (A_ELEMS + B_ELEMS);
-    if (s + 1 < steps) {
-      float* nxt = smem + ((s + 1) & 1) * (A_ELEMS + B_ELEMS);
-      ptmma::load_tile_async<float, AK, BM>(nxt, A, m0, (s + 1) * BK);
-      ptmma::load_tile_async<float, BKM, BN>(nxt + A_ELEMS, B, n0,
-                                             (s + 1) * BK);
-    }
-    ptmma::cp_async_commit();
-    ptmma::cp_async_wait<1>();
-    __syncthreads();
-    const float* As = cur;
-    const float* Bs = cur + A_ELEMS;
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = AK ? As[(ty + 16 * i) * LDA + k] : As[k * LDA + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = BKM ? Bs[(tx + 16 * j) * LDB + k] : Bs[k * LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  ptmma::cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
-  __syncthreads();
-}
-
-// shared memory (bytes) of tile_product's two stages, or of its C tile
-template <bool AK, bool BKM>
-__host__ __device__ constexpr int smem_bytes() {
-  constexpr int stages = 2 * (ptmma::tile_elems<float, AK, BM>() +
-                              ptmma::tile_elems<float, BKM, BN>()) *
-                         static_cast<int>(sizeof(float));
-  return stages > C_BYTES ? stages : C_BYTES;
-}
+constexpr int BM = 128, BN = 128;   // the float32 kernels' block tile
 
 // -- forward, float32: the CUDA cores --------------------------------------
 
-// the forward's and dl's tile (A = h K-major, B = W N-major) and dh's
-// (A = dl, B = W^T, both K-major): 128 x 128 outputs, 8 x 16 a thread
-using Wide = ptf32gemm::Shape<BM, BN, 16, false>;
-using WideT = ptf32gemm::Shape<BM, BN, 16, true>;
+// the forward's and dl's tile (A = h K-major, B = W N-major), dh's
+// (A = dl, B = W^T, both K-major) and dW's (A = h^T, B = dl, both
+// MN-major): 128 x 128 outputs, 8 x 16 a thread
+using Wide = ptf32gemm::Shape<BM, BN, 16, true, false>;
+using WideT = ptf32gemm::Shape<BM, BN, 16, true, true>;
+using WideMN = ptf32gemm::Shape<BM, BN, 16, false, false>;
 // dh's where WideT's grid would leave SMs without a CTA: 64 x 128, 8 x 8
-using Narrow = ptf32gemm::Shape<64, BN, 8, true>;
+using Narrow = ptf32gemm::Shape<64, BN, 8, true, true>;
 using ptf32gemm::Mat;
 // a forward thread's running state: (max, sum-exp, gold) of its 8 rows
 constexpr int FWD_STATE = 3 * 8;
@@ -407,6 +329,20 @@ struct DhTile {
   }
 };
 
+// dW[row][c0 + col] = acc for row < H and col < cw, as float4 stores (V is
+// a multiple of 8 and c0 of 32, so they are 16-byte aligned)
+struct DwTile {
+  float* dw;
+  int hid, vocab, c0, cw;
+
+  __device__ __forceinline__ void operator()(int, int row, int col,
+                                             float4 v) const {
+    if (row >= hid || col >= cw) return;
+    *reinterpret_cast<float4*>(dw + static_cast<long long>(row) * vocab + c0 +
+                               col) = v;
+  }
+};
+
 // grid (ceil(T / BM), ceil(cw / BN)): dl for the chunk's columns c0 + c,
 // c < cw = min(C, V - c0), in a [T, ld_dl] workspace; A = h (K-major),
 // B = W[:, c0:] (N-major), on the f32_gemm loop.
@@ -456,23 +392,18 @@ __global__ void __launch_bounds__(Narrow::THREADS, 4)
 }
 
 // grid (ceil(H / BM), ceil(cw / BN)): dW[:, c0 + c] = h^T . dl over all T.
-// A(m = j, k = t) = h[t][j] (M-major), B(k = t, n = c) = dl[t][c] (N-major),
-// on the first CUDA-core block tile product (tile_product<false, false>).
-__global__ void __launch_bounds__(THREADS, 2)
+// A(m = j, k = t) = h[t][j] (M-major), B(k = t, n = c) = dl[t][c] (N-major,
+// extent cw: the workspace's columns cw.. are never read), on the f32_gemm
+// loop; each element's sum runs over t in order.
+__global__ void __launch_bounds__(WideMN::THREADS, 2)
     fce_bwd_dw(const float* __restrict__ h, const float* __restrict__ dl,
                float* __restrict__ dw, int t_len, int hid, int vocab, int c0,
                int cw, int ld_dl) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* cs = reinterpret_cast<float*>(smem);
-  const Operand<float> A{h, hid, hid, t_len};
-  const Operand<float> B{dl, ld_dl, cw, t_len};
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  tile_product<false, false>(cs, A, B, m0, n0, t_len, smem);
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int r = e / BN, c = e % BN, row = m0 + r, col = n0 + c;
-    if (row < hid && col < cw)
-      dw[static_cast<long long>(row) * vocab + c0 + col] = cs[r * LDC + c];
-  }
+  const DwTile epi{dw, hid, vocab, c0, cw};
+  ptf32gemm::gemm<WideMN>(
+      Mat{h, hid, hid, t_len}, Mat{dl, ld_dl, cw, t_len}, blockIdx.x * BM,
+      blockIdx.y, blockIdx.y + 1, t_len, reinterpret_cast<float*>(smem), epi);
 }
 
 // -- bf16, forward and backward: wgmma + TMA ------------------------------
@@ -984,10 +915,7 @@ cudaError_t bwd_dh(const void* dl, const void* w, float* acc, void* dh,
 cudaError_t bwd_dw(const void* h, const void* dl, void* dw, int t_len,
                    int hid, int vocab, int c0, int cw, int ld_dl,
                    cudaStream_t s) {
-  constexpr int smem = smem_bytes<false, false>();
-  cudaError_t err = allow_smem(fce_bwd_dw, smem);
-  if (err != cudaSuccess) return err;
-  fce_bwd_dw<<<grid_of(hid, cw), THREADS, smem, s>>>(
+  fce_bwd_dw<<<grid_of(hid, cw), WideMN::THREADS, WideMN::SMEM_BYTES, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(dl),
       static_cast<float*>(dw), t_len, hid, vocab, c0, cw, ld_dl);
   return cudaGetLastError();

@@ -39,9 +39,12 @@ kernel 6 (``dw``: its dW launches):
 
 and the port's unfused tail beside them (``unfused_fwd_ms``: ``h @ W``
 then ``F.cross_entropy``; ``unfused_fwd_bwd_ms``: with the gradients of
-h and W). ``--clocks`` runs the forward, the dl + dh launches and the dW
-launches each back to back for a second while ``nvidia-smi`` samples the
-SM clock and the power draw every 50 ms, and adds their medians
+h and W), and ``dw_chunk_device_ms``: the profiler's device time of one
+dW launch alone, per vocab chunk (``"c0+cw"``), so that a ragged last
+chunk's cost beside a full one shows. ``--clocks`` runs the forward, the
+dl + dh launches and the dW launches each back to back for a second
+while ``nvidia-smi`` samples the SM clock and the power draw every 50
+ms, and adds their medians
 (``clocks``: ``{fwd, dh, dw}``). It prints one JSON line: ``{"root",
 "device", "power_limit", "train": {...}, "train32": {...}, "fp32":
 {...}}``.
@@ -137,9 +140,10 @@ def vocab_chunks(fc, vocab):
 
 
 def backward_parts(fc, h, w, labels, lse, g_t):
-    """``{dh, dw}``: callables making the backward wrapper's dl + dh
-    launches, or its dW launches, alone over the vocab chunks (through the
-    tree's C entry points, as the wrapper calls them)."""
+    """``{dh, dw, dw_chunk}``: callables making the backward wrapper's dl
+    + dh launches, or its dW launches, alone over the vocab chunks (through
+    the tree's C entry points, as the wrapper calls them); ``dw_chunk(c0,
+    cw)`` makes one chunk's dW launch."""
     import torch
     from paddle_tpu_torch import _build
 
@@ -166,13 +170,16 @@ def backward_parts(fc, h, w, labels, lse, g_t):
                 out[0].data_ptr(), t_len, hid, vocab, c0, cw, chunk,
                 int(c0 == 0), int(c0 + cw == vocab), code, stream), "dh")
 
+    def dw_chunk(c0, cw):
+        _build.check(lib, lib.pt_fused_ce_bwd_dw(
+            h.data_ptr(), dl.data_ptr(), out[1].data_ptr(), t_len, hid,
+            vocab, c0, cw, chunk, code, stream), "dw")
+
     def dw():
         for c0, cw in plan:
-            _build.check(lib, lib.pt_fused_ce_bwd_dw(
-                h.data_ptr(), dl.data_ptr(), out[1].data_ptr(), t_len, hid,
-                vocab, c0, cw, chunk, code, stream), "dw")
+            dw_chunk(c0, cw)
 
-    return {"dh": dh, "dw": dw}
+    return {"dh": dh, "dw": dw, "dw_chunk": dw_chunk}
 
 
 def time_row(fc, F, gen, t_len, hid, vocab, dtype_name, with_clocks=False):
@@ -215,10 +222,15 @@ def time_row(fc, F, gen, t_len, hid, vocab, dtype_name, with_clocks=False):
     row["library_ms"] = {part: time_ms(fn, iters, reps) for part, fn in
                          library_products(h, w, vocab_chunks(fc, vocab))
                          .items()}
+    parts = backward_parts(fc, h, w, safe, lse, g_t)
+    parts["dh"]()   # the workspace holds the last chunk's dl
+    row["dw_chunk_device_ms"] = {
+        "%d+%d" % (c0, cw): device_ms(
+            lambda: parts["dw_chunk"](c0, cw))["dw"]
+        for c0, cw in vocab_chunks(fc, vocab)}
     if with_clocks:
         from paddle_tpu_torch.tools.flash_timing import clocks
 
-        parts = backward_parts(fc, h, w, safe, lse, g_t)
         row["clocks"] = {
             "fwd": clocks(lambda: fc.fused_lm_head_ce_forward(h, w, safe)),
             "dh": clocks(parts["dh"]), "dw": clocks(parts["dw"])}

@@ -1,23 +1,25 @@
-"""The float32 fused lm_head + CE forward (kernel 4) and dl/dh (kernel 5)
-on the f32_gemm.cuh main loop: what the CPU can check of the CUDA-core
-kernels, and the arithmetic they are held to, against the JAX Pallas
-kernels in interpret mode at the edges their tiles bring.
+"""The float32 fused lm_head + CE forward (kernel 4), dl/dh (kernel 5) and
+dW (kernel 6) on the f32_gemm.cuh main loop: what the CPU can check of the
+CUDA-core kernels, and the arithmetic they are held to, against the JAX
+Pallas kernels in interpret mode at the edges their tiles bring.
 
 The kernels run only on the card (chip_smoke.py holds them against the
 plain version there, at every ``FCE_CASES`` shape, float32 at T = 8192,
-1024 and 1000 included). Here: the loop and the float32 kernels stay on
-the CUDA cores (no ``mma``/``wgmma``/TF32, no atomics), kernels 4 and 5
-launch the new loop while ``fce_bwd_dw`` keeps ``tile_product<false,
-false>``, every float32 launch's shared memory fits a CTA (and the
-forward's two CTAs an SM), the build hashes the new header; a float32 CUDA
+1024 and 1000 and a ragged H included). Here: the loop and the float32
+kernels stay on the CUDA cores (no ``mma``/``wgmma``/TF32, no atomics),
+all five float32 kernels launch the loop (dW with both operands MN-major)
+and no other block tile product is left, every float32 launch's shared
+memory fits a CTA (and the forward's and dW's two CTAs an SM), the build
+hashes the loop's header; a float32 CUDA
 tensor reaches the C entry points or raises, never the plain version; the
 forward's split rule and dh's tile rule at the llama1b shapes; the
 forward's per-thread walk (a running max, sum-exp and gold per row over a
 thread's columns of each vocab tile, then the merges in the kernel's
 fixed order) in plain float32; and the plain float32 forward and backward
 against ``_pallas_fwd`` / ``_pallas_bwd`` at T = 200 (ragged at the 64-
-and 128-row tiles), V = 2000 (a ragged last vocab tile and chunk) and
-labels in the last tile.
+and 128-row tiles), V = 2000 (a ragged last vocab tile and chunk), H =
+1032 (a ragged last H tile, dW's rows and dh's columns) and labels in the
+last tile.
 
 Tolerances, as ``tests/test_torch_fused_ce.py``'s float32 ones: losses
 rtol/atol 1e-5 (sums of exps tile by tile against whole 1024-column
@@ -79,23 +81,36 @@ class TestSource:
             "fmaf(a[i], b[j], acc[i][j]);"]
 
     def test_kernels_4_and_5_launch_the_new_loop(self):
+        """All five float32 kernels (4, both of 5's, its 64-row dh, 6) run
+        ``ptf32gemm::gemm``; dW's Shape has both operands MN-major and the
+        header stages A by its own layout; no block tile product but the
+        loop is left."""
         shapes = dict(re.findall(
             r"using (\w+) = ptf32gemm::Shape<([^>]*)>;", TEXT))
-        # (rows, columns, a thread's columns, B K-major); A is K-major
-        assert shapes == {"Wide": "BM, BN, 16, false",
-                          "WideT": "BM, BN, 16, true",
-                          "Narrow": "64, BN, 8, true"}
+        # (rows, columns, a thread's columns, A K-major, B K-major)
+        assert shapes == {"Wide": "BM, BN, 16, true, false",
+                          "WideT": "BM, BN, 16, true, true",
+                          "WideMN": "BM, BN, 16, false, false",
+                          "Narrow": "64, BN, 8, true, true"}
+        assert "using SA = Stage<BM, THREADS, A_K>;" in LOOP
+        assert "using SB = Stage<BN, THREADS, B_K>;" in LOOP
         for name, shape in (("fce_fwd_partial", "Wide"),
                             ("fce_bwd_dl", "Wide"), ("fce_bwd_dh", "WideT"),
-                            ("fce_bwd_dh64", "Narrow")):
+                            ("fce_bwd_dh64", "Narrow"),
+                            ("fce_bwd_dw", "WideMN")):
             body = _kernel(name)
             assert re.findall(r"ptf32gemm::gemm<(\w+)>", body) == [shape]
-            assert "tile_product" not in body
-        body = _kernel("fce_bwd_dw")
-        assert "tile_product<false, false>(" in body
-        assert "ptf32gemm" not in body
-        # no other caller of the old loop is left
-        assert len(re.findall(r"\btile_product<", _code(TEXT))) == 1
+        # dW: A(m = j, k = t) = h[t][j], B(k = t, n = c) = dl[t][c], K = T
+        body = " ".join(_kernel("fce_bwd_dw").split())
+        assert ("gemm<WideMN>( Mat{h, hid, hid, t_len}, Mat{dl, ld_dl, cw, "
+                "t_len}, blockIdx.x * BM, blockIdx.y, blockIdx.y + 1, t_len,"
+                in body)
+        assert "DwTile" in body and "__syncthreads" not in body
+        # no other block tile product, nor the bf16 header it came from
+        for gone in ("tile_product", "smem_bytes", "LDC", "C_BYTES", "ptmma",
+                     "Operand<", '#include "mma_bf16.cuh"'):
+            assert gone not in TEXT, gone
+        assert "tile_product" not in _code(LOOP)
 
     def test_loop_reads_128_bit_fragments(self):
         """Every shared read of the main loop is a float4: A's rows four k
@@ -113,7 +128,7 @@ class TestSource:
         """The float32 kernels take pointers and ints by value, no struct
         (a larger by-value argument slowed the bf16 flash backward)."""
         for name in ("fce_fwd_partial", "fce_bwd_dl", "fce_bwd_dh",
-                     "fce_bwd_dh64"):
+                     "fce_bwd_dh64", "fce_bwd_dw"):
             params = _kernel(name)
             params = params[params.index("(", params.index(name)):
                             params.index(")", params.index(name))]
@@ -121,15 +136,16 @@ class TestSource:
                 assert re.match(r"\s*(const )?(float|int)\*? ", p), (name, p)
 
     @staticmethod
-    def _shape_bytes(bm, bn, b_k):
+    def _shape_bytes(bm, bn, b_k, a_k=True):
         """A Shape's shared memory from the header's own expressions: each
         of two stages holds BK k of A and of B, a K-major operand's rows
-        (transposed) skewed by SKEW floats a group of 4 k."""
+        (transposed) skewed by SKEW floats a group of 4 k, an MN-major one
+        as it lies."""
         bk = int(re.search(r"constexpr int BK = (\d+);", LOOP).group(1))
         skew = int(re.search(r"SKEW = (\d+), LD = ROWS \+ 3 \* SKEW;",
                              LOOP).group(1))
         assert "static constexpr int SKEW = 0, LD = ROWS;" in LOOP
-        ld_a = bm + 3 * skew                        # A is K-major
+        ld_a = bm + 3 * skew if a_k else bm
         ld_b = bn + 3 * skew if b_k else bn
         assert re.search(r"STAGE = A_FLOATS \+ BK \* SB::LD;", LOOP)
         assert re.search(r"A_FLOATS = BK \* SA::LD;", LOOP)
@@ -138,11 +154,13 @@ class TestSource:
 
     def test_shared_memory_fits(self):
         """Every float32 launch's dynamic shared memory, evaluated from the
-        sources' own expressions, fits a CTA; the forward's two CTAs (its
-        launch bounds) fit an SM with their static arrays."""
+        sources' own expressions, fits a CTA; the forward's and dW's two
+        CTAs (their launch bounds) fit an SM, the forward's with its static
+        arrays."""
         big = self._shape_bytes(128, 128, False)       # Wide
         wide_t = self._shape_bytes(128, 128, True)     # WideT
         narrow = self._shape_bytes(64, 128, True)      # Narrow
+        mn = self._shape_bytes(128, 128, False, a_k=False)   # WideMN
         state = int(re.search(r"FWD_STATE = 3 \* (\d+);", TEXT).group(1)) * 3
         fwd = big + state * 128 * 4          # 128 threads' running state
         assert re.search(r"FWD_SMEM = Wide::SMEM_BYTES \+ FWD_STATE \* "
@@ -150,21 +168,27 @@ class TestSource:
         static = 128 * 4                     # label_s
         assert "__shared__ int label_s[BM];" in FWD
         assert len(re.findall(r"__shared__", FWD)) == 2   # and the dynamic
-        for nbytes in (big, wide_t, narrow, fwd + static):
+        for nbytes in (big, wide_t, narrow, mn, fwd + static):
             assert 0 < nbytes <= SMEM_LIMIT
         assert "fce_fwd_partial<<<" in HOST and "FWD_SMEM, s>>>" in HOST
         assert "__launch_bounds__(Wide::THREADS, 2)" in _kernel(
             "fce_fwd_partial")
         assert 2 * (fwd + static + 1024) <= SM_SMEM   # 1 KB a CTA reserved
+        # dW: two stages of 16 k x 128 floats of each operand, as they lie
+        # (32 KB), two CTAs an SM
+        assert mn == 2 * 16 * (128 + 128) * 4
+        assert ("fce_bwd_dw<<<grid_of(hid, cw), WideMN::THREADS, "
+                "WideMN::SMEM_BYTES, s>>>(" in HOST)
+        assert "__launch_bounds__(WideMN::THREADS, 2)" in _kernel(
+            "fce_bwd_dw")
+        assert "__shared__" not in _code(_kernel("fce_bwd_dw")).replace(
+            "extern __shared__", "")
+        assert 2 * (mn + 1024) <= SM_SMEM
         # every float32 launch above 48 KB asks for it
         for kernel, nbytes in (("fce_fwd_partial", fwd), ("fce_bwd_dl", big),
                                ("fce_bwd_dh", wide_t),
-                               ("fce_bwd_dh64", narrow)):
+                               ("fce_bwd_dh64", narrow), ("fce_bwd_dw", mn)):
             assert nbytes <= 48 * 1024 or "allow_smem(%s," % kernel in HOST
-        assert "allow_smem(fce_bwd_dw," in HOST
-        # dW's block tile product: its two stages or its C tile
-        dw = max(2 * 2 * 32 * (128 + 4) * 4, 128 * (128 + 8) * 4)
-        assert dw <= SMEM_LIMIT
 
     def test_build_hashes_the_new_header(self):
         assert "f32_gemm.cuh" in _build.HEADERS["fused_ce"]
@@ -314,10 +338,10 @@ def test_float32_cuda_tensors_launch_or_raise(monkeypatch, err):
 T, H = 200, 64
 
 
-def _case(vocab, seed):
+def _case(vocab, seed, hid=H):
     rng = np.random.RandomState(seed)
-    h = (rng.randn(T, H) * 0.5).astype(np.float32)
-    w = (rng.randn(H, vocab) * 0.1).astype(np.float32)
+    h = (rng.randn(T, hid) * 0.5).astype(np.float32)
+    w = (rng.randn(hid, vocab) * 0.1).astype(np.float32)
     labels = rng.randint(0, vocab, (T,)).astype(np.int32)
     tail = vocab - (vocab - 1) % 128 - 1      # the last tile's first column
     labels[:4] = [vocab - 1, tail, tail - 1, 0]   # the last tile's edges
@@ -333,12 +357,15 @@ def _pallas(h, w, labels, g):
     return [np.array(x) for x in (loss, lse, dh, dw)]
 
 
-@pytest.mark.parametrize("vocab", [2000, 1288])
-def test_plain_float32_matches_pallas_at_the_tile_edges(vocab):
+@pytest.mark.parametrize("vocab,hid", [
+    pytest.param(2000, H, id="2000"), pytest.param(1288, H, id="1288"),
+    pytest.param(2000, 1032, id="2000-H1032")])
+def test_plain_float32_matches_pallas_at_the_tile_edges(vocab, hid):
     """T = 200 (the last 128-row tile 72 deep, the last 64-row one 8),
     V = 2000 (last vocab tile 80 wide, last chunk 80) and 1288 (last tile
-    8 wide), labels on the last tile's edges, ignored rows."""
-    h, w, labels, g = _case(vocab, seed=11)
+    8 wide), H = 1032 (the last 128-row H tile of dW and 128-column one of
+    dh 8 deep), labels on the last tile's edges, ignored rows."""
+    h, w, labels, g = _case(vocab, seed=11, hid=hid)
     want_loss, want_lse, want_dh, want_dw = _pallas(h, w, labels, g)
     th, tw, tl = (torch.from_numpy(x) for x in (h, w, labels))
     loss, lse = fc.fused_lm_head_ce_forward(th, tw, tl)

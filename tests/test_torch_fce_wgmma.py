@@ -92,16 +92,16 @@ class TestHostSide:
         assert re.findall(r"gemm<(\w+), (\w+)>", kernel) == [
             ("false", "true")]
         assert "FwdEpilogue" in kernel
-        # the CUDA-core forward takes float32 only, and the block tile
-        # product has no bf16 (mma.sync) overload left
+        # the CUDA-core forward takes float32 only; the bf16 path has no
+        # mma.sync operand (Operand<bf16>) and no block tile product is
+        # left (the float32 kernels run on csrc/f32_gemm.cuh)
         simt = text[text.index("// -- forward, float32"):
                     text.index("// -- backward, float32")]
         assert re.search(r"fce_fwd_partial\(const float\* __restrict__", simt)
         assert "template" not in simt and "bf16" not in simt
-        assert len(re.findall(r"void tile_product\(", text)) == 1
-        assert re.search(r"void tile_product\(float\* cs,\s*"
-                         r"const Operand<float>& A", text)
+        assert not re.search(r"\btile_product\b", text)
         assert "block_mma" not in text and "Operand<bf16>" not in text
+        assert "Operand<" not in text
         assert not re.search(r"\bfwd<\w", text)
 
     def test_build_hashes_the_wgmma_header(self):
