@@ -130,6 +130,31 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 terminal and, with the admission rejects, all of them;
                 goodput within throughput; the resilience row preempted and
                 fired both faults, the others shed nothing
+  10. bf16 and  run after phase 8 (before the training phases):
+      replay    (c) the serving benchmark's --record-out on the phase-4
+                llama1b fp32 (8 requests, flags off and prefix cache +
+                chunked prefill over shared 512-token prefixes), each
+                journal re-driven by tools/ptreplay.py run with the model
+                rebuilt from the journal's meta: zero divergences; a
+                perturbed weight leaf must diverge (its first diverging
+                index printed) and the matrix must name ``weights``;
+                (a) the int8-weight GEMM's bf16 mode against its plain
+                version on a bf16 llama1b's layer-0 weights in both regimes
+                (M = 1, 5, 16, 17, 64, 256; the fused shapes; K = 1000, a
+                ragged last split, on and off the vector path), within one
+                bf16 ulp of the value, two launches bit for bit, timed at
+                M = 16 and 256 beside torch.matmul on the bf16-dequantized
+                weight; (b) that bf16 llama1b at full width behind
+                serving.Engine with flags off, prefix cache + chunked
+                prefill, int8 KV and int8 weights, prompts in the 8, 16,
+                256 and 1024 buckets and a 240-token prefix hit (the
+                quantized runs on the three short prompts): greedy tokens
+                equal to a bf16 CPU copy's with the same weights and flags
+                (its dense greedy continuation without quantization, its
+                engine with it), or diverging first where the CPU copy's
+                top-2 gap is under 2^-4 of the row's max |logit|; exact
+                launch counts (kernel 1 in bf16, 7, 8 and 10's bf16 mode);
+                TTFT and TPOT beside the card's name and power limit
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e and 6f also holds the
@@ -1210,7 +1235,8 @@ def phase_slice(seed):
 def launch_counters():
     """Every attention kernel's launch counter, by summary entry (the
     float32 and bfloat16 modes of the mixed kernel share one counter), the
-    int8-weight GEMM's, and the backward's TMA operand copies."""
+    int8-weight GEMM's (both modes, and its bf16 mode), and the bf16
+    kernels' TMA operand copies."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quant
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
@@ -1227,6 +1253,7 @@ def launch_counters():
             "mixed_paged_attention_bf16": pa.mixed_launches,
             "mixed_paged_attention_int8": pa.mixed_int8_launches,
             "int8_weight_matmul": quant.launches,
+            "int8_weight_matmul_bf16": quant.bf16_launches,
             # not a kernel: operand copies the bf16 forward and backward
             # made for TMA, which every main path's exact count holds at 0
             "tma_copies": fa.tma_copies}
@@ -1242,7 +1269,7 @@ def reset_launch_counters():
     fa.segmented_dkv_launches = fa.tma_copies = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
-    quant.launches = 0
+    quant.launches = quant.bf16_launches = 0
 
 
 def tier2_engine(model, prefix, chunked, quant_kv, device=None, **kw):
@@ -1380,24 +1407,26 @@ def phase_tier2_slice(seed, model):
     return out
 
 
-def diverges_at_near_tie(tag, cpu_model, prompt, want, got):
+def diverges_at_near_tie(tag, cpu_model, prompt, want, got, rel=None):
     """True when ``got`` equals ``want``; else the first divergence must
-    sit at a top-2 logit gap below NEAR_TIE (dense logits on the CPU
-    copy), or this raises."""
+    sit at a top-2 logit gap below NEAR_TIE, or with ``rel`` below ``rel``
+    x the row's max |logit| (dense logits on the CPU copy), or this
+    raises. Nothing after the first divergence is compared."""
     if got == want:
         return True
     i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
              min(len(want), len(got)))
     with torch.no_grad():
-        logits = cpu_model(torch.tensor([prompt + want[:i]]))[0, -1]
-    top2 = logits.float().topk(2).values
+        logits = cpu_model(torch.tensor([prompt + want[:i]]))[0, -1].float()
+    top2 = logits.topk(2).values
     gap = float(top2[0] - top2[1])
-    log("%s first divergence at token %d, top-2 logit gap %.3g"
-        % (tag, i, gap))
-    if gap >= NEAR_TIE:
+    limit = NEAR_TIE if rel is None else rel * float(logits.abs().max())
+    log("%s first divergence at token %d, top-2 logit gap %.4g (limit "
+        "%.4g)" % (tag, i, gap, limit))
+    if gap >= limit:
         raise AssertionError("%s diverges at token %d with a top-2 gap of "
-                             "%.3g (>= %g): not a near-tie" % (
-                                 tag, i, gap, NEAR_TIE))
+                             "%.4g (>= %.4g): not a near-tie" % (
+                                 tag, i, gap, limit))
     return False
 
 
@@ -1627,12 +1656,15 @@ def phase_w8_kernel(seed, model):
     return rows
 
 
-def w8_layer_numbers(rows):
+def w8_layer_numbers(rows, bf16=False):
     """One layer's seven projections (``W8_SHAPES`` with a count), summed at
     the decode batch (M = 16, the cluster split-K regime) and the mixed
-    step (M = 256, the register-tiled GEMM); the error over every case."""
-    keys = ("ms", "device_ms", "plain_ms", "library_ms",
-            "library_fp32_weight_ms", "bound_ms", "bytes_ms", "operations_ms")
+    step (M = 256, the register-tiled GEMM); the error over every case.
+    ``bf16``: the bf16 mode's rows (no fp32-weight yardstick)."""
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bytes_ms", "operations_ms")
+    if not bf16:
+        keys += ("library_fp32_weight_ms",)
 
     def layer(m):
         out = dict.fromkeys(keys, 0.0)
@@ -1646,6 +1678,31 @@ def w8_layer_numbers(rows):
 
     decode = layer(16)
     mixed = layer(256)
+    if bf16:
+        log("[w8 bf16] one layer's 7 projections: M = 16 (cluster split-K) "
+            "%.4f ms (device %.4f), bound %.4f, torch.matmul bf16-dequantized "
+            "weight %.4f; M = 256 (register-tiled) %.4f ms (device %.4f), "
+            "bound %.4f, torch.matmul %.4f" % (
+                decode["ms"], decode["device_ms"], decode["bound_ms"],
+                decode["library_ms"], mixed["ms"], mixed["device_ms"],
+                mixed["bound_ms"], mixed["library_ms"]))
+        return dict(ms=decode["ms"], device_ms=decode["device_ms"],
+                    plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
+                    bound_by=decode["bound_by"],
+                    library_ms=decode["library_ms"],
+                    library="torch.matmul on the weight dequantized to bf16 "
+                            "(a yardstick: the port never calls it)",
+                    max_abs_err=max(r["max_abs_err"] for r in rows),
+                    tolerance="one bf16 ulp of the plain version's value "
+                              "(2^-7 |y|) + 2^-16 max|y|",
+                    timed_case="one bf16 llama1b layer's 7 projections, "
+                               "M = 16 (the decode step, cluster split-K)",
+                    mixed_step=dict(case="the same, M = 256 (the mixed "
+                                         "step, register-tiled GEMM)",
+                                    **{k: v for k, v in mixed.items()
+                                       if k not in ("bytes_ms",
+                                                    "operations_ms")}),
+                    timed=[r for r in rows if "ms" in r])
     log("[w8] one layer's 7 projections: M = 16 (cluster split-K) %.4f ms "
         "(device %.4f), bound %.4f, torch.matmul fp32 weight %.4f; M = 256 "
         "(register-tiled) %.4f ms (device %.4f), bound %.4f, torch.matmul "
@@ -1801,6 +1858,387 @@ def phase_serving_bench(seed, model):
         raise AssertionError("[bench quant weights] the int8 GEMM was never "
                              "launched")
     return reports, paths
+
+
+# -- phase 10: bf16 serving, the int8-weight GEMM's bf16 mode, replay --------
+
+# kernel 10's bf16 mode against its plain version (bf16 x @ the weight
+# dequantized to bf16, torch.matmul with fp32 sums, one bf16 rounding): the
+# same exact bf16 x bf16 products summed in fp32 in another order, each
+# side rounding its sum to bf16 once, so an element may differ by one bf16
+# ulp of the value (<= 2^-7 |y|), plus the fp32 sums' own difference where
+# a sum cancels to near zero (2^-16 max|y|, far above it)
+W8_BF16_ULP = 2.0 ** -7
+W8_BF16_FLOOR = 2.0 ** -16
+# off the vector path (N = 24), and K = 1000, which no split of the small
+# regime's 96-row granule divides (a ragged last split), on both paths
+W8_BF16_EDGE_SHAPES = ((1000, 24), (1000, 2048))
+W8_BF16_MS = (1, 5, 16, 17, 64, 256)
+
+
+def check_ulp(name, got, want):
+    """Phase 10(a)'s tolerance (``W8_BF16_ULP``, ``W8_BF16_FLOOR``);
+    returns the max abs error."""
+    want = want.float()
+    err = (got.float() - want).abs()
+    limit = (W8_BF16_ULP * want.abs()
+             + W8_BF16_FLOOR * float(want.abs().max()))
+    bad = err > limit
+    if bool(bad.any()):
+        raise AssertionError("%s: %d elements beyond one bf16 ulp, max abs "
+                             "err %.3g" % (name, int(bad.sum()),
+                                           float(err.max())))
+    return float(err.max())
+
+
+def w8_bf16_case(x, q, scales, tag, timed):
+    from paddle_tpu_torch.kernels import quant
+
+    m, k = x.shape
+    n = q.shape[1]
+    got = quant.int8_weight_matmul(x, q, scales)
+    again = quant.int8_weight_matmul(x, q, scales)
+    want = quant.int8_weight_matmul_reference(x, q, scales)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16:
+        raise AssertionError("%s: output dtype %s" % (tag, got.dtype))
+    bm, chunk, splits = quant.w8_plan(m, n, k)
+    row = {"case": tag, "mkn": [m, k, n],
+           "regime": "cluster split-K" if bm == quant.W8_SMALL_BM
+           else "register-tiled GEMM",
+           "plan": dict(bm=bm, chunk=chunk, splits=splits),
+           "max_abs_err": check_ulp(tag, got, want),
+           "bitwise": bool(torch.equal(got, again))}
+    if not row["bitwise"]:
+        raise AssertionError("%s: two launches differ" % tag)
+    if timed:
+        deq = quant.dequantize_int8_weight(q, scales, torch.bfloat16)
+        nbytes = q.numel() + scales.numel() * 4 + x.numel() * 2 + m * n * 2
+
+        def kernel():
+            return quant.int8_weight_matmul(x, q, scales)
+
+        row.update(ms=time_ms(kernel), device_ms=w8_device_ms(kernel),
+                   plain_ms=time_ms(
+                       lambda: quant.int8_weight_matmul_reference(x, q,
+                                                                  scales)),
+                   library_ms=time_ms(lambda: torch.matmul(x, deq)),
+                   **bound(nbytes, 2 * m * n * k, torch.bfloat16))
+    log("[w8 bf16] " + json.dumps(row))
+    return row
+
+
+def phase_w8_bf16(seed, model):
+    """Phase 10(a): the bf16 mode of the int8-weight GEMM against its plain
+    version on the bf16 llama1b's layer-0 weights, both regimes, the fused
+    shapes, a ragged K and the non-vector path; two launches bit for bit;
+    timed at M = 16 and 256 beside its bound and torch.matmul on the
+    bf16-dequantized weight."""
+    from paddle_tpu_torch.kernels import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    layer = model.llama.layers[0]
+    attn, mlp = layer.self_attn, layer.mlp
+    weights = {"q_proj": attn.q_proj.weight,
+               "gate_proj": mlp.gate_proj.weight,
+               "down_proj": mlp.down_proj.weight,
+               "qkv_proj": torch.cat([attn.q_proj.weight, attn.k_proj.weight,
+                                      attn.v_proj.weight], dim=1),
+               "gate_up_proj": torch.cat([mlp.gate_proj.weight,
+                                          mlp.up_proj.weight], dim=1)}
+    rows = []
+    with torch.no_grad():
+        for k, n, count, name in W8_SHAPES:
+            q, scales = quant.quantize_int8_weight(
+                weights[name].detach().contiguous())
+            for m in (W8_BF16_MS if count else W8_TIMED_MS):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                rows.append(w8_bf16_case(
+                    x, q, scales, "%s M=%d K=%d N=%d b=%d bf16" % (
+                        name, m, k, n, quant.weight_block(k)),
+                    timed=m in W8_TIMED_MS))
+        for k, n in W8_BF16_EDGE_SHAPES:
+            w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+            q, scales = quant.quantize_int8_weight(w.to(torch.bfloat16))
+            for m in W8_BF16_MS:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                rows.append(w8_bf16_case(
+                    x, q, scales, "edge M=%d K=%d N=%d b=%d bf16" % (
+                        m, k, n, quant.weight_block(k)), timed=False))
+    torch.cuda.empty_cache()
+    return rows
+
+
+# phase 10(b): greedy tokens of the bf16 card engine against a bf16 CPU copy
+# with the same weights. Both round every activation to bf16, at other
+# places (kernels against plain versions, other sum orders), so a logit may
+# move by a few bf16 ulps of the row's largest (2^-7 max|logit| each); a
+# divergence counts as a near-tie when the CPU copy's top-2 gap there is
+# under BF16_NEAR_TIE x max|logit| of that row (8 ulps). Phase 10(b) also
+# prints the card's and the CPU's logits apart over a whole sequence.
+BF16_NEAR_TIE = 2.0 ** -4
+# (tag, flags, the CPU side's path): with no quantization the CPU copy's
+# greedy tokens come from ONE dense forward over the prompt and the card's
+# tokens (its argmax at each step, up to the first divergence, is its own
+# greedy continuation); int8 KV and int8 weights change the numbers inside
+# the steps, so there the CPU copy runs the engine with the same flags, on
+# the short prompts (a CPU bf16 step costs ~1000x the card's)
+BF16_RUNS = (("flags off", dict(), "dense"),
+             ("prefix+chunked", dict(prefix=True, chunked=True), "dense"),
+             ("int8 KV", dict(quant_kv=True), "engine"),
+             ("int8 weights", dict(quant_weights=True), "engine"))
+BF16_NEW_TOKENS = 6
+BF16_GEOMETRY = dict(max_slots=4, block_size=16, num_blocks=256,
+                     max_model_len=2048, prefill_chunk=16)
+
+
+def bf16_prompts(seed, vocab, short_only=False):
+    """Prompts in the prefill buckets 8, 16, 256 and 1024, then one sharing
+    240 tokens (15 full pages) with the 250-token one, added after the
+    others finished so that the prefix cache holds them; ``short_only``:
+    the first three."""
+    rng = np.random.default_rng(seed + 10)
+    first = [rng.integers(0, vocab, n).tolist() for n in (5, 13, 250, 600)]
+    second = [first[2][:240] + rng.integers(0, vocab, 12).tolist()]
+    return (first[:3], []) if short_only else (first, second)
+
+
+def bf16_dense_check(tag, cpu_model, prompt, got, cache):
+    """The card's tokens against the CPU copy's greedy continuation, from
+    one dense forward over ``prompt + got``: equal, or first diverging
+    where the CPU's top-2 gap is under ``BF16_NEAR_TIE`` x max|logit|
+    (else this raises). ``cache`` keeps each sequence's argmax and gaps."""
+    key = tuple(prompt + got)
+    if key not in cache:
+        with torch.no_grad():
+            logits = cpu_model(torch.tensor([list(key)]))[0].float()
+        rows = logits[len(prompt) - 1:len(prompt) - 1 + len(got)]
+        top2 = rows.topk(2, dim=-1).values
+        cache[key] = (rows.argmax(-1).tolist(),
+                      (top2[:, 0] - top2[:, 1]).tolist(),
+                      rows.abs().amax(-1).tolist())
+    want, gaps, scales = cache[key]
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if i is None:
+        return True
+    limit = BF16_NEAR_TIE * scales[i]
+    log("%s first divergence at token %d, CPU top-2 gap %.4g (limit %.4g)"
+        % (tag, i, gaps[i], limit))
+    if gaps[i] >= limit:
+        raise AssertionError("%s diverges at token %d with a top-2 gap of "
+                             "%.4g (>= %.4g): not a near-tie"
+                             % (tag, i, gaps[i], limit))
+    return False
+
+
+def bf16_engine(model, device, prefix=False, chunked=False, quant_kv=False,
+                quant_weights=False):
+    from paddle_tpu_torch.core import flags
+
+    flags.set_flags({"FLAGS_serving_quant_weights": quant_weights})
+    try:
+        return tier2_engine(model, prefix, chunked, quant_kv, device=device,
+                            **BF16_GEOMETRY)
+    finally:
+        flags.set_flags({"FLAGS_serving_quant_weights": False})
+
+
+def bf16_serve(model, device, prompts, opts):
+    """Serve the first prompts, then the second (prefix-cache hits); return
+    tokens, the engine's stats and per-request metrics."""
+    first, second = prompts
+    engine = bf16_engine(model, device, **opts)
+    ids = [engine.add_request(p, max_new_tokens=BF16_NEW_TOKENS)
+           for p in first]
+    engine.run()
+    ids += [engine.add_request(p, max_new_tokens=BF16_NEW_TOKENS)
+            for p in second]
+    engine.run()
+    out = ([engine.output(i) for i in ids], engine.stats(),
+           [engine.request_metrics(i) for i in ids])
+    del engine
+    return out
+
+
+def bf16_launch_want(tag, opts, st, layers):
+    """The exact launches a bf16 run makes: kernel 1 per prefill and layer
+    (none with chunked prefill, whose prompts go through kernel 8), kernel
+    7 per decode step and layer, kernel 8 per mixed step and layer, kernel
+    10's bf16 mode 7 times per layer and decode or mixed step (int8
+    weights); int8 pools take the int8 counters."""
+    mode = "_int8" if opts.get("quant_kv") else ""
+    want = dict.fromkeys(launch_counters(), 0)
+    if opts.get("chunked"):
+        want["mixed_paged_attention" + mode] = layers * st["mixed_steps"]
+    else:
+        want["flash_attention"] = layers * st["prefill_runs"]
+        want["paged_attention" + mode] = layers * st["decode_steps"]
+    want["mixed_paged_attention_bf16"] = want["mixed_paged_attention"]
+    if opts.get("quant_weights"):
+        want["int8_weight_matmul"] = 7 * layers * st["decode_steps"]
+        want["int8_weight_matmul_bf16"] = want["int8_weight_matmul"]
+    return want
+
+
+def phase_bf16_serving(seed, card):
+    """Phase 10(a) and (b): llama1b in bf16 at full width behind
+    serving.Engine on the card, flags off, prefix cache + chunked prefill,
+    int8 KV and int8 weights; each against a bf16 CPU copy with the same
+    weights and flags; exact launch counts; TTFT and TPOT."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama1b(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 10))
+    cpu_model = copy.deepcopy(model).to("cpu")
+    log("[bf16] llama1b bf16 (%d layers, hidden %d) and its CPU copy in "
+        "%.1f s" % (cfg.num_hidden_layers, cfg.hidden_size,
+                    time.perf_counter() - t0))
+    w8_rows = phase_w8_bf16(seed, model)
+    # warm-up: the first bf16 GEMMs and kernels of the process, unmeasured
+    bf16_serve(model, None, ([[1, 2, 3]], []), {})
+    results, paths, dense = {}, {}, {}
+    for tag, opts, cpu_path in BF16_RUNS:
+        name = "[bf16 %s]" % tag
+        prompts = bf16_prompts(seed, cfg.vocab_size,
+                               short_only=cpu_path == "engine")
+        flat = prompts[0] + prompts[1]
+        reset_launch_counters()
+        t0 = time.perf_counter()
+        card_tokens, st, per = bf16_serve(model, None, prompts, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counters()
+        want = bf16_launch_want(tag, opts, st, cfg.num_hidden_layers)
+        if launches != want:
+            raise AssertionError("%s launches %s, expected %s"
+                                 % (name, launches, want))
+        if opts.get("prefix") and not st["prefix_hit_tokens"] >= 240:
+            raise AssertionError("%s expected a 240-token prefix hit: %s"
+                                 % (name, st))
+        t0 = time.perf_counter()
+        if cpu_path == "dense":
+            same = [bf16_dense_check(name + " card vs cpu", cpu_model, p, g,
+                                     dense)
+                    for p, g in zip(flat, card_tokens)]
+        else:
+            cpu_tokens, _, _ = bf16_serve(cpu_model, "cpu", prompts, opts)
+            same = [diverges_at_near_tie(name + " card vs cpu", cpu_model,
+                                         p, w, g, rel=BF16_NEAR_TIE)
+                    for p, w, g in zip(flat, cpu_tokens, card_tokens)]
+        cpu_s = time.perf_counter() - t0
+        ttft = [m["ttft_s"] for m in per]
+        tpot = [m["tpot_s"] for m in per]
+        results[tag] = {
+            "card": card, "wall_s": wall, "cpu_s": cpu_s, "cpu": cpu_path,
+            "prompt_lens": [len(p) for p in flat],
+            "identical": "%d of %d" % (sum(same), len(same)),
+            "ttft_p50_s": pct(ttft, 0.5), "ttft_max_s": max(ttft),
+            "tpot_p50_s": pct(tpot, 0.5), "tpot_max_s": max(tpot),
+            "prefill_runs": st["prefill_runs"],
+            "decode_steps": st["decode_steps"],
+            "mixed_steps": st["mixed_steps"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "launches": launches}
+        log(name + " " + json.dumps(results[tag]))
+        paths["bf16 serving " + tag] = launches
+    ran = {k: sum(c[k] for c in paths.values())
+           for k in ("flash_attention", "paged_attention",
+                     "mixed_paged_attention_bf16", "int8_weight_matmul_bf16")}
+    if not all(ran.values()):
+        raise AssertionError("[bf16] a kernel never ran in bf16: %s" % ran)
+    # the card's and the CPU's logits over one whole sequence, the scale of
+    # the difference the near-tie limit allows
+    ids = torch.tensor([prompts[0][2] + card_tokens[2]])
+    with torch.no_grad():
+        want = cpu_model(ids)[0].float()
+        got = model(ids.to("cuda"))[0].float().cpu()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log("[bf16] logits [%d, %d] card vs cpu: max abs diff %.4g, max |logit| "
+        "%.4g (ratio %.4g; the near-tie limit is %.4g of a row's max)"
+        % (want.shape[0], want.shape[1], diff, scale, diff / scale,
+           BF16_NEAR_TIE))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("[bf16] card logits are not finite")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return w8_rows, results, paths
+
+
+# phase 10(c): the benchmark's --record-out on llama1b fp32, flags off and
+# with prefix cache + chunked prefill over shared 512-token prefixes (hits
+# at whole pages, so a replay runs each prompt in the recording's chunks)
+REPLAY_COMMON = ["--preset", "llama1b", "--device", "cuda", "--max-slots",
+                 "8", "--num-blocks", "1024", "--rate", "16", "--requests",
+                 "8", "--prompt-len", "16", "256", "--max-new", "8", "16"]
+REPLAY_ROWS = (("flags off", []),
+               ("prefix+chunked", ["--prefix-cache", "--chunked-prefill",
+                                   "--shared-prefix-tokens", "512",
+                                   "--prefix-groups", "2"]))
+
+
+def phase_replay(seed, model):
+    """Phase 10(c): record two llama1b fp32 workloads through the port's
+    serving benchmark, re-drive each with ``ptreplay run`` (the model
+    rebuilt from the journal's meta): zero divergences; a perturbed weight
+    leaf must diverge, with its first diverging index, and ``--matrix``
+    must name ``weights`` for it."""
+    import argparse as _argparse
+
+    from paddle_tpu_torch.serving import replay
+    from paddle_tpu_torch.tools import ptreplay, serving_benchmark
+
+    out_dir = os.path.join("chiprun_out", "replay")
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for tag, extra in REPLAY_ROWS:
+        name = "[replay %s]" % tag
+        journal = os.path.join(out_dir, tag.replace("+", "_").replace(
+            " ", "_") + ".jsonl")
+        args = serving_benchmark.parser().parse_args(
+            REPLAY_COMMON + ["--seed", str(seed), "--record-out", journal]
+            + extra)
+        t0 = time.perf_counter()
+        report = serving_benchmark.run(args, model=model)
+        record_s = time.perf_counter() - t0
+        if report["replay_journal"]["entries"] != args.requests:
+            raise AssertionError("%s journal %s" % (
+                name, report["replay_journal"]))
+        t0 = time.perf_counter()
+        rc = ptreplay.run_replay(_argparse.Namespace(
+            journal=journal, out=journal.replace(".jsonl", "_report.json"),
+            full=True, matrix=False, against=None, device="cuda"))
+        replay_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError("%s ptreplay run: exit code %d" % (name, rc))
+        head, entries = replay.load_journal(journal)
+        t0 = time.perf_counter()
+        perturbed = ptreplay.replay_entries(head, entries, full=True,
+                                            perturb=True, device="cuda")
+        matrix = ptreplay.matrix_bisect(head, entries, perturb=True,
+                                        device="cuda")
+        perturb_s = time.perf_counter() - t0
+        firsts = [d["first_divergence"] for d in perturbed["divergences"]]
+        if not firsts or matrix["bisected_axes"] != ["weights"]:
+            raise AssertionError("%s perturbed %s: %d divergences, matrix "
+                                 "names %s" % (name,
+                                               perturbed["perturbed_leaf"],
+                                               len(firsts),
+                                               matrix["bisected_axes"]))
+        results[tag] = {"record_s": record_s, "replay_s": replay_s,
+                        "perturb_and_matrix_s": perturb_s,
+                        "replayed": len(entries), "divergences": 0,
+                        "perturbed_leaf": perturbed["perturbed_leaf"],
+                        "perturbed_divergences": len(firsts),
+                        "first_divergence": firsts,
+                        "matrix_bisected": matrix["bisected_axes"]}
+        log(name + " " + json.dumps(results[tag]))
+    torch.cuda.empty_cache()
+    return results
 
 
 # -- phase 6 / 7 -------------------------------------------------------------
@@ -2281,12 +2719,33 @@ KERNELS = {
         replaces="none: the reference's dequantize is fused by XLA "
                  "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
         mode="float32 x, int8 weight, fp32 block scales"),
+    "int8_weight_matmul_bf16": dict(
+        source="paddle_tpu_torch/csrc/w8_gemm.cu",
+        replaces="none: the reference's dequantize is fused by XLA "
+                 "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
+        mode="bfloat16 x and y, int8 weight, fp32 block scales"),
 }
-# the float32 and bfloat16 modes of the mixed kernel share one counter
-SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches (float32 and "
-                  "bfloat16 together)",
-                  "mixed_paged_attention_bf16": "mixed_launches (float32 "
-                  "and bfloat16 together; the serving path runs float32)"}
+# the float32 and bfloat16 modes of the mixed kernel share one counter;
+# each path's launches go to the entry of the dtype it ran (by_mode)
+SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches of the float32 "
+                  "paths",
+                  "mixed_paged_attention_bf16": "mixed_launches of the "
+                  "bf16 serving paths (phase 10(b))"}
+
+
+def by_mode(counts, bf16):
+    """A path's launch counts with the shared counters given to the entry
+    of the dtype the path ran: the mixed kernel's count to its float32 or
+    its bf16 entry, and the int8-weight GEMM's fp32 entry without the bf16
+    mode's launches."""
+    counts = dict(counts)
+    if bf16:
+        counts["mixed_paged_attention"] = 0
+        counts["int8_weight_matmul"] = (counts.get("int8_weight_matmul", 0)
+                                        - counts["int8_weight_matmul_bf16"])
+    elif "mixed_paged_attention_bf16" in counts:
+        counts["mixed_paged_attention_bf16"] = 0
+    return counts
 
 
 def tier2_numbers(name, cases):
@@ -2420,6 +2879,9 @@ def summary(rows, paths):
                    if name in counts}
         if name == "int8_weight_matmul":
             numbers = w8_layer_numbers(rows["int8_weight_matmul"])
+        elif name == "int8_weight_matmul_bf16":
+            numbers = w8_layer_numbers(rows["int8_weight_matmul_bf16"],
+                                       bf16=True)
         elif name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
         elif name.startswith("fused_ce"):
@@ -2501,7 +2963,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    phase_device()
+    card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     ptxas = phase_build()
     rows = phase_kernels(args.seed)
@@ -2520,8 +2982,12 @@ def main(argv=None):
     quant_paths = phase_quant_decode(args.seed, model, cpu_model)
     torch.cuda.empty_cache()
     _, bench_paths = phase_serving_bench(args.seed, model)
-    del model, cpu_model
+    del cpu_model
+    phase_replay(args.seed, model)
+    del model
     torch.cuda.empty_cache()
+    w8_bf16_rows, _, bf16_paths = phase_bf16_serving(args.seed, card)
+    rows["int8_weight_matmul_bf16"] = w8_bf16_rows
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
     train_fused = phase_train(args.seed, fused=True)
@@ -2548,6 +3014,10 @@ def main(argv=None):
                   for tag, run in tier2.items()})
     paths.update(quant_paths)
     paths.update(bench_paths)
+    paths = {path: by_mode(counts, bf16=False)
+             for path, counts in paths.items()}
+    paths.update({path: by_mode(counts, bf16=True)
+                  for path, counts in bf16_paths.items()})
     log(json.dumps(summary(rows, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,10 @@ _DEFAULTS = {
     # the decode and mixed steps multiply through the int8-weight GEMM,
     # prefill keeps the fp32 weights
     "FLAGS_serving_quant_weights": False,
+    # record/replay journal (serving/replay.py): the engine latches a
+    # recorder at construction and captures each request at admission and
+    # at its terminal state
+    "FLAGS_serving_replay": False,
 }
 
 _flags = {}

@@ -80,15 +80,34 @@
 // Rows past M are zero-filled and never stored; a k row past a split's end
 // is zero-filled in x and in w (its scale is never read), so it adds
 // exactly 0. Columns past N are zero-filled and never stored. Where N is
-// not a multiple of 16, K not a multiple of 4 or an operand not 16-byte
-// aligned, the same kernels stage through plain loads (kVec = false).
+// not a multiple of 16, K not a multiple of 16 bytes of x (4 fp32, 8 bf16
+// values) or an operand not 16-byte aligned, the same kernels stage
+// through plain loads (kVec = false).
+//
+// bf16 mode (pt_w8_gemm_bf16: bf16 x [M, K] and y [M, N], the same q and
+// fp32 scales): the reference's numerics for a bf16 model under int8
+// weights, dequantize_int8_weight(q, s, bf16) and then a bf16 matmul. Each
+// weight element is q * s in fp32 rounded once to bf16, the products of
+// the widened bf16 x and w are summed in fp32 (the same FMAs and order as
+// the fp32 mode), and y is rounded once to bf16 at the store; split-K
+// partials meet in fp32, before that rounding. The kernels are the fp32
+// mode's, instantiated on the activation type TX: x is staged as bf16 (16
+// bytes = 8 values a cp.async copy, half the fp32 mode's x bytes) and
+// widened to fp32 where it is read, at the small regime's FMA and at the
+// large regime's transpose into shared memory; y is stored as bf16 pairs.
+// The bytes it must move are the fp32 mode's less half of x and y, and
+// its FMAs are the same, so at llama1b's projections it is bound as the
+// fp32 mode is: by the fp32 operations.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int kKT = 32;               // k rows a large-M stage
 constexpr int kMaxCluster = 16;       // splits of K a tile, at most
@@ -100,7 +119,64 @@ constexpr int kSmallKT = kSmallWarps * kSmallRows;  // a chunk's granule
 constexpr int kSmallStages = 6;       // steps in flight a warp
 constexpr int kLargeBN = 128;         // columns a large-M CTA computes
 constexpr int kLargeStages = 4;
-constexpr int kXStride = kKT + 4;     // floats a staged x row, large M
+
+// -- the activation type: float (fp32 mode) or bf16 (bf16 mode) --------------
+
+template <typename TX>
+struct Act {                          // float
+  static constexpr bool kBf16 = false;
+  static constexpr int kVec = 4;      // values a 16-byte copy
+  static constexpr int kXStride = kKT + 4;   // values a staged x row, large M
+};
+template <>
+struct Act<bf16> {
+  static constexpr bool kBf16 = true;
+  static constexpr int kVec = 8;
+  static constexpr int kXStride = kKT + 8;   // 80 bytes: conflict-free reads
+};
+
+template <typename TX>
+__device__ __forceinline__ TX zero_x() {
+  if constexpr (Act<TX>::kBf16)
+    return __float2bfloat16_rn(0.f);
+  else
+    return 0.f;
+}
+
+// two bf16 values packed in a word (the first in the low half) as floats
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xFFFF0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 8 consecutive staged x values (16-byte aligned) widened to fp32
+template <typename TX>
+__device__ __forceinline__ void load_x8(const TX* p, float4& a, float4& b) {
+  if constexpr (Act<TX>::kBf16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    a = make_float4(bf_lo(u.x), bf_hi(u.x), bf_lo(u.y), bf_hi(u.y));
+    b = make_float4(bf_lo(u.z), bf_hi(u.z), bf_lo(u.w), bf_hi(u.w));
+  } else {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+}
+
+// a dequantized weight as the reference's dequantize_int8_weight gives it
+// in x's dtype: q * s in fp32, rounded once to bf16 in the bf16 mode
+template <typename TX>
+__device__ __forceinline__ float weight(float w) {
+  if constexpr (Act<TX>::kBf16)
+    return __bfloat162float(__float2bfloat16_rn(w));
+  else
+    return w;
+}
 
 // -- helpers ------------------------------------------------------------------
 
@@ -151,23 +227,35 @@ __device__ __forceinline__ void load_scales(const float* __restrict__ s,
 }
 
 // 4 int8 values (one 32-bit word) dequantized with their 4 scales
+template <typename TX>
 __device__ __forceinline__ void dequant4(uint32_t word, const float* sc,
                                          float* w) {
   const uint32_t b = word ^ 0x80808080u;
-  w[0] = i8f(b, 0x7540) * sc[0];
-  w[1] = i8f(b, 0x7541) * sc[1];
-  w[2] = i8f(b, 0x7542) * sc[2];
-  w[3] = i8f(b, 0x7543) * sc[3];
+  w[0] = weight<TX>(i8f(b, 0x7540) * sc[0]);
+  w[1] = weight<TX>(i8f(b, 0x7541) * sc[1]);
+  w[2] = weight<TX>(i8f(b, 0x7542) * sc[2]);
+  w[3] = weight<TX>(i8f(b, 0x7543) * sc[3]);
 }
 
-// v at y[row, col..col + 3], masked to M and N
-template <bool kVec>
-__device__ __forceinline__ void store4(float* __restrict__ y, int row,
-                                       int col, float4 v, int m_rows,
-                                       int n) {
+// v at y[row, col..col + 3], masked to M and N; the bf16 mode rounds each
+// value once here
+template <bool kVec, typename TX>
+__device__ __forceinline__ void store4(TX* __restrict__ y, int row, int col,
+                                       float4 v, int m_rows, int n) {
   if (row >= m_rows) return;
-  float* p = y + static_cast<size_t>(row) * n + col;
-  if constexpr (kVec) {
+  TX* p = y + static_cast<size_t>(row) * n + col;
+  if constexpr (Act<TX>::kBf16) {
+    if constexpr (kVec) {
+      if (col < n)
+        *reinterpret_cast<uint2*>(p) =
+            make_uint2(pack_bf2(v.x, v.y), pack_bf2(v.z, v.w));
+    } else {
+      if (col < n) p[0] = __float2bfloat16_rn(v.x);
+      if (col + 1 < n) p[1] = __float2bfloat16_rn(v.y);
+      if (col + 2 < n) p[2] = __float2bfloat16_rn(v.z);
+      if (col + 3 < n) p[3] = __float2bfloat16_rn(v.w);
+    }
+  } else if constexpr (kVec) {
     if (col < n) *reinterpret_cast<float4*>(p) = v;
   } else {
     if (col < n) p[0] = v.x;
@@ -185,9 +273,9 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // `tile` in its shared memory. Rank r sums slice r of the tile over the
 // ranks, in rank order, with every rank's load in flight at once, and
 // writes y.
-template <bool kVec, int kCols>
+template <bool kVec, int kCols, typename TX>
 __device__ __forceinline__ void cluster_reduce(float* tile, int rows,
-                                               float* __restrict__ y, int m0,
+                                               TX* __restrict__ y, int m0,
                                                int n0, int m_rows, int n) {
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = static_cast<int>(cluster.num_blocks());
@@ -218,38 +306,48 @@ __device__ __forceinline__ void cluster_reduce(float* tile, int rows,
 
 namespace small {
 constexpr int kThreads = 32 * kSmallWarps;
-constexpr int kXBytes = kSmallBM * kSmallRows * 4;   // x [16][8]
-constexpr int kQBytes = kSmallRows * kSmallBN;       // q [8][128]
-constexpr int kStepBytes = kXBytes + kQBytes;
-constexpr int kWarpRing = kSmallStages * kStepBytes; // one warp's ring
-constexpr int kRingBytes = kSmallWarps * kWarpRing;
 constexpr int kRedBytes = kSmallWarps * kSmallBM * kSmallBN * 4;
 constexpr int kTileBytes = kSmallBM * kSmallBN * 4;  // the CTA's partial
-constexpr int kSmem =
-    (kRingBytes > kRedBytes ? kRingBytes : kRedBytes) + kTileBytes;
 static_assert(kSmallBN == 32 * 4, "a lane owns 4 columns");
+
+template <typename TX>
+struct Ring {
+  static constexpr int kXBytes =
+      kSmallBM * kSmallRows * static_cast<int>(sizeof(TX));   // x [16][8]
+  static constexpr int kQBytes = kSmallRows * kSmallBN;       // q [8][128]
+  static constexpr int kStepBytes = kXBytes + kQBytes;
+  static constexpr int kWarpRing = kSmallStages * kStepBytes; // a warp's
+  static constexpr int kRingBytes = kSmallWarps * kWarpRing;
+  static constexpr int kSmem =
+      (kRingBytes > kRedBytes ? kRingBytes : kRedBytes) + kTileBytes;
+  static constexpr int kXCopies = kSmallBM * kSmallRows / Act<TX>::kVec;
+  static_assert(kXBytes % 16 == 0 && kXCopies <= 32,
+                "a step's x is whole 16-byte copies, one a lane at most");
+};
 
 // one warp's step: x[m0.., k0..k0 + 8) and q[k0..k0 + 8, n0..), rows at
 // or past `end` zero-filled
-template <bool kVec>
+template <bool kVec, typename TX>
 __device__ __forceinline__ void load_step(unsigned char* st,
-                                          const float* __restrict__ x,
+                                          const TX* __restrict__ x,
                                           const int8_t* __restrict__ q,
                                           int m0, int m_rows, int n0, int n,
                                           int k_dim, int k0, int end) {
-  float* sx = reinterpret_cast<float*>(st);
-  int8_t* sq = reinterpret_cast<int8_t*>(st + kXBytes);
+  using R = Ring<TX>;
+  TX* sx = reinterpret_cast<TX*>(st);
+  int8_t* sq = reinterpret_cast<int8_t*>(st + R::kXBytes);
   const int lane = threadIdx.x & 31;
   if constexpr (kVec) {
-    {
-      const int r = lane >> 1, c = (lane & 1) * 4;
+    if (lane < R::kXCopies) {
+      constexpr int kPerRow = kSmallRows / Act<TX>::kVec;     // copies a row
+      const int r = lane / kPerRow, c = (lane % kPerRow) * Act<TX>::kVec;
       const bool ok = m0 + r < m_rows && k0 + c < end;
       cp_async16(sx + r * kSmallRows + c,
                  ok ? x + static_cast<size_t>(m0 + r) * k_dim + k0 + c : x,
                  ok);
     }
 #pragma unroll
-    for (int i = 0; i < kQBytes / 16 / 32; ++i) {
+    for (int i = 0; i < R::kQBytes / 16 / 32; ++i) {
       const int idx = lane + 32 * i;
       const int r = idx >> 3, c = (idx & 7) * 16;
       const bool ok = k0 + r < end && n0 + c < n;
@@ -260,7 +358,7 @@ __device__ __forceinline__ void load_step(unsigned char* st,
     for (int i = lane; i < kSmallBM * kSmallRows; i += 32) {
       const int r = i / kSmallRows, c = i % kSmallRows;
       sx[i] = m0 + r < m_rows && k0 + c < end
-          ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + c] : 0.f;
+          ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + c] : zero_x<TX>();
     }
     for (int i = lane; i < kSmallRows * kSmallBN; i += 32) {
       const int r = i / kSmallBN, c = i % kSmallBN;
@@ -274,15 +372,16 @@ __device__ __forceinline__ void load_step(unsigned char* st,
 // `end` (it adds exactly 0) or enters the next scale block (reload its
 // scales); the fast path has neither, so its 8 q words and 32 dequantized
 // values are all in flight before the first FMA.
-template <bool kVec, bool kSlow>
+template <bool kVec, bool kSlow, typename TX>
 __device__ __forceinline__ void step(const unsigned char* st,
                                      const float* __restrict__ scales,
                                      float (&acc)[kSmallBM][4],
                                      float (&sc)[4], int& blk_hi, int k,
                                      int end, int block, int col, int n) {
   const int lane = threadIdx.x & 31;
-  const float* sx = reinterpret_cast<const float*>(st);
-  const int8_t* sq = reinterpret_cast<const int8_t*>(st + kXBytes) + lane * 4;
+  const TX* sx = reinterpret_cast<const TX*>(st);
+  const int8_t* sq =
+      reinterpret_cast<const int8_t*>(st + Ring<TX>::kXBytes) + lane * 4;
   float w[kSmallRows][4];
 #pragma unroll
   for (int j = 0; j < kSmallRows; ++j) {
@@ -299,18 +398,15 @@ __device__ __forceinline__ void step(const unsigned char* st,
                              sc);
       }
     }
-    dequant4(*reinterpret_cast<const uint32_t*>(sq + j * kSmallBN), sc,
-             w[j]);
+    dequant4<TX>(*reinterpret_cast<const uint32_t*>(sq + j * kSmallBN), sc,
+                 w[j]);
   }
 #pragma unroll
   for (int g = 0; g < kSmallBM / 4; ++g) {
     float4 xa[4], xb[4];                 // x[m][k..k + 3], x[m][k + 4..k + 7]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* xr = sx + (4 * g + i) * kSmallRows;
-      xa[i] = *reinterpret_cast<const float4*>(xr);
-      xb[i] = *reinterpret_cast<const float4*>(xr + 4);
-    }
+    for (int i = 0; i < 4; ++i)
+      load_x8(sx + (4 * g + i) * kSmallRows, xa[i], xb[i]);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -332,11 +428,12 @@ __device__ __forceinline__ void step(const unsigned char* st,
 // grid (splits, ceil(N / 128), ceil(M / 16)); split z takes k rows
 // [z * chunk, min(K, (z + 1) * chunk)), warp w the w-th share of them
 // through its own ring; a cluster of `splits` CTAs
-template <bool kVec>
+template <bool kVec, typename TX>
 __global__ void __launch_bounds__(kThreads, 1)
-w8_gemm_small(const float* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ scales, float* __restrict__ y,
+w8_gemm_small(const TX* __restrict__ x, const int8_t* __restrict__ q,
+              const float* __restrict__ scales, TX* __restrict__ y,
               int m_rows, int n, int k_dim, int block, int chunk) {
+  using R = Ring<TX>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.y * kSmallBN, m0 = blockIdx.z * kSmallBM;
@@ -345,13 +442,13 @@ w8_gemm_small(const float* __restrict__ x, const int8_t* __restrict__ q,
   const int end = min(k_dim, k_begin + per);
   const int steps = (end - k_begin + kSmallRows - 1) / kSmallRows;
   const int col = n0 + lane * 4;
-  unsigned char* ring = smem + warp * kWarpRing;
+  unsigned char* ring = smem + warp * R::kWarpRing;
 
 #pragma unroll
   for (int s = 0; s < kSmallStages - 1; ++s) {
     if (s < steps)
-      load_step<kVec>(ring + s * kStepBytes, x, q, m0, m_rows, n0, n, k_dim,
-                      k_begin + s * kSmallRows, end);
+      load_step<kVec>(ring + s * R::kStepBytes, x, q, m0, m_rows, n0, n,
+                      k_dim, k_begin + s * kSmallRows, end);
     cp_async_commit();
   }
   float acc[kSmallBM][4];
@@ -366,21 +463,23 @@ w8_gemm_small(const float* __restrict__ x, const int8_t* __restrict__ q,
     __syncwarp();                    // step t landed; step t - 1 is free
     const int tn = t + kSmallStages - 1;
     if (tn < steps)
-      load_step<kVec>(ring + (tn % kSmallStages) * kStepBytes, x, q, m0,
+      load_step<kVec>(ring + (tn % kSmallStages) * R::kStepBytes, x, q, m0,
                       m_rows, n0, n, k_dim, k_begin + tn * kSmallRows, end);
     cp_async_commit();
-    const unsigned char* st = ring + (t % kSmallStages) * kStepBytes;
+    const unsigned char* st = ring + (t % kSmallStages) * R::kStepBytes;
     const int k = k_begin + t * kSmallRows;
     if (k + kSmallRows <= end && k + kSmallRows <= blk_hi)
-      step<kVec, false>(st, scales, acc, sc, blk_hi, k, end, block, col, n);
+      step<kVec, false, TX>(st, scales, acc, sc, blk_hi, k, end, block, col,
+                            n);
     else
-      step<kVec, true>(st, scales, acc, sc, blk_hi, k, end, block, col, n);
+      step<kVec, true, TX>(st, scales, acc, sc, blk_hi, k, end, block, col,
+                           n);
   }
   cp_async_wait<0>();
 
   // the warps' partials summed in warp order into the CTA's tile
   float* red = reinterpret_cast<float*>(smem);
-  float* tile = reinterpret_cast<float*>(smem + kSmem - kTileBytes);
+  float* tile = reinterpret_cast<float*>(smem + R::kSmem - kTileBytes);
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < kSmallBM; ++m)
@@ -410,14 +509,18 @@ w8_gemm_small(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 namespace large {
 
-// BM rows x 128 columns a CTA, a (BM / 16) x 8 micro-tile a thread
-template <int BM>
+// BM rows x 128 columns a CTA, a (BM / 16) x 8 micro-tile a thread; x
+// staged as TX
+template <int BM, typename TX>
 struct Tile {
   static constexpr int kBM = BM;
   static constexpr int kBN = kLargeBN;
   static constexpr int kTM = BM / 16;                     // rows a thread
   static constexpr int kThreads = 256;
-  static constexpr int kXBytes = kBM * kXStride * 4;       // x [bm][36]
+  static constexpr int kXV = Act<TX>::kVec;               // x values a copy
+  static constexpr int kXStride = Act<TX>::kXStride;
+  static constexpr int kXBytes =                          // x [bm][stride]
+      kBM * kXStride * static_cast<int>(sizeof(TX));
   static constexpr int kQBytes = kKT * kBN;                // q [32][bn]
   static constexpr int kStageBytes = kXBytes + kQBytes;
   static constexpr int kRingBytes = kLargeStages * kStageBytes;
@@ -428,29 +531,33 @@ struct Tile {
   static constexpr int kColGroups = kBN / 8;               // 8 columns each
   static constexpr int kRowsPerThread = kKT * kColGroups / kThreads;
   static_assert(kBM * kBN * 4 <= kSmem, "the partial tile fits");
-  static_assert(kBM * kKT / 4 % kThreads == 0 &&
+  static_assert(kXBytes % 16 == 0 && kXStride % kXV == 0,
+                "staged x rows keep 16-byte copies aligned");
+  static_assert(kBM * kKT / kXV % kThreads == 0 &&
+                    kBM * kKT / 8 % kThreads == 0 &&
                     kKT * kBN / 16 % kThreads == 0 &&
                     kKT * kColGroups % kThreads == 0 &&
                     kThreads % kBM == 0 && kBM % 16 == 0,
                 "every thread copies and converts whole shares of a stage");
 };
 
-template <class T, bool kVec>
+template <class T, bool kVec, typename TX>
 __device__ __forceinline__ void load_stage(unsigned char* st,
-                                           const float* __restrict__ x,
+                                           const TX* __restrict__ x,
                                            const int8_t* __restrict__ q,
                                            int m0, int m_rows, int n0, int n,
                                            int k_dim, int k0, int k_end) {
-  float* sx = reinterpret_cast<float*>(st);
+  TX* sx = reinterpret_cast<TX*>(st);
   int8_t* sq = reinterpret_cast<int8_t*>(st + T::kXBytes);
   const int tid = threadIdx.x;
   if constexpr (kVec) {
+    constexpr int kPerRow = kKT / T::kXV;          // copies a staged x row
 #pragma unroll
-    for (int i = 0; i < T::kBM * kKT / 4 / T::kThreads; ++i) {
+    for (int i = 0; i < T::kBM * kKT / T::kXV / T::kThreads; ++i) {
       const int idx = tid + i * T::kThreads;
-      const int r = idx >> 3, c = (idx & 7) * 4;
+      const int r = idx / kPerRow, c = (idx % kPerRow) * T::kXV;
       const bool ok = m0 + r < m_rows && k0 + c < k_end;
-      cp_async16(sx + r * kXStride + c,
+      cp_async16(sx + r * T::kXStride + c,
                  ok ? x + static_cast<size_t>(m0 + r) * k_dim + k0 + c : x,
                  ok);
     }
@@ -465,8 +572,8 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
   } else {
     for (int i = tid; i < T::kBM * kKT; i += T::kThreads) {
       const int r = i / kKT, c = i % kKT;
-      sx[r * kXStride + c] = m0 + r < m_rows && k0 + c < k_end
-          ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + c] : 0.f;
+      sx[r * T::kXStride + c] = m0 + r < m_rows && k0 + c < k_end
+          ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + c] : zero_x<TX>();
     }
     for (int i = tid; i < kKT * T::kBN; i += T::kThreads) {
       const int r = i / T::kBN, c = i % T::kBN;
@@ -476,31 +583,36 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
   }
 }
 
-// stage -> x^T [32][bm] and the dequantized w [32][bn] (buf); a thread
-// converts kRowsPerThread rows of 8 columns, c8.., and keeps their
-// scales. kSlow: a row is past k_end (w = 0) or enters the next block.
-template <class T, bool kVec, bool kSlow>
+// stage -> x^T [32][bm] in fp32 (bf16 x widened here) and the dequantized
+// w [32][bn] (buf); a thread converts kRowsPerThread rows of 8 columns,
+// c8.., and keeps their scales. kSlow: a row is past k_end (w = 0) or
+// enters the next block.
+template <class T, bool kVec, bool kSlow, typename TX>
 __device__ __forceinline__ void convert(const unsigned char* st,
                                         unsigned char* buf,
                                         const float* __restrict__ scales,
                                         float (&sc)[8], int& blk_hi, int n0,
                                         int n, int k0, int k_end, int block) {
   const int tid = threadIdx.x;
-  const float* sx = reinterpret_cast<const float*>(st);
+  const TX* sx = reinterpret_cast<const TX*>(st);
   const int8_t* sq = reinterpret_cast<const int8_t*>(st + T::kXBytes);
   float* xt = reinterpret_cast<float*>(buf);
   float* wt = reinterpret_cast<float*>(buf + T::kXTBytes);
-  constexpr int kXPer = T::kBM * kKT / 4 / T::kThreads;   // float4s a thread
+  constexpr int kXPer = T::kBM * kKT / 8 / T::kThreads;   // 8 values each
   const int m = tid % T::kBM;
 #pragma unroll
   for (int i = 0; i < kXPer; ++i) {
     const int kq = tid / T::kBM + i * (T::kThreads / T::kBM);
-    const float4 v =
-        *reinterpret_cast<const float4*>(sx + m * kXStride + 4 * kq);
-    xt[(4 * kq + 0) * T::kBM + m] = v.x;
-    xt[(4 * kq + 1) * T::kBM + m] = v.y;
-    xt[(4 * kq + 2) * T::kBM + m] = v.z;
-    xt[(4 * kq + 3) * T::kBM + m] = v.w;
+    float4 a, b;
+    load_x8(sx + m * T::kXStride + 8 * kq, a, b);
+    xt[(8 * kq + 0) * T::kBM + m] = a.x;
+    xt[(8 * kq + 1) * T::kBM + m] = a.y;
+    xt[(8 * kq + 2) * T::kBM + m] = a.z;
+    xt[(8 * kq + 3) * T::kBM + m] = a.w;
+    xt[(8 * kq + 4) * T::kBM + m] = b.x;
+    xt[(8 * kq + 5) * T::kBM + m] = b.y;
+    xt[(8 * kq + 6) * T::kBM + m] = b.z;
+    xt[(8 * kq + 7) * T::kBM + m] = b.w;
   }
   const int c8 = (tid % T::kColGroups) * 8;
   constexpr int kSlots = T::kThreads / T::kColGroups;     // row slots
@@ -516,8 +628,8 @@ __device__ __forceinline__ void convert(const unsigned char* st,
                              n, sc);
       }
       const uint2 b = *reinterpret_cast<const uint2*>(sq + r * T::kBN + c8);
-      dequant4(b.x, sc, w);
-      dequant4(b.y, sc + 4, w + 4);
+      dequant4<TX>(b.x, sc, w);
+      dequant4<TX>(b.y, sc + 4, w + 4);
     }
     *reinterpret_cast<float4*>(wt + r * T::kBN + c8) =
         make_float4(w[0], w[1], w[2], w[3]);
@@ -526,7 +638,7 @@ __device__ __forceinline__ void convert(const unsigned char* st,
   }
 }
 
-template <class T, bool kVec>
+template <class T, bool kVec, typename TX>
 __device__ __forceinline__ void convert_tile(const unsigned char* st,
                                              unsigned char* buf,
                                              const float* __restrict__ scales,
@@ -534,22 +646,22 @@ __device__ __forceinline__ void convert_tile(const unsigned char* st,
                                              int n0, int n, int k0, int k_end,
                                              int block) {
   if (k0 + kKT <= k_end && k0 + kKT <= blk_hi)
-    convert<T, kVec, false>(st, buf, scales, sc, blk_hi, n0, n, k0, k_end,
-                            block);
+    convert<T, kVec, false, TX>(st, buf, scales, sc, blk_hi, n0, n, k0,
+                                k_end, block);
   else
-    convert<T, kVec, true>(st, buf, scales, sc, blk_hi, n0, n, k0, k_end,
-                           block);
+    convert<T, kVec, true, TX>(st, buf, scales, sc, blk_hi, n0, n, k0, k_end,
+                               block);
 }
 
 // grid (splits, ceil(N / bn), ceil(M / bm)); as the small kernel. Each
 // k-tile is converted once into one of two buffers while the other feeds
 // the FMAs, so one barrier a k-tile separates them.
-template <int BM, bool kVec>
-__global__ void __launch_bounds__(Tile<BM>::kThreads, 1)
-w8_gemm_large(const float* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ scales, float* __restrict__ y,
+template <int BM, bool kVec, typename TX>
+__global__ void __launch_bounds__(Tile<BM, TX>::kThreads, 1)
+w8_gemm_large(const TX* __restrict__ x, const int8_t* __restrict__ q,
+              const float* __restrict__ scales, TX* __restrict__ y,
               int m_rows, int n, int k_dim, int block, int chunk) {
-  using T = Tile<BM>;
+  using T = Tile<BM, TX>;
   constexpr int TM = T::kTM, kCols = 8;          // rows, columns a thread
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* bufs = smem + T::kRingBytes;
@@ -575,8 +687,8 @@ w8_gemm_large(const float* __restrict__ x, const int8_t* __restrict__ q,
   int blk_hi = 0;
   cp_async_wait<kLargeStages - 2>();
   __syncthreads();
-  convert_tile<T, kVec>(smem, bufs, scales, sc, blk_hi, n0, n, k_begin, k_end,
-                        block);
+  convert_tile<T, kVec, TX>(smem, bufs, scales, sc, blk_hi, n0, n, k_begin,
+                            k_end, block);
   for (int t = 0; t < tiles; ++t) {
     cp_async_wait<kLargeStages - 3>();
     __syncthreads();   // stage t + 1 landed; tile t converted; buffer and
@@ -588,10 +700,10 @@ w8_gemm_large(const float* __restrict__ x, const int8_t* __restrict__ q,
                           k_end);
     cp_async_commit();
     if (t + 1 < tiles)
-      convert_tile<T, kVec>(smem + ((t + 1) % kLargeStages) * T::kStageBytes,
-                            bufs + ((t + 1) & 1) * T::kBufBytes, scales, sc,
-                            blk_hi, n0, n, k_begin + (t + 1) * kKT, k_end,
-                            block);
+      convert_tile<T, kVec, TX>(
+          smem + ((t + 1) % kLargeStages) * T::kStageBytes,
+          bufs + ((t + 1) & 1) * T::kBufBytes, scales, sc, blk_hi, n0, n,
+          k_begin + (t + 1) * kKT, k_end, block);
     const float* xt =
         reinterpret_cast<const float*>(bufs + (t & 1) * T::kBufBytes);
     const float* wt = xt + kKT * T::kBM;
@@ -654,20 +766,21 @@ w8_gemm_large(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 // -- launch --------------------------------------------------------------------
 
-// every kernel the plan can pick, by its rows a CTA: the function, its
-// threads, its shared memory and its columns a CTA
-template <int BM, bool kVec>
+// every kernel the plan can pick, by its rows a CTA and activation type: the
+// function, its threads, its shared memory and its columns a CTA
+template <int BM, typename TX, bool kVec>
 struct Kernel {
-  using T = large::Tile<BM>;
+  using T = large::Tile<BM, TX>;
   static constexpr int kThreads = T::kThreads, kSmem = T::kSmem;
   static constexpr int kBN = T::kBN;
-  static auto fn() { return large::w8_gemm_large<BM, kVec>; }
+  static auto fn() { return large::w8_gemm_large<BM, kVec, TX>; }
 };
-template <bool kVec>
-struct Kernel<kSmallBM, kVec> {
-  static constexpr int kThreads = small::kThreads, kSmem = small::kSmem;
+template <typename TX, bool kVec>
+struct Kernel<kSmallBM, TX, kVec> {
+  static constexpr int kThreads = small::kThreads;
+  static constexpr int kSmem = small::Ring<TX>::kSmem;
   static constexpr int kBN = kSmallBN;
-  static auto fn() { return small::w8_gemm_small<kVec>; }
+  static auto fn() { return small::w8_gemm_small<kVec, TX>; }
 };
 
 // per kernel and process: the attributes are set once, and each cluster size
@@ -677,16 +790,16 @@ struct LaunchState {
   bool cluster_ok[kMaxCluster + 1] = {};
 };
 
-template <int BM, bool kVec>
+template <int BM, typename TX, bool kVec>
 LaunchState& state_of() {
   static LaunchState state;
   return state;
 }
 
-template <int BM, bool kVec>
+template <int BM, typename TX, bool kVec>
 cudaError_t prepare() {
-  using K = Kernel<BM, kVec>;
-  LaunchState& state = state_of<BM, kVec>();
+  using K = Kernel<BM, TX, kVec>;
+  LaunchState& state = state_of<BM, TX, kVec>();
   if (state.attrs) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       K::fn(), cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
@@ -699,10 +812,10 @@ cudaError_t prepare() {
 
 // a launch of `grid` whose clusters are its splits (grid.x); attr holds the
 // cluster dimension the config points to
-template <int BM, bool kVec>
+template <int BM, typename TX, bool kVec>
 cudaLaunchConfig_t config(dim3 grid, cudaStream_t stream,
                           cudaLaunchAttribute* attr) {
-  using K = Kernel<BM, kVec>;
+  using K = Kernel<BM, TX, kVec>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(K::kThreads);
@@ -717,19 +830,19 @@ cudaLaunchConfig_t config(dim3 grid, cudaStream_t stream,
   return cfg;
 }
 
-template <int BM, bool kVec>
-cudaError_t launch(const float* x, const int8_t* q, const float* s, float* y,
+template <int BM, typename TX, bool kVec>
+cudaError_t launch(const TX* x, const int8_t* q, const float* s, TX* y,
                    int m_rows, int n, int k_dim, int block, int chunk,
                    int splits, cudaStream_t stream) {
-  using K = Kernel<BM, kVec>;
-  cudaError_t err = prepare<BM, kVec>();
+  using K = Kernel<BM, TX, kVec>;
+  cudaError_t err = prepare<BM, TX, kVec>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = config<BM, kVec>(
+  cudaLaunchConfig_t cfg = config<BM, TX, kVec>(
       dim3(splits, (n + K::kBN - 1) / K::kBN, (m_rows + BM - 1) / BM),
       stream, &attr);
   if (splits == 1) cfg.numAttrs = 0;
-  LaunchState& state = state_of<BM, kVec>();
+  LaunchState& state = state_of<BM, TX, kVec>();
   if (splits > 1 && !state.cluster_ok[splits]) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, K::fn(), &cfg);
@@ -744,34 +857,61 @@ cudaError_t launch(const float* x, const int8_t* q, const float* s, float* y,
 // the CTAs that grids of clusters of `splits` run at once
 template <int BM, bool kVec>
 cudaError_t cluster_ctas(int splits, int* ctas) {
-  cudaError_t err = prepare<BM, kVec>();
+  cudaError_t err = prepare<BM, float, kVec>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      config<BM, kVec>(dim3(splits), nullptr, &attr);
+      config<BM, float, kVec>(dim3(splits), nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, Kernel<BM, kVec>::fn(),
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, Kernel<BM, float, kVec>::fn(), &cfg);
   *ctas = clusters * splits;
   return err;
 }
 
-template <bool kVec>
-cudaError_t dispatch(const float* x, const int8_t* q, const float* s,
-                     float* y, int m_rows, int n, int k_dim, int block,
-                     int bm, int chunk, int splits, cudaStream_t stream) {
+template <typename TX, bool kVec>
+cudaError_t dispatch(const TX* x, const int8_t* q, const float* s, TX* y,
+                     int m_rows, int n, int k_dim, int block, int bm,
+                     int chunk, int splits, cudaStream_t stream) {
   if (bm == kSmallBM)
-    return launch<kSmallBM, kVec>(x, q, s, y, m_rows, n, k_dim, block, chunk,
-                                  splits, stream);
+    return launch<kSmallBM, TX, kVec>(x, q, s, y, m_rows, n, k_dim, block,
+                                      chunk, splits, stream);
   if (bm == 64)
-    return launch<64, kVec>(x, q, s, y, m_rows, n, k_dim, block, chunk,
-                            splits, stream);
-  return launch<128, kVec>(x, q, s, y, m_rows, n, k_dim, block, chunk,
-                           splits, stream);
+    return launch<64, TX, kVec>(x, q, s, y, m_rows, n, k_dim, block, chunk,
+                                splits, stream);
+  return launch<128, TX, kVec>(x, q, s, y, m_rows, n, k_dim, block, chunk,
+                               splits, stream);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// both C entry points: check the plan, pick the vector path, launch
+template <typename TX>
+int gemm(const void* x, const void* q, const void* scales, void* y,
+         int m_rows, int n, int k_dim, int block, int bm, int chunk,
+         int splits, void* stream) {
+  if (m_rows < 1 || n < 1 || k_dim < 1 || block < 1 || k_dim % block ||
+      (bm != kSmallBM && bm != 64 && bm != 128) || chunk < 1 ||
+      chunk % (bm == kSmallBM ? kSmallKT : kKT) || splits < 1 ||
+      splits > kMaxCluster || splits != (k_dim + chunk - 1) / chunk ||
+      (n + kSmallBN - 1) / kSmallBN > 65535 || (m_rows + bm - 1) / bm > 65535)
+    return cudaErrorInvalidValue;
+  const bool vec = n % 16 == 0 && k_dim % Act<TX>::kVec == 0 &&
+                   aligned16(x) && aligned16(q) && aligned16(scales) &&
+                   aligned16(y);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xt = static_cast<const TX*>(x);
+  const auto* qi = static_cast<const int8_t*>(q);
+  const auto* sf = static_cast<const float*>(scales);
+  auto* yt = static_cast<TX*>(y);
+  const cudaError_t err =
+      vec ? dispatch<TX, true>(xt, qi, sf, yt, m_rows, n, k_dim, block, bm,
+                               chunk, splits, st)
+          : dispatch<TX, false>(xt, qi, sf, yt, m_rows, n, k_dim, block, bm,
+                                chunk, splits, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -791,25 +931,18 @@ const char* pt_error_string(int err) {
 int pt_w8_gemm(const void* x, const void* q, const void* scales, void* y,
                int m_rows, int n, int k_dim, int block, int bm, int chunk,
                int splits, void* stream) {
-  if (m_rows < 1 || n < 1 || k_dim < 1 || block < 1 || k_dim % block ||
-      (bm != kSmallBM && bm != 64 && bm != 128) || chunk < 1 ||
-      chunk % (bm == kSmallBM ? kSmallKT : kKT) || splits < 1 ||
-      splits > kMaxCluster || splits != (k_dim + chunk - 1) / chunk ||
-      (n + kSmallBN - 1) / kSmallBN > 65535 || (m_rows + bm - 1) / bm > 65535)
-    return cudaErrorInvalidValue;
-  const bool vec = n % 16 == 0 && k_dim % 4 == 0 && aligned16(x) &&
-                   aligned16(q) && aligned16(scales) && aligned16(y);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* qi = static_cast<const int8_t*>(q);
-  const auto* sf = static_cast<const float*>(scales);
-  auto* yf = static_cast<float*>(y);
-  const cudaError_t err =
-      vec ? dispatch<true>(xf, qi, sf, yf, m_rows, n, k_dim, block, bm,
-                           chunk, splits, st)
-          : dispatch<false>(xf, qi, sf, yf, m_rows, n, k_dim, block, bm,
-                            chunk, splits, st);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return gemm<float>(x, q, scales, y, m_rows, n, k_dim, block, bm, chunk,
+                     splits, stream);
+}
+
+// The bf16 mode: x [M, K] and y [M, N] bf16, q and scales as above, the
+// same plan. Each weight is rounded to bf16 once, the sums run in fp32 and
+// y is rounded to bf16 once.
+int pt_w8_gemm_bf16(const void* x, const void* q, const void* scales,
+                    void* y, int m_rows, int n, int k_dim, int block, int bm,
+                    int chunk, int splits, void* stream) {
+  return gemm<bf16>(x, q, scales, y, m_rows, n, k_dim, block, bm, chunk,
+                    splits, stream);
 }
 
 // The CTAs that a grid of the kernel for `bm` (16, 64 or 128; vector path

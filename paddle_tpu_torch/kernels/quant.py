@@ -21,15 +21,19 @@ visible after dequantization instead of being clipped finite.
   same int8 planes and the same scales bit for bit.
 
 ``int8_weight_matmul(x, q, scales)`` is ``x @ dequantize_int8_weight(q,
-scales)``. For CUDA tensors it launches ``csrc/w8_gemm.cu`` (fp32 x; each
-int8 element is dequantized once a CTA, so only the int8 planes and the
-scales are read from device memory) in the regime and with the K splits
-that ``w8_plan`` picks from the shapes, or raises; for CPU tensors it runs
-the plain version. The
-reference has no Pallas kernel here: its decode step dequantizes inside
-the traced step and XLA fuses the multiply into the matmul's operand read.
-``launches`` counts the kernel's launches (a plain integer, reset and read
-by ``chip_smoke.py``).
+scales, x.dtype)`` in ``x``'s dtype, float32 or bfloat16. For CUDA tensors
+it launches ``csrc/w8_gemm.cu`` (each int8 element is dequantized once a
+CTA, so only the int8 planes and the scales are read from device memory)
+in the regime and with the K splits that ``w8_plan`` picks from the
+shapes, or raises; for CPU tensors it runs the plain version. A float32
+``x`` runs the kernel's fp32 mode (``pt_w8_gemm``); a bfloat16 ``x`` its
+bf16 mode (``pt_w8_gemm_bf16``), the reference's numerics for a bf16
+model: each weight rounded to bf16 once, the products summed in fp32, the
+output rounded to bf16 once. The reference has no Pallas kernel here: its
+decode step dequantizes inside the traced step (to the weight's dtype)
+and XLA fuses the multiply into the matmul's operand read. ``launches``
+counts the kernel's launches in both modes and ``bf16_launches`` those of
+the bf16 mode (plain integers, reset and read by ``chip_smoke.py``).
 
 ``int8_weight_routes(table)`` is the context the serving engine enters
 around its decode and mixed steps: inside it, every ``nn.Linear`` found in
@@ -70,14 +74,18 @@ W8_CLUSTER_SMS = (132, 132, 117, 120, 110, 102, 105, 120,
 # eighths: tuned against the split counts tools/w8_timing.py --sweep times
 W8_SMALL_RAMP, W8_LARGE_RAMP, W8_BM64_COST = 160, 32, 10
 
-# kernel launches since the last reset
+# kernel launches since the last reset: both modes, and the bf16 mode
 launches = 0
+bf16_launches = 0
 # the loaded csrc/w8_gemm.cu, once built
 _lib = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"pt_w8_gemm": [_P] * 4 + [_I] * 7 + [_P],
+               "pt_w8_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
                "pt_w8_cluster_ctas": [_I] * 3 + [_P]}
+# the C entry point of each activation dtype
+_ENTRY = {torch.float32: "pt_w8_gemm", torch.bfloat16: "pt_w8_gemm_bf16"}
 
 
 def _group_scales(amax):
@@ -228,12 +236,13 @@ def _library():
 
 
 def int8_weight_matmul(x, q, scales):
-    """``x (..., K) @ dequantize_int8_weight(q (K, N), scales (K / b, N))``
-    -> ``(..., N)``.
+    """``x (..., K) @ dequantize_int8_weight(q (K, N), scales (K / b, N),
+    x.dtype)`` -> ``(..., N)`` in ``x``'s dtype.
 
-    CUDA tensors launch ``csrc/w8_gemm.cu`` (fp32 ``x`` contiguous along
-    its rows, int8 ``q`` and fp32 ``scales`` contiguous; ``b`` divides
-    ``K``) or raise; CPU tensors take the plain version."""
+    CUDA tensors launch ``csrc/w8_gemm.cu`` (float32 or bfloat16 ``x``,
+    contiguous; int8 ``q`` and fp32 ``scales`` contiguous; ``b`` divides
+    ``K``) in the mode of ``x``'s dtype, or raise; CPU tensors take the
+    plain version."""
     if q.dim() != 2 or scales.dim() != 2 or x.shape[-1] != q.shape[0] \
             or scales.shape[1] != q.shape[1] or scales.shape[0] < 1 \
             or q.shape[0] % scales.shape[0]:
@@ -246,28 +255,30 @@ def int8_weight_matmul(x, q, scales):
     if dev.type != "cuda" or q.device != dev or scales.device != dev:
         raise ValueError("int8_weight_matmul: all inputs must be on one "
                          "CUDA device or all on the CPU")
-    if x.dtype != torch.float32 or q.dtype != torch.int8 \
+    if x.dtype not in _ENTRY or q.dtype != torch.int8 \
             or scales.dtype != torch.float32:
-        raise ValueError("int8_weight_matmul: the kernel takes float32 x, "
-                         "int8 q and float32 scales, got %s/%s/%s"
-                         % (x.dtype, q.dtype, scales.dtype))
+        raise ValueError("int8_weight_matmul: the kernel takes float32 or "
+                         "bfloat16 x, int8 q and float32 scales, got "
+                         "%s/%s/%s" % (x.dtype, q.dtype, scales.dtype))
     if not (x.is_contiguous() and q.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("int8_weight_matmul: inputs must be contiguous")
     k, n = q.shape
     m = x.numel() // k
-    out = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32, device=dev)
+    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=dev)
     if m == 0:
         return out
     bm, chunk, splits = w8_plan(m, n, k)
     lib = _library()
-    err = lib.pt_w8_gemm(
+    err = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
         m, n, k, k // scales.shape[0], bm, chunk, splits,
         _build.stream_handle(dev))
     _build.check(lib, err, "int8_weight_matmul")
-    global launches
+    global launches, bf16_launches
     launches += 1
+    if x.dtype == torch.bfloat16:
+        bf16_launches += 1
     return out
 
 

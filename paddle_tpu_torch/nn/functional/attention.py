@@ -23,10 +23,21 @@ import numpy as np
 from ...kernels.flash_attention import FlashAttention
 
 
-def scaled_dot_product_attention(query, key, value, is_causal=False,
-                                 scale=None):
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False, scale=None,
+                                 training=True):
     """``[B, N, H, D]`` attention output; ``scale`` defaults to
-    ``1/sqrt(D)``."""
+    ``1/sqrt(D)``. The parameters are the reference's, in its order, so a
+    positional call means the same in both packages. ``attn_mask`` and
+    ``dropout_p`` are not ported yet: a mask other than None or a non-zero
+    ``dropout_p`` raises NotImplementedError (``training`` only matters to
+    dropout)."""
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: attn_mask is not ported yet")
+    if dropout_p:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: dropout_p is not ported yet")
     return FlashAttention.apply(query, key, value, is_causal, scale)
 
 

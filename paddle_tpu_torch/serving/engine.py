@@ -73,8 +73,16 @@ through its external-cache hook. The pools are updated in place. Greedy
 decoding (argmax) only, which is what lets the tests hold the port's
 tokens equal to the reference engine's.
 
-Not in this slice: record/replay, the OOM site and its forensics, and
-the monitor, trace and memory planes.
+Record/replay (``FLAGS_serving_replay``, latched at construction like
+the tier-2 flags): the engine holds ``replay.recorder(self)``, None while
+the flag is off, and captures each request into the journal
+(``serving/replay.py``) when it is accepted (before it is queued) and at
+each terminal state: finished, expired, shed and failed. With the flag
+off each capture site is one ``is None`` branch. ``weights_generation``
+is stamped into every entry (no weight swap exists yet, so it stays 0).
+
+Not in this slice: the OOM site and its forensics, and the monitor, trace
+and memory planes.
 """
 from __future__ import annotations
 
@@ -88,6 +96,7 @@ from ..core import flags
 from ..device import resolve_device
 from ..kernels.quant import int8_weight_routes, quantize_int8_weight
 from ..resilience import faultinject as _fi
+from . import replay
 from .kv_cache import (PagedDecodeView, PagedKVCache, PagedMixedView,
                        PagedPrefillView)
 from .metrics import EngineMetrics, now
@@ -203,6 +212,11 @@ class Engine:
         # slot_tokens[s]: the slot's last generated token, not yet written
         # to KV: the next decode step's input for that slot
         self._slot_tokens = np.zeros((max_slots,), np.int64)
+        # stamped into every replay entry; a weight swap would bump it
+        self.weights_generation = 0
+        # the record/replay recorder (FLAGS_serving_replay), latched last:
+        # it snapshots the latches above; None while the flag is off
+        self._replay = replay.recorder(self)
 
     # -- public API -------------------------------------------------------
 
@@ -242,10 +256,15 @@ class Engine:
                       deadline_s=deadline_s)
         self._next_id += 1
         self.requests[req.id] = req
+        rec = self._replay
+        if rec is not None:
+            rec.admit(req, deadline_s=deadline_s)
         self.metrics.on_request_in()
         if max_new_tokens == 0:
             req.finish()
             self.metrics.on_request_finished(len(req.generated))
+            if rec is not None:
+                rec.terminal(req)
             return req.id
         self.scheduler.add(req)
         return req.id
@@ -329,6 +348,8 @@ class Engine:
             req.close(RequestState.EXPIRED, "deadline")
             self._quarantine.discard(req.id)
             self.metrics.on_request_shed("expired")
+            if self._replay is not None:
+                self._replay.terminal(req)
 
     def _admit_and_prefill(self):
         while True:
@@ -368,6 +389,8 @@ class Engine:
         req.close(RequestState.FAILED, "poison", error=exc)
         self._quarantine.discard(req.id)
         self.metrics.on_request_shed("poison")
+        if self._replay is not None:
+            self._replay.terminal(req)
 
     def _bucket(self, n):
         """Prefill length bucket: next power of two (>= 8), capped at
@@ -483,6 +506,8 @@ class Engine:
                         req.close(RequestState.SHED, "preempt_cap")
                         self._quarantine.discard(req.id)
                         self.metrics.on_request_shed("preempt_cap")
+                        if self._replay is not None:
+                            self._replay.terminal(req)
                         break
                     raise RuntimeError(
                         "KV pool exhausted by a single request; "
@@ -626,3 +651,5 @@ class Engine:
             req.finish()
             self._quarantine.discard(req.id)    # survived its solo decode
             self.metrics.on_request_finished(len(req.generated))
+            if self._replay is not None:
+                self._replay.terminal(req)

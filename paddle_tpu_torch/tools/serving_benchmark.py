@@ -10,6 +10,7 @@ port of tools/serving_benchmark.py's single-engine path).
         [--shared-prefix-tokens T] [--prefix-groups G]
         [--max-queue Q] [--deadline-s D]
         [--fault-rate P | --fault-schedule S] [--fault-seed N]
+        [--record-out journal.jsonl] [--replay journal.jsonl]
         [--out report.json]
 
 A seeded open-loop workload: requests arrive by a Poisson process of
@@ -40,8 +41,21 @@ Eager PyTorch compiles nothing, so the reference's ``decode_compiles``,
 here and are left out. The warm-up still matters: it builds every kernel
 library (``nvcc``, at first use), makes cuBLAS's handles and runs one
 request through the engine's prefill and decode (or mixed) path before
-the measured window; its time is ``warmup_s``. Not ported: the fleet
-mode, record/replay, and the SLO, profile, monitor and trace outputs.
+the measured window; its time is ``warmup_s``.
+
+Record/replay, as in the reference tool: ``--record-out PATH`` latches
+``FLAGS_serving_replay`` for the engine's construction, drops the warm-up's
+entries, and after the window writes the journal of every measured request
+(``serving/replay.py``) with the model meta ``ptreplay`` rebuilds from:
+``{"preset", "seed", "config"}`` and ``"weights"``, which names the port's
+initialisation (the preset drawn by ``torch.Generator(device)`` from
+``--seed``). A ``model`` passed to ``run`` must be that model.
+``--replay PATH`` runs nothing of its own: it re-drives the journal
+through ``tools/ptreplay.py`` (``run_replay``) on ``--device``, writes the
+divergence report to ``--out`` and exits 2 on a divergence.
+
+Not ported: the fleet mode, and the SLO, profile, monitor and trace
+outputs.
 """
 from __future__ import annotations
 
@@ -57,7 +71,9 @@ from .. import _build
 from ..core import flags
 from ..models import LlamaConfig, LlamaForCausalLM
 from ..resilience import faultinject
-from ..serving import AdmissionError, Engine
+from ..serving import AdmissionError, Engine, replay
+from ..serving.replay import token_hash
+from . import ptreplay
 
 PRESETS = {
     # geometry only: the weights are random (throughput, not quality)
@@ -69,7 +85,8 @@ PRESETS = {
                     vocab_size=32000, max_position_embeddings=2048),
 }
 _FLAGS = ("FLAGS_serving_prefix_cache", "FLAGS_serving_chunked_prefill",
-          "FLAGS_serving_quant_kv", "FLAGS_serving_quant_weights")
+          "FLAGS_serving_quant_kv", "FLAGS_serving_quant_weights",
+          "FLAGS_serving_replay")
 
 
 def _pct(values, q):
@@ -81,17 +98,6 @@ def _pcts(values):
     """Aggregate percentile row (p50/p90/p99) for the JSON report."""
     return {"p50": _pct(values, 50), "p90": _pct(values, 90),
             "p99": _pct(values, 99)}
-
-
-def token_hash(tokens):
-    """Rolling FNV-1a-64 over token ids, as a hex digest (the port's copy
-    of paddle_tpu/serving/replay.py ``token_hash``): the order-sensitive
-    digest two reports compare for token identity."""
-    h = 0xcbf29ce484222325
-    for t in tokens:
-        h ^= int(t) & 0xFFFFFFFFFFFFFFFF
-        h = (h * 0x100000001b3) & 0xFFFFFFFFFFFFFFFF
-    return "%016x" % h
 
 
 def workload(args, vocab_size):
@@ -133,12 +139,13 @@ def card_identity(device):
 
 
 def build_engine(model, args, num_blocks, device):
-    """The engine with the tier-2 flags of ``args`` set for its
+    """The engine with the tier-2 and replay flags of ``args`` set for its
     construction (they are latched there) and restored right after."""
     before = flags.get_flags(list(_FLAGS))
     flags.set_flags(dict(zip(_FLAGS, (
         bool(args.prefix_cache), bool(args.chunked_prefill),
-        bool(args.quant_kv), bool(args.quant_weights)))))
+        bool(args.quant_kv), bool(args.quant_weights),
+        bool(args.record_out)))))
     try:
         return Engine(model, max_slots=args.max_slots, num_blocks=num_blocks,
                       block_size=args.block_size,
@@ -170,6 +177,11 @@ def run(args, model=None):
     if args.quant_kv:
         num_blocks = max(args.num_blocks, args.num_blocks * fp32_page_bytes
                          // quant_page_bytes)
+    if args.record_out:
+        # a fresh journal for this run, large enough that the measured
+        # workload never evicts its own head
+        replay.clear()
+        replay.enable(capacity=max(2 * args.requests + 64, 256))
     eng = build_engine(model, args, num_blocks, device)
 
     # warm-up outside the window: the kernels' build and one request
@@ -191,6 +203,9 @@ def run(args, model=None):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     warmup_s = time.perf_counter() - t0
+    if args.record_out:
+        # the warm-up request probes shapes; the journal holds the window
+        replay.drop_entries()
     base = eng.stats()    # counters up to here are the warm-up's
     eng.max_queue = args.max_queue
     eng.default_deadline_s = args.deadline_s
@@ -268,6 +283,15 @@ def run(args, model=None):
     ttft_miss = [m["ttft_s"] for m in per_req if m["ttft_s"] is not None
                  and m["prefix_cached_tokens_first"] == 0]
     name, power = card_identity(device)
+    journal = None
+    if args.record_out:
+        replay.note_model({"preset": args.preset, "seed": args.seed,
+                           "config": dict(PRESETS[args.preset]),
+                           "weights": ptreplay.weights_meta(device)})
+        head, entries = replay.write_journal(args.record_out)
+        replay.disable()
+        journal = {"path": args.record_out, "entries": len(entries),
+                   "evictions": head["evictions"]}
     return {
         "kind": "serving_bench",
         "metric": "serving_throughput_tok_s",
@@ -345,6 +369,7 @@ def run(args, model=None):
             None if fault_state is None else
             {r["rule"]: r["fired"] for r in fault_state["rules"]}),
         "measured_at": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "replay_journal": journal,
         "requests_detail": per_req,
     }
 
@@ -397,11 +422,25 @@ def parser():
                     help="every prompt starts with one of --prefix-groups "
                          "shared prefixes of this many tokens")
     ap.add_argument("--prefix-groups", type=int, default=4)
+    ap.add_argument("--record-out", default=None,
+                    help="FLAGS_serving_replay: journal every measured "
+                         "request (prompt ids, flags, weights generation, "
+                         "output token hash) to this JSONL path; ptreplay "
+                         "run re-drives it and diffs token for token")
+    ap.add_argument("--replay", default=None,
+                    help="re-drive a --record-out journal instead of a "
+                         "workload: delegates to tools/ptreplay.py on "
+                         "--device, writes the divergence report to --out; "
+                         "exit code 2 on a divergence")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.replay:
+        return ptreplay.run_replay(argparse.Namespace(
+            journal=args.replay, out=args.out, full=False, matrix=False,
+            against=None, device=args.device))
     report = run(args)
     print(json.dumps({k: v for k, v in report.items()
                       if k != "requests_detail"}), flush=True)

@@ -31,10 +31,17 @@ SITES = ["serving.prefill", "serving.decode", "serving.step", "store.get",
 
 @pytest.fixture(autouse=True)
 def _disarm():
+    saved = dict(jax_fi._FAULTS._values)
     yield
     for mod in (jax_fi, fi):
         mod.enable("", seed=0)
         mod.disable()
+    # the reference's fire() also counts into the JAX monitor registry's
+    # faults_injected_total, which reference tests read in this process:
+    # put its samples back as this test found them
+    with jax_fi._FAULTS._lock:
+        jax_fi._FAULTS._values.clear()
+        jax_fi._FAULTS._values.update(saved)
 
 
 def _trace(mod, schedule, seed, calls=60):

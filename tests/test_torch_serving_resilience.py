@@ -69,10 +69,17 @@ def _reset_faults():
 
 @pytest.fixture(autouse=True)
 def _clean():
+    saved = dict(jax_fi._FAULTS._values)
     _reset_faults()
     yield
     _set()
     _reset_faults()
+    # the JAX engine's faults count into the JAX monitor registry's
+    # faults_injected_total, which reference tests read in this process:
+    # put its samples back as this test found them
+    with jax_fi._FAULTS._lock:
+        jax_fi._FAULTS._values.clear()
+        jax_fi._FAULTS._values.update(saved)
 
 
 @pytest.fixture(scope="module")
