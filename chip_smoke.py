@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase swallows an exception):
   2. build      compile every kernel from csrc/ (one nvcc per source, in
                 parallel) and print the build seconds and, per kernel,
                 ptxas's registers and spill bytes (the fused CE kernels'
-                float32 modes must spill none)
+                float32 modes and the int8-weight GEMM's bf16 tensor-core
+                kernels must spill none)
   3. kernels    hold each kernel against its plain PyTorch version on the
                 card at the serving and training paths' shapes, in float32
                 and bfloat16, and time the kernel, the plain version and
@@ -39,7 +40,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 beside the port's unfused tail and, as a yardstick,
                 torch.matmul of the same products over the same chunks
   3c. tier 2    the mixed paged kernel (fp32/bf16/int8) and the decode
-                kernel's int8 mode against their plain versions; with
+                kernel's int8 and bf16 modes against their plain versions
+                (the bf16 one timed at the decode batch, CUDA events and
+                profiler device time, beside its bytes bound); with
                 phase 3 the history splits: one 2048-token slot beside 15
                 idle ones, lengths 255/256/257 at a 256-token split, a
                 256-page table of short histories, row tiles whose last
@@ -138,12 +141,16 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 rebuilt from the journal's meta: zero divergences; a
                 perturbed weight leaf must diverge (its first diverging
                 index printed) and the matrix must name ``weights``;
-                (a) the int8-weight GEMM's bf16 mode against its plain
-                version on a bf16 llama1b's layer-0 weights in both regimes
-                (M = 1, 5, 16, 17, 64, 256; the fused shapes; K = 1000, a
-                ragged last split, on and off the vector path), within one
-                bf16 ulp of the value, two launches bit for bit, timed at
-                M = 16 and 256 beside torch.matmul on the bf16-dequantized
+                (a) the int8-weight GEMM's bf16 mode (tensor cores:
+                mma.sync at M <= 32, wgmma above) against its plain
+                version (its split-K
+                partials summed in fp32) on a bf16 llama1b's layer-0
+                weights at every tile height (M = 1, 5, 16, 17, 33, 64,
+                256; the fused shapes; K = 1000, a ragged last split, on
+                and off the vector path; K = 1032, a last stage 8 rows
+                deep, with N = 2048 and an odd N = 37), within one bf16 ulp
+                of the value, two launches bit for bit, timed at M = 16
+                and 256 beside torch.matmul on the bf16-dequantized
                 weight; (b) that bf16 llama1b at full width behind
                 serving.Engine with flags off, prefix cache + chunked
                 prefill, int8 KV and int8 weights, prompts in the 8, 16,
@@ -167,6 +174,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -315,10 +323,11 @@ def ptxas_report(text):
     return rows
 
 
-# the fused lm_head + CE kernels' float32 modes (phase 2 holds them at 0
-# spill bytes)
+# the fused lm_head + CE kernels' float32 modes and kernel 10's bf16
+# tensor-core kernels (name prefixes): phase 2 holds them at 0 spill bytes
 FCE_FP32_KERNELS = ("fce_fwd_partial", "fce_fwd_combine", "fce_bwd_dl",
                     "fce_bwd_dh", "fce_bwd_dh64", "fce_bwd_dw")
+W8_BF16_KERNELS = ("w8_gemm_mma<", "w8_gemm_wgmma<")
 
 
 def phase_build():
@@ -342,12 +351,16 @@ def phase_build():
                     row.get("spill_loads")))
         report[name] = rows
     # the fused CE kernels' float32 modes run at the register cap (8 x 16
-    # accumulators a thread): a spill there is a regression, not a detail
-    spilled = [r["kernel"] for r in report.get("fused_ce", ())
-               if r["kernel"] in FCE_FP32_KERNELS
+    # accumulators a thread), and kernel 10's bf16 tensor-core kernels at
+    # 128 (four CTAs an SM) or one CTA an SM: a spill in either is a
+    # regression, not a detail
+    spilled = [r["kernel"] for name, keep in (
+                   ("fused_ce", lambda k: k in FCE_FP32_KERNELS),
+                   ("w8_gemm", lambda k: k.startswith(W8_BF16_KERNELS)))
+               for r in report.get(name, ()) if keep(r["kernel"])
                and (r.get("spill_stores") or r.get("spill_loads"))]
     if spilled:
-        raise AssertionError("float32 fused-CE kernels spill: %s" % spilled)
+        raise AssertionError("kernels spill: %s" % spilled)
     return report
 
 
@@ -599,8 +612,12 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
                   + pool_bytes(pools, pages, kv_heads, head_dim, block_size)
                   + sum(pages) * 4 + s * 4)
         flops = 4 * tokens * heads * head_dim
-        row["ms"] = time_ms(lambda: pa.paged_attention(
-            q, block_tables=bt, seq_lens=sl, **kv))
+        def kernel():
+            return pa.paged_attention(q, block_tables=bt, seq_lens=sl, **kv)
+
+        row["ms"] = time_ms(kernel)
+        row["device_ms"] = device_ms(
+            kernel, "paged_decode", per_call=1 + (row["split"]["splits"] > 1))
         row["plain_ms"] = time_ms(lambda: pa.paged_attention_reference(
             q, block_tables=bt, seq_lens=sl, **kv))
         row["library_ms"] = None
@@ -784,11 +801,15 @@ HORIZON_TILES = dict(hist=[255], q_lens=[64], chunk=64, heads=16,
 
 
 def phase_tier2_kernels(seed):
-    """Phase 3c: kernel 8 in its three modes and kernel 7's int8 mode."""
+    """Phase 3c: kernel 8 in its three modes, kernel 7's int8 mode, and
+    kernel 7's bf16 mode (bf16 q and pools) timed at the decode batch."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = {"mixed_paged_attention": [], "mixed_paged_attention_bf16": [],
-            "mixed_paged_attention_int8": [], "paged_attention_int8": []}
+            "mixed_paged_attention_int8": [], "paged_attention_int8": [],
+            "paged_attention_bf16": [
+                paged_case(gen, PAGED_LENS, 16, 16, bf16, timed=True,
+                           bitwise=True)]}
     for dtype, key in ((f32, "mixed_paged_attention"),
                        (bf16, "mixed_paged_attention_bf16")):
         rows[key] += [
@@ -1553,10 +1574,36 @@ BENCH_ROWS = (
                     "serving.prefill:error@3;serving.decode:error@5"]))
 
 
-def w8_device_ms(fn, calls=10, tries=5):
-    """The int8-weight GEMM's own device time per call, from the profiler
-    (every CUDA kernel whose name holds "w8_gemm"); a window in which the
-    profiler recorded fewer launches than were made is measured again."""
+def queued_ms(fn, calls=10, reps=5):
+    """Device time per call by CUDA events around ``calls`` launches queued
+    behind a sleep kernel: the host enqueues them all while the device
+    sleeps, so its own cost is hidden (the gaps between launches stay)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(20_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_ms(fn, match, per_call=1, calls=10, tries=5):
+    """A wrapper's own device time per call, from the profiler: every CUDA
+    kernel whose name holds ``match``, ``per_call`` kernels a call (each
+    launched once a call), as the sum of each kernel's mean time. The
+    profiler at times drops one event of a window (19 of 20 paged
+    launches, in every window of one run); a window missing more than one
+    call's worth is measured again. It has also recorded none of a
+    kernel's launches in every window of a run (kernel 10's wgmma kernel,
+    twice in a dozen runs); then the time is ``queued_ms``'s, and a line
+    says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1568,13 +1615,21 @@ def w8_device_ms(fn, calls=10, tries=5):
             torch.cuda.synchronize()
         evts = [evt for evt in prof.key_averages()
                 if evt.device_type == torch.autograd.DeviceType.CUDA
-                and "w8_gemm" in evt.key]
-        if sum(evt.count for evt in evts) == calls:
+                and match in evt.key]
+        if sum(evt.count for evt in evts) >= (calls - 1) * per_call:
             break
     else:
-        raise AssertionError("[w8] the profiler recorded %d of %d launches"
-                             % (sum(e.count for e in evts), calls))
-    return sum(evt.self_device_time_total for evt in evts) / 1e3 / calls
+        if evts:
+            raise AssertionError("[%s] the profiler recorded %d of %d "
+                                 "launches" % (match,
+                                               sum(e.count for e in evts),
+                                               calls * per_call))
+        ms = queued_ms(fn, calls)
+        log("[device_ms] the profiler recorded no %s launch in %d windows: "
+            "%.4f ms by CUDA events behind a sleep kernel" % (match, tries,
+                                                             ms))
+        return ms
+    return sum(evt.self_device_time_total / evt.count for evt in evts) / 1e3
 
 
 def w8_case(x, q, scales, w, tag, timed):
@@ -1603,7 +1658,7 @@ def w8_case(x, q, scales, w, tag, timed):
         def kernel():
             return quant.int8_weight_matmul(x, q, scales)
 
-        row.update(ms=time_ms(kernel), device_ms=w8_device_ms(kernel),
+        row.update(ms=time_ms(kernel), device_ms=device_ms(kernel, "w8_gemm"),
                    plain_ms=time_ms(
                        lambda: quant.int8_weight_matmul_reference(x, q,
                                                                   scales)),
@@ -1679,10 +1734,10 @@ def w8_layer_numbers(rows, bf16=False):
     decode = layer(16)
     mixed = layer(256)
     if bf16:
-        log("[w8 bf16] one layer's 7 projections: M = 16 (cluster split-K) "
-            "%.4f ms (device %.4f), bound %.4f, torch.matmul bf16-dequantized "
-            "weight %.4f; M = 256 (register-tiled) %.4f ms (device %.4f), "
-            "bound %.4f, torch.matmul %.4f" % (
+        log("[w8 bf16] one layer's 7 projections: M = 16 (mma.sync, 16-row "
+            "CTAs) %.4f ms (device %.4f), bound %.4f, torch.matmul "
+            "bf16-dequantized weight %.4f; M = 256 (wgmma, 64/128-row "
+            "CTAs) %.4f ms (device %.4f), bound %.4f, torch.matmul %.4f" % (
                 decode["ms"], decode["device_ms"], decode["bound_ms"],
                 decode["library_ms"], mixed["ms"], mixed["device_ms"],
                 mixed["bound_ms"], mixed["library_ms"]))
@@ -1696,9 +1751,10 @@ def w8_layer_numbers(rows, bf16=False):
                     tolerance="one bf16 ulp of the plain version's value "
                               "(2^-7 |y|) + 2^-16 max|y|",
                     timed_case="one bf16 llama1b layer's 7 projections, "
-                               "M = 16 (the decode step, cluster split-K)",
+                               "M = 16 (the decode step; mma.sync, 16-row "
+                               "CTAs, cluster split-K)",
                     mixed_step=dict(case="the same, M = 256 (the mixed "
-                                         "step, register-tiled GEMM)",
+                                         "step; wgmma, 64/128-row CTAs)",
                                     **{k: v for k, v in mixed.items()
                                        if k not in ("bytes_ms",
                                                     "operations_ms")}),
@@ -1871,9 +1927,31 @@ def phase_serving_bench(seed, model):
 W8_BF16_ULP = 2.0 ** -7
 W8_BF16_FLOOR = 2.0 ** -16
 # off the vector path (N = 24), and K = 1000, which no split of the small
-# regime's 96-row granule divides (a ragged last split), on both paths
-W8_BF16_EDGE_SHAPES = ((1000, 24), (1000, 2048))
-W8_BF16_MS = (1, 5, 16, 17, 64, 256)
+# regime's 96-row granule divides (a ragged last split), on both paths;
+# K = 1032 (b = 8), whose last 64-row stage is 8 rows deep, on the vector
+# path and with an odd N (37) on the plain-load path
+W8_BF16_EDGE_SHAPES = ((1000, 24), (1000, 2048), (1032, 2048), (1032, 37))
+# both warp rows' tiles: 16, 32 (one warp row), 64, 128 (two); M = 33 is
+# past two m16 tiles (a 64-row CTA, 31 rows zero-filled)
+W8_BF16_MS = (1, 5, 16, 17, 33, 64, 256)
+
+
+@contextlib.contextmanager
+def fp32_sums():
+    """cuBLAS's bf16 GEMMs with their split-K partials summed in fp32, as
+    the plain version's numerics say (each product exact, fp32 sums, one
+    rounding). PyTorch lets cuBLAS sum them in bf16 by default
+    (``allow_bf16_reduced_precision_reduction``), and at a skinny shape
+    (K = 1032, N = 37, M = 5 and 16) the plain version so summed fell
+    outside this phase's tolerance of a kernel that matched the
+    fp32-summed product."""
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
 
 
 def check_ulp(name, got, want):
@@ -1898,14 +1976,14 @@ def w8_bf16_case(x, q, scales, tag, timed):
     n = q.shape[1]
     got = quant.int8_weight_matmul(x, q, scales)
     again = quant.int8_weight_matmul(x, q, scales)
-    want = quant.int8_weight_matmul_reference(x, q, scales)
+    with fp32_sums():
+        want = quant.int8_weight_matmul_reference(x, q, scales)
     torch.cuda.synchronize()
     if got.dtype != torch.bfloat16:
         raise AssertionError("%s: output dtype %s" % (tag, got.dtype))
-    bm, chunk, splits = quant.w8_plan(m, n, k)
+    bm, chunk, splits = quant.w8_plan_bf16(m, n, k)
     row = {"case": tag, "mkn": [m, k, n],
-           "regime": "cluster split-K" if bm == quant.W8_SMALL_BM
-           else "register-tiled GEMM",
+           "regime": "mma.sync" if bm <= 32 else "wgmma",
            "plan": dict(bm=bm, chunk=chunk, splits=splits),
            "max_abs_err": check_ulp(tag, got, want),
            "bitwise": bool(torch.equal(got, again))}
@@ -1918,7 +1996,7 @@ def w8_bf16_case(x, q, scales, tag, timed):
         def kernel():
             return quant.int8_weight_matmul(x, q, scales)
 
-        row.update(ms=time_ms(kernel), device_ms=w8_device_ms(kernel),
+        row.update(ms=time_ms(kernel), device_ms=device_ms(kernel, "w8_gemm"),
                    plain_ms=time_ms(
                        lambda: quant.int8_weight_matmul_reference(x, q,
                                                                   scales)),
@@ -2877,11 +2955,12 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name == "int8_weight_matmul":
-            numbers = w8_layer_numbers(rows["int8_weight_matmul"])
-        elif name == "int8_weight_matmul_bf16":
-            numbers = w8_layer_numbers(rows["int8_weight_matmul_bf16"],
-                                       bf16=True)
+        if name.startswith("int8_weight_matmul"):
+            bf16 = name.endswith("_bf16")
+            numbers = w8_layer_numbers(rows[name], bf16=bf16)
+            numbers["ptxas"] = [
+                r for r in rows["ptxas"]["w8_gemm"]
+                if r["kernel"].startswith(W8_BF16_KERNELS) == bf16]
         elif name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
         elif name.startswith("fused_ce"):
@@ -2947,11 +3026,18 @@ def summary(rows, paths):
             if name == "flash_attention":
                 numbers.update(forward_bf16_numbers(rows))
             if name == "paged_attention":
-                # the split plan, the lone 2048-token slot beside it, and
-                # ptxas's report of every paged kernel (split and combine)
+                # the split plan, the lone 2048-token slot and the bf16
+                # mode (bf16 q and pools, phase 3c) beside it, and ptxas's
+                # report of every paged kernel (split and combine)
                 lone = next(r for r in rows[name] if r["lens"] == LONE_SLOT)
-                numbers.update(split=timed["split"], lone_slot={
-                    k: lone[k] for k in ("ms", "plain_ms", "bound_ms")},
+                bf16 = rows["paged_attention_bf16"][0]
+                numbers.update(
+                    device_ms=timed["device_ms"], split=timed["split"],
+                    lone_slot={k: lone[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms")},
+                    bf16={k: bf16[k] for k in (
+                        "case", "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "max_abs_err", "split")},
                     ptxas=rows["ptxas"]["paged_attention"])
         out.append(dict(name=name, route="cuda", **meta,
                         launches=sum(by_path.values()),

@@ -36,7 +36,8 @@ HEADERS = {"fused_ce": ("f32_gemm.cuh", "f32_tiles.cuh", "wgmma_bf16.cuh"),
                                "wgmma_bf16.cuh"),
            "flash_attention_bwd": ("f32_tiles.cuh", "segment_ids.cuh",
                                    "wgmma_bf16.cuh"),
-           "mma_probe": ("mma_bf16.cuh", "wgmma_bf16.cuh")}
+           "mma_probe": ("mma_bf16.cuh", "wgmma_bf16.cuh"),
+           "w8_gemm": ("mma_bf16.cuh", "wgmma_bf16.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the element types every C entry point takes, by the code it expects

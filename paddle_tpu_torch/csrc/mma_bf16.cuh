@@ -1,8 +1,9 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a). Header only: no
 // entry points. Used by csrc/mma_probe.cu, which checks every form below
-// on its own, where a wrong fragment layout is easy to read (csrc/
-// fused_ce.cu's bf16 products run on wgmma, csrc/wgmma_bf16.cuh, and its
-// float32 ones on csrc/f32_gemm.cuh).
+// on its own, where a wrong fragment layout is easy to read, and by
+// csrc/w8_gemm.cu's bf16 mode (load_a, ldmatrix_x4_trans over int8 pairs,
+// mma_bf16). csrc/fused_ce.cu's bf16 products run on wgmma, csrc/
+// wgmma_bf16.cuh, and its float32 ones on csrc/f32_gemm.cuh.
 //
 // The product is warp-level `mma.sync.aligned.m16n8k16.row.col.f32.bf16.
 // bf16.f32` (inline PTX): a 16 x 16 bf16 A fragment times a 16 x 8 bf16 B

@@ -24,12 +24,14 @@ visible after dequantization instead of being clipped finite.
 scales, x.dtype)`` in ``x``'s dtype, float32 or bfloat16. For CUDA tensors
 it launches ``csrc/w8_gemm.cu`` (each int8 element is dequantized once a
 CTA, so only the int8 planes and the scales are read from device memory)
-in the regime and with the K splits that ``w8_plan`` picks from the
-shapes, or raises; for CPU tensors it runs the plain version. A float32
-``x`` runs the kernel's fp32 mode (``pt_w8_gemm``); a bfloat16 ``x`` its
-bf16 mode (``pt_w8_gemm_bf16``), the reference's numerics for a bf16
-model: each weight rounded to bf16 once, the products summed in fp32, the
-output rounded to bf16 once. The reference has no Pallas kernel here: its
+with the tiles and K splits that its plan picks from the shapes, or
+raises; for CPU tensors it runs the plain version. A float32 ``x`` runs
+the kernel's fp32 mode (``pt_w8_gemm``, CUDA cores, planned by
+``w8_plan``); a bfloat16 ``x`` its bf16 mode (``pt_w8_gemm_bf16``, the
+tensor cores: ``mma.sync`` at M <= 32, ``wgmma`` above; planned by
+``w8_plan_bf16``), the reference's numerics for a bf16 model: each
+weight rounded to bf16 once, the products summed in fp32, the output
+rounded to bf16 once. The reference has no Pallas kernel here: its
 decode step dequantizes inside the traced step (to the weight's dtype)
 and XLA fuses the multiply into the matmul's operand read. ``launches``
 counts the kernel's launches in both modes and ``bf16_launches`` those of
@@ -74,6 +76,30 @@ W8_CLUSTER_SMS = (132, 132, 117, 120, 110, 102, 105, 120,
 # eighths: tuned against the split counts tools/w8_timing.py --sweep times
 W8_SMALL_RAMP, W8_LARGE_RAMP, W8_BM64_COST = 160, 32, 10
 
+# The bf16 mode's plan (csrc/w8_gemm.cu): bm-row x W8B_BN-column CTAs,
+# bm = 16 at M <= 16 and 32 at M <= 32 (namespace tc: mma.sync, 4 warps),
+# else 64 or 128 (namespace wg: wgmma on y^T = w^T x^T, 2 warpgroups); K
+# chunks of W8B_KT-row stages, at most W8_MAX_CLUSTER splits, none below
+# W8_MIN_CHUNK rows.
+W8B_BM, W8B_BN, W8B_KT = (16, 32, 64, 128), 128, 64
+# The CTAs that its kernel for bm runs at once when its clusters hold c
+# CTAs (index c - 1), on an H100 SXM (w8_cluster_ctas(bm, c, bf16=True),
+# printed by tools/w8_timing.py --bfloat16 --clusters).
+_W8B_MMA = (528, 528, 489, 496, 470, 474, 483, 496,
+            459, 440, 407, 444, 390, 420, 420, 448)       # 4 CTAs an SM
+W8B_CLUSTER_CTAS = {16: _W8B_MMA, 32: _W8B_MMA,
+                    64: (264, 264, 237, 248, 235, 234, 224, 240, 207, 210,
+                         176, 192, 182, 196, 210, 224),   # 2 an SM
+                    128: W8_CLUSTER_SMS}                  # 1 an SM
+# By bm: the resident CTAs that split an SM's throughput (the bm = 64
+# kernel's two share its tensor cores, the mma.sync kernel's four overlap
+# in pairs, bm = 128 runs one an SM), and the cost of a k row of a CTA in
+# eighths; a CTA's ramp in k rows of its own work: fitted to the split
+# counts tools/w8_timing.py --bfloat16 --sweep times.
+W8B_SHARE = {16: 2, 32: 2, 64: 2, 128: 1}
+W8B_ROW_COST = {16: 8, 32: 9, 64: 6, 128: 8}
+W8B_RAMP = 256
+
 # kernel launches since the last reset: both modes, and the bf16 mode
 launches = 0
 bf16_launches = 0
@@ -83,7 +109,8 @@ _lib = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"pt_w8_gemm": [_P] * 4 + [_I] * 7 + [_P],
                "pt_w8_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
-               "pt_w8_cluster_ctas": [_I] * 3 + [_P]}
+               "pt_w8_cluster_ctas": [_I] * 3 + [_P],
+               "pt_w8_bf16_cluster_ctas": [_I] * 3 + [_P]}
 # the C entry point of each activation dtype
 _ENTRY = {torch.float32: "pt_w8_gemm", torch.bfloat16: "pt_w8_gemm_bf16"}
 
@@ -228,6 +255,43 @@ def w8_plan(m, n, k):
     return best[1:]
 
 
+@functools.lru_cache(maxsize=None)
+def w8_plan_bf16(m, n, k):
+    """The bf16 mode's ``(bm, chunk, splits)`` from the shapes alone,
+    integers only: ``bm`` rows a CTA of the tensor-core kernel (16 at
+    M <= 16, 32 at M <= 32, else 64 or 128) and K cut into ``splits``
+    chunks of ``chunk`` rows (a multiple of ``W8B_KT``), the ``splits``
+    CTAs of an output tile one cluster.
+
+    Each candidate is costed as the busiest SM's work: clusters of
+    ``splits`` CTAs run ``W8B_CLUSTER_CTAS[bm][splits - 1]`` CTAs at once,
+    ``W8B_SHARE[bm]`` of them to an SM's throughput, so the busiest of those
+    lanes takes ``ceil(ctas / lanes)`` CTAs, each its chunk and the ramp at
+    the cost of a k row of its bm. The cheapest wins, the fewest splits
+    (then the smaller bm) on a tie."""
+    if m <= 16:
+        bms = (16,)
+    elif m <= 32:
+        bms = (32,)
+    else:
+        bms = (64, 128) if m > 64 else (64,)
+    best = None
+    for bm in bms:
+        tiles = -(-n // W8B_BN) * -(-m // bm)
+        for splits in range(1, W8_MAX_CLUSTER + 1):
+            chunk = -(-k // (splits * W8B_KT)) * W8B_KT
+            if -(-k // chunk) != splits:
+                continue             # fewer non-empty splits: seen already
+            if splits > 1 and chunk < W8_MIN_CHUNK:
+                break
+            lanes = W8B_CLUSTER_CTAS[bm][splits - 1] // W8B_SHARE[bm]
+            cost = (-(-tiles * splits // lanes) * (chunk + W8B_RAMP)
+                    * W8B_ROW_COST[bm])
+            if best is None or cost < best[0]:
+                best = (cost, bm, chunk, splits)
+    return best[1:]
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -268,7 +332,8 @@ def int8_weight_matmul(x, q, scales):
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    bm, chunk, splits = w8_plan(m, n, k)
+    bf16 = x.dtype == torch.bfloat16
+    bm, chunk, splits = (w8_plan_bf16 if bf16 else w8_plan)(m, n, k)
     lib = _library()
     err = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
@@ -277,20 +342,20 @@ def int8_weight_matmul(x, q, scales):
     _build.check(lib, err, "int8_weight_matmul")
     global launches, bf16_launches
     launches += 1
-    if x.dtype == torch.bfloat16:
+    if bf16:
         bf16_launches += 1
     return out
 
 
-def w8_cluster_ctas(bm, splits, vec=True):
+def w8_cluster_ctas(bm, splits, vec=True, bf16=False):
     """The CTAs the card runs at once of a grid of the kernel for ``bm``
     whose clusters hold ``splits`` CTAs (``cudaOccupancyMaxActiveClusters``
     x splits, on the current CUDA device): what ``W8_CLUSTER_SMS`` records
-    for an H100 SXM."""
+    for an H100 SXM, or with ``bf16`` the bf16 mode's ``W8B_CLUSTER_CTAS``."""
     lib = _library()
     out = ctypes.c_int(0)
-    _build.check(lib, lib.pt_w8_cluster_ctas(bm, splits, int(vec),
-                                              ctypes.byref(out)),
+    fn = lib.pt_w8_bf16_cluster_ctas if bf16 else lib.pt_w8_cluster_ctas
+    _build.check(lib, fn(bm, splits, int(vec), ctypes.byref(out)),
                  "w8_cluster_ctas")
     return out.value
 

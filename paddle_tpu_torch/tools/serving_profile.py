@@ -2,9 +2,10 @@
 
     python3 -m paddle_tpu_torch.tools.serving_profile [--seed N] [--steps N]
         [--prefix-cache] [--chunked-prefill] [--quant-kv] [--quant-weights]
-        [--prefill-chunk N]
+        [--prefill-chunk N] [--bfloat16]
 
-Builds llama1b (float32, random weights from --seed) behind
+Builds llama1b (float32, or bfloat16 with ``--bfloat16``; random weights
+from --seed) behind
 ``serving.Engine(max_slots=16, block_size=16, num_blocks=2048,
 max_model_len=2048)`` and fills all 16 slots with prompts of 128-1536
 tokens. Two windows run under ``torch.profiler``: the first engine step
@@ -26,7 +27,7 @@ and the second ``--steps`` more. ``--quant-kv`` makes the pages int8
 (the same page count, so the bytes shrink). ``--quant-weights`` multiplies
 the 7 projections a layer of every decode and mixed step through the
 int8-weight GEMM (``FLAGS_serving_quant_weights``), whose kernels form the
-``w8`` group.
+``w8`` group (its bf16 mode's tensor-core kernels with ``--bfloat16``).
 """
 from __future__ import annotations
 
@@ -104,10 +105,13 @@ def main(argv=None):
                     help="FLAGS_serving_quant_weights: int8 projection "
                          "weights in decode and mixed steps")
     ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--bfloat16", action="store_true",
+                    help="serve llama1b in bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serving_profile: no CUDA device")
-    cfg = LlamaConfig.llama1b()
+    cfg = LlamaConfig.llama1b(
+        dtype="bfloat16" if args.bfloat16 else "float32")
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator(device="cuda").manual_seed(args.seed))
     flags.set_flags(dict(zip(_FLAGS, (args.prefix_cache,

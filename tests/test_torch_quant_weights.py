@@ -313,9 +313,16 @@ def _source_no_scratch():
 
 
 def _source_built():
-    """The build compiles the source; it includes no csrc/ header."""
+    """The build compiles the source and hashes every csrc/ header it
+    includes (the bf16 mode's mma.sync and wgmma building blocks), so an
+    edit to one rebuilds the kernels."""
+    import re
+
     from paddle_tpu_torch import _build
-    assert "w8_gemm" in _build.SOURCES and "w8_gemm" not in _build.HEADERS
+    assert "w8_gemm" in _build.SOURCES
+    includes = re.findall(r'#include "([^"]+)"', _source())
+    assert includes == ["mma_bf16.cuh", "wgmma_bf16.cuh"]
+    assert _build.HEADERS["w8_gemm"] == tuple(includes)
 
 
 SOURCE_CHECKS = {"signature": _source_signature,
@@ -342,7 +349,11 @@ def test_serving_profile_groups_the_int8_gemm():
                  "(float const*, signed char const*, float const*, "
                  "float*, int, int, int, int, int)",
                  "void (anonymous namespace)::large::w8_gemm_large<128, 8, "
-                 "1, true>(float const*, ...)"):
+                 "1, true>(float const*, ...)",
+                 "void (anonymous namespace)::tc::w8_gemm_mma<1, true>"
+                 "(__nv_bfloat16 const*, signed char const*, ...)",
+                 "void (anonymous namespace)::wg::w8_gemm_wgmma<2, true>"
+                 "(__nv_bfloat16 const*, signed char const*, ...)"):
         assert serving_profile._group(name) == "w8"
     assert serving_profile._group("sm90_xmma_gemm_f32f32_f32f32") == "gemm"
     assert "FLAGS_serving_quant_weights" in serving_profile._FLAGS

@@ -154,7 +154,9 @@ def test_bf16_pools_and_int8_weight_routes(models):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 256, 64), (16, 512, 96),
-                                   (33, 200, 24), (7, 1000, 40)])
+                                   (33, 200, 24), (7, 1000, 40),
+                                   (17, 1000, 24), (256, 1000, 24),
+                                   (17, 2048, 256), (256, 512, 24)])
 def test_plain_bf16_matmul_is_the_references(m, k, n):
     rng = np.random.RandomState(m + k)
     w = (rng.randn(k, n) * 0.05).astype(np.float32)
@@ -186,12 +188,15 @@ def test_bf16_mode_signature_matches_the_c_entry_point():
         assert kinds == ["p" if t is quant._P else "i"
                          for t in quant._SIGNATURES[fn]]
     # each dtype reaches its own entry point, and the bf16 one the
-    # kernels' bf16 instantiation
+    # tensor-core kernel's dispatch (bf16 pointers), never the fp32 mode's
     assert quant._ENTRY == {torch.float32: "pt_w8_gemm",
                             torch.bfloat16: "pt_w8_gemm_bf16"}
     body = re.search(r"int pt_w8_gemm_bf16\([^)]*\)\s*\{(.*?)\n\}", src,
                      re.S).group(1)
-    assert "gemm<bf16>" in body
+    assert "dispatch_bf16<true>(xb" in body
+    assert "dispatch_bf16<false>(xb" in body
+    assert "static_cast<const bf16*>(x)" in body
+    assert re.search(r"\bdispatch<", body) is None
     assert "typedef __nv_bfloat16 bf16;" in src
 
 
