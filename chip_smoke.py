@@ -143,9 +143,9 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 index printed) and the matrix must name ``weights``;
                 (a) the int8-weight GEMM's bf16 mode (tensor cores:
                 mma.sync at M <= 32, wgmma above) against its plain
-                version (its split-K
-                partials summed in fp32) on a bf16 llama1b's layer-0
-                weights at every tile height (M = 1, 5, 16, 17, 33, 64,
+                version (cuBLAS summing its split-K partials in fp32, as
+                ``import paddle_tpu_torch`` sets) on a bf16 llama1b's
+                layer-0 weights at every tile height (M = 1, 5, 16, 17, 33, 64,
                 256; the fused shapes; K = 1000, a ragged last split, on
                 and off the vector path; K = 1032, a last stage 8 rows
                 deep, with N = 2048 and an odd N = 37), within one bf16 ulp
@@ -162,11 +162,32 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 top-2 gap is under 2^-4 of the row's max |logit|; exact
                 launch counts (kernel 1 in bf16, 7, 8 and 10's bf16 mode);
                 TTFT and TPOT beside the card's name and power limit
+  11. generate  run after phase 5b on the phase-4 llama1b and its CPU copy:
+                (a) llama1b fp32 through ``generate``: greedy (B = 4, prompt
+                64, 16 new tokens), beam search (B = 2, 4 beams, 8 new
+                tokens, an eos, length_penalty 1) and sampling (B = 4,
+                top_k 50, top_p 0.9, temperature 0.8) twice with one seed
+                (equal tokens) and at top_k 1 (greedy's tokens); greedy and
+                beam tokens against the CPU copy's ``generate`` (equal, or
+                diverging at a reported near-tie), the prefill's last
+                logits within LOGIT_RTOL, greedy against serving.Engine on
+                the same prompts; (b) GPT-2 small's geometry (GPTModel()
+                at the reference's defaults, fp32, random weights from
+                --seed) through greedy ``generate`` (B = 4, prompt 128, 32
+                new tokens) against its CPU copy, then the same prompts
+                through serving.Engine: tokens equal to ``generate``'s.
+                Exact launch counts: 22 (llama1b) or 12 (GPT-2) flash
+                forwards a ``generate`` call and no paged launch, 12 paged
+                launches a GPT-2 engine decode step. Kernel 1 at the
+                rectangular prefills (q_len < kv_len, start-aligned causal)
+                and kernel 7 at GPT-2's 12 heads x 64 against their plain
+                versions, timed beside their bounds and torch SDPA; each
+                run's decode ms a step and tokens/s beside the card
   9. summary    one JSON line of per-kernel numbers, then the result line
 
-Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e and 6f also holds the
-bf16 kernels' TMA operand copies (``tma_copies``, forward and backward) at
-0, fused QKV views included.
+Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
+also holds the bf16 kernels' TMA operand copies (``tma_copies``, forward
+and backward) at 0, fused QKV views included.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -174,7 +195,6 @@ The last line of standard output is
 from __future__ import annotations
 
 import argparse
-import contextlib
 import copy
 import json
 import math
@@ -1535,6 +1555,296 @@ def phase_e2e(model, prompt, card_tokens):
     return cpu_model
 
 
+# -- phase 11: generate on a static decode cache ------------------------------
+
+# (a) llama1b: greedy, beam and sampling; (b) GPT-2 small's geometry
+GEN_GREEDY = dict(batch=4, prompt=64, new=16)
+GEN_BEAM = dict(batch=2, num_beams=4, new=8, length_penalty=1.0)
+GEN_SAMPLE = dict(top_k=50, top_p=0.9, temperature=0.8)
+GEN_GPT2 = dict(batch=4, prompt=128, new=32)
+# GPT-2's token table at its own initialisation, N(0, 0.02^2) (Radford et
+# al., 2019): at the reference's N(0, 1) the tied logits make greedy decoding
+# repeat the last token, and the token checks would hold nothing
+GPT2_WTE_STD = 0.02
+# beam tokens card vs CPU copy: equal, or both picks scoring within this of
+# each other on the CPU copy (a near-tie in summed fp32 log-probabilities,
+# whose terms differ by ~1e-5 card against CPU)
+BEAM_NEAR_TIE = 1e-3
+# kernel 1 at the rectangular prefills of GPT-2 (D = 64) and llama1b
+# (D = 128): q_len = prompt, kv_len = prompt + new tokens
+GEN_FLASH_CASES = (dict(batch=4, n=128, n_kv=160, heads=12, head_dim=64),
+                   dict(batch=4, n=64, n_kv=80, heads=16, head_dim=128))
+# kernel 7 at GPT-2's decode batch: 4 slots, 12 heads x 64, histories of the
+# engine run's decode steps (128 to 159 tokens), 64 pages a slot (1024)
+GEN_PAGED_LENS = [129, 137, 150, 159]
+
+
+def timed_call(fn):
+    """(fn(), seconds), synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def gen_launches(tag, flash, paged=0):
+    """The launch counters since the last reset, every one of them exactly
+    as the path wants: ``flash`` forwards, ``paged`` decode launches, no
+    other kernel and no TMA copy."""
+    counts = launch_counters()
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=flash, paged_attention=paged)
+    if counts != want:
+        raise AssertionError("%s launches %s, want %s" % (
+            tag, {k: v for k, v in counts.items() if v},
+            {k: v for k, v in want.items() if v}))
+    return counts
+
+
+def generate_run(tag, model, ids, flash, card, **kw):
+    """One ``generate`` call on the card with exact launch counts, timed:
+    a prefill-only call (``max_new_tokens=1``) first, outside the counted
+    window, gives the prefill's share, and the decode steps share the
+    rest. Returns (tokens as lists, launch counts, timing row)."""
+    new = kw.pop("max_new_tokens")
+    _, prefill_s = timed_call(lambda: model.generate(ids, max_new_tokens=1,
+                                                     **kw))
+    reset_launch_counters()
+    out, wall = timed_call(lambda: model.generate(ids, max_new_tokens=new,
+                                                  **kw))
+    counts = gen_launches(tag, flash)
+    b = ids.shape[0]
+    row = {"run": tag, "batch": b, "prompt": ids.shape[1],
+           "new_tokens": new, "wall_s": wall, "prefill_s": prefill_s,
+           "decode_ms_per_step": (wall - prefill_s) / (new - 1) * 1e3,
+           "tokens_per_s": b * new / wall,
+           "decode_tokens_per_s": b * (new - 1) / (wall - prefill_s),
+           "card": card}
+    log("[generate] " + json.dumps(row))
+    if out.shape != (b, new):
+        raise AssertionError("%s: tokens of shape %s" % (tag, out.shape))
+    return out.cpu().tolist(), counts, row
+
+
+def check_greedy_tokens(tag, cpu_model, prompts, want, got):
+    same = [diverges_at_near_tie(tag, cpu_model, p, w, g)
+            for p, w, g in zip(prompts, want, got)]
+    log("%s %d of %d token sequences identical" % (tag, sum(same),
+                                                   len(same)))
+
+
+def beam_score(cpu_model, prompt, tokens, length_penalty):
+    """The CPU copy's summed log-probability of ``tokens`` after
+    ``prompt`` over their length ** length_penalty (no eos among them:
+    eos-padded tails score 0 in the beam search, and are cut here)."""
+    with torch.no_grad():
+        logits = cpu_model(torch.tensor([prompt + tokens]))[0].float()
+    logp = torch.log_softmax(logits[len(prompt) - 1:-1], dim=-1)
+    return float(logp.gather(1, torch.tensor(tokens)[:, None]).sum()
+                 / len(tokens) ** length_penalty)
+
+
+def check_beam_tokens(tag, cpu_model, prompts, want, got, eos,
+                      length_penalty):
+    """Equal, or both picks within BEAM_NEAR_TIE on the CPU copy."""
+    for p, w, g in zip(prompts, want, got):
+        if w == g:
+            continue
+        cut = [t[:t.index(eos) + 1] if eos in t else t for t in (w, g)]
+        sw, sg = (beam_score(cpu_model, p, t, length_penalty) for t in cut)
+        log("%s beams differ: cpu %s (score %.6g), card %s (score %.6g)"
+            % (tag, w, sw, g, sg))
+        if abs(sw - sg) >= BEAM_NEAR_TIE:
+            raise AssertionError("%s: the card's beam scores %.6g, the CPU "
+                                 "copy's %.6g: not a near-tie" % (tag, sg,
+                                                                  sw))
+    log("%s %d of %d beams identical" % (
+        tag, sum(w == g for w, g in zip(want, got)), len(want)))
+
+
+def check_prefill_logits(tag, model, cpu_model, ids, total):
+    """The prefill's last logits, card against CPU copy, within
+    LOGIT_RTOL x max |logit|."""
+    with torch.no_grad():
+        got = model.generate_step(
+            ids, model.init_decode_caches(ids.shape[0], total), 0)[:, -1]
+        want = cpu_model.generate_step(
+            ids.cpu(), cpu_model.init_decode_caches(ids.shape[0], total),
+            0)[:, -1]
+    got = got.cpu()
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log("%s prefill logits %s: max abs diff %.3g, max |logit| %.3g" % (
+        tag, list(want.shape), diff, scale))
+    if not (bool(torch.isfinite(got).all()) and diff <= LOGIT_RTOL * scale):
+        raise AssertionError("%s: prefill logits differ by %.3g (> %g x "
+                             "%.3g)" % (tag, diff, LOGIT_RTOL, scale))
+
+
+def generate_kernels(seed):
+    """Kernel 1 at the generate prefills' rectangular shapes and kernel 7
+    at GPT-2's decode batch against their plain versions, timed (kernel 1
+    also by the profiler's device time: at these sizes CUDA events time
+    the wrapper's host cost)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    flash = []
+    for case in GEN_FLASH_CASES:
+        row = flash_case(gen, dtype=torch.float32, timed=True, **case)
+        q = torch.randn((case["batch"], case["n"], case["heads"],
+                         case["head_dim"]), generator=gen, device="cuda")
+        k, v = (torch.randn((case["batch"], case["n_kv"], case["heads"],
+                             case["head_dim"]), generator=gen,
+                            device="cuda") for _ in range(2))
+        row["device_ms"] = device_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), "flash_fwd")
+        log("[kernels] %s device %.4f ms" % (row["case"], row["device_ms"]))
+        flash.append(row)
+    paged = [paged_case(gen, GEN_PAGED_LENS, 12, 12, torch.float32,
+                        timed=True, head_dim=64, max_blocks=64,
+                        bitwise=True)]
+    return {"flash_attention": flash, "paged_attention": paged}
+
+
+def phase_generate(seed, model, cpu_model, card):
+    """Phase 11: llama1b (the phase-4 model) and GPT-2 small's geometry
+    through ``generate`` on the card against their CPU copies and the
+    serving engine; exact launch counts; kernels 1 and 7 at this path's
+    shapes. Returns (kernel rows, launch counts by path, timing rows)."""
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    layers = model.config.num_hidden_layers
+    rng = np.random.default_rng(seed + 11)
+    vocab = model.config.vocab_size
+    paths, timing = {}, []
+
+    # (a) llama1b: greedy against the CPU copy and the engine
+    g = GEN_GREEDY
+    prompts = rng.integers(0, vocab, (g["batch"], g["prompt"])).tolist()
+    ids = torch.tensor(prompts, device="cuda")
+    total = g["prompt"] + g["new"]
+    check_prefill_logits("[generate] llama1b", model, cpu_model, ids, total)
+    greedy, paths["generate llama1b greedy"], row = generate_run(
+        "llama1b greedy", model, ids, layers, card, max_new_tokens=g["new"])
+    timing.append(row)
+    t0 = time.perf_counter()
+    cpu_greedy = cpu_model.generate(torch.tensor(prompts),
+                                    max_new_tokens=g["new"]).tolist()
+    log("[generate] llama1b greedy on the CPU copy in %.1f s"
+        % (time.perf_counter() - t0))
+    check_greedy_tokens("[generate] llama1b greedy card vs cpu", cpu_model,
+                        prompts, cpu_greedy, greedy)
+    engine = Engine(model, max_slots=g["batch"], block_size=16,
+                    num_blocks=64, max_model_len=2 * total)
+    rids = [engine.add_request(p, max_new_tokens=g["new"]) for p in prompts]
+    outs = engine.run()
+    check_greedy_tokens("[generate] llama1b engine vs generate", cpu_model,
+                        prompts, greedy, [outs[r] for r in rids])
+
+    # beam search with an eos the beams reach: greedy row 0's third token
+    bm = GEN_BEAM
+    eos = greedy[0][2]
+    beam_prompts = prompts[:bm["batch"]]
+    kw = dict(num_beams=bm["num_beams"], eos_token_id=eos,
+              length_penalty=bm["length_penalty"])
+    beam, paths["generate llama1b beam"], row = generate_run(
+        "llama1b beam", model, torch.tensor(beam_prompts, device="cuda"),
+        layers, card, max_new_tokens=bm["new"], **kw)
+    timing.append(row)
+    t0 = time.perf_counter()
+    cpu_beam = cpu_model.generate(torch.tensor(beam_prompts),
+                                  max_new_tokens=bm["new"], **kw).tolist()
+    log("[generate] llama1b beam card %s, cpu %s (%.1f s)"
+        % (beam, cpu_beam, time.perf_counter() - t0))
+    check_beam_tokens("[generate] llama1b beam card vs cpu", cpu_model,
+                      beam_prompts, cpu_beam, beam, eos,
+                      bm["length_penalty"])
+
+    # sampling: one seed twice gives one answer; top_k = 1 is greedy
+    sampled = []
+    for i in range(2):
+        toks, paths["generate llama1b sample %d" % i], row = generate_run(
+            "llama1b sample", model, ids, layers, card,
+            max_new_tokens=g["new"], do_sample=True, seed=seed, **GEN_SAMPLE)
+        sampled.append(toks)
+    timing.append(row)
+    if sampled[0] != sampled[1]:
+        raise AssertionError("[generate] one seed sampled %s then %s"
+                             % tuple(sampled))
+    top1, paths["generate llama1b top_k 1"], _ = generate_run(
+        "llama1b top_k=1", model, ids, layers, card,
+        max_new_tokens=g["new"], do_sample=True, top_k=1, seed=seed)
+    if top1 != greedy:
+        raise AssertionError("[generate] top_k=1 sampled %s, greedy gave %s"
+                             % (top1, greedy))
+    log("[generate] llama1b sampling: %d of %d tokens differ from greedy; "
+        "repeatable per seed; top_k=1 is greedy" % (
+            sum(a != b for r, q in zip(sampled[0], greedy)
+                for a, b in zip(r, q)), g["batch"] * g["new"]))
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) GPT-2 small's geometry at the reference's defaults
+    g = GEN_GPT2
+    gpt = GPTModel(generator=torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        gpt.wte.weight.mul_(GPT2_WTE_STD)
+    cpu_gpt = copy.deepcopy(gpt).to("cpu")
+    n_params = sum(p.numel() for p in gpt.parameters())
+    blocks = len(gpt.blocks)
+    log("[generate] GPT-2 fp32: %d blocks, hidden %d, %d heads x %d, vocab "
+        "%d, %.1fM parameters" % (
+            blocks, gpt.wte.embedding_dim, gpt.blocks[0].heads,
+            gpt.blocks[0].head_dim, gpt.vocab_size, n_params / 1e6))
+    prompts = rng.integers(0, gpt.vocab_size,
+                           (g["batch"], g["prompt"])).tolist()
+    ids = torch.tensor(prompts, device="cuda")
+    total = g["prompt"] + g["new"]
+    check_prefill_logits("[generate] gpt2", gpt, cpu_gpt, ids, total)
+    greedy, paths["generate gpt2 greedy"], row = generate_run(
+        "gpt2 greedy", gpt, ids, blocks, card, max_new_tokens=g["new"])
+    timing.append(row)
+    t0 = time.perf_counter()
+    cpu_greedy = cpu_gpt.generate(torch.tensor(prompts),
+                                  max_new_tokens=g["new"]).tolist()
+    log("[generate] gpt2 greedy on the CPU copy in %.1f s"
+        % (time.perf_counter() - t0))
+    check_greedy_tokens("[generate] gpt2 greedy card vs cpu", cpu_gpt,
+                        prompts, cpu_greedy, greedy)
+    log("[generate] gpt2 greedy: %d distinct tokens in %d" % (
+        len({t for r in greedy for t in r}), g["batch"] * g["new"]))
+
+    engine = Engine(gpt, max_slots=g["batch"], block_size=16, num_blocks=64)
+    rids = [engine.add_request(p, max_new_tokens=g["new"]) for p in prompts]
+    reset_launch_counters()
+    outs, wall = timed_call(engine.run)
+    st = engine.stats()
+    counts = gen_launches("[generate] gpt2 engine",
+                          flash=blocks * st["prefill_runs"],
+                          paged=blocks * st["decode_steps"])
+    paths["serving gpt2"] = counts
+    row = {"run": "gpt2 engine", "batch": g["batch"], "prompt": g["prompt"],
+           "new_tokens": g["new"], "wall_s": wall,
+           "prefill_runs": st["prefill_runs"],
+           "decode_steps": st["decode_steps"],
+           "decode_ms_per_step": st["decode_s"] / st["decode_steps"] * 1e3,
+           "decode_tokens_per_s": st["decode_tokens"] / st["decode_s"],
+           "tokens_per_s": st["output_tokens"] / wall, "card": card}
+    log("[generate] " + json.dumps(row))
+    timing.append(row)
+    check_greedy_tokens("[generate] gpt2 engine vs generate", cpu_gpt,
+                        prompts, greedy, [outs[r] for r in rids])
+    del engine, gpt, cpu_gpt
+    torch.cuda.empty_cache()
+    rows = generate_kernels(seed)
+    log("[generate] phase 11 in %.1f s" % (time.perf_counter() - t_phase))
+    return rows, paths, timing
+
+
 # -- phase 8: weight-only int8 decode and the serving benchmark --------------
 
 # int8-weight GEMM vs its plain version (x @ dequantize_int8_weight in fp32,
@@ -1936,24 +2246,6 @@ W8_BF16_EDGE_SHAPES = ((1000, 24), (1000, 2048), (1032, 2048), (1032, 37))
 W8_BF16_MS = (1, 5, 16, 17, 33, 64, 256)
 
 
-@contextlib.contextmanager
-def fp32_sums():
-    """cuBLAS's bf16 GEMMs with their split-K partials summed in fp32, as
-    the plain version's numerics say (each product exact, fp32 sums, one
-    rounding). PyTorch lets cuBLAS sum them in bf16 by default
-    (``allow_bf16_reduced_precision_reduction``), and at a skinny shape
-    (K = 1032, N = 37, M = 5 and 16) the plain version so summed fell
-    outside this phase's tolerance of a kernel that matched the
-    fp32-summed product."""
-    matmul = torch.backends.cuda.matmul
-    flag = matmul.allow_bf16_reduced_precision_reduction
-    matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        matmul.allow_bf16_reduced_precision_reduction = flag
-
-
 def check_ulp(name, got, want):
     """Phase 10(a)'s tolerance (``W8_BF16_ULP``, ``W8_BF16_FLOOR``);
     returns the max abs error."""
@@ -1976,8 +2268,7 @@ def w8_bf16_case(x, q, scales, tag, timed):
     n = q.shape[1]
     got = quant.int8_weight_matmul(x, q, scales)
     again = quant.int8_weight_matmul(x, q, scales)
-    with fp32_sums():
-        want = quant.int8_weight_matmul_reference(x, q, scales)
+    want = quant.int8_weight_matmul_reference(x, q, scales)
     torch.cuda.synchronize()
     if got.dtype != torch.bfloat16:
         raise AssertionError("%s: output dtype %s" % (tag, got.dtype))
@@ -3025,6 +3316,13 @@ def summary(rows, paths):
                            max_abs_err=fp32_err, timed_case=timed["case"])
             if name == "flash_attention":
                 numbers.update(forward_bf16_numbers(rows))
+            if name in rows["generate"]:
+                # phase 11's shapes: the rectangular prefills (kernel 1),
+                # GPT-2's decode batch (kernel 7)
+                keys = ("case", "ms", "device_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by", "max_abs_err")
+                numbers["generate"] = [{k: r[k] for k in keys}
+                                       for r in rows["generate"][name]]
             if name == "paged_attention":
                 # the split plan, the lone 2048-token slot and the bf16
                 # mode (bf16 q and pools, phase 3c) beside it, and ptxas's
@@ -3064,6 +3362,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     tier2 = phase_tier2_slice(args.seed, model)
     phase_tier2_e2e(args.seed, model, cpu_model)
+    rows["generate"], gen_paths, _ = phase_generate(args.seed, model,
+                                                    cpu_model, card)
     rows["int8_weight_matmul"] = phase_w8_kernel(args.seed, model)
     quant_paths = phase_quant_decode(args.seed, model, cpu_model)
     torch.cuda.empty_cache()
@@ -3099,6 +3399,7 @@ def main(argv=None):
     paths.update({"tier2 " + tag: run["launches"]
                   for tag, run in tier2.items()})
     paths.update(quant_paths)
+    paths.update(gen_paths)
     paths.update(bench_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}

@@ -10,7 +10,10 @@ the reference becomes a hand-written CUDA kernel for ``sm_90a`` under
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``device.resolve_device``). The reference runs float32 matmuls at
 'highest' precision, so TF32 is turned off here for both cuBLAS and
-cuDNN: the two packages then compute comparable float32 numbers.
+cuDNN: the two packages then compute comparable float32 numbers. Its
+bfloat16 products sum in float32, so cuBLAS is also told not to sum a
+bf16 GEMM's split-K partials in bf16, which PyTorch allows by default
+(``allow_bf16_reduced_precision_reduction``).
 """
 import torch
 
@@ -18,5 +21,6 @@ from .device import resolve_device
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __all__ = ["resolve_device"]

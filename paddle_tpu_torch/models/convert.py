@@ -5,8 +5,11 @@ with names such as ``llama.layers.0.self_attn.q_proj.weight`` and
 ``lm_head.weight`` (``[hidden, vocab]``: Paddle's ``[in, out]`` layout).
 The port keeps the same module names and the same ``Linear`` layout, so
 each name maps onto the port parameter of that name unchanged, with no
-transpose. The arrays arrive as numpy (or anything ``numpy.asarray``
-takes), so this module needs nothing from JAX.
+transpose. The same holds for GPT (``models/gpt.py``): ``wte.weight``,
+``blocks.0.qkv.bias``, ``blocks.0.ln1.weight`` ... carry across as they
+are, biases and LayerNorm parameters included. The arrays arrive as
+numpy (or anything ``numpy.asarray`` takes), so this module needs
+nothing from JAX.
 
 ``export_state`` gives the port's weights back in the same names, and
 ``load_jax_optimizer_state`` takes a reference train step's optimizer

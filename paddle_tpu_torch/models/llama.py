@@ -7,8 +7,15 @@ Module names follow the reference (``llama.layers.0.self_attn.q_proj``,
 ``F.scaled_dot_product_attention`` (the flash kernel) or, when a serving
 engine passes a paged cache view, through the view's
 ``update_and_attend`` hook: the engine owns the KV pages and the model
-never stores KV state. The views write K/V into the pools in place, so
-``generate_step`` returns only the logits.
+never stores KV state. ``generate`` (``models/generation.py``) passes
+one ``DecodeCache`` a layer instead: static ``[B, L_max, H_kv, D]``
+buffers written in place at the step's offset, attended through the
+flash kernel at offset 0 (the prefill) and through SDPA's mask path
+after. The views and the ``DecodeCache`` buffers are written in place,
+so ``generate_step`` returns only the logits, where the reference's
+returns ``(logits, caches)``. A legacy ``(pk, pv)`` pair a layer grows
+by concatenation (the reference's end-aligned decode branch); the grown
+pair replaces it in the caller's list.
 
 Training: ``forward(input_ids, labels)`` returns the mean cross-entropy
 over the flattened tokens, and ``LlamaConfig(recompute=True)`` wraps
@@ -28,8 +35,7 @@ its parameter names, in training and in serving alike. One wider GEMM
 gives the same numbers as the narrow ones, so each fused model equals
 the unfused one whose weights are the fused weight's column blocks.
 
-Not in this slice: tensor and sequence parallelism and ``DecodeCache``
-generation.
+Not in this slice: tensor and sequence parallelism.
 """
 from __future__ import annotations
 
@@ -41,6 +47,8 @@ from ..device import resolve_device
 from ..kernels.fused_ce import fused_ce_applies, fused_mean_ce
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
+from .generation import (DecodeCache, GenerationMixin, cache_update,
+                         decode_mask, masked_decode_attention)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -148,7 +156,8 @@ class LlamaAttention(nn.Module):
         self.num_kv_heads = c.num_key_value_heads
         self.head_dim = c.head_dim
         self.rope_theta = c.rope_theta
-        kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
+        kw = dict(bias_attr=False, generator=generator, device=device,
+                  dtype=c.torch_dtype)
         q_dim = self.num_heads * self.head_dim
         kv_dim = self.num_kv_heads * self.head_dim
         self.fuse_qkv = c.fuse_attention_qkv
@@ -175,24 +184,42 @@ class LlamaAttention(nn.Module):
                 v.view(b, s, self.num_kv_heads, self.head_dim))
 
     def forward(self, x, cache=None, position_offset=0):
+        """The attention output, or with a ``cache`` the pair (output,
+        the cache to keep): the same view or ``DecodeCache``, written in
+        place, or the grown ``(k, v)`` pair."""
         b, s, _ = x.shape
         q, k, v = self._project(x)
         q, k = rope_apply(q, k, self.rope_theta, position_offset)
-        if cache is not None:
+        if cache is None:
+            ctx = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        elif hasattr(cache, "update_and_attend"):
             # external-cache hook (serving): the engine's per-layer paged
             # view writes this step's K/V into its pool pages and returns
             # the attention context (serving/kv_cache.py)
             ctx = cache.update_and_attend(q, k, v)
+        elif isinstance(cache, DecodeCache):
+            # static-buffer decode (generation.py)
+            k, v = cache_update(cache, k, v, position_offset)
+            ctx = masked_decode_attention(q, k, v, decode_mask(
+                position_offset, s, k.shape[1], device=q.device))
         else:
-            ctx = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        return self.o_proj(ctx.reshape(b, s, self.num_heads * self.head_dim))
+            # legacy growing cache: the s new queries sit at the END of
+            # the kv window (end-aligned mask)
+            pk, pv = cache
+            k, v = torch.cat([pk, k], dim=1), torch.cat([pv, v], dim=1)
+            cache = (k, v)
+            ctx = masked_decode_attention(q, k, v, decode_mask(
+                k.shape[1] - s, s, k.shape[1], device=q.device))
+        out = self.o_proj(ctx.reshape(b, s, self.num_heads * self.head_dim))
+        return out if cache is None else (out, cache)
 
 
 class LlamaMLP(nn.Module):
     def __init__(self, config, *, generator, device):
         super().__init__()
         c = config
-        kw = dict(generator=generator, device=device, dtype=c.torch_dtype)
+        kw = dict(bias_attr=False, generator=generator, device=device,
+                  dtype=c.torch_dtype)
         self.fuse_mlp = c.fuse_mlp
         if self.fuse_mlp:
             self._inter = c.intermediate_size
@@ -224,9 +251,14 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(config, generator=generator, device=device)
 
     def forward(self, x, cache=None, position_offset=0):
-        x = x + self.self_attn(self.input_layernorm(x), cache,
-                               position_offset)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        """``x`` after the layer, or with a ``cache`` the pair (x, the
+        cache to keep) (``LlamaAttention.forward``)."""
+        h = self.self_attn(self.input_layernorm(x), cache, position_offset)
+        if cache is not None:
+            h, cache = h
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x if cache is None else (x, cache)
 
 
 class LlamaModel(nn.Module):
@@ -243,18 +275,21 @@ class LlamaModel(nn.Module):
                             device=device, dtype=config.torch_dtype)
 
     def forward(self, input_ids, caches=None, position_offset=0):
+        """Final-normed hidden states; ``caches`` (one entry a layer) is
+        updated in place, a grown legacy pair replacing its entry."""
         x = self.embed_tokens(input_ids)
         remat = self.config.recompute and caches is None
         for i, layer in enumerate(self.layers):
             if remat:
                 x = checkpoint(layer, x, use_reentrant=False)
+            elif caches is None:
+                x = layer(x)
             else:
-                x = layer(x, None if caches is None else caches[i],
-                          position_offset)
+                x, caches[i] = layer(x, caches[i], position_offset)
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(GenerationMixin, nn.Module):
     def __init__(self, config, device=None, generator=None):
         """Weights are drawn from ``generator`` (a ``torch.Generator`` on
         the model's device; seed 0 when omitted). ``device`` defaults to
@@ -266,8 +301,8 @@ class LlamaForCausalLM(nn.Module):
         self.config = config
         self.llama = LlamaModel(config, generator=generator, device=device)
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                              generator=generator, device=device,
-                              dtype=config.torch_dtype)
+                              bias_attr=False, generator=generator,
+                              device=device, dtype=config.torch_dtype)
 
     @property
     def device(self):
@@ -300,8 +335,9 @@ class LlamaForCausalLM(nn.Module):
                                labels.reshape(-1))
 
     def generate_step(self, input_ids, caches, position_offset):
-        """One step over the engine's per-layer cache views: writes this
-        step's K/V into the pools and returns the logits ``[B, S, V]``."""
+        """One step over per-layer caches (the engine's views, or
+        ``init_decode_caches``' buffers): writes this step's K/V in place
+        and returns only the logits ``[B, S, V]``."""
         return self.lm_head(self.llama(input_ids, caches, position_offset))
 
     def max_decode_len(self):
@@ -314,3 +350,12 @@ class LlamaForCausalLM(nn.Module):
                 "num_kv_heads": cfg.num_key_value_heads,
                 "head_dim": cfg.head_dim,
                 "dtype": cfg.torch_dtype}
+
+    def init_decode_caches(self, batch, total_len):
+        """One zeroed ``DecodeCache`` a layer, ``[batch, total_len, H_kv,
+        D]`` in the model's dtype on its device."""
+        cfg = self.config
+        shape = (batch, total_len, cfg.num_key_value_heads, cfg.head_dim)
+        kw = dict(dtype=cfg.torch_dtype, device=self.device)
+        return [DecodeCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                for _ in range(cfg.num_hidden_layers)]

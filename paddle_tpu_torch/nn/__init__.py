@@ -1,4 +1,5 @@
 from . import functional
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["Embedding", "Linear", "RMSNorm", "functional"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm",
+           "functional"]

@@ -3,42 +3,97 @@
 
 ``scaled_dot_product_attention`` keeps the reference's ``[B, N, H, D]``
 layout and START-aligned causal convention (query i attends keys j <= i,
-also when ``q_len != kv_len``). It always goes through the flash kernel
-wrapper, through ``FlashAttention.apply``: the forward kernel, with the
-two backward kernels as its gradient, on CUDA tensors, and their plain
-versions on CPU tensors. Under ``torch.no_grad()`` (serving) it launches
-the forward kernel alone. Unlike the reference's dispatch there is
-no tileability gate (the kernel masks its own ragged edges, so every
-length goes to it) and no fallback on error. k/v may carry fewer heads
-than q (GQA, ``H % H_kv == 0``); the kernel maps each query head onto
-its kv head instead of repeating K/V.
+also when ``q_len != kv_len``). Without a mask it always goes through the
+flash kernel wrapper, through ``FlashAttention.apply``: the forward
+kernel, with the two backward kernels as its gradient, on CUDA tensors,
+and their plain versions on CPU tensors. Under ``torch.no_grad()``
+(serving) it launches the forward kernel alone. Unlike the reference's
+dispatch there is no tileability gate (the kernel masks its own ragged
+edges, so every length goes to it) and no fallback on error. k/v may
+carry fewer heads than q (GQA, ``H % H_kv == 0``); the kernel maps each
+query head onto its kv head instead of repeating K/V.
+
+With ``attn_mask`` it computes the reference's XLA path
+(``_sdpa_reference``) in plain tensor ops on either device: float32
+scores, the start-aligned causal mask when ``is_causal``, then a boolean
+mask (``where(mask, s, -1e30)``) or an additive one, a float32 softmax,
+and the probabilities cast to v's dtype before the product with v. The
+mask broadcasts against the ``[B, H, N, N_kv]`` scores (``[N, N_kv]``,
+``[1, 1, N, N_kv]``, ``[B, 1, N, N_kv]``). Cached decode
+(``models/generation.py``) takes this path after its prefill.
 
 ``variable_length_attention`` is the packed-sequence entry point: the
 same autograd function in its segment-id mode.
 """
 from __future__ import annotations
 
+import math
+import warnings
+
 import numpy as np
+import torch
 
 from ...kernels.flash_attention import FlashAttention
+
+# the reference's masked score (a finite value: a row masked everywhere
+# softmaxes to uniform instead of NaN)
+MASKED = -1e30
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, scale=None,
-                                 training=True):
+                                 training=True, _warn_rect_causal=True):
     """``[B, N, H, D]`` attention output; ``scale`` defaults to
     ``1/sqrt(D)``. The parameters are the reference's, in its order, so a
-    positional call means the same in both packages. ``attn_mask`` and
-    ``dropout_p`` are not ported yet: a mask other than None or a non-zero
-    ``dropout_p`` raises NotImplementedError (``training`` only matters to
-    dropout)."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask is not ported yet")
+    positional call means the same in both packages. ``dropout_p`` is not
+    ported yet: a non-zero value raises NotImplementedError (``training``
+    only matters to dropout).
+
+    ``is_causal`` with ``q_len != kv_len`` and no mask warns, as the
+    reference does, that the mask is start-aligned; ``_warn_rect_causal=
+    False`` silences it where that is meant (a prefill against a
+    preallocated decode cache)."""
     if dropout_p:
         raise NotImplementedError(
             "scaled_dot_product_attention: dropout_p is not ported yet")
-    return FlashAttention.apply(query, key, value, is_causal, scale)
+    if (is_causal and attn_mask is None and _warn_rect_causal
+            and query.shape[1] != key.shape[1]):
+        warnings.warn(
+            "scaled_dot_product_attention: is_causal=True with "
+            "q_len != kv_len uses START-aligned masking (query i "
+            "attends keys j <= i). For cached decode (bottom-right "
+            "alignment), pass an explicit end-aligned attn_mask.",
+            stacklevel=2)
+    if attn_mask is None:
+        return FlashAttention.apply(query, key, value, is_causal, scale)
+    return _masked_attention(query, key, value, attn_mask, is_causal, scale)
+
+
+def _masked_attention(q, k, v, mask, causal, scale):
+    """The reference's ``_sdpa_reference`` with a mask, in plain tensor
+    ops; query head ``h`` reads kv head ``h // (H / H_kv)``, as the
+    kernel maps them."""
+    b, n, h, d = q.shape
+    m, h_kv = k.shape[1], k.shape[2]
+    if h % h_kv:
+        raise ValueError("scaled_dot_product_attention: %d heads are not a "
+                         "multiple of %d kv heads" % (h, h_kv))
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qg = q.float().view(b, n, h_kv, h // h_kv, d)
+    logits = torch.einsum("bnkgd,bmkd->bkgnm", qg, k.float()) * scale
+    logits = logits.reshape(b, h, n, m)
+    if causal:
+        keep = torch.ones(n, m, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~keep, MASKED)
+    mask = torch.as_tensor(mask, device=q.device)
+    if mask.dtype == torch.bool:
+        logits = logits.masked_fill(~mask, MASKED)
+    else:
+        logits = logits + mask.to(logits.dtype)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = probs.view(b, h_kv, h // h_kv, n, m)
+    out = torch.einsum("bkgnm,bmkd->bnkgd", probs, v)
+    return out.reshape(b, n, h, d)
 
 
 def segment_ids_from_lens(seq_lens, total):

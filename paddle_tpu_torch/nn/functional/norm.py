@@ -5,6 +5,22 @@ from __future__ import annotations
 import torch
 
 
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes with the
+    biased variance, in ``x``'s dtype, as the reference computes it."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, unbiased=False)
+    out = (x - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm with float32 statistics for any input dtype; the result is
     cast back to ``x``'s dtype before the weight multiplies it, as in the

@@ -1,4 +1,4 @@
-from .common import Embedding, Linear
-from .norm import RMSNorm
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm"]

@@ -304,8 +304,11 @@ class PagedDecodeView:
         pages = self.block_tables.long()[slots, lens // self.block_size]
         _write_pages(self.pool, pages, lens % self.block_size,
                      k[:, 0], v[:, 0])
-        out = paged_attention(q[:, 0], self.pool.k, self.pool.v,
-                              self.block_tables, self.seq_lens + 1,
+        # GPT's q is a strided view of its fused projection; the kernel
+        # reads a contiguous one
+        out = paged_attention(q[:, 0].contiguous(), self.pool.k,
+                              self.pool.v, self.block_tables,
+                              self.seq_lens + 1,
                               k_scale=self.pool.k_scale,
                               v_scale=self.pool.v_scale)
         return out[:, None]

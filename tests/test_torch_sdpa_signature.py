@@ -5,8 +5,9 @@ dropout_p=0.0, is_causal=False, scale=None, training=True)``.
 A reference-style positional call must mean the same in both packages
 (with the old port order ``(q, k, v, is_causal, scale)`` the ``0.0`` of
 ``dropout_p`` became the scale and attention went uniform). The port has
-not ported ``attn_mask`` or ``dropout_p`` yet: either raises
-NotImplementedError instead of being ignored. The port runs its plain
+not ported ``dropout_p`` yet: a non-zero value raises NotImplementedError
+instead of being ignored, with or without a mask; a positional mask is
+the reference's ``attn_mask``. The port runs its plain
 path on the CPU; tolerances are the existing SDPA tests'
 (``test_torch_kernels.py``: rtol 1e-4 / atol 1e-5 in float32).
 """
@@ -70,9 +71,13 @@ def test_positional_scale_agrees():
 
 def test_unported_mask_and_dropout_raise():
     q, k, v = _qkv(2)
-    mask = np.ones((q.shape[1], k.shape[1]), bool)
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        _port(q, k, v, torch.from_numpy(mask))
+    mask = np.random.RandomState(3).rand(q.shape[1], k.shape[1]) < 0.5
+    mask[:, 0] = True
+    # the mask is ported: positionally, it is the reference's attn_mask
+    np.testing.assert_allclose(_port(q, k, v, torch.from_numpy(mask)),
+                               _jax(q, k, v, mask), **TOL)
+    with pytest.raises(NotImplementedError, match="dropout_p"):
+        _port(q, k, v, torch.from_numpy(mask), 0.1)
     with pytest.raises(NotImplementedError, match="dropout_p"):
         _port(q, k, v, None, 0.1)
     with pytest.raises(NotImplementedError, match="dropout_p"):
