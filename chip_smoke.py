@@ -183,6 +183,42 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 and kernel 7 at GPT-2's 12 heads x 64 against their plain
                 versions, timed beside their bounds and torch SDPA; each
                 run's decode ms a step and tokens/s beside the card
+  12. encoders  run after phase 7c, (b)-(e) first (the kernel cases run
+                the profiler): (a) kernels 1-3 at ERNIE-3.0-base's
+                attention (B = 16, N = 512, 12 heads x 64, non-causal;
+                once on strided q/k/v views of a fused [B, N, 3, H, D]
+                projection, its TMA copies reported) and at the base
+                Transformer's cross-attention (8 x 192 queries over 256
+                keys, 8 heads), kernels 4-6 at ERNIE's fused MLM tail
+                (T = 8192, H = 768 + 128, V = 40000), float32 and bf16,
+                against their plain versions, twice bit for bit, timed by
+                CUDA events and profiler device time beside the plain
+                versions, torch SDPA's forward and backward or
+                torch.matmul of the same products, and the bounds;
+                (b) ERNIE-3.0-base (fused QKV, random weights from --seed)
+                pretraining through TrainStep(labels_to_model=True) and
+                AdamW with PaddleNLP's decay idiom (apply_decay_param_fun;
+                fixed rates where a warm-up would start, ERNIE_LR),
+                B = 16, S = 512, 15 % masked-LM positions and SOP labels:
+                bf16 then float32, each with FLAGS_fused_lm_head_ce off and
+                on: falling losses, the fused first loss within 6b's or
+                6f's tolerance of the unfused one and a lower peak, per
+                step exactly 12 forward, dq and dk/dv launches and with
+                the flag 1 fused-CE forward, dh and dW; step ms, tokens/s,
+                peak memory; (c) float32 ERNIE on the card against a CPU
+                copy (B = 2, S = 128): MLM and SOP logits, then
+                ErnieModel with a padding attn_mask (no flash launch),
+                within 1e-3 x max|.|; (d) ErnieForSequenceClassification
+                (bf16, 2 classes, B = 32, S = 128) fine-tuned 5 steps,
+                falling losses; (e) nn.Transformer at the base width
+                (float32, B = 8, 256 source and 192 target positions, a
+                causal tgt_mask): forward and backward at dropout 0 against
+                a CPU copy that replays the card's ReLU decisions (the
+                output and every gradient within 1e-3 x max|.|; the
+                decisions it would take otherwise counted, within rounding
+                of 0), 12 launches of each of kernels 1-3 (the decoder's
+                masked self-attention takes SDPA's masked path), then an
+                AdamW step at dropout 0.1 with dropout_p reaching SDPA
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -1079,7 +1115,8 @@ FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000, torch.bfloat16, True),
              (1000, 1032, 2000, torch.float32, False))
 
 
-def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
+def fused_ce_case(gen, t_len, hid, vocab, dtype, timed,
+                  profiled=False):
     from paddle_tpu_torch.kernels import fused_ce as fc
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.tools import fce_timing
@@ -1131,6 +1168,12 @@ def fused_ce_case(gen, t_len, hid, vocab, dtype, timed):
                             for i in range(0, len(ev[part]), 2))
                         for ev in split[1:]]
             row[part + "_ms"] = statistics.median(per_call)
+        if profiled:
+            # the kernels' own device time a call (fwd: the partials and
+            # the combine; dh: every chunk's dl and dh; dw: every chunk's)
+            row["device_ms"] = fce_timing.device_ms(
+                lambda: (fc.fused_lm_head_ce_forward(h, w, safe),
+                         fc.fused_lm_head_ce_backward(h, w, safe, lse, g_t)))
         row["plain_fwd_ms"] = time_ms(
             lambda: fc.fused_lm_head_ce_forward_reference(h, w, safe),
             iters, reps)
@@ -2714,10 +2757,11 @@ FUSED_LOSS_RTOL = 2.0 ** -8
 FUSED32_LOSS_RTOL = 1e-5
 
 
-def check_fused_train(plain, fused, rtol=FUSED_LOSS_RTOL):
+def check_fused_train(plain, fused, rtol=FUSED_LOSS_RTOL, tag=None):
     got, want = fused["losses"][0], plain["losses"][0]
-    tag = "[train fused]" if fused["dtype"] == "bfloat16" else \
-        "[train %s fused]" % fused["dtype"]
+    if tag is None:
+        tag = "[train fused]" if fused["dtype"] == "bfloat16" else \
+            "[train %s fused]" % fused["dtype"]
     log("%s first loss %.6f vs unfused %.6f; step %.2f vs %.2f "
         "ms; %.0f vs %.0f tokens/s; peak %.2f vs %.2f GB" % (
             tag, got, want, fused["step_ms"], plain["step_ms"],
@@ -3027,6 +3071,511 @@ def phase_train_e2e_variant(seed):
                                  % (tag, name, diff, TRAIN_GRAD_RTOL, scale))
 
 
+# -- phase 12: the encoder path (ERNIE, nn.Transformer) -----------------------
+
+# ERNIE-3.0-base pretraining (tools/model_benchmark.py:151-168: B = 16,
+# S = 512, fused QKV, 12 heads x 64), the classification fine-tuning row
+# and the base Transformer (Vaswani et al.: 6 + 6 layers, d_model 512, 8
+# heads, FFN 2048; B = 8, 256 source and 192 target positions)
+ERNIE_BATCH, ERNIE_SEQ = 16, 512
+ERNIE_STEPS, ERNIE_STEPS_FP32 = 4, 2
+ERNIE_MASK_P = 0.15         # masked-LM positions, the rest labelled -100
+# AdamW's rates, fixed where a warm-up would start. Post-LN ERNIE-base's
+# loss jumps at the first update once AdamW's first step (+-lr on every
+# weight) is large enough to land: at ERNIE's peak 1e-4 11.39 -> 18.83
+# (bf16) and 11.40 -> 19.00 (float32), in float32 from 5e-6 up (11.92),
+# in bf16 from 2e-5 up (12.20), where steps below a weight's bf16 spacing
+# round away (the card, NVIDIA H100 80GB HBM3 at 700 W; the jump shows on
+# the CPU too). At these rates the loss falls from the first step.
+ERNIE_LR = {"bfloat16": 1e-5, "float32": 2e-6}
+ERNIE_CHECK = dict(batch=2, seq=128)
+CLS_BATCH, CLS_SEQ, CLS_STEPS = 32, 128, 5
+TF_BATCH, TF_SRC, TF_TGT = 8, 256, 192
+# PaddleNLP's decay idiom: no decay on biases and norms (ERNIE's
+# LayerNorms are named ln1, ln2, embed_ln, mlm_ln)
+NO_DECAY = ("bias", "norm", "ln")
+# kernels 1-3 at the encoders' attention, non-causal, D = 64: ERNIE's
+# (once on the strided q/k/v views of a fused [B, N, 3, H, D]
+# projection) and the Transformer's cross-attention (N != N_kv)
+ENCODER_FLASH_CASES = (dict(batch=ERNIE_BATCH, n=ERNIE_SEQ, heads=12),
+                       dict(batch=ERNIE_BATCH, n=ERNIE_SEQ, heads=12,
+                            qkv=True),
+                       dict(batch=TF_BATCH, n=TF_TGT, n_kv=TF_SRC, heads=8))
+# kernels 4-6 at ERNIE's fused MLM tail: T = 16 x 512, H = 768 + 128 (the
+# bias folded into a pad block), V = 40000 (the last 256-column tile 64
+# wide, 10 backward chunks of 4096)
+ENCODER_FCE_CASE = (ERNIE_BATCH * ERNIE_SEQ, 768 + 128, 40000)
+# card against CPU copy: float32 sums in another order over 12 layers
+# (ERNIE) or 12 layers and 2 x 6 attention blocks (the Transformer);
+# LOGIT_RTOL's rule, per tensor: 1e-3 x its largest magnitude
+ENCODER_RTOL = 1e-3
+# a ReLU input the CPU copy decides otherwise than the card must lie within
+# this share of the FFN's largest input of 0: rounding, not a fault (one
+# such element in 5 of the base Transformer's 12 FFNs, 3.1M inputs each,
+# measured on the card)
+KINK = 1e-5
+
+
+def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
+    """Kernels 1-3, non-causal, D = 64, against their plain versions
+    (O, LSE, dq, dk, dv), twice bit for bit, with ``qkv`` on strided views
+    of one ``[B, N, 3, H, D]`` projection (the TMA copies counted); timed
+    by CUDA events and profiler device time beside the plain versions,
+    torch SDPA's forward and backward (not causal) and the bounds."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    d = 64
+    n_kv = n if n_kv is None else n_kv
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if qkv:
+        q, k, v = rand(batch, n, 3, heads, d).unbind(2)
+    else:
+        q, k, v = rand(batch, n, heads, d), rand(batch, n_kv, heads, d), \
+            rand(batch, n_kv, heads, d)
+    dout = rand(batch, n, heads, d)
+    copies = fa.tma_copies
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=False)
+    copies = fa.tma_copies - copies
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=False)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                 causal=False)
+    torch.cuda.synchronize()
+    name = "encoder flash B=%d N=%d Nkv=%d H=%d D=%d %s non-causal%s" % (
+        batch, n, n_kv, heads, d, str(dtype).split(".")[-1],
+        ", strided fused-QKV views" if qkv else "")
+    err = {"fwd": check_close(name + " out", out, ref_out, TOL[dtype]),
+           "lse": check_close(name + " lse", lse, ref_lse,
+                              TOL[torch.float32])}
+    for part, x, y in zip(("dq", "dk", "dv"), got, want):
+        err[part] = check_close("%s %s" % (name, part), x, y,
+                                BWD_TOL[dtype])
+    err["dkv"] = max(err.pop("dk"), err.pop("dv"))
+    again = fa.flash_attention(q, k, v, causal=False)
+    again_bwd = fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                            causal=False)
+    if not (all(torch.equal(a, b) for a, b in zip(again, (out, lse)))
+            and all(torch.equal(a, b) for a, b in zip(again_bwd, got))):
+        raise AssertionError("%s: two launches differ" % name)
+    row = {"case": name, "max_abs_err": err, "tma_copies": copies,
+           "deterministic": True}
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
+        .reshape(batch * heads, n).contiguous()
+    args = (q, k, v, dout, lse, delta)
+    parts = {"fwd": lambda: fa.flash_attention(q, k, v, causal=False),
+             "dq": lambda: fa.flash_attention_bwd_dq(*args, causal=False),
+             "dkv": lambda: fa.flash_attention_bwd_dkv(*args, causal=False)}
+    for part, fn in parts.items():
+        row[part + "_ms"] = time_ms(fn)
+    row["device_ms"] = {part: device_ms(fn, match) for (part, fn), match
+                        in zip(parts.items(), ("flash_fwd", "bwd_dq",
+                                               "bwd_dkv"))}
+    row["plain_fwd_ms"] = time_ms(
+        lambda: fa.flash_attention_reference(q, k, v, causal=False), 3, 3)
+    row["plain_bwd_ms"] = time_ms(
+        lambda: fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal=False), 3, 3)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    with torch.no_grad():
+        row["library_fwd_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+    g = dout.transpose(1, 2)
+    row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), g, retain_graph=True))
+    row["library"] = ("torch SDPA, not causal: the forward alone, and the "
+                      "backward (dq, dk, dv together) as autograd.grad of "
+                      "one forward")
+    esize = q.element_size()
+    pairs = batch * heads * n * n_kv
+    qkv_bytes = (q.numel() + k.numel() + v.numel()) * esize
+    reads = qkv_bytes + dout.numel() * esize + 2 * lse.numel() * 4
+    row["fwd"] = bound(qkv_bytes + out.numel() * esize + lse.numel() * 4,
+                       4 * d * pairs, dtype)
+    row["dq"] = bound(reads + q.numel() * esize, 3 * 2 * d * pairs, dtype)
+    row["dkv"] = bound(reads + (k.numel() + v.numel()) * esize,
+                       4 * 2 * d * pairs, dtype)
+    log("[encoders] " + json.dumps(row))
+    return row
+
+
+def encoder_kernels(seed):
+    """Phase 12(a): kernels 1-3 at the encoders' shapes and kernels 4-6 at
+    ERNIE's fused MLM tail, in float32 and bfloat16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    rows = {"flash": [], "fused_ce": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in ENCODER_FLASH_CASES:
+            rows["flash"].append(encoder_flash_case(gen, dtype=dtype,
+                                                    **case))
+        rows["fused_ce"].append(fused_ce_case(gen, *ENCODER_FCE_CASE,
+                                              dtype, True, profiled=True))
+    return rows
+
+
+def paddlenlp_decay(model):
+    """``apply_decay_param_fun`` by PaddleNLP's idiom, unchanged: decay the
+    parameters whose path names no bias or norm (by ``p.name``)."""
+    decay = [p.name for n, p in model.named_parameters()
+             if not any(s in n for s in NO_DECAY)]
+    return lambda name: name in decay
+
+
+def ernie_batch(seed, vocab, batch, seq):
+    """Token ids, token types (two segments), masked-LM labels (the token
+    at ERNIE_MASK_P of the positions, -100 elsewhere) and SOP labels, on
+    the card."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (batch, seq))
+    types = np.zeros((batch, seq), np.int64)
+    types[:, seq // 2:] = 1
+    masked = np.where(rng.random((batch, seq)) < ERNIE_MASK_P, ids, -100)
+    sop = rng.integers(0, 2, (batch,))
+    return [torch.from_numpy(np.asarray(a, np.int64)).cuda()
+            for a in (ids, types, masked, sop)]
+
+
+def train_steps(tag, step, batch, steps, want_flash, fused=False):
+    """A warm-up step and ``steps`` timed ones of ``step(*batch)`` with
+    exact launch counts (``want_flash`` forward, dq and dk/dv launches a
+    step, and with ``fused`` one fused-CE forward, dh and dW launch; TMA
+    copies reported, not held); finite, falling losses."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(*batch)]
+    torch.cuda.synchronize()
+    reset_launch_counters()
+    fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
+    times = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(step(*batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    launches = dict(launch_counters(), fused_ce_fwd=fc.fwd_launches,
+                    fused_ce_dh=fc.dh_launches, fused_ce_dw=fc.dw_launches)
+    want = dict.fromkeys(launches, 0)
+    want["tma_copies"] = launches["tma_copies"]
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        want[name] = want_flash * steps
+    if fused:
+        for name in ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw"):
+            want[name] = steps
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    losses = [loss.item() for loss in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("%s non-finite loss: %s" % (tag, losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("%s loss did not fall: %s" % (tag, losses))
+    median = statistics.median(times)
+    tokens = int(batch[0].numel())
+    return {"step_ms": median * 1e3, "step_ms_each": [t * 1e3 for t in times],
+            "tokens_per_s": tokens / median, "losses": losses,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()
+                                  if v}}
+
+
+def ernie_pretrain(seed, dtype, fused):
+    """Phase 12(b): ERNIE-3.0-base (fused QKV) pretraining through
+    ``TrainStep(labels_to_model=True)`` and AdamW with PaddleNLP's decay
+    idiom, with FLAGS_fused_lm_head_ce off or on."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    tag = "[ernie %s%s]" % (dtype, " fused" if fused else "")
+    cfg = ErnieConfig.base(fuse_qkv=True, dtype=dtype)
+    t0 = time.perf_counter()
+    model = ErnieForPretraining(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed))
+    decay = paddlenlp_decay(model)
+    opt = AdamW(learning_rate=ERNIE_LR[dtype], weight_decay=0.01,
+                parameters=model.parameters(), apply_decay_param_fun=decay)
+    step = TrainStep(model, None, opt, labels_to_model=True)
+    batch = ernie_batch(seed, cfg.vocab_size, ERNIE_BATCH, ERNIE_SEQ)
+    steps = ERNIE_STEPS if dtype == "bfloat16" else ERNIE_STEPS_FP32
+    flags.set_flags({"FLAGS_fused_lm_head_ce": fused})
+    try:
+        result = train_steps(tag, step, batch, steps,
+                             cfg.num_hidden_layers, fused)
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    params = list(model.parameters())
+    result.update(
+        dtype=dtype, fused=fused, batch=[ERNIE_BATCH, ERNIE_SEQ],
+        params=sum(p.numel() for p in params),
+        decayed_tensors=sum(bool(decay(p.name)) for p in params),
+        tensors=len(params),
+        masked_tokens=int((batch[2] != -100).sum()),
+        seconds=time.perf_counter() - t0)
+    log(tag + " " + json.dumps(result))
+    return result
+
+
+def ernie_e2e(seed):
+    """Phase 12(c): ERNIE-3.0-base (fused QKV, float32) on the card against
+    a CPU copy on the same weights: the MLM and SOP logits (12 kernel-1
+    launches), then ErnieModel with a padding ``attn_mask`` (SDPA's masked
+    path: no flash launch)."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+
+    tag = "[ernie e2e]"
+    cfg = ErnieConfig.base(fuse_qkv=True)
+    model = ErnieForPretraining(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 1))
+    cpu_model = ErnieForPretraining(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    model.eval()
+    cpu_model.eval()
+    ids, types, _, _ = ernie_batch(seed + 1, cfg.vocab_size,
+                                   ERNIE_CHECK["batch"], ERNIE_CHECK["seq"])
+    keep = torch.ones((ids.shape[0], 1, 1, ids.shape[1]), dtype=torch.bool)
+    keep[1, ..., ids.shape[1] * 3 // 4:] = False      # row 1 padded
+    rows, launches = {}, {}
+    with torch.no_grad():
+        for run, fn in (("logits", lambda m, *a: m(*a)),
+                        ("padding mask", lambda m, *a: m.ernie(*a))):
+            extra = () if run == "logits" else (keep,)
+            reset_launch_counters()
+            got = fn(model, ids, types, *(x.cuda() for x in extra))
+            torch.cuda.synchronize()
+            counts = launch_counters()
+            want_flash = cfg.num_hidden_layers if run == "logits" else 0
+            want = dict.fromkeys(counts, 0)
+            want["flash_attention"] = want_flash
+            if counts != want:
+                raise AssertionError("%s %s launches %s, want %d flash "
+                                     "forwards" % (tag, run, counts,
+                                                   want_flash))
+            launches[run] = counts
+            ref = fn(cpu_model, ids.cpu(), types.cpu(), *extra)
+            for what, g, w in zip(("mlm", "sop") if run == "logits"
+                                  else ("h", "pooled"), got, ref):
+                rows["%s %s" % (run, what)] = close_rel(
+                    "%s %s %s" % (tag, run, what), g.cpu(), w)
+    log(tag + " " + json.dumps(rows))
+    return launches["logits"]
+
+
+def close_rel(name, got, want, rtol=ENCODER_RTOL, scale=None):
+    """``got`` within ``rtol`` x max|want| (or x ``scale``) of ``want``;
+    returns the numbers."""
+    diff = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max()) if scale is None else scale
+    if not (bool(torch.isfinite(got).all()) and diff <= rtol * scale):
+        raise AssertionError("%s: card and CPU differ by %.3g (> %g x %.3g)"
+                             % (name, diff, rtol, scale))
+    return {"max_abs_diff": diff, "scale": scale}
+
+
+def ernie_classify(seed):
+    """Phase 12(d): ErnieForSequenceClassification (2 classes, bf16,
+    separate q/k/v projections) fine-tuned a few steps on one batch."""
+    from paddle_tpu_torch.models import (ErnieConfig,
+                                         ErnieForSequenceClassification)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    tag = "[ernie cls]"
+    cfg = ErnieConfig.base(dtype="bfloat16")
+    model = ErnieForSequenceClassification(
+        cfg, num_classes=2,
+        generator=torch.Generator(device="cuda").manual_seed(seed + 2))
+    opt = AdamW(learning_rate=ERNIE_LR["bfloat16"],
+                parameters=model.parameters(),
+                apply_decay_param_fun=paddlenlp_decay(model))
+    step = TrainStep(model, None, opt, labels_to_model=True)
+    ids, types, _, _ = ernie_batch(seed + 2, cfg.vocab_size, CLS_BATCH,
+                                   CLS_SEQ)
+    labels = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, 2, CLS_BATCH)).cuda()
+    result = train_steps(tag, step, (ids, types, labels), CLS_STEPS,
+                         cfg.num_hidden_layers)
+    result.update(batch=[CLS_BATCH, CLS_SEQ], classes=2, dtype="bfloat16")
+    log(tag + " " + json.dumps(result))
+    return result
+
+
+def transformer_e2e(seed):
+    """Phase 12(e): nn.Transformer at the base width (float32, relu) with a
+    causal tgt_mask: one forward and backward at dropout 0 on the card
+    against a CPU copy (the output and every gradient), then one AdamW
+    step at the default dropout 0.1 with ``dropout_p`` reaching SDPA. Per
+    pass 6 + 6 flash launches of each kernel: the encoder's self-attention
+    and the decoder's cross-attention; the decoder's masked
+    self-attention takes SDPA's masked path.
+
+    ReLU's derivative jumps at 0, so an activation within rounding of 0
+    (the two sides sum in other orders) can take the other branch on the
+    CPU and move a whole token's term of that FFN's gradients, and through
+    them every gradient before it, far past float32 rounding (1.35e-2 of
+    max|grad| for one such element, measured). So the CPU copy replays the
+    card's ReLU decisions: it multiplies by the card's masks, and the
+    elements where its own decision differs are counted and must sit
+    within ``KINK`` of 0."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import AdamW
+
+    tag = "[transformer]"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    model = nn.Transformer(dropout=0.0, generator=gen)
+    cpu_model = nn.Transformer(dropout=0.0, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(seed + 3)
+    src, tgt = (torch.from_numpy(rng.standard_normal(
+        (TF_BATCH, n, model.d_model), np.float32)) for n in (TF_SRC, TF_TGT))
+    w = torch.from_numpy(rng.standard_normal(
+        (TF_BATCH, TF_TGT, model.d_model), np.float32))
+    mask = nn.Transformer.generate_square_subsequent_mask(TF_TGT)
+    layers = len(model.encoder.layers) + len(model.decoder.layers)
+
+    def want_counts(counts):
+        want = dict.fromkeys(counts, 0)
+        for name in ("flash_attention", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            want[name] = layers
+        return want
+
+    relu, masks, kinks = F.relu, [], []
+
+    def record(x):
+        masks.append(x > 0)
+        return relu(x)
+
+    def replay(x):
+        keep, xd = masks[len(kinks)].cpu(), x.detach()
+        flipped = keep != (xd > 0)
+        kinks.append((int(flipped.sum()), float(xd[flipped].abs().max())
+                      if flipped.any() else 0.0, float(xd.abs().max())))
+        return x * keep
+    try:
+        F.relu = record
+        reset_launch_counters()
+        out = model(src.cuda(), tgt.cuda(), None, mask)
+        (out * w.cuda()).sum().backward()
+        torch.cuda.synchronize()
+        launches = launch_counters()
+        F.relu = replay
+        cpu_out = cpu_model(src, tgt, None, mask.cpu())
+        (cpu_out * w).sum().backward()
+    finally:
+        F.relu = relu
+    if launches != want_counts(launches):
+        raise AssertionError("%s launches %s" % (tag, launches))
+    flips = sum(k[0] for k in kinks)
+    if len(kinks) != layers or any(k[1] > KINK * k[2] for k in kinks) \
+            or flips > 1e-5 * sum(m.numel() for m in masks):
+        raise AssertionError("%s ReLU decisions the CPU takes otherwise "
+                             "(count, max |x| there, max |x|): %s"
+                             % (tag, kinks))
+    pairs = {"out": (out.detach().cpu(), cpu_out.detach(), None)}
+    grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    largest = max(float(g.abs().max()) for g in grads.values())
+    for name, p in model.named_parameters():
+        # a key bias's gradient is 0 in exact arithmetic (the softmax
+        # cancels a constant added to a query's scores): both sides hold
+        # rounding noise, held against the model's largest gradient
+        pairs[name] = (p.grad.cpu(), grads[name],
+                       largest if name.endswith("k_proj.bias") else None)
+    ratios = {name: float((got - want).abs().max()) / (
+        scale or float(want.abs().max())) for name, (got, want, scale)
+        in pairs.items()}
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+    log("%s card vs CPU, the largest max|diff| / max|.|: %s; ReLU "
+        "decisions replayed, %d of them within rounding of 0 on the CPU"
+        % (tag, json.dumps(worst), flips))
+    checks = {name: close_rel("%s %s" % (tag, name), got, want, scale=scale)
+              for name, (got, want, scale) in pairs.items()}
+    del model, cpu_model, out, cpu_out, masks
+    torch.cuda.empty_cache()
+
+    # one training step at the default dropout, dropout_p seen by SDPA
+    model = nn.Transformer(generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    seen = []
+    sdpa = F.scaled_dot_product_attention
+
+    def spy(*args, **kw):
+        seen.append(kw.get("dropout_p"))
+        return sdpa(*args, **kw)
+    F.scaled_dot_product_attention = spy
+    try:
+        reset_launch_counters()
+        loss = (model(src.cuda(), tgt.cuda(), None, mask)
+                * w.cuda()).mean()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_counts = launch_counters()
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    attention_calls = len(model.encoder.layers) + 2 * len(
+        model.decoder.layers)
+    if seen != [0.1] * attention_calls or not math.isfinite(loss.item()):
+        raise AssertionError("%s dropout step: dropout_p %s, loss %s"
+                             % (tag, seen, loss.item()))
+    if step_counts != want_counts(step_counts):
+        raise AssertionError("%s dropout step launches %s"
+                             % (tag, step_counts))
+    result = {"batch": TF_BATCH, "src": TF_SRC, "tgt": TF_TGT,
+              "params": sum(p.numel() for p in model.parameters()),
+              "tensors_checked": len(checks), "worst": worst,
+              "out": checks["out"], "relu_kinks": kinks,
+              "dropout_step_loss": loss.item(),
+              "dropout_p_seen": sorted(set(seen)),
+              "sdpa_calls": len(seen), "launches": launches,
+              "seconds": time.perf_counter() - t0}
+    log(tag + " " + json.dumps(result))
+    return launches, step_counts
+
+
+def phase_encoders(seed):
+    """Phase 12: the encoder path. Returns (kernel rows, launch counts by
+    path, seconds)."""
+    t_phase = time.perf_counter()
+    paths, runs = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for fused in (False, True):
+            run = ernie_pretrain(seed, dtype, fused)
+            runs[(dtype, fused)] = run
+            paths["ernie %s%s" % (dtype, " fused" if fused else "")] = \
+                run["launches"]
+            torch.cuda.empty_cache()
+        check_fused_train(runs[(dtype, False)], runs[(dtype, True)],
+                          FUSED_LOSS_RTOL if dtype == "bfloat16"
+                          else FUSED32_LOSS_RTOL,
+                          tag="[ernie %s fused]" % dtype)
+    paths["ernie forward"] = ernie_e2e(seed)
+    torch.cuda.empty_cache()
+    paths["ernie classification"] = ernie_classify(seed)["launches"]
+    torch.cuda.empty_cache()
+    paths["transformer"], paths["transformer dropout"] = \
+        transformer_e2e(seed)
+    torch.cuda.empty_cache()
+    # the kernel cases last: they run the profiler
+    rows = encoder_kernels(seed)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log("[encoders] phase 12 in %.1f s" % seconds)
+    return rows, paths, seconds
+
+
 # -- phase 9 ----------------------------------------------------------------
 
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -3239,6 +3788,33 @@ def forward_bf16_numbers(rows):
                 ptxas=rows["ptxas"]["flash_attention"])
 
 
+def encoder_numbers(name, rows):
+    """Phase 12's cases of a kernel entry (kernels 1-3 at the encoders'
+    attention, 4-6 at ERNIE's fused MLM tail), or None."""
+    flash = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
+             "flash_attention_bwd_dkv": "dkv"}
+    if name in flash:
+        part, cases = flash[name], rows["flash"]
+        plain, library = (("plain_fwd_ms", "library_fwd_ms") if part == "fwd"
+                          else ("plain_bwd_ms", "library_bwd_ms"))
+        err_key = part
+    elif name.startswith("fused_ce"):
+        part, cases = name.rsplit("_", 1)[1], rows["fused_ce"]
+        plain = "plain_fwd_ms" if part == "fwd" else "plain_bwd_ms"
+        library, err_key = None, "loss" if part == "fwd" else part
+    else:
+        return None
+    return [dict(case=r["case"], ms=r[part + "_ms"],
+                 device_ms=r["device_ms"][part], plain_ms=r[plain],
+                 library_ms=(r[library] if library
+                             else r["library_ms"][part]),
+                 bound_ms=r[part]["bound_ms"], bound_by=r[part]["bound_by"],
+                 max_abs_err=r["max_abs_err"][err_key],
+                 **({"tma_copies": r["tma_copies"]} if "tma_copies" in r
+                    else {}))
+            for r in cases]
+
+
 def summary(rows, paths):
     """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
     an entry's ``launches`` sums them over the paths."""
@@ -3337,6 +3913,9 @@ def summary(rows, paths):
                         "case", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by", "max_abs_err", "split")},
                     ptxas=rows["ptxas"]["paged_attention"])
+        encoders = encoder_numbers(name, rows["encoders"])
+        if encoders:
+            numbers["encoders"] = encoders
         out.append(dict(name=name, route="cuda", **meta,
                         launches=sum(by_path.values()),
                         launches_by_path=by_path, **numbers))
@@ -3347,6 +3926,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     ptxas = phase_build()
@@ -3391,6 +3971,8 @@ def main(argv=None):
     phase_train_e2e(args.seed)
     phase_train_e2e(args.seed, fused=True)
     phase_train_e2e_variant(args.seed)
+    torch.cuda.empty_cache()
+    rows["encoders"], encoder_paths, _ = phase_encoders(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -3401,10 +3983,12 @@ def main(argv=None):
     paths.update(quant_paths)
     paths.update(gen_paths)
     paths.update(bench_paths)
+    paths.update(encoder_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)
                   for path, counts in bf16_paths.items()})
+    log("[total] chip_smoke.py in %.1f s" % (time.perf_counter() - t_start))
     log(json.dumps(summary(rows, paths)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
 from . import flags
 from .flags import flag, get_flags, set_flags
+from .tensor import Parameter, name_parameters
 
-__all__ = ["flag", "flags", "get_flags", "set_flags"]
+__all__ = ["Parameter", "flag", "flags", "get_flags", "name_parameters",
+           "set_flags"]

@@ -7,7 +7,12 @@ The port keeps the same module names and the same ``Linear`` layout, so
 each name maps onto the port parameter of that name unchanged, with no
 transpose. The same holds for GPT (``models/gpt.py``): ``wte.weight``,
 ``blocks.0.qkv.bias``, ``blocks.0.ln1.weight`` ... carry across as they
-are, biases and LayerNorm parameters included. The arrays arrive as
+are, biases and LayerNorm parameters included. So do ERNIE's
+(``models/ernie.py``: ``ernie.layers.0.attn.qkv_proj.weight``,
+``mlm_head.bias``, ``classifier.weight`` ...) and the ``nn.Transformer``
+layers' (``encoder.layers.0.self_attn.q_proj.weight``,
+``decoder.layers.5.norm3.bias``; the containers keep the reference's
+``layers.<i>`` names, ``nn/layers/container.py``). The arrays arrive as
 numpy (or anything ``numpy.asarray`` takes), so this module needs
 nothing from JAX.
 

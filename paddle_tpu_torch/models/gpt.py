@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..core.tensor import name_parameters
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
@@ -106,6 +107,7 @@ class GPTModel(GenerationMixin, nn.Module):
             for _ in range(num_layers)])
         self.ln_f = LayerNorm(hidden_size, device=device)
         self.vocab_size = vocab_size
+        name_parameters(self)
 
     @property
     def device(self):

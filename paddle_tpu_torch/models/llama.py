@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core.tensor import name_parameters
 from ..device import resolve_device
 from ..kernels.fused_ce import fused_ce_applies, fused_mean_ce
 from ..nn import functional as F
@@ -303,6 +304,7 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         self.lm_head = Linear(config.hidden_size, config.vocab_size,
                               bias_attr=False, generator=generator,
                               device=device, dtype=config.torch_dtype)
+        name_parameters(self)
 
     @property
     def device(self):

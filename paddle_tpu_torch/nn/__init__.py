@@ -1,5 +1,5 @@
 from . import functional
-from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
+from .layers import *  # noqa: F401,F403
+from .layers import __all__ as _layers
 
-__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm",
-           "functional"]
+__all__ = ["functional"] + list(_layers)

@@ -22,6 +22,14 @@ mask broadcasts against the ``[B, H, N, N_kv]`` scores (``[N, N_kv]``,
 ``[1, 1, N, N_kv]``, ``[B, 1, N, N_kv]``). Cached decode
 (``models/generation.py``) takes this path after its prefill.
 
+``dropout_p`` mirrors the reference, which accepts it and never applies
+it: its XLA path (``_sdpa_reference``) takes ``dropout_p`` and computes
+no dropout ("Faults of the reference" 5 in ROADMAP.md, settled as
+mirrored). So a non-zero ``dropout_p`` (the Transformer layers pass their
+dropout in training) changes nothing here either, and without a mask the
+call still goes through the flash kernel, which computes the same
+function as the reference's path.
+
 ``variable_length_attention`` is the packed-sequence entry point: the
 same autograd function in its segment-id mode.
 """
@@ -45,17 +53,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, _warn_rect_causal=True):
     """``[B, N, H, D]`` attention output; ``scale`` defaults to
     ``1/sqrt(D)``. The parameters are the reference's, in its order, so a
-    positional call means the same in both packages. ``dropout_p`` is not
-    ported yet: a non-zero value raises NotImplementedError (``training``
-    only matters to dropout).
+    positional call means the same in both packages. ``dropout_p`` and
+    ``training`` are accepted and apply no attention dropout, as in the
+    reference (see the module's docstring).
 
     ``is_causal`` with ``q_len != kv_len`` and no mask warns, as the
     reference does, that the mask is start-aligned; ``_warn_rect_causal=
     False`` silences it where that is meant (a prefill against a
     preallocated decode cache)."""
-    if dropout_p:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: dropout_p is not ported yet")
     if (is_causal and attn_mask is None and _warn_rect_causal
             and query.shape[1] != key.shape[1]):
         warnings.warn(

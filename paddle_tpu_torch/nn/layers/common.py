@@ -26,6 +26,7 @@ import math
 import torch
 from torch import nn
 
+from ...core.tensor import Parameter
 from ...kernels.quant import int8_weight_matmul, routed_int8_weight
 from ..functional import dropout
 
@@ -33,7 +34,7 @@ from ..functional import dropout
 def _normal(shape, std, generator, device, dtype):
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return nn.Parameter((w * std).to(dtype))
+    return Parameter((w * std).to(dtype))
 
 
 class Linear(nn.Module):
@@ -48,8 +49,8 @@ class Linear(nn.Module):
         if bias_attr is False:
             self.bias = None
         else:
-            self.bias = nn.Parameter(torch.zeros(out_features, device=device,
-                                                 dtype=dtype))
+            self.bias = Parameter(torch.zeros(out_features, device=device,
+                                              dtype=dtype))
 
     def forward(self, x):
         qw = routed_int8_weight(self)

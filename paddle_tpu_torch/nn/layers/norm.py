@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.tensor import Parameter
 from ..functional import layer_norm, rms_norm
 
 
@@ -12,7 +13,7 @@ class RMSNorm(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = nn.Parameter(
+        self.weight = Parameter(
             torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
@@ -31,9 +32,9 @@ class LayerNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self.normalized_shape = list(normalized_shape)
         self.epsilon = epsilon
-        self.weight = None if weight_attr is False else nn.Parameter(
+        self.weight = None if weight_attr is False else Parameter(
             torch.ones(self.normalized_shape, device=device, dtype=dtype))
-        self.bias = None if bias_attr is False else nn.Parameter(
+        self.bias = None if bias_attr is False else Parameter(
             torch.zeros(self.normalized_shape, device=device, dtype=dtype))
 
     def forward(self, x):

@@ -1,12 +1,18 @@
 """Optimizer base (counterpart of paddle_tpu/optimizer/optimizer.py).
 
 Each optimizer keeps one list of slots (its accumulators) per parameter,
-created in float32 whatever the parameter's dtype (the reference's
-master-moment practice for bf16 training), and one global step. ``step()``
-increments the global step before it updates, so the first update uses
-t = 1, as the reference's compiled step does. The update rule of each
-subclass is ``_update(p, g, slots, lr, step, wd)``: it writes the new
-parameter and slots in place, under ``torch.no_grad()``.
+created by ``_init_slot``: zeros in float32 whatever the parameter's
+dtype by default (the reference's master-moment practice for bf16
+training), zeros of the parameter's dtype where the reference keeps them
+so (its base ``_init_slot``, ``zeros_like(param)``: Momentum, RMSProp),
+and one global step. ``step()`` increments the global step before it
+updates, so the first update uses t = 1, as the reference's compiled step
+does. The update rule of each subclass is ``_update(p, g, slots, lr, step,
+wd)``: it writes the new parameter and slots in place, under
+``torch.no_grad()``. ``wd`` is ``_decay_for(p)``, the parameter's own
+decay: the optimizer's by default, 0 where a subclass's option excludes
+the parameter (AdamW's ``apply_decay_param_fun``, Lamb's
+``exclude_from_weight_decay_fn``, LarsMomentum's name substrings).
 
 ``learning_rate`` is a float or an ``LRScheduler`` (``optimizer/lr.py``):
 ``get_lr()`` then reads the scheduler, ``set_lr`` raises, and the caller
@@ -34,7 +40,7 @@ class L2Decay:
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None):
+                 weight_decay=None, grad_clip=None, name=None):
         self._lr_scheduler = None
         if isinstance(learning_rate, LRScheduler):
             self._lr_scheduler = learning_rate
@@ -66,9 +72,9 @@ class Optimizer:
             pg = self._grad_clip(pg)
         lr = self.get_lr()
         self._global_step += 1
-        wd = self._weight_decay_value()
         for p, g in pg:
-            self._update(p, g, self._get_slots(p), lr, self._global_step, wd)
+            self._update(p, g, self._get_slots(p), lr, self._global_step,
+                         self._decay_for(p))
 
     @torch.no_grad()
     def clear_grad(self):
@@ -101,9 +107,9 @@ class Optimizer:
             self.set_slot(p, name, value)
 
     def set_slot(self, param, name, value):
-        """Overwrite one slot of ``param`` (float32, on the parameter's
-        device) with ``value`` (a tensor or anything ``torch.as_tensor``
-        takes, of the parameter's shape)."""
+        """Overwrite one slot of ``param`` (in the slot's dtype, on the
+        parameter's device) with ``value`` (a tensor or anything
+        ``torch.as_tensor`` takes, of the parameter's shape)."""
         slots = self._get_slots(param)
         value = torch.as_tensor(value)
         if tuple(value.shape) != tuple(param.shape):
@@ -122,14 +128,19 @@ class Optimizer:
         """Accumulator slot names, e.g. ('moment1', 'moment2')."""
         return ()
 
+    def _init_slot(self, slot, param):
+        return torch.zeros(param.shape, dtype=torch.float32,
+                           device=param.device)
+
     def _get_slots(self, param):
         slots = self._slots_of.get(id(param))
         if slots is None:
-            slots = [torch.zeros(param.shape, dtype=torch.float32,
-                                 device=param.device)
-                     for _ in self._slots()]
+            slots = [self._init_slot(slot, param) for slot in self._slots()]
             self._slots_of[id(param)] = slots
         return slots
+
+    def _decay_for(self, param):
+        return self._weight_decay_value()
 
     def _weight_decay_value(self):
         wd = self._weight_decay

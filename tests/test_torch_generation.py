@@ -134,10 +134,12 @@ def test_sdpa_rect_causal_warns_and_dropout_raises():
         q.numpy(), k.numpy(), v.numpy(), is_causal=True,
         _warn_rect_causal=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(want._value), **TOL)
-    with pytest.raises(NotImplementedError, match="dropout_p"):
-        F.scaled_dot_product_attention(
-            q, k, v, attn_mask=torch.ones(6, 9, dtype=torch.bool),
-            dropout_p=0.1)
+    # dropout_p is accepted and applies no dropout, as in the reference
+    # (ROADMAP.md, "Faults of the reference" 5, mirrored)
+    with_dropout = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=torch.ones(6, 9, dtype=torch.bool), is_causal=True,
+        dropout_p=0.1)
+    np.testing.assert_allclose(with_dropout.numpy(), out.numpy(), **TOL)
 
 
 def test_decode_mask():

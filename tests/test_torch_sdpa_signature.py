@@ -4,10 +4,11 @@ dropout_p=0.0, is_causal=False, scale=None, training=True)``.
 
 A reference-style positional call must mean the same in both packages
 (with the old port order ``(q, k, v, is_causal, scale)`` the ``0.0`` of
-``dropout_p`` became the scale and attention went uniform). The port has
-not ported ``dropout_p`` yet: a non-zero value raises NotImplementedError
-instead of being ignored, with or without a mask; a positional mask is
-the reference's ``attn_mask``. The port runs its plain
+``dropout_p`` became the scale and attention went uniform). A non-zero
+``dropout_p`` is accepted and, as in the reference, applies no dropout
+(ROADMAP.md, "Faults of the reference" 5, mirrored), with or without a
+mask; a positional mask is the reference's ``attn_mask``. The port runs
+its plain
 path on the CPU; tolerances are the existing SDPA tests'
 (``test_torch_kernels.py``: rtol 1e-4 / atol 1e-5 in float32).
 """
@@ -76,9 +77,11 @@ def test_unported_mask_and_dropout_raise():
     # the mask is ported: positionally, it is the reference's attn_mask
     np.testing.assert_allclose(_port(q, k, v, torch.from_numpy(mask)),
                                _jax(q, k, v, mask), **TOL)
-    with pytest.raises(NotImplementedError, match="dropout_p"):
-        _port(q, k, v, torch.from_numpy(mask), 0.1)
-    with pytest.raises(NotImplementedError, match="dropout_p"):
-        _port(q, k, v, None, 0.1)
-    with pytest.raises(NotImplementedError, match="dropout_p"):
-        _port(q, k, v, dropout_p=0.5, training=False)
+    # a positional dropout_p is the reference's too, and neither package
+    # applies it (fault 5, mirrored): no longer an error
+    np.testing.assert_allclose(_port(q, k, v, torch.from_numpy(mask), 0.1),
+                               _jax(q, k, v, mask, 0.1), **TOL)
+    np.testing.assert_allclose(_port(q, k, v, None, 0.1),
+                               _jax(q, k, v, None, 0.1), **TOL)
+    np.testing.assert_allclose(_port(q, k, v, dropout_p=0.5, training=False),
+                               _jax(q, k, v), **TOL)
