@@ -219,6 +219,33 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 of 0), 12 launches of each of kernels 1-3 (the decoder's
                 masked self-attention takes SDPA's masked path), then an
                 AdamW step at dropout 0.1 with dropout_p reaching SDPA
+  13. resnet    run after phase 12; no kernel of the port runs here (every
+                launch counter stays 0 across each run): ResNet-50
+                (vision.models.resnet50, 1000 classes, random weights from
+                --seed) at 224 x 224: (a) float32 logits in train and in
+                eval mode at batch 2, and the running statistics the train
+                forward leaves, against a CPU copy within 1e-3 x max|.|;
+                (b) one Momentum(0.1, 0.9) step through TrainStep at batch
+                8 on the card, held to a float64 CPU copy: the loss
+                within 1e-4; the gradients of conv1.weight,
+                layer4.2.bn3.weight and fc.weight (max|.|) and every
+                parameter's update (norm), each within 4 x its own noise
+                (+ 1e-5), the larger of a float32 CPU copy's distance and
+                a witness's (float64 at inputs moved by 2**-24, which
+                counts the ReLU outputs it switches: the step is
+                ill-conditioned); bn1's statistics within 1e-3; the same
+                check must fail a gradient scaled by 1 % and a tensor
+                left out of the optimizer, planted on the card; (c) NHWC
+                against NCHW
+                logits on the card (same weights, eval) within 1e-4 x
+                max|.|; (d) the reference's chip row (batch 64,
+                Momentum(0.1, 0.9), cross-entropy) in float32 NCHW and in
+                bf16 NCHW and NHWC: 2 warm-up and 10 timed steps, images/s,
+                ms a step and peak memory beside the card's name and
+                power limit; (e) every loss past nll_loss on the card
+                against the same call on the CPU (value and gradients,
+                1e-5 x max|.|, 1e-4 for CTC and RNN-T) and
+                class_center_sample on card labels
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -1955,8 +1982,10 @@ def device_ms(fn, match, per_call=1, calls=10, tries=5):
     launches, in every window of one run); a window missing more than one
     call's worth is measured again. It has also recorded none of a
     kernel's launches in every window of a run (kernel 10's wgmma kernel,
-    twice in a dozen runs); then the time is ``queued_ms``'s, and a line
-    says so."""
+    twice in a dozen runs) and 3 of 10 in every window of another (the
+    encoder's flash forward); then the time is ``queued_ms``'s, and a
+    line says so. The timing is a diagnostic: what a kernel computes and
+    how often the main path launches it are checked elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1972,15 +2001,11 @@ def device_ms(fn, match, per_call=1, calls=10, tries=5):
         if sum(evt.count for evt in evts) >= (calls - 1) * per_call:
             break
     else:
-        if evts:
-            raise AssertionError("[%s] the profiler recorded %d of %d "
-                                 "launches" % (match,
-                                               sum(e.count for e in evts),
-                                               calls * per_call))
         ms = queued_ms(fn, calls)
-        log("[device_ms] the profiler recorded no %s launch in %d windows: "
-            "%.4f ms by CUDA events behind a sleep kernel" % (match, tries,
-                                                             ms))
+        log("[device_ms] the profiler recorded %d of %d %s launches in the "
+            "last of %d windows: %.4f ms by CUDA events behind a sleep "
+            "kernel" % (sum(e.count for e in evts), calls * per_call, match,
+                        tries, ms))
         return ms
     return sum(evt.self_device_time_total / evt.count for evt in evts) / 1e3
 
@@ -3576,6 +3601,471 @@ def phase_encoders(seed):
     return rows, paths, seconds
 
 
+# -- phase 13: ResNet-50 training, the losses (no kernel of the port) ---------
+
+# card vs CPU ResNet-50 in float32 (TF32 off for cuDNN as for cuBLAS): 53
+# convolutions and batch norms whose sums run in other orders (cuDNN's
+# algorithms against the CPU's); a wrong layout, padding or statistic
+# moves the logits by O(1) of their range
+RESNET_RTOL = 1e-3
+# the same card, NHWC against NCHW: other cuDNN algorithms only
+RESNET_LAYOUT_RTOL = 1e-4
+# one training step's gradients at initialisation are ill-conditioned:
+# ReLU's gradient switches at 0, and a few of the step's ReLU inputs lie
+# within float32's rounding of 0. Each switch moves the gradients of every
+# layer below it, by up to tens of % of a tensor's max|.| (the batch
+# statistics' backward spreads it). The witness is float64 itself at
+# inputs moved by 2**-24 of their size: it counts the switches, and it
+# sits about as far from float64 as float32 does. So (b) holds each
+# tensor to the float64 CPU copy within RESNET_NOISE_FACTOR x its noise
+# (the larger of the float32 CPU copy's and the witness's distance) plus
+# RESNET_NOISE_FLOOR: the named gradients by max|.| (RESNET_GRADS), every
+# parameter's update by its norm (a switch moves a few rows of a tensor,
+# a wrong rule all of it). The check must fail each fault planted on the
+# card (RESNET_FAULTS).
+RESNET_NOISE_FACTOR, RESNET_NOISE_FLOOR = 4.0, 1e-5
+RESNET_WITNESS_SHIFT = 2.0 ** -24
+RESNET_CHECK_BATCH, RESNET_STEP_BATCH, RESNET_SIZE = 2, 8, 224
+RESNET_GRADS = ("conv1.weight", "layer4.2.bn3.weight", "fc.weight")
+# (what is held, tensors (None: every one), distance)
+RESNET_HELD = (("gradients", RESNET_GRADS, "max"),
+               ("updates", None, "norm"))
+# planted on the card: one gradient scaled by 1 %, one tensor left out of
+# the optimizer
+RESNET_FAULTS = (("scale", "fc.weight", 1.01),
+                 ("skip", "layer1.0.bn1.bias"))
+# the reference's chip row (tools/model_benchmark.py:86-131: batch 64,
+# 224 x 224, 2 warm-up steps), 10 timed steps
+RESNET_BENCH_ITERS = 10
+RESNET_BENCH_ROWS = (("float32", "NCHW"), ("bfloat16", "NCHW"),
+                     ("bfloat16", "NHWC"))
+# card vs CPU losses in float32 at a few dozen elements: 1e-5 of the
+# largest magnitude; the CTC and RNN-T recursions sum over every
+# alignment in log space, 1e-4
+LOSS_RTOL, LOSS_SCAN_RTOL = 1e-5, 1e-4
+
+
+def resnet_batch(seed, batch, layout="NCHW"):
+    """Images ``U(-1, 1)`` and labels from ``seed``, on the CPU."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.rand(batch, 3, RESNET_SIZE, RESNET_SIZE) * 2
+                          - 1).astype(np.float32))
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    return x, torch.from_numpy(rng.randint(0, 1000, batch))
+
+
+def resnet_pair(seed):
+    """ResNet-50 (1000 classes, float32) on the card from ``seed`` and a
+    CPU copy holding the same weights and statistics."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50(num_classes=1000,
+                     generator=torch.Generator(device="cuda").manual_seed(
+                         seed))
+    cpu = resnet50(num_classes=1000, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return model, cpu
+
+
+def no_port_launches(tag, fn):
+    """``fn()`` with every launch counter at 0 before and still 0 after:
+    this path runs no kernel of the port. Returns (fn's result, counts)."""
+    reset_launch_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counters()
+    if any(counts.values()):
+        raise AssertionError("%s launched port kernels: %s" % (tag, counts))
+    return out, counts
+
+
+def resnet_forward(seed):
+    """Phase 13(a) and (c): logits in train and in eval mode, and the
+    running statistics the train forward leaves, against the CPU copy;
+    then NHWC against NCHW on the card."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    tag = "[resnet50 forward]"
+    model, cpu = resnet_pair(seed)
+    x, _ = resnet_batch(seed, RESNET_CHECK_BATCH)
+    rows = {}
+    with torch.no_grad():
+        got, counts = no_port_launches(tag, lambda: model(x.cuda()))
+        rows["train logits"] = close_rel(tag + " train logits", got.cpu(),
+                                         cpu(x), RESNET_RTOL)
+        stats = dict(cpu.named_buffers())
+        worst = max((close_rel("%s %s" % (tag, name), buf.cpu(),
+                               stats[name], RESNET_RTOL)["max_abs_diff"]
+                     / max(float(stats[name].abs().max()), 1e-30), name)
+                    for name, buf in model.named_buffers())
+        rows["running statistics"] = {"buffers": len(stats),
+                                      "worst_rel": worst[0],
+                                      "worst": worst[1]}
+        model.eval()
+        cpu.eval()
+        got = model(x.cuda())
+        rows["eval logits"] = close_rel(tag + " eval logits", got.cpu(),
+                                        cpu(x), RESNET_RTOL)
+        nhwc = resnet50(num_classes=1000, data_format="NHWC")
+        nhwc.load_state_dict(model.state_dict())
+        nhwc.eval()
+        xl = x.permute(0, 2, 3, 1).contiguous().cuda()
+        rows["nhwc eval logits"] = close_rel(
+            tag + " NHWC vs NCHW", nhwc(xl).cpu(), got.cpu(),
+            RESNET_LAYOUT_RTOL)
+    log(tag + " " + json.dumps(rows))
+    return counts
+
+
+def rel_to(got, want):
+    """max |got - want| over max |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def norm_to(got, want):
+    """||got - want|| over ||want||."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def train_once(model, x, y, device, fault=None):
+    """One Momentum(0.1, 0.9) step of ``model`` through TrainStep: the
+    loss, and the gradients, updates and running statistics in float64
+    on the CPU. ``fault`` plants one: ``("scale", name, factor)`` scales
+    that tensor's gradient, ``("skip", name)`` leaves it out of the
+    optimizer."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel import TrainStep
+
+    params = dict(model.named_parameters())
+    before = {n: p.detach().double().cpu().clone()
+              for n, p in params.items()}
+    kind, name = fault[:2] if fault else (None, None)
+    if kind == "scale":
+        params[name].register_hook(lambda g: g * fault[2])
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=[p for n, p in params.items()
+                               if not (kind == "skip" and n == name)])
+    loss = TrainStep(model, F.cross_entropy, opt, device=device)(x, y)
+    return {"loss": float(loss),
+            "gradients": {n: p.grad.double().cpu()
+                          for n, p in params.items()},
+            "updates": {n: p.detach().double().cpu() - before[n]
+                        for n, p in params.items()},
+            "statistics": {n: b.double().cpu()
+                           for n, b in model.named_buffers()}}
+
+
+def relu_signs(model):
+    """The ``> 0`` masks of every ReLU output of ``model``'s forwards,
+    appended as they run."""
+    from paddle_tpu_torch.nn import ReLU
+
+    signs = []
+    for mod in model.modules():
+        if isinstance(mod, ReLU):
+            mod.register_forward_hook(
+                lambda m, i, out: signs.append(out.detach() > 0))
+    return signs
+
+
+def step_distances(card, refs):
+    """{what: {distance: {tensor: [card's, float32 CPU's, witness's]
+    distance from float64's]}}}."""
+    out = {}
+    for what in ("gradients", "updates"):
+        want = refs["float64"][what]
+        out[what] = {
+            kind: {n: [fn(r[what][n], want[n])
+                       for r in (card, refs["float32"], refs["witness"])]
+                   for n in want}
+            for kind, fn in (("max", rel_to), ("norm", norm_to))}
+    return out
+
+
+def check_step(tag, dist):
+    """Each tensor of RESNET_HELD within RESNET_NOISE_FACTOR x its noise
+    plus RESNET_NOISE_FLOOR; raises on the first that is not."""
+    for what, names, kind in RESNET_HELD:
+        table = dist[what][kind]
+        for n in names or table:
+            card, c32, wit = table[n]
+            bound = RESNET_NOISE_FACTOR * max(c32, wit) + RESNET_NOISE_FLOOR
+            if not card <= bound:
+                raise AssertionError(
+                    "%s %s of %s: %s distance from float64 %.3g on the "
+                    "card, > %.3g (float32 CPU %.3g, witness %.3g)"
+                    % (tag, what, n, kind, card, bound, c32, wit))
+
+
+def resnet_step_refs(seed, state, x, y):
+    """The step on float32 and float64 CPU copies holding ``state``, and
+    on the witness: float64 at ``x`` moved by RESNET_WITNESS_SHIFT of its
+    size (signs from ``seed``), with the number of ReLU outputs whose
+    sign it switched against the float64 copy."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    refs, signs = {}, {}
+    shift = torch.from_numpy(np.random.RandomState(seed).choice(
+        [-1.0, 1.0], x.shape))
+    for name, dtype, xin in (
+            ("float32", torch.float32, x),
+            ("float64", torch.float64, x.double()),
+            ("witness", torch.float64,
+             x.double() * (1 + RESNET_WITNESS_SHIFT * shift))):
+        model = resnet50(num_classes=1000, device="cpu", dtype=dtype)
+        model.load_state_dict({k: v.cpu().to(dtype)
+                               if v.is_floating_point() else v.cpu()
+                               for k, v in state.items()})
+        signs[name] = relu_signs(model)
+        refs[name] = train_once(model, xin, y, "cpu")
+    switched = sum(int((a != b).sum())
+                   for a, b in zip(signs["float64"], signs["witness"]))
+    return refs, switched, sum(m.numel() for m in signs["float64"])
+
+
+def resnet_step(seed):
+    """Phase 13(b): one Momentum(0.1, 0.9) step through TrainStep on the
+    card, held to a float64 CPU copy: the loss, conv1.weight's,
+    layer4.2.bn3.weight's and fc.weight's gradients, every parameter's
+    update, bn1's statistics; each tensor within RESNET_NOISE_FACTOR x
+    its own noise. Then the same check on the card's step with each of
+    RESNET_FAULTS planted must fail."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    tag = "[resnet50 step]"
+
+    def card_model():
+        return resnet50(num_classes=1000,
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            seed + 1))
+
+    model = card_model()
+    x, y = resnet_batch(seed + 1, RESNET_STEP_BATCH)
+    refs, switched, relus = resnet_step_refs(seed + 2, model.state_dict(),
+                                             x, y)
+    card, counts = no_port_launches(
+        tag, lambda: train_once(model, x.cuda(), y.cuda(), None))
+    loss64 = refs["float64"]["loss"]
+    rows = {"loss": [card["loss"], refs["float32"]["loss"], loss64,
+                     refs["witness"]["loss"]],
+            "witness relu switches": [switched, relus]}
+    if not abs(card["loss"] - loss64) <= TRAIN_LOSS_RTOL * abs(loss64):
+        raise AssertionError("%s loss %r on the card, %r in float64"
+                             % (tag, card["loss"], loss64))
+    dist = step_distances(card, refs)
+    check_step(tag, dist)
+    for what in ("gradients", "updates"):
+        for kind, table in dist[what].items():
+            cols = list(zip(*table.values()))
+            rows["%s %s max, median [card, f32, witness]" % (what, kind)] = [
+                [max(c) for c in cols], [statistics.median(c) for c in cols]]
+            noise = {n: c / max(a, b, 1e-30) for n, (c, a, b) in table.items()}
+            worst = max(noise, key=noise.get)
+            rows["%s %s worst card / noise" % (what, kind)] = [
+                worst, noise[worst]]
+    rows.update(("grad %s [card, f32, witness]" % n,
+                 dist["gradients"]["max"][n]) for n in RESNET_GRADS)
+    for name in ("bn1._mean", "bn1._variance"):
+        rows[name] = close_rel("%s %s" % (tag, name),
+                               card["statistics"][name],
+                               refs["float64"]["statistics"][name],
+                               RESNET_RTOL)
+    caught = {}
+    for fault in RESNET_FAULTS:
+        faulty = train_once(card_model(), x.cuda(), y.cuda(), None, fault)
+        try:
+            check_step(tag, step_distances(faulty, refs))
+        except AssertionError as e:
+            caught[" ".join(map(str, fault))] = str(e)
+            continue
+        raise AssertionError("%s the check passed a planted fault: %s"
+                             % (tag, fault))
+    rows["planted faults caught"] = caught
+    log(tag + " " + json.dumps(rows))
+    return counts
+
+
+def resnet_bench(card):
+    """Phase 13(d): the reference's ResNet-50 train row at batch 64,
+    224 x 224: float32 NCHW, and bf16 in NCHW and NHWC."""
+    from paddle_tpu_torch.tools.model_benchmark import measure_resnet50
+
+    rows, counts = [], None
+    for dtype, layout in RESNET_BENCH_ROWS:
+        tag = "[resnet50 bench %s %s]" % (dtype, layout)
+        row, counts = no_port_launches(tag, lambda: measure_resnet50(
+            layout, dtype, RESNET_BENCH_ITERS, "cuda"))
+        row.update(dtype=dtype, layout=layout, card=card,
+                   iters=RESNET_BENCH_ITERS)
+        log(tag + " " + json.dumps(row))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows, counts
+
+
+def loss_cases():
+    """(name, numpy inputs, indices of the differentiated ones, call,
+    tolerance) for every loss of ``nn/functional/loss.py`` past
+    ``nll_loss``, at a small size."""
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.RandomState(13)
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * rng.rand(*shape)).astype(np.float32)
+
+    def pm1(*shape):
+        return np.where(rng.rand(*shape) < 0.5, -1.0, 1.0).astype(
+            np.float32)
+
+    def logp(*shape):
+        x = rng.randn(*shape).astype(np.float32)
+        return x - np.log(np.exp(x).sum(-1, keepdims=True))
+
+    ctc = [logp(7, 3, 5), np.array([[1, 2, 2], [3, 1, 0], [4, 4, 0]]),
+           np.array([7, 6, 5]), np.array([3, 2, 1])]
+    rnnt = [rng.randn(2, 4, 3, 5).astype(np.float32),
+            np.array([[1, 2], [3, 0]]), np.array([4, 3]), np.array([2, 1])]
+    two, three = (0, 1), (0, 1, 2)
+    return [
+        ("mse_loss", [f(4, 3), f(4, 3)], two, F.mse_loss, LOSS_RTOL),
+        ("l1_loss", [f(4, 3), f(4, 3)], two, F.l1_loss, LOSS_RTOL),
+        ("smooth_l1_loss", [f(4, 5) * 2, f(4, 5)], two,
+         lambda a, b: F.smooth_l1_loss(a, b, delta=0.7), LOSS_RTOL),
+        ("huber_loss", [f(4, 5) * 2, f(4, 5)], two,
+         lambda a, b: F.huber_loss(a, b, delta=0.6), LOSS_RTOL),
+        ("binary_cross_entropy", [f(4, 3, lo=0.02, hi=0.98),
+                                  f(4, 3, lo=0, hi=1), f(3, lo=0.5, hi=2)],
+         three, F.binary_cross_entropy, LOSS_RTOL),
+        ("binary_cross_entropy_with_logits",
+         [f(4, 3) * 4, f(4, 3, lo=0, hi=1), f(3, lo=0.5, hi=2)], three,
+         lambda a, b, w: F.binary_cross_entropy_with_logits(
+             a, b, w, pos_weight=w), LOSS_RTOL),
+        ("kl_div", [logp(4, 5), f(4, 5, lo=0, hi=1)], two,
+         lambda a, b: F.kl_div(a, b, reduction="batchmean"), LOSS_RTOL),
+        ("hinge_embedding_loss", [f(6, 3) * 2, pm1(6, 3)], (0,),
+         F.hinge_embedding_loss, LOSS_RTOL),
+        ("margin_ranking_loss", [f(8), f(8), pm1(8)], two,
+         lambda a, b, y: F.margin_ranking_loss(a, b, y, margin=0.2),
+         LOSS_RTOL),
+        ("cosine_embedding_loss", [f(6, 4), f(6, 4), pm1(6)], two,
+         lambda a, b, y: F.cosine_embedding_loss(a, b, y, margin=0.1),
+         LOSS_RTOL),
+        ("triplet_margin_loss", [f(5, 4), f(5, 4), f(5, 4)], three,
+         lambda a, p, n: F.triplet_margin_loss(a, p, n, p=3.0, swap=True),
+         LOSS_RTOL),
+        ("log_loss", [f(4, 1, lo=0.05, hi=0.95), f(4, 1, lo=0, hi=1)], two,
+         F.log_loss, LOSS_RTOL),
+        ("square_error_cost", [f(4, 3), f(4, 3)], two, F.square_error_cost,
+         LOSS_RTOL),
+        ("ctc_loss_dense", ctc, (0,), F.ctc_loss_dense, LOSS_SCAN_RTOL),
+        ("ctc_loss", ctc, (0,), lambda *a: F.ctc_loss(
+            *a, norm_by_times=True, reduction="sum"), LOSS_SCAN_RTOL),
+        ("warpctc", [rng.randn(7, 3, 5).astype(np.float32)] + ctc[1:], (0,),
+         F.warpctc, LOSS_SCAN_RTOL),
+        ("sigmoid_focal_loss", [f(4, 3) * 3,
+                                (rng.rand(4, 3) < 0.4).astype(np.float32)],
+         (0,), lambda a, b: F.sigmoid_focal_loss(a, b, gamma=1.5),
+         LOSS_RTOL),
+        ("sigmoid_cross_entropy_with_logits",
+         [f(4, 3) * 3, np.array([[0, 1, -100], [1, 1, 0], [-100, 0, 1],
+                                 [0, 0, 1]], np.float32)], (0,),
+         lambda a, b: F.sigmoid_cross_entropy_with_logits(a, b,
+                                                          normalize=True),
+         LOSS_RTOL),
+        ("margin_cross_entropy", [f(4, 6, lo=-0.95, hi=0.95),
+                                  np.array([0, 5, 2, 2])], (0,),
+         lambda a, b: F.margin_cross_entropy(a, b, margin2=0.3, scale=8.0),
+         LOSS_RTOL),
+        ("hsigmoid_loss", [f(4, 6), np.array([0, 3, 6, 2]), f(6, 6), f(6)],
+         (0, 2, 3), lambda x, y, w, b: F.hsigmoid_loss(x, y, 7, w, b),
+         LOSS_RTOL),
+        ("soft_margin_loss", [f(4, 3) * 3, pm1(4, 3)], (0,),
+         F.soft_margin_loss, LOSS_RTOL),
+        ("multi_label_soft_margin_loss",
+         [f(4, 5) * 3, (rng.rand(4, 5) < 0.5).astype(np.float32),
+          f(5, lo=0.5, hi=2)], (0, 2), F.multi_label_soft_margin_loss,
+         LOSS_RTOL),
+        ("npair_loss", [f(6, 4), f(6, 4), np.array([0, 1, 0, 2, 1, 3.0],
+                                                   np.float32)], two,
+         F.npair_loss, LOSS_RTOL),
+        ("dice_loss", [f(3, 4, 5, lo=0, hi=1), rng.randint(0, 5, (3, 4, 1))],
+         (0,), F.dice_loss, LOSS_RTOL),
+        ("multi_margin_loss", [f(5, 4) * 2, np.array([0, 3, 1, 1, 2]),
+                               f(4, lo=0.5, hi=2)], (0, 2),
+         lambda x, y, w: F.multi_margin_loss(x, y, p=2, weight=w),
+         LOSS_RTOL),
+        ("pairwise_distance", [f(5, 4), f(5, 4)], two,
+         lambda a, b: F.pairwise_distance(a, b, p=1.5), LOSS_RTOL),
+        ("triplet_margin_with_distance_loss", [f(5, 4), f(5, 4), f(5, 4)],
+         three, lambda a, p, n: F.triplet_margin_with_distance_loss(
+             a, p, n, swap=True), LOSS_RTOL),
+        ("rnnt_loss", rnnt, (0,), F.rnnt_loss, LOSS_SCAN_RTOL),
+    ]
+
+
+def loss_run(arrays, diff, call, device):
+    ts = [torch.tensor(a, device=device, requires_grad=i in diff)
+          for i, a in enumerate(arrays)]
+    out = call(*ts)
+    out.backward(torch.ones_like(out))
+    return out.detach().cpu(), [ts[i].grad.cpu() for i in diff]
+
+
+def phase_losses(seed):
+    """Phase 13(e): every new loss on the card against the same call on
+    the CPU, the value and each floating input's gradient; then
+    ``class_center_sample`` on card labels."""
+    from paddle_tpu_torch.nn import functional as F
+
+    tag = "[losses]"
+    worst = {}
+    for name, arrays, diff, call, rtol in loss_cases():
+        (got, got_g), counts = no_port_launches(
+            tag, lambda: loss_run(arrays, diff, call, "cuda"))
+        want, want_g = loss_run(arrays, diff, call, "cpu")
+        errs = [close_rel("%s %s" % (tag, name), got, want, rtol)]
+        errs += [close_rel("%s %s grad %d" % (tag, name, i), g, w, rtol)
+                 for i, g, w in zip(diff, got_g, want_g)]
+        worst[name] = max(e["max_abs_diff"] / max(e["scale"], 1e-30)
+                          for e in errs)
+    labels = torch.tensor([3, 17, 3, 40, 8, 17], device="cuda")
+    remapped, sampled = F.class_center_sample(
+        labels, 50, 10, generator=torch.Generator(device="cuda").manual_seed(
+            seed))
+    extra = sampled[4:].tolist()
+    if not (sampled.device == labels.device == remapped.device
+            and sampled.numel() == len(set(sampled.tolist())) == 10
+            and torch.equal(sampled[remapped], labels)
+            and sampled[:4].tolist() == [3, 8, 17, 40]
+            and extra == sorted(extra) and not {3, 8, 17, 40} & set(extra)):
+        raise AssertionError("%s class_center_sample: %s %s"
+                             % (tag, remapped.tolist(), sampled.tolist()))
+    log(tag + " %d losses, worst relative difference %.3g (%s)"
+        % (len(worst), max(worst.values()), max(worst, key=worst.get)))
+    return counts
+
+
+def phase_resnet(seed, card):
+    """Phase 13: ResNet-50 on the card. Returns (bench rows, launch counts
+    by path, seconds)."""
+    t_phase = time.perf_counter()
+    paths = {"resnet50 forward": resnet_forward(seed)}
+    torch.cuda.empty_cache()
+    paths["resnet50 step"] = resnet_step(seed)
+    torch.cuda.empty_cache()
+    rows, paths["resnet50 bench"] = resnet_bench(card)
+    paths["losses"] = phase_losses(seed)
+    seconds = time.perf_counter() - t_phase
+    log("[resnet50] phase 13 in %.1f s" % seconds)
+    return rows, paths, seconds
+
+
 # -- phase 9 ----------------------------------------------------------------
 
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -3973,6 +4463,8 @@ def main(argv=None):
     phase_train_e2e_variant(args.seed)
     torch.cuda.empty_cache()
     rows["encoders"], encoder_paths, _ = phase_encoders(args.seed)
+    torch.cuda.empty_cache()
+    _, resnet_paths, _ = phase_resnet(args.seed, card)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -3984,6 +4476,7 @@ def main(argv=None):
     paths.update(gen_paths)
     paths.update(bench_paths)
     paths.update(encoder_paths)
+    paths.update(resnet_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

@@ -16,6 +16,13 @@ layers' (``encoder.layers.0.self_attn.q_proj.weight``,
 numpy (or anything ``numpy.asarray`` takes), so this module needs
 nothing from JAX.
 
+The reference's ``functional_state()`` gives the parameters and then the
+buffers, such as a batch norm's running statistics (``bn1._mean``,
+``layer1.0.downsample.1._variance``: ``vision/models/resnet.py``). The
+port keeps them as buffers under the same names, so both functions here
+cover ``named_parameters()`` and then ``named_buffers()``, with the same
+checks.
+
 ``export_state`` gives the port's weights back in the same names, and
 ``load_jax_optimizer_state`` takes a reference train step's optimizer
 state (``CompiledTrainStep._opt_state``, ``{name: [moment1, moment2]}``,
@@ -27,12 +34,19 @@ import numpy as np
 import torch
 
 
+def _state(model):
+    """``model``'s parameters and then its buffers, by name."""
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    return state
+
+
 def load_jax_state(model, names, arrays):
-    """Copy ``arrays`` into ``model``'s parameters by reference name.
-    Every parameter must be given exactly once, with its exact shape;
-    an unknown, missing or repeated name or a wrong shape raises
-    ``ValueError`` before anything is copied."""
-    params = dict(model.named_parameters())
+    """Copy ``arrays`` into ``model``'s parameters and buffers by
+    reference name. Every parameter and buffer must be given exactly
+    once, with its exact shape; an unknown, missing or repeated name or a
+    wrong shape raises ``ValueError`` before anything is copied."""
+    params = _state(model)
     names = list(names)
     arrays = [np.asarray(a) for a in arrays]
     if len(names) != len(arrays):
@@ -57,11 +71,11 @@ def load_jax_state(model, names, arrays):
 
 
 def export_state(model):
-    """``(names, arrays)`` of ``model``'s parameters in the reference's
-    names, as numpy arrays (bfloat16 parameters widen to float32, which
-    holds them exactly; ``load_jax_state`` casts back)."""
+    """``(names, arrays)`` of ``model``'s parameters and then its buffers
+    in the reference's names, as numpy arrays (bfloat16 tensors widen to
+    float32, which holds them exactly; ``load_jax_state`` casts back)."""
     names, arrays = [], []
-    for name, p in model.named_parameters():
+    for name, p in _state(model).items():
         names.append(name)
         t = p.detach().cpu()
         if t.dtype == torch.bfloat16:

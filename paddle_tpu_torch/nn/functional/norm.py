@@ -1,8 +1,25 @@
 """Normalisation functionals
-(counterpart of paddle_tpu/nn/functional/norm.py)."""
+(counterpart of paddle_tpu/nn/functional/norm.py).
+
+Every variance is the biased one (``jnp.var``), as in the reference.
+``batch_norm_train`` returns ``(out, batch_mean, batch_var)`` and leaves
+the running statistics to its caller (``nn.layers.norm``): the output is
+torch's ``batch_norm`` in training mode (one fused normalisation and its
+backward), and the batch statistics come out of that same pass, through
+scratch running statistics at momentum 1 (``batch_norm_pass``).
+``batch_norm_infer`` normalises with the given statistics in
+plain tensor ops, so that, as in the reference, it is differentiable in
+all of them. ``group_norm`` and ``instance_norm`` are torch's, which
+normalise with the same biased variance; ``local_response_norm`` divides
+by ``(k + alpha * s) ** beta`` with ``s`` the *sum* of squares over the
+window of channels, the reference's rule (torch's own divides ``alpha``
+by the window size). All plain PyTorch: the reference has no Pallas
+kernel here.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as TF
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
@@ -31,3 +48,102 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     if weight is not None:
         out = out * weight
     return out
+
+
+def _channel_axis(x, data_format):
+    return 1 if data_format.startswith("NC") else x.dim() - 1
+
+
+def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
+                     epsilon=1e-5, data_format="NCHW"):
+    """``(x - mean) / sqrt(var + epsilon) * weight + bias`` on the given
+    statistics, per channel."""
+    ch = _channel_axis(x, data_format)
+    shape = [-1 if d == ch else 1 for d in range(x.dim())]
+    out = (x - running_mean.reshape(shape)) / torch.sqrt(
+        running_var.reshape(shape) + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+class _BatchStats(torch.autograd.Function):
+    """The batch's mean and biased variance of ``xc`` (channels on axis
+    1), computed by the caller, made differentiable in ``xc``:
+    ``d mean = 1 / n`` and ``d var = 2 (x - mean) / n``. Nothing runs
+    backward unless a gradient reaches the statistics."""
+
+    @staticmethod
+    def forward(ctx, xc, mean, var):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xc, mean)
+        return mean.clone(), var.clone()
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        xc, mean = ctx.saved_tensors
+        shape = [1, -1] + [1] * (xc.dim() - 2)
+        n = xc.numel() // xc.shape[1]
+        gx = None
+        if g_mean is not None:
+            gx = (g_mean / n).reshape(shape).expand_as(xc)
+        if g_var is not None:
+            gv = (xc - mean.reshape(shape)) * (2.0 * g_var / n).reshape(shape)
+            gx = gv if gx is None else gx + gv
+        return gx, None, None
+
+
+def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
+                    data_format="NCHW"):
+    """torch's fused training batch norm, once: ``(out, batch_mean,
+    batch_var)``, the statistics out of the same pass through scratch
+    running statistics at momentum 1, carrying no gradient (torch's
+    running variance is the unbiased one: it is scaled by ``(n - 1) /
+    n``)."""
+    ch = _channel_axis(x, data_format)
+    xc = x.movedim(ch, 1)
+    n = xc.numel() // xc.shape[1]
+    like = weight if weight is not None else xc
+    mean, var = torch.zeros(2, xc.shape[1], device=xc.device,
+                            dtype=like.dtype).unbind()
+    out = TF.batch_norm(xc, mean, var, weight, bias, training=True,
+                        momentum=1.0, eps=epsilon)
+    return out.movedim(1, ch), mean, var * ((n - 1) / n)
+
+
+def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
+                     data_format="NCHW"):
+    """Returns ``(out, batch_mean, batch_var)``, the statistics
+    differentiable in ``x``; the caller updates the running
+    statistics."""
+    out, mean, var = batch_norm_pass(x, weight, bias, epsilon, data_format)
+    xc = x.movedim(_channel_axis(x, data_format), 1)
+    mean, var = _BatchStats.apply(xc, mean, var)
+    return out, mean, var
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    ch = _channel_axis(x, data_format)
+    out = TF.group_norm(x.movedim(ch, 1), int(num_groups), weight, bias,
+                        epsilon)
+    return out.movedim(1, ch)
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
+                  data_format="NCHW"):
+    ch = _channel_axis(x, data_format)
+    out = TF.instance_norm(x.movedim(ch, 1), weight=weight, bias=bias,
+                           eps=epsilon)
+    return out.movedim(1, ch)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    ch = _channel_axis(x, data_format)
+    sq = x.square().movedim(ch, -1)
+    half = size // 2
+    sums = TF.pad(sq, [half, size - half - 1]).unfold(-1, size, 1).sum(-1)
+    return x / (k + alpha * sums.movedim(-1, ch)).pow(beta)

@@ -5,18 +5,27 @@ from .activation import (
     Tanh, Tanhshrink, ThresholdedReLU)
 from .common import Dropout, Embedding, Linear
 from .container import LayerDict, LayerList, ParameterList, Sequential
-from .norm import LayerNorm, RMSNorm
+from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                   Conv3DTranspose)
+from .loss import (
+    BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
+    CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, KLDivLoss, L1Loss,
+    MarginRankingLoss, MSELoss, MultiLabelSoftMarginLoss, MultiMarginLoss,
+    NLLLoss, PairwiseDistance, RNNTLoss, SmoothL1Loss, SoftMarginLoss,
+    TripletMarginLoss, TripletMarginWithDistanceLoss)
+from .norm import (
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, RMSNorm, SpectralNorm, SyncBatchNorm)
+from .pooling import (
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+    AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
+    MaxUnPool2D, MaxUnPool3D)
 from .transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["CELU", "Dropout", "ELU", "Embedding", "GELU", "Hardshrink",
-           "Hardsigmoid", "Hardswish", "Hardtanh", "LayerDict", "LayerList",
-           "LayerNorm", "LeakyReLU", "Linear", "LogSigmoid", "LogSoftmax",
-           "Maxout", "Mish", "MultiHeadAttention", "PReLU", "ParameterList",
-           "RMSNorm", "RReLU", "ReLU", "ReLU6", "SELU", "Sequential",
-           "Sigmoid", "Silu", "Softmax", "Softmax2D", "Softplus",
-           "Softshrink", "Softsign", "Swish", "Tanh", "Tanhshrink",
-           "ThresholdedReLU", "Transformer", "TransformerDecoder",
-           "TransformerDecoderLayer", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+__all__ = [name for name in dir() if not name.startswith("_")
+           and name not in ("activation", "common", "container", "conv",
+                            "loss", "norm", "pooling", "transformer")]

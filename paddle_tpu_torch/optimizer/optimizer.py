@@ -20,6 +20,13 @@ steps the scheduler, as in the reference. ``grad_clip`` (a
 ``ClipGradBy*`` of ``optimizer/clip.py``) clips the gradients in
 ``step()`` before the update.
 
+``weight_decay`` is a float or an ``L2Decay``. An ``L1Decay`` can be
+built, but an optimizer given one raises ``NotImplementedError``: the
+reference reads any regularizer's ``_coeff`` and folds it in as L2
+(``_weight_decay_value``, "Faults of the reference" 6 in ROADMAP.md), so
+its ``L1Decay`` decays like an ``L2Decay``, and the port refuses that
+rather than copy it.
+
 ``state_dict()`` keeps the reference's keys: ``"<slot>/<index>"`` (the
 parameter's index in the list given at construction), ``"global_step"``
 and, under a scheduler, ``"LR_Scheduler"``.
@@ -38,9 +45,24 @@ class L2Decay:
         self._coeff = coeff
 
 
+class L1Decay:
+    """paddle.regularizer.L1Decay analog: an L1 coefficient, which no
+    optimizer takes yet (see the module's docstring)."""
+
+    def __init__(self, coeff=0.0):
+        self._coeff = coeff
+
+
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
+        if isinstance(weight_decay, L1Decay):
+            raise NotImplementedError(
+                "L1Decay: the reference folds every regularizer's _coeff "
+                "in as L2 decay (optimizer.py _weight_decay_value; "
+                "\"Faults of the reference\" 6 in ROADMAP.md), so an "
+                "L1Decay would decay like an L2Decay; use L2Decay or a "
+                "float")
         self._lr_scheduler = None
         if isinstance(learning_rate, LRScheduler):
             self._lr_scheduler = learning_rate

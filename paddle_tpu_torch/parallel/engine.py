@@ -10,6 +10,11 @@ With ``labels_to_model=True`` the model computes the loss itself:
 is None). The gradients of the last step stay on the parameters until
 the next step clears them, so a caller can read them.
 
+The step runs the model in the mode its caller left it in (a new model
+is in training mode), as the reference's does. A model's buffers, such as
+a batch norm's running statistics (``nn/layers/norm.py``), move in place
+in its forward, so they move once a step, outside autograd.
+
 ``run_steps(*stacked_batch)`` runs K steps, one per slice of a leading K
 axis, and returns the last step's loss (float32, not read back). As in
 the reference, all K steps of a window take the learning rate current

@@ -42,6 +42,7 @@ from paddle_tpu_torch.kernels import quant
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, \
     load_jax_state
 from paddle_tpu_torch.serving import Engine
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLAG_NAMES = ("FLAGS_serving_prefix_cache", "FLAGS_serving_chunked_prefill",
               "FLAGS_serving_quant_kv", "FLAGS_serving_quant_weights")

@@ -156,4 +156,12 @@ def test_port_imports_neither_jax_nor_the_reference():
             "paddle_tpu_torch.serving.prefix_cache",
             "paddle_tpu_torch.kernels.quant",
             "paddle_tpu_torch.serving.kv_cache",
-            "paddle_tpu_torch.serving.kernels.paged_attention"} <= imported
+            "paddle_tpu_torch.serving.kernels.paged_attention",
+            "paddle_tpu_torch.nn.functional.conv",
+            "paddle_tpu_torch.nn.functional.pooling",
+            "paddle_tpu_torch.nn.layers.conv",
+            "paddle_tpu_torch.nn.layers.pooling",
+            "paddle_tpu_torch.nn.layers.loss",
+            "paddle_tpu_torch.regularizer",
+            "paddle_tpu_torch.vision.models.resnet",
+            "paddle_tpu_torch.tools.model_benchmark"} <= imported
