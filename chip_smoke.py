@@ -246,6 +246,36 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 against the same call on the CPU (value and gradients,
                 1e-5 x max|.|, 1e-4 for CTC and RNN-T) and
                 class_center_sample on card labels
+  14. seq2seq  run after phase 13; no kernel of the port runs here (every
+                launch counter stays 0 across each run): Luong's attention
+                seq2seq at its IWSLT'15 English -> Vietnamese widths
+                (vocabularies 17191 / 7709, embedding and hidden 512, a
+                2-layer LSTM encoder, a decoder cell of two LSTMCells with
+                input feeding and dot attention masked by sequence_mask,
+                built from the framework's nn API, every parameter from
+                initializer.Uniform(-0.1, 0.1)): (a) float32 logits and
+                the masked loss at batch 4 against a CPU copy; (b) one
+                Adam(1e-3) step with ClipGradByGlobalNorm(5) through
+                TrainStep, held per tensor to the CPU copy's (the loss,
+                three gradients, every update where the gradient stands
+                above its noise), and two faults planted on the card that
+                the check must fail; (c) BeamSearchDecoder (beam 10)
+                under dynamic_decode: ids equal to the CPU copy's, or
+                differing first at a near-tie of the beams' scores;
+                (d) a bidirectional 2-layer GRU, SimpleRNN (relu,
+                time-major) and a 2-layer LSTM, output and every
+                gradient against the CPU, and a bf16 LSTMCell given no
+                states computing in float32; (e) every common functional
+                (interpolate in every mode, shrinking and growing) and
+                manipulation op against the CPU, value and gradients, the
+                dropouts by their law; (f) resnet18 trains a step at
+                batch 1 and 32 x 32 (one value a channel in its last
+                stage); (g) batch 128 x 50 in float32 and bf16: train step
+                ms, target tokens/s, beam decode ms a step, sentences/s,
+                peak memory, one profiled step and decode (device ms,
+                kernels), and the port's LSTM against torch.nn.LSTM
+                (cuDNN's fused _VF.lstm) on the same weights at the
+                encoder's shape, beside the card's name and power limit
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -4066,6 +4096,695 @@ def phase_resnet(seed, card):
     return rows, paths, seconds
 
 
+# -- phase 14: an attention seq2seq (RNN, beam search; no kernel of the port)
+
+# Luong, Pham & Manning (2015), "Effective Approaches to Attention-based
+# Neural Machine Translation", at its IWSLT'15 English -> Vietnamese widths,
+# which PaddleNLP's examples/machine_translation/seq2seq trains too:
+# vocabularies 17191 / 7709, embedding and hidden 512, 2 LSTM layers a
+# side, input feeding, every parameter from U(-0.1, 0.1), Adam(1e-3) with
+# the gradients' global norm clipped at 5, beam 10 over at most 50 steps
+S2S = dict(src_vocab=17191, tgt_vocab=7709, embed=512, hidden=512, layers=2)
+S2S_INIT, S2S_LR, S2S_CLIP = 0.1, 1e-3, 5.0
+S2S_BATCH, S2S_LENS, S2S_CHECK_BATCH = 128, (10, 50), 4
+S2S_BEAM, S2S_MAX_STEPS, S2S_BOS, S2S_EOS = 10, 50, 1, 2
+S2S_TIMED_STEPS, S2S_TIMED_DECODES = 3, 2
+# card vs CPU in float32: the encoder's and the decoder's 50 steps each
+# sum 512- and 1024-wide products in another order (cuBLAS vs the CPU's
+# GEMMs); the logits and the loss agree to ~1e-6 relative, the gradients
+# through 50 steps back to ~1e-5. A wrong gate, mask or tie order moves
+# them by O(1)
+S2S_RTOL, S2S_GRAD_RTOL = 1e-4, 1e-3
+# Adam's first update is lr * g / (|g| + eps): +-lr wherever |g| stands
+# above its rounding noise, which may flip where it does not. So (b) holds
+# the update of every entry whose CPU gradient exceeds S2S_GRAD_RTOL of
+# its tensor's max|g| within S2S_UPDATE_RTOL x lr, and the rest within
+# 2 x lr (their count is printed)
+S2S_UPDATE_RTOL = 1e-3
+S2S_GRADS = ("encoder.weight_hh_l1", "decoder.cell.lstm_cells.0.weight_ih",
+             "output_layer.weight")
+# planted on the card: one gradient scaled by 1 %, one tensor left out of
+# the optimizer
+S2S_FAULTS = (("scale", "output_layer.weight", 1.01),
+              ("skip", "decoder.cell.lstm_cells.1.weight_hh"))
+# beam scores (log-probabilities summed over the steps) whose card and CPU
+# values lie this close may be taken in either order
+S2S_NEAR_TIE = 1e-3
+# the recurrent layers and cells on the card against the CPU (float32),
+# and a bf16 LSTMCell given no states (float32 states: JAX's promotion)
+RNN_RTOL, RNN_BF16_RTOL = 1e-4, 2e-2
+COMMON_RTOL = 1e-5
+
+
+class Seq2SeqCell(torch.nn.Module):
+    """The decoder's step, from the framework's public API: the embedded
+    token and the last attentional output (input feeding) through
+    ``layers`` LSTMCells, then Luong's dot attention over the bound
+    memory, ``softmax(h . memory^T)`` with the padding masked by
+    ``sequence_mask``, and ``tanh(W_c [context; h])``. The states are one
+    flat list, ``[h_0, c_0, h_1, c_1, ..., attentional output]``, as
+    ``BeamSearchDecoder`` takes them; the memory is bound beforehand
+    (``bind``), since neither ``RNN`` nor the decoder passes it."""
+
+    def __init__(self, embed, hidden, layers, *, generator, device,
+                 dtype=torch.float32):
+        from paddle_tpu_torch import nn
+
+        super().__init__()
+        self.hidden_size = hidden
+        self.lstm_cells = nn.LayerList([
+            nn.LSTMCell(embed + hidden if i == 0 else hidden, hidden,
+                        generator=generator, device=device, dtype=dtype)
+            for i in range(layers)])
+        self.attention = nn.Linear(2 * hidden, hidden, bias_attr=False,
+                                   generator=generator, device=device,
+                                   dtype=dtype)
+        self.memory = self.memory_bias = None
+
+    def bind(self, memory, lengths):
+        from paddle_tpu_torch.nn import functional as F
+
+        mask = F.sequence_mask(lengths, memory.shape[1], dtype=memory.dtype)
+        self.memory, self.memory_bias = memory, (mask - 1.0) * 1e9
+
+    def forward(self, step_input, states):
+        from paddle_tpu_torch.nn import functional as F
+
+        x = torch.cat([step_input, states[-1]], -1)
+        new = []
+        for i, cell in enumerate(self.lstm_cells):
+            x, (h, c) = cell(x, (states[2 * i], states[2 * i + 1]))
+            new += [h, c]
+        scores = torch.matmul(x.unsqueeze(1), self.memory.transpose(1, 2))
+        attn = F.softmax(scores.squeeze(1) + self.memory_bias, axis=-1)
+        context = torch.matmul(attn.unsqueeze(1), self.memory).squeeze(1)
+        out = torch.tanh(self.attention(torch.cat([context, x], -1)))
+        return out, new + [out]
+
+
+class Seq2Seq(torch.nn.Module):
+    """An attention encoder-decoder from the framework's public API: an
+    ``LSTM`` encoder over the embedded source, the ``Seq2SeqCell``
+    decoder driven by ``nn.RNN`` (teacher forcing) or by
+    ``BeamSearchDecoder`` under ``dynamic_decode``, and an output
+    ``Linear`` without bias. Every parameter is drawn again from
+    ``initializer.Uniform(-init_scale, init_scale)`` with ``generator``.
+    Called with ``labels`` it returns PaddleNLP's loss: the target
+    positions' cross-entropy masked by ``sequence_mask``, summed and
+    divided by the batch."""
+
+    def __init__(self, src_vocab, tgt_vocab, embed, hidden, layers, *,
+                 generator, device, dtype=torch.float32, init_scale=S2S_INIT):
+        from paddle_tpu_torch import nn
+
+        super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        self.src_embedder = nn.Embedding(src_vocab, embed, **kw)
+        self.encoder = nn.LSTM(embed, hidden, num_layers=layers, **kw)
+        self.tgt_embedder = nn.Embedding(tgt_vocab, embed, **kw)
+        self.decoder = nn.RNN(Seq2SeqCell(embed, hidden, layers, **kw))
+        self.output_layer = nn.Linear(hidden, tgt_vocab, bias_attr=False,
+                                      **kw)
+        init = nn.initializer.Uniform(-init_scale, init_scale)
+        for p in self.parameters():
+            init(p, generator=generator)
+
+    def encode(self, src):
+        memory, (h, c) = self.encoder(self.src_embedder(src))
+        states = [s for i in range(h.shape[0]) for s in (h[i], c[i])]
+        return memory, states + [torch.zeros_like(h[0])]
+
+    def forward(self, src, src_len, tgt_in, tgt_len=None, labels=None):
+        from paddle_tpu_torch.nn import functional as F
+
+        memory, states = self.encode(src)
+        self.decoder.cell.bind(memory, src_len)
+        out, _ = self.decoder(self.tgt_embedder(tgt_in), states)
+        logits = self.output_layer(out)
+        if labels is None:
+            return logits
+        mask = F.sequence_mask(tgt_len, labels.shape[1], dtype="float32")
+        ce = F.cross_entropy(logits.float(), labels, reduction="none")
+        return (ce.reshape(labels.shape) * mask).sum() / labels.shape[0]
+
+    def beam_decoder(self, src, src_len, beam_size=S2S_BEAM):
+        """The ``BeamSearchDecoder`` over the decoder's cell, its memory
+        bound tiled to the beams, and the states to start from."""
+        from paddle_tpu_torch import nn
+
+        memory, states = self.encode(src)
+        tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+        self.decoder.cell.bind(tile(memory, beam_size),
+                               tile(src_len, beam_size))
+        return nn.BeamSearchDecoder(
+            self.decoder.cell, S2S_BOS, S2S_EOS, beam_size,
+            embedding_fn=self.tgt_embedder,
+            output_fn=self.output_layer), states
+
+    def beam_search(self, src, src_len, beam_size=S2S_BEAM,
+                    max_step_num=S2S_MAX_STEPS):
+        """Beam search ids ``[batch, steps, beam]``, best first."""
+        from paddle_tpu_torch import nn
+
+        decoder, states = self.beam_decoder(src, src_len, beam_size)
+        return nn.dynamic_decode(decoder, inits=states,
+                                 max_step_num=max_step_num)[0]
+
+
+def s2s_batch(seed, batch, device="cpu"):
+    """``(src, src_len, tgt_in, tgt_len, labels)`` from ``seed``: lengths
+    in S2S_LENS (row 0 at the longest), ids past the specials, 0 past each
+    length; ``labels`` end on S2S_EOS and ``tgt_in`` is them shifted
+    right behind S2S_BOS."""
+    rng = np.random.RandomState(seed)
+    lo, hi = S2S_LENS
+    src_len, tgt_len = (rng.randint(lo, hi + 1, batch) for _ in range(2))
+    src_len[0] = tgt_len[0] = hi
+    pos = np.arange(hi)
+    src = rng.randint(3, S2S["src_vocab"], (batch, hi))
+    src = np.where(pos < src_len[:, None], src, 0)
+    labels = rng.randint(3, S2S["tgt_vocab"], (batch, hi))
+    labels[np.arange(batch), tgt_len - 1] = S2S_EOS
+    labels = np.where(pos < tgt_len[:, None], labels, 0)
+    tgt_in = np.concatenate([np.full((batch, 1), S2S_BOS), labels[:, :-1]],
+                            1)
+    return tuple(torch.from_numpy(a).long().to(device)
+                 for a in (src, src_len, tgt_in, tgt_len, labels))
+
+
+def on(device, tensors):
+    return tuple(t.to(device) for t in tensors)
+
+
+def s2s_model(seed, device, dtype=torch.float32):
+    return Seq2Seq(**S2S, device=device, dtype=dtype,
+                   generator=torch.Generator(device=device).manual_seed(seed))
+
+
+def s2s_pair(seed):
+    """The float32 seq2seq on the card from ``seed`` and a CPU copy
+    holding the same weights."""
+    card = s2s_model(seed, "cuda")
+    cpu = Seq2Seq(**S2S, device="cpu", generator=torch.Generator())
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+def s2s_train_once(model, batch, device, fault=None):
+    """One ``Adam`` step with global-norm clipping through ``TrainStep``:
+    the loss, every gradient and every update on the CPU. ``fault``
+    plants one, as RESNET_FAULTS do."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import TrainStep
+
+    model.zero_grad(set_to_none=True)
+    params = dict(model.named_parameters())
+    before = {n: p.detach().cpu().clone() for n, p in params.items()}
+    kind, name = fault[:2] if fault else (None, None)
+    hook = (params[name].register_hook(lambda g: g * fault[2])
+            if kind == "scale" else None)
+    opt = Adam(learning_rate=S2S_LR,
+               parameters=[p for n, p in params.items()
+                           if not (kind == "skip" and n == name)],
+               grad_clip=nn.ClipGradByGlobalNorm(S2S_CLIP))
+    loss = TrainStep(model, None, opt, labels_to_model=True,
+                     device=device)(*batch)
+    if hook is not None:
+        hook.remove()
+    return {"loss": float(loss),
+            "gradients": {n: p.grad.cpu() for n, p in params.items()},
+            "updates": {n: p.detach().cpu() - before[n]
+                        for n, p in params.items()}}
+
+
+def s2s_check_step(tag, card, ref):
+    """The loss, S2S_GRADS and every update of the card's step against
+    the CPU's; raises on the first out of its limit. Returns the numbers
+    and the count of entries whose update noise may flip."""
+    rows = {"loss": [card["loss"], ref["loss"]]}
+    if not abs(card["loss"] - ref["loss"]) <= S2S_RTOL * abs(ref["loss"]):
+        raise AssertionError("%s loss %r on the card, %r on the CPU"
+                             % (tag, card["loss"], ref["loss"]))
+    for n in S2S_GRADS:
+        rows["grad " + n] = close_rel("%s gradient of %s" % (tag, n),
+                                      card["gradients"][n],
+                                      ref["gradients"][n], S2S_GRAD_RTOL)
+    worst, noisy = 0.0, 0
+    for n, want in ref["updates"].items():
+        g = ref["gradients"][n].abs()
+        firm = g > S2S_GRAD_RTOL * float(g.max())
+        diff = (card["updates"][n] - want).abs()
+        bad = diff[firm] > S2S_UPDATE_RTOL * S2S_LR
+        if bool(bad.any()) or float(diff.max()) > 2 * S2S_LR * (1 + 1e-3):
+            raise AssertionError(
+                "%s update of %s: %d firm entries off by > %g, max %.3g"
+                % (tag, n, int(bad.sum()), S2S_UPDATE_RTOL * S2S_LR,
+                   float(diff.max())))
+        if bool(firm.any()):
+            worst = max(worst, float(diff[firm].max()))
+        noisy += int((~firm & (diff > S2S_UPDATE_RTOL * S2S_LR)).sum())
+    rows["updates"] = {"firm max abs diff": worst,
+                       "noisy entries off": noisy,
+                       "entries": sum(u.numel()
+                                      for u in ref["updates"].values())}
+    return rows
+
+
+def s2s_forward_and_step(seed):
+    """Phase 14(a)-(c): float32 logits and the masked loss at batch 4
+    against the CPU copy; one Adam step held per tensor, the planted
+    faults caught; beam search ids equal to the CPU's."""
+    tag = "[seq2seq]"
+    card, cpu = s2s_pair(seed)
+    start = {k: v.clone() for k, v in card.state_dict().items()}
+    batch = s2s_batch(seed + 1, S2S_CHECK_BATCH)
+    rows = {}
+    with torch.no_grad():
+        (logits, loss), counts = no_port_launches(tag, lambda: (
+            card(*on("cuda", batch[:3])), card(*on("cuda", batch))))
+        rows["logits"] = close_rel(tag + " logits", logits.cpu(),
+                                   cpu(*batch[:3]), S2S_RTOL)
+        rows["loss"] = close_rel(tag + " loss", loss.cpu(), cpu(*batch),
+                                 S2S_RTOL)
+    got, step_counts = no_port_launches(
+        tag, lambda: s2s_train_once(card, on("cuda", batch), None))
+    ref = s2s_train_once(cpu, batch, "cpu")
+    rows["step"] = s2s_check_step(tag, got, ref)
+    caught = {}
+    for fault in S2S_FAULTS:
+        card.load_state_dict(start)
+        faulty = s2s_train_once(card, on("cuda", batch), None, fault)
+        try:
+            s2s_check_step(tag, faulty, ref)
+        except AssertionError as e:
+            caught[" ".join(map(str, fault))] = str(e)
+            continue
+        raise AssertionError("%s the check passed a planted fault: %s"
+                             % (tag, fault))
+    rows["planted faults caught"] = caught
+    card.load_state_dict(start)
+    cpu.load_state_dict({k: v.cpu() for k, v in start.items()})
+    with torch.no_grad():
+        rows["beam"], beam_counts = no_port_launches(
+            tag, lambda: s2s_beam_check(card, cpu, batch))
+    log(tag + " " + json.dumps(rows))
+    return {"seq2seq forward": counts, "seq2seq step": step_counts,
+            "seq2seq beam": beam_counts}
+
+
+def s2s_beam_check(card, cpu, batch):
+    """The card's beam search ids against the CPU copy's; where they
+    differ, both decoders are stepped again side by side to the first
+    step whose tokens or parents differ, and the beams' scores there must
+    agree within S2S_NEAR_TIE (a near-tie taken in the other order)."""
+    src, src_len = batch[:2]
+    want = cpu.beam_search(src, src_len)
+    got = card.beam_search(src.cuda(), src_len.cuda()).cpu()
+    row = {"steps": [int(got.shape[1]), int(want.shape[1])]}
+    if torch.equal(got, want):
+        return dict(row, equal=True)
+    dc, sc = card.beam_decoder(src.cuda(), src_len.cuda())
+    dp, sp = cpu.beam_decoder(src, src_len)
+    (ic, sc, bc), (ip, sp, bp) = dc.initialize(sc), dp.initialize(sp)
+    for t in range(S2S_MAX_STEPS):
+        (tc, pc), ic, sc, bc = dc.step(t, ic, sc, bc)
+        (tp, pp), ip, sp, bp = dp.step(t, ip, sp, bp)
+        if not (torch.equal(tc.cpu(), tp) and torch.equal(pc.cpu(), pp)):
+            gap = float((bc[0].cpu() - bp[0]).abs().max())
+            if gap > S2S_NEAR_TIE:
+                raise AssertionError(
+                    "[seq2seq] beam step %d: tokens differ and the beams' "
+                    "scores differ by %.3g" % (t, gap))
+            return dict(row, equal=False, near_tie_step=t, score_gap=gap)
+    raise AssertionError("[seq2seq] beam ids differ, every step agrees")
+
+
+def rnn_pairs(seed):
+    """(name, card module, CPU copy, input) for phase 14(d)."""
+    from paddle_tpu_torch import nn
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(8, 20, 64).astype(np.float32))
+    makers = (
+        ("GRU bidirect 2 layers", lambda **kw: nn.GRU(
+            64, 128, num_layers=2, direction="bidirect", **kw), x),
+        ("SimpleRNN relu bidirectional 2 layers time-major",
+         lambda **kw: nn.SimpleRNN(64, 128, num_layers=2,
+                                   direction="bidirectional",
+                                   time_major=True, activation="relu",
+                                   **kw), x.transpose(0, 1).contiguous()),
+        ("LSTM 2 layers", lambda **kw: nn.LSTM(64, 128, num_layers=2, **kw),
+         x))
+    out = []
+    for name, make, inp in makers:
+        card = make(device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+        cpu = make(device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        out.append((name, card, cpu, inp))
+    return out
+
+
+def rnn_run(model, x, device):
+    """The output and the gradients of the input and every parameter of
+    ``sum(out * w) + sum(h_n)`` (``w`` fixed from a seed)."""
+    xt = x.detach().clone().to(device).requires_grad_()
+    out, states = model(xt)
+    states = states if isinstance(states, tuple) else (states,)
+    w = torch.from_numpy(np.random.RandomState(1).rand(
+        *out.shape).astype(np.float32)).to(device)
+    ((out * w).sum() + sum(s.sum() for s in states)).backward()
+    return [out.detach().cpu(), xt.grad.cpu()] + [
+        p.grad.cpu() for p in model.parameters()]
+
+
+def phase_rnn(seed):
+    """Phase 14(d): a bidirectional 2-layer GRU, SimpleRNN (relu,
+    time-major) and a 2-layer LSTM on the card against the CPU, output and
+    every gradient; a bf16 LSTMCell given no states computes in float32."""
+    from paddle_tpu_torch import nn
+
+    tag = "[rnn]"
+    rows, counts = {}, None
+    for name, card, cpu, x in rnn_pairs(seed):
+        got, counts = no_port_launches(tag, lambda: rnn_run(card, x, "cuda"))
+        want = rnn_run(cpu, x, "cpu")
+        rows[name] = max(close_rel("%s %s %d" % (tag, name, i), g, w,
+                                   RNN_RTOL)["max_abs_diff"]
+                         / max(float(w.abs().max()), 1e-30)
+                         for i, (g, w) in enumerate(zip(got, want)))
+    card = nn.LSTMCell(64, 128, device="cuda", dtype=torch.bfloat16,
+                       generator=torch.Generator(device="cuda").manual_seed(
+                           seed))
+    cpu = nn.LSTMCell(64, 128, device="cpu", dtype=torch.bfloat16)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.from_numpy(np.random.RandomState(seed).randn(
+        8, 64).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        h, (_, c) = card(x.cuda())
+        want_h, (_, want_c) = cpu(x)
+    if not h.dtype == c.dtype == want_h.dtype == torch.float32:
+        raise AssertionError("%s bf16 LSTMCell without states gave %s, %s"
+                             % (tag, h.dtype, c.dtype))
+    rows["bf16 LSTMCell, float32 states"] = [
+        close_rel(tag + " bf16 cell h", h.cpu(), want_h, RNN_BF16_RTOL),
+        close_rel(tag + " bf16 cell c", c.cpu(), want_c, RNN_BF16_RTOL)]
+    log(tag + " worst relative difference by layer " + json.dumps(rows))
+    return counts
+
+
+def common_cases(rng):
+    """(name, call, numpy inputs, indices of the differentiated ones) for
+    every functional of ``nn/functional/common.py`` and the manipulation
+    ops, at a small size."""
+    from paddle_tpu_torch.nn import functional as F
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return (lo + (hi - lo) * rng.rand(*shape)).astype(np.float32)
+
+    img, ids = f(2, 3, 9, 10), rng.randint(0, 7, (3, 5))
+    interp = [("interpolate %s %s" % (mode, size), [f(2, 3, 6, 7)], (0,),
+               lambda a, mode=mode, size=size: F.interpolate(
+                   a, size=size, mode=mode))
+              for mode in ("nearest", "bilinear", "bicubic", "area")
+              for size in ([11, 13], [3, 4])]
+    return interp + [
+        ("interpolate linear 1-D shrink", [f(2, 3, 17)], (0,),
+         lambda a: F.interpolate(a, size=[6], mode="linear",
+                                 data_format="NCL")),
+        ("interpolate trilinear", [f(1, 2, 3, 4, 5)], (0,),
+         lambda a: F.interpolate(a, size=[5, 2, 7], mode="trilinear",
+                                 data_format="NCDHW")),
+        ("interpolate bilinear align_corners NHWC", [f(2, 6, 7, 3)], (0,),
+         lambda a: F.upsample(a, size=[9, 4], mode="bilinear",
+                              align_corners=True, data_format="NHWC")),
+        ("linear", [f(2, 3, 4), f(4, 5), f(5)], (0, 1, 2), F.linear),
+        ("embedding", [ids, f(7, 4)], (1,),
+         lambda i, w: F.embedding(i, w, padding_idx=2)),
+        ("normalize", [f(3, 4, 5)], (0,),
+         lambda a: F.normalize(a, p=3.0, axis=-1)),
+        ("cosine_similarity", [f(3, 4, 5), f(3, 4, 5)], (0, 1),
+         F.cosine_similarity),
+        ("label_smooth", [f(3, 6, lo=0), f(1, 6, lo=0)], (0, 1),
+         lambda a, p: F.label_smooth(a, p, 0.2)),
+        ("pixel_shuffle", [f(2, 8, 3, 4)], (0,),
+         lambda a: F.pixel_shuffle(a, 2)),
+        ("pixel_unshuffle", [f(2, 6, 3, 2)], (0,),
+         lambda a: F.pixel_unshuffle(a, 3, "NHWC")),
+        ("bilinear", [f(4, 3), f(4, 5), f(6, 3, 5), f(6)], (0, 1, 2, 3),
+         F.bilinear),
+        ("grid_sample bilinear reflection", [img, f(2, 4, 7, 2) * 1.4],
+         (0, 1), lambda a, g: F.grid_sample(
+             a, g, padding_mode="reflection", align_corners=False)),
+        ("grid_sample nearest border", [img, f(2, 4, 7, 2) * 1.4], (0,),
+         lambda a, g: F.grid_sample(a, g, mode="nearest",
+                                    padding_mode="border")),
+        ("affine_grid", [f(2, 2, 3)], (0,),
+         lambda t: F.affine_grid(t, (2, 3, 4, 5))),
+        ("unfold", [img], (0,), lambda a: F.unfold(a, [2, 3], 2, [1, 0, 2, 1],
+                                                   2)),
+        ("fold", [f(2, 18, 16)], (0,),
+         lambda a: F.fold(a, [6, 7], [2, 3], strides=2, paddings=1)),
+        ("temporal_shift", [f(6, 8, 2, 3)], (0,),
+         lambda a: F.temporal_shift(a, 3)),
+        ("channel_shuffle", [f(2, 6, 2, 3)], (0,),
+         lambda a: F.channel_shuffle(a, 3)),
+        ("zeropad2d", [img], (0,), lambda a: F.zeropad2d(a, [1, 0, 2, 3])),
+        ("pad reflect NHWC", [f(2, 4, 5, 3)], (0,),
+         lambda a: F.pad(a, [2, 1, 3, 0], mode="reflect",
+                         data_format="NHWC")),
+        ("pad circular", [f(2, 3, 4, 5)], (0,),
+         lambda a: F.pad(a, [6, 5, 1, 0], mode="circular")),
+        ("diag_embed", [f(2, 3, 4)], (0,),
+         lambda a: F.diag_embed(a, 1, 0, 2)),
+        ("one_hot", [np.array([[0, 3, -1, 7]])], (), lambda a: F.one_hot(a, 5)),
+        ("sequence_mask", [np.array([[3, 0, 5], [1, 4, 2]])], (),
+         F.sequence_mask),
+    ]
+
+
+def common_run(arrays, diff, call, device):
+    ts = [torch.tensor(a, device=device, requires_grad=i in diff)
+          for i, a in enumerate(arrays)]
+    out = call(*ts)
+    if diff:
+        w = torch.from_numpy(np.random.RandomState(2).rand(
+            *out.shape).astype(np.float32)).to(device)
+        (out * w).sum().backward()
+    return out.detach().cpu(), [ts[i].grad.cpu() for i in diff]
+
+
+def phase_common(seed):
+    """Phase 14(e): every common functional and manipulation op on the
+    card against the same call on the CPU, the value and each
+    differentiated input's gradient; the dropouts by their law."""
+    from paddle_tpu_torch.nn import functional as F
+
+    tag = "[common]"
+    worst, counts = {}, None
+    for name, arrays, diff, call in common_cases(np.random.RandomState(seed)):
+        (got, got_g), counts = no_port_launches(
+            tag, lambda: common_run(arrays, diff, call, "cuda"))
+        want, want_g = common_run(arrays, diff, call, "cpu")
+        if not got.is_floating_point():
+            if not torch.equal(got, want):
+                raise AssertionError("%s %s differs" % (tag, name))
+            worst[name] = 0.0
+            continue
+        errs = [close_rel("%s %s" % (tag, name), got, want, COMMON_RTOL)]
+        errs += [close_rel("%s %s grad %d" % (tag, name, i), g, w,
+                           COMMON_RTOL)
+                 for i, g, w in zip(diff, got_g, want_g)]
+        worst[name] = max(e["max_abs_diff"] / max(e["scale"], 1e-30)
+                          for e in errs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ones = torch.ones(64, 256, 2, 2, device="cuda")
+    shares = {}
+    for name, out in (
+            ("dropout2d", F.dropout2d(ones, 0.3, generator=gen)),
+            ("dropout3d", F.dropout3d(ones[..., None], 0.3, generator=gen)),
+            ("alpha_dropout", F.alpha_dropout(ones, 0.3, generator=gen))):
+        dropped = float((out < out.max()).float().mean())
+        if abs(dropped - 0.3) > 0.02:
+            raise AssertionError("%s %s dropped %.4f, not 0.3"
+                                 % (tag, name, dropped))
+        shares[name] = dropped
+    log(tag + " %d functionals, worst relative difference %.3g (%s); "
+        "dropped shares at p = 0.3 %s"
+        % (len(worst), max(worst.values()), max(worst, key=worst.get),
+           json.dumps(shares)))
+    return counts
+
+
+def resnet_one_value(seed):
+    """Phase 14(f): resnet18 trains one Momentum step at batch 1 and
+    32 x 32 on the card, its last stage normalising one value a channel:
+    the loss and fc.bias's gradient against the CPU copy (every feature
+    past that stage is its batch norms' bias, 0, as in the reference),
+    and that stage's running variance decays to exactly 0.9 of its old
+    value."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    tag = "[resnet18 batch 1]"
+    model = resnet18(num_classes=10, generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    cpu = resnet18(num_classes=10, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.rand(1, 3, 32, 32).astype(np.float32) * 2 - 1)
+    y = torch.tensor([3])
+    got, counts = no_port_launches(
+        tag, lambda: train_once(model, x.cuda(), y.cuda(), None))
+    want = train_once(cpu, x, y, "cpu")
+    rows = {"loss": [got["loss"], want["loss"]],
+            "fc.bias grad": close_rel(
+                tag + " fc.bias grad", got["gradients"]["fc.bias"],
+                want["gradients"]["fc.bias"], S2S_GRAD_RTOL)}
+    if not abs(got["loss"] - want["loss"]) <= S2S_RTOL * abs(want["loss"]):
+        raise AssertionError("%s loss %r, CPU %r" % (tag, got["loss"],
+                                                     want["loss"]))
+    var = got["statistics"]["layer4.1.bn2._variance"]
+    if not bool((var == torch.tensor(0.9, dtype=torch.float32).double())
+                .all()):
+        raise AssertionError("%s layer4.1.bn2._variance %s, not 0.9"
+                             % (tag, var[:4].tolist()))
+    log(tag + " " + json.dumps(rows))
+    return counts
+
+
+def device_busy(fn):
+    """``fn()`` once under the profiler: the wall ms, the device's kernel
+    ms, the kernel launches and the four kernels with the most time
+    (name, launches, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    evts = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall,
+            "device_ms": sum(e.self_device_time_total for e in evts) / 1e3,
+            "kernels": sum(e.count for e in evts),
+            "top": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
+                    for e in evts[:4]]}
+
+
+def s2s_bench_row(seed, dtype, card):
+    """Phase 14(g) for one dtype at batch 128, 50 positions, on a new
+    model: beam search first (one warm-up, S2S_TIMED_DECODES timed; a
+    trained model soon emits S2S_EOS everywhere and finishes early), then
+    the train step (one warm-up, S2S_TIMED_STEPS timed, each ended by a
+    synchronize), the peak memory over both, and one profiled decode and
+    step."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import TrainStep
+
+    model = s2s_model(seed, "cuda", dtype)
+    batch = s2s_batch(seed + 3, S2S_BATCH, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ids = model.beam_search(*batch[:2])
+        decodes = []
+        for _ in range(S2S_TIMED_DECODES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = model.beam_search(*batch[:2])
+            torch.cuda.synchronize()
+            decodes.append(time.perf_counter() - t0)
+        profiled_decode = device_busy(lambda: model.beam_search(*batch[:2]))
+    decode_s, steps = statistics.median(decodes), int(ids.shape[1])
+    opt = Adam(learning_rate=S2S_LR, parameters=model.parameters(),
+               grad_clip=nn.ClipGradByGlobalNorm(S2S_CLIP))
+    step = TrainStep(model, None, opt, labels_to_model=True)
+    losses, walls = [float(step(*batch))], []
+    for _ in range(S2S_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError("[seq2seq bench] losses %s" % losses)
+    step_s = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiled_step = device_busy(lambda: step(*batch))
+    return dict(
+        dtype=str(dtype).replace("torch.", ""), card=card,
+        batch=S2S_BATCH, positions=int(batch[0].shape[1]),
+        target_tokens=int(batch[3].sum()), losses=losses,
+        train_step_ms=step_s * 1e3, train_step_ms_all=[w * 1e3 for w in walls],
+        target_tokens_per_s=int(batch[3].sum()) / step_s,
+        decode_steps=steps, decode_ms=decode_s * 1e3,
+        decode_ms_all=[d * 1e3 for d in decodes],
+        decode_ms_per_step=decode_s * 1e3 / steps,
+        sentences_per_s=S2S_BATCH / decode_s, peak_memory_gb=peak,
+        profiled_step=profiled_step, profiled_decode=profiled_decode)
+
+
+def lstm_yardstick(seed):
+    """The port's 2-layer LSTM at the encoder's shape (128 x 50 x 512)
+    against torch's fused LSTM (``torch.nn.LSTM``: ``_VF.lstm`` on cuDNN,
+    TF32 off, its weights in one flattened buffer) holding the same
+    weights under the same names: the outputs agree within RNN_RTOL;
+    forward, and forward plus backward, timed by CUDA events."""
+    from paddle_tpu_torch import nn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lstm = nn.LSTM(512, 512, num_layers=2, generator=gen, device="cuda")
+    fused = torch.nn.LSTM(512, 512, num_layers=2, batch_first=True,
+                          device="cuda")
+    fused.load_state_dict(lstm.state_dict())
+    x = torch.randn(S2S_BATCH, S2S_LENS[1], 512, device="cuda", generator=gen)
+
+    def port():
+        return lstm(x)[0]
+
+    def cudnn():
+        return fused(x)[0]
+
+    with torch.no_grad():
+        row = {"outputs": close_rel("[lstm yardstick] outputs", port(),
+                                    cudnn(), RNN_RTOL)}
+    for name, fn in (("port", port), ("cudnn", cudnn)):
+        with torch.no_grad():
+            row[name + "_fwd_ms"] = time_ms(fn, iters=3, reps=3)
+        row[name + "_fwd_bwd_ms"] = time_ms(lambda: fn().sum().backward(),
+                                            iters=3, reps=3)
+    return row
+
+
+def phase_seq2seq(seed, card):
+    """Phase 14: the attention seq2seq and the rest of ``nn`` on the card.
+    Returns (bench rows, launch counts by path, seconds)."""
+    t_phase = time.perf_counter()
+    paths = s2s_forward_and_step(seed)
+    torch.cuda.empty_cache()
+    paths["rnn"] = phase_rnn(seed)
+    paths["common functionals"] = phase_common(seed)
+    paths["resnet18 batch 1"] = resnet_one_value(seed)
+    torch.cuda.empty_cache()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        row, paths["seq2seq bench " + str(dtype)] = no_port_launches(
+            "[seq2seq bench]", lambda: s2s_bench_row(seed, dtype, card))
+        log("[seq2seq bench] " + json.dumps(row))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    yard = lstm_yardstick(seed)
+    log("[lstm yardstick] " + json.dumps(yard))
+    seconds = time.perf_counter() - t_phase
+    log("[seq2seq] phase 14 in %.1f s" % seconds)
+    return rows + [yard], paths, seconds
+
+
 # -- phase 9 ----------------------------------------------------------------
 
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
@@ -4465,6 +5184,8 @@ def main(argv=None):
     rows["encoders"], encoder_paths, _ = phase_encoders(args.seed)
     torch.cuda.empty_cache()
     _, resnet_paths, _ = phase_resnet(args.seed, card)
+    torch.cuda.empty_cache()
+    _, seq2seq_paths, _ = phase_seq2seq(args.seed, card)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -4477,6 +5198,7 @@ def main(argv=None):
     paths.update(bench_paths)
     paths.update(encoder_paths)
     paths.update(resnet_paths)
+    paths.update(seq2seq_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

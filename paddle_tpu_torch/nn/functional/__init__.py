@@ -5,7 +5,11 @@ from .activation import (
     softplus, softshrink, softsign, swish, tanh, tanh_, tanhshrink,
     thresholded_relu)
 from .attention import scaled_dot_product_attention, variable_length_attention
-from .common import dropout
+from .common import (
+    affine_grid, alpha_dropout, bilinear, channel_shuffle, cosine_similarity,
+    dropout, dropout2d, dropout3d, embedding, fold, grid_sample, interpolate,
+    label_smooth, linear, normalize, pixel_shuffle, pixel_unshuffle,
+    sequence_mask, temporal_shift, unfold, upsample, zeropad2d)
 from .conv import (
     conv1d, conv1d_transpose, conv2d, conv2d_transpose, conv3d,
     conv3d_transpose, deformable_conv)
@@ -27,6 +31,8 @@ from .pooling import (
     adaptive_max_pool1d, adaptive_max_pool2d, adaptive_max_pool3d,
     avg_pool1d, avg_pool2d, avg_pool3d, max_pool1d, max_pool2d, max_pool3d,
     max_unpool1d, max_unpool2d, max_unpool3d)
+from ...ops.manipulation import diag_embed, one_hot, pad
+from ..decode import gather_tree
 
 __all__ = [name for name in dir() if not name.startswith("_")
            and name not in ("activation", "attention", "common", "conv",

@@ -15,6 +15,13 @@ by ``(k + alpha * s) ** beta`` with ``s`` the *sum* of squares over the
 window of channels, the reference's rule (torch's own divides ``alpha``
 by the window size). All plain PyTorch: the reference has no Pallas
 kernel here.
+
+Where each channel (batch norm) or each instance's channel (instance
+norm) holds one value, torch's fused passes raise; the reference's
+``jnp.var`` gives 0 there, so the output is ``bias`` (or 0) and the
+running variance decays by ``momentum``. That count is a shape, known on
+the host, so those calls take the plain formula (``_plain_norm``) and
+every other shape keeps the fused pass.
 """
 from __future__ import annotations
 
@@ -69,6 +76,22 @@ def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
     return out
 
 
+def _plain_norm(xc, axes, weight, bias, epsilon):
+    """``(xc - mean) / sqrt(var + epsilon) * weight + bias`` with the
+    biased statistics over ``axes`` of ``xc`` (channels on axis 1), in
+    plain tensor ops; returns ``(out, mean, var)``, the statistics with
+    the kept axes only."""
+    mean = xc.mean(dim=axes, keepdim=True)
+    var = xc.var(dim=axes, keepdim=True, unbiased=False)
+    out = (xc - mean) / torch.sqrt(var + epsilon)
+    shape = [1, -1] + [1] * (xc.dim() - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out, mean, var
+
+
 class _BatchStats(torch.autograd.Function):
     """The batch's mean and biased variance of ``xc`` (channels on axis
     1), computed by the caller, made differentiable in ``xc``:
@@ -105,6 +128,11 @@ def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
     ch = _channel_axis(x, data_format)
     xc = x.movedim(ch, 1)
     n = xc.numel() // xc.shape[1]
+    if n == 1:                          # torch's fused pass raises here
+        axes = [d for d in range(xc.dim()) if d != 1]
+        out, mean, var = _plain_norm(xc, axes, weight, bias, epsilon)
+        return (out.movedim(1, ch), mean.detach().flatten(),
+                var.detach().flatten())
     like = weight if weight is not None else xc
     mean, var = torch.zeros(2, xc.shape[1], device=xc.device,
                             dtype=like.dtype).unbind()
@@ -135,8 +163,12 @@ def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
 def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
                   data_format="NCHW"):
     ch = _channel_axis(x, data_format)
-    out = TF.instance_norm(x.movedim(ch, 1), weight=weight, bias=bias,
-                           eps=epsilon)
+    xc = x.movedim(ch, 1)
+    if xc[0, 0].numel() == 1:           # torch's fused pass raises here
+        out = _plain_norm(xc, list(range(2, xc.dim())), weight, bias,
+                          epsilon)[0]
+    else:
+        out = TF.instance_norm(xc, weight=weight, bias=bias, eps=epsilon)
     return out.movedim(1, ch)
 
 

@@ -3,7 +3,11 @@ from .activation import (
     LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, RReLU, SELU,
     Sigmoid, Silu, Softmax, Softmax2D, Softplus, Softshrink, Softsign, Swish,
     Tanh, Tanhshrink, ThresholdedReLU)
-from .common import Dropout, Embedding, Linear
+from .common import (
+    AlphaDropout, Bilinear, ChannelShuffle, CosineSimilarity, Dropout,
+    Dropout2D, Dropout3D, Embedding, Flatten, Fold, Identity, Linear, Pad1D,
+    Pad2D, Pad3D, PixelShuffle, PixelUnshuffle, Unflatten, Unfold, Upsample,
+    UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D)
 from .container import LayerDict, LayerList, ParameterList, Sequential
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
@@ -22,10 +26,14 @@ from .pooling import (
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
     MaxUnPool2D, MaxUnPool3D)
+from .rnn import (
+    GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell, RNNCellBase, SimpleRNN,
+    SimpleRNNCell)
 from .transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = [name for name in dir() if not name.startswith("_")
            and name not in ("activation", "common", "container", "conv",
-                            "loss", "norm", "pooling", "transformer")]
+                            "loss", "norm", "pooling", "rnn",
+                            "transformer")]

@@ -17,7 +17,12 @@ bf16 statistics.
 
 ``SyncBatchNorm`` is ``BatchNorm`` on one device, as the reference's is
 eagerly; ``convert_sync_batchnorm`` swaps every batch norm of a model for
-one, parameters and statistics copied. ``SpectralNorm(weight)`` returns
+one, parameters and statistics copied. The reference's conversion keeps
+only ``num_features``, ``momentum``, ``epsilon`` and ``data_format``: it
+drops ``use_global_stats`` and gives a layer built without ``weight`` or
+``bias`` a ones weight and a zeros bias, so its result normalises
+otherwise than the layer it replaced ("Faults of the reference" 11 in
+ROADMAP.md). The port raises ``NotImplementedError`` for such a layer. ``SpectralNorm(weight)`` returns
 ``weight / sigma`` after ``power_iters`` power iterations from a vector
 of ones, as the reference does.
 
@@ -149,15 +154,16 @@ class SyncBatchNorm(_BatchNormBase):
         out = layer
         if isinstance(layer, _BatchNormBase) and not isinstance(
                 layer, SyncBatchNorm):
+            if (layer.use_global_stats or layer.weight is None
+                    or layer.bias is None):
+                raise NotImplementedError(
+                    "convert_sync_batchnorm: the reference drops "
+                    "use_global_stats and weight_attr / bias_attr=False "
+                    "(ROADMAP.md, 'Faults of the reference' 11)")
             ref = layer._mean
             out = SyncBatchNorm(layer.num_features, layer.momentum,
                                 layer.epsilon,
-                                weight_attr=False if layer.weight is None
-                                else None,
-                                bias_attr=False if layer.bias is None
-                                else None,
                                 data_format=layer.data_format,
-                                use_global_stats=layer.use_global_stats,
                                 device=ref.device, dtype=ref.dtype)
             out.load_state_dict(layer.state_dict())
             out.train(layer.training)

@@ -619,3 +619,139 @@ def test_conv_layer_initialisers():
                       generator=torch.Generator().manual_seed(5))
     assert torch.equal(conv.weight, again.weight)
     assert nn.Conv2D(3, 4, 1, bias_attr=False, device="cpu").bias is None
+
+
+# -- one value per channel (C.1) and convert_sync_batchnorm (C.2) ----------
+
+def ref_train_vjp(jlayer, x, g):
+    """A reference layer's training forward on ``x`` compiled as one
+    program: its output, the buffers it leaves, and the VJP of ``g`` for
+    its parameters and ``x``."""
+    names, values = jlayer.functional_state()
+    bnames = [n for n, _ in jlayer.named_buffers()]
+
+    def run(v, x):
+        with jlayer.bind_state(names, v):
+            out = _raw(jlayer(x))
+            tensors = jlayer.raw_state_tensors()
+            return out, [tensors[n]._value for n in bnames]
+
+    def both(v, x, g):
+        out, vjp, buffers = jax.vjp(run, v, x, has_aux=True)
+        return out, buffers, vjp(g)
+
+    return names, jax.jit(both)(values, x, g)
+
+
+# (reference class, constructor args, input shape, kwargs): each channel,
+# or each instance's channel, holds one value
+ONE_VALUE_CASES = [
+    ("BatchNorm1D", (4,), (1, 4), {}),
+    ("BatchNorm2D", (4,), (1, 4, 1, 1), {}),
+    ("BatchNorm2D", (4,), (1, 1, 1, 4), dict(data_format="NHWC")),
+    ("BatchNorm3D", (3,), (1, 3, 1, 1, 1), dict(momentum=0.8)),
+    ("InstanceNorm1D", (4,), (1, 4, 1), {}),
+    ("InstanceNorm2D", (3,), (2, 3, 1, 1), {}),
+]
+
+
+@pytest.mark.parametrize("case", range(len(ONE_VALUE_CASES)),
+                         ids=[c[0] + "-%d" % i
+                              for i, c in enumerate(ONE_VALUE_CASES)])
+def test_one_value_per_channel_matches_reference(case):
+    """The output (``bias``), every gradient (0 but the bias's) and the
+    running statistics (the mean moves to ``x`` by ``1 - momentum``, the
+    variance decays by ``momentum``), where torch's fused passes raise."""
+    name, args, xs, kw = ONE_VALUE_CASES[case]
+    jlayer, layer = _layer_pair(getattr(jnn, name), getattr(nn, name), args,
+                                seed=80 + case, **kw)
+    rng = np.random.RandomState(90 + case)
+    x = _rand(rng, xs) * 3
+    g = _rand(rng, xs)
+    names, (want, buffers, (gv, gx)) = ref_train_vjp(jlayer, x, g)
+    xt = torch.tensor(x, requires_grad=True)
+    out = layer(xt)
+    close(out, want)
+    out.backward(torch.from_numpy(g))
+    close(xt.grad, gx)
+    params = dict(layer.named_parameters())
+    for n, v in zip(names, gv):
+        if n in params:
+            close(params[n].grad, v)
+    for (n, b), v in zip(layer.named_buffers(), buffers):
+        close(b, v)
+    if name.startswith("BatchNorm"):
+        m = kw.get("momentum", 0.9)
+        assert torch.equal(layer._variance,
+                           torch.full_like(layer._variance, m))
+
+
+def test_one_value_functionals_match_reference():
+    rng = np.random.RandomState(96)
+    x = _rand(rng, (2, 3, 1, 1)) * 3
+    w, b = _rand(rng, (3,)), _rand(rng, (3,))
+    check_vjp(F.instance_norm, jF.instance_norm.raw_fn, [x, w, b])
+
+    def port_train(*a):
+        out, m, v = F.batch_norm_train(*a)
+        return out + 0.5 * m.sum() + 0.25 * v.sum()
+
+    def jax_train(*a):
+        out, m, v = jF.batch_norm_train.raw_fn(*a)
+        return out + 0.5 * m.sum() + 0.25 * v.sum()
+
+    check_vjp(port_train, jax_train, [x[:1, :, :, 0], w, b])
+
+
+def test_resnet18_trains_at_batch_1_and_32():
+    """ResNet-18 in training at batch 1, 32 x 32: layer4 normalises 1 x 1
+    maps, one value a channel. The logits, the loss's gradient of every
+    parameter and every running statistic against the reference's."""
+    from test_torch_resnet import pair, ref_forward
+
+    from paddle_tpu.vision import models as jmodels
+    from paddle_tpu_torch.vision import models
+
+    jmodel = jmodels.resnet18(num_classes=10)
+    model = models.resnet18(num_classes=10, device="cpu")
+    pnames, bnames, pvals, bvals = pair(jmodel, model, 97)
+    rng = np.random.RandomState(98)
+    x = _rand(rng, (1, 3, 32, 32))
+    y = np.array([3])
+
+    def loss_of(p, b):
+        return ref_forward(jmodel, pnames + bnames, list(p) + list(b), x, y)
+
+    (jloss, (logits, after)), grads = jax.jit(jax.value_and_grad(
+        loss_of, has_aux=True))(pvals, bvals)
+    out = model(torch.from_numpy(x))
+    close(out, logits)
+    loss = F.cross_entropy(out, torch.from_numpy(y))
+    close(loss, jloss)
+    loss.backward()
+    params = dict(model.named_parameters())
+    for n, gw in zip(pnames, grads):
+        close(params[n].grad, gw)
+    got = dict(model.named_buffers())
+    for n, v in zip(bnames, after):
+        close(got[n], v)
+    assert torch.equal(got["layer4.1.bn2._variance"],
+                       torch.full((512,), 0.9))
+
+
+@pytest.mark.parametrize("kw", [dict(use_global_stats=True),
+                                dict(weight_attr=False),
+                                dict(bias_attr=False)])
+def test_convert_sync_batchnorm_refuses_what_the_reference_drops(kw):
+    """The reference's conversion drops ``use_global_stats`` and gives a
+    layer without ``weight`` / ``bias`` ones and zeros ("Faults of the
+    reference" 11); the port raises instead. A default-built layer
+    converts (``test_convert_sync_batchnorm``)."""
+    jsync = jnn.SyncBatchNorm.convert_sync_batchnorm(jnn.BatchNorm2D(3, **kw))
+    assert not jsync.use_global_stats
+    assert jsync.weight is not None and jsync.bias is not None
+    model = nn.Sequential(nn.Conv2D(3, 3, 1, device="cpu"),
+                          nn.BatchNorm2D(3, device="cpu", **kw))
+    with pytest.raises(NotImplementedError,
+                       match="Faults of the reference' 11"):
+        nn.SyncBatchNorm.convert_sync_batchnorm(model)

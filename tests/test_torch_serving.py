@@ -164,4 +164,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "paddle_tpu_torch.nn.layers.loss",
             "paddle_tpu_torch.regularizer",
             "paddle_tpu_torch.vision.models.resnet",
-            "paddle_tpu_torch.tools.model_benchmark"} <= imported
+            "paddle_tpu_torch.tools.model_benchmark",
+            "paddle_tpu_torch.ops.manipulation",
+            "paddle_tpu_torch.nn.functional.common",
+            "paddle_tpu_torch.nn.layers.common",
+            "paddle_tpu_torch.nn.layers.rnn",
+            "paddle_tpu_torch.nn.decode",
+            "paddle_tpu_torch.nn.initializer",
+            "paddle_tpu_torch.nn.utils"} <= imported
