@@ -276,6 +276,35 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 kernels), and the port's LSTM against torch.nn.LSTM
                 (cuDNN's fused _VF.lstm) on the same weights at the
                 encoder's shape, beside the card's name and power limit
+  15. amp      run last: (a) kernels 1-3 in float16 against their plain
+                versions at llama1b's training attention (8 x 1024, 16 x
+                128, causal) and ERNIE's (16 x 512, 12 x 64, non-causal),
+                twice bit for bit, timed by CUDA events and profiler device
+                time beside the plain versions, torch SDPA in float16 and
+                the bounds, each kernel's ptxas report equal to its bf16
+                twin's; (b) llama1b with float32 weights (the training
+                row's config at float32) through the reference's eager
+                AMP loop under auto_cast O1 bf16 and the default
+                GradScaler, 3 AdamW steps: exact bf16 launch counts, the
+                dtypes at the cast points (linear bf16, rms_norm float32),
+                losses and sampled gradients against the same steps
+                through the kernels' plain versions on the card, and one
+                profiled step by group; (c) the same in float16: the
+                float16 kernels' launch counts, the scaler's (scale, good,
+                bad) sequence and skipped steps equal to the plain
+                versions', and a step at a loss scale that overflows
+                float16 skipped with the parameters untouched; (d) llama1b's
+                width at one layer under O1 float16: 2 steps, save (model,
+                optimizer with its LR scheduler, scaler), fresh objects,
+                load, 2 more: losses and parameters bit for bit those of
+                an uninterrupted run (two uninterrupted runs agreeing bit
+                for bit; else within their gap); (e) ResNet-50 through
+                hapi.Model.fit under O1 bf16 (batch 64, 224^2, Momentum,
+                Accuracy top-1/5) over a synthetic ImageNet-shaped dataset
+                with 4 forked workers and pinned memory, ModelCheckpoint,
+                evaluate, predict, Model.save / load; conv outputs bf16 and
+                batch-norm outputs float32, the losses equal to a run with
+                no worker, flops(resnet50, [1, 3, 224, 224]) printed
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -304,22 +333,27 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device-memory rate,
 # float32 outside the tensor cores, bf16 tensor cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
 # Kernel vs plain version on the same inputs: the two sum in a different
 # order (tiled online softmax vs one softmax over the whole row), so they
 # agree to float32 rounding, not bit for bit. In bfloat16 both round the
 # output to 8 mantissa bits and the probabilities before P.V (the plain
 # version the normalised ones, the kernel the unnormalised ones, as the
 # reference), so the gap is a few bf16 ulps of |out| <~ 4.
+# float16 rounds to 11 significant bits where bf16 keeps 8, at the same
+# points: a quarter of bf16's tolerance.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-       torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+       torch.float16: dict(atol=5e-3, rtol=2.5e-3)}
 # Backward kernels vs plain version: float32 gradients are sums of up to
 # N products taken in another order, so atol 1e-4 + rtol 1e-3. bfloat16:
 # both round dS and P to bf16 at the same points and the gradients to bf16
 # at the end; the forward's bf16 tolerance (atol 2e-2 for |out| <~ 4) is
 # scaled to the gradient's size: atol 5e-3 x max|grad|, rtol 1e-2.
 BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3),
-           torch.bfloat16: dict(atol=5e-3, rtol=1e-2, scaled=True)}
+           torch.bfloat16: dict(atol=5e-3, rtol=1e-2, scaled=True),
+           torch.float16: dict(atol=1.25e-3, rtol=2.5e-3, scaled=True)}
 NEAR_TIE = 1e-3     # top-2 logit gap below which fp32 order may flip argmax
 # card vs CPU logits of llama1b in float32: 22 layers of sums taken in
 # another order (cuBLAS vs CPU GEMMs, tiled vs whole-row softmax); a
@@ -396,7 +430,7 @@ def phase_device():
 
 def kernel_name(mangled):
     """A ptxas entry name without its mangling: the innermost name and
-    its template arguments (``flash_bwd_dq_wgmma_kernel<128>``)."""
+    its template arguments (``flash_bwd_dq_wgmma_kernel<128, bf16>``)."""
     i = mangled.find("_ZN")
     if i < 0:
         return mangled
@@ -409,10 +443,23 @@ def kernel_name(mangled):
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
     args = []
     if mangled[i:i + 1] == "I":
-        for m in re.finditer(r"L[ib](\d+)E|(f)|13__nv_bfloat16|(a)",
-                             mangled[i + 1:mangled.find("EE", i) + 1]):
-            args.append(m.group(1) or ("float" if m.group(2) else
-                                       "int8" if m.group(3) else "bf16"))
+        # the template arguments up to their closing E: integer literals,
+        # the element types, and float / int8 (signed char)
+        types = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "float",
+                 "a": "int8"}
+        # (S<n>_ repeats a type named before: the last one here)
+        pat = re.compile(
+            r"L[ib](\d+)E|13__nv_bfloat16|6__half|f|a|S[0-9A-Z]*_|E")
+        i += 1
+        while True:
+            m = pat.match(mangled, i)
+            if m is None or m.group(0) == "E":
+                break
+            tok = m.group(0)
+            args.append(m.group(1) or (types[tok] if tok in types else
+                                       next((t for t in reversed(args)
+                                             if not t.isdigit()), tok)))
+            i = m.end()
     return name + ("<%s>" % ", ".join(args) if args else "")
 
 
@@ -502,7 +549,7 @@ def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1,
     copies = fa.tma_copies
     out, lse = fa.flash_attention(q, k, v, causal=causal)
     copies = fa.tma_copies - copies
-    if copies != (3 if offset and dtype is torch.bfloat16 else 0):
+    if copies != (3 if offset and dtype is not torch.float32 else 0):
         raise AssertionError("forward made %d TMA operand copies" % copies)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -1388,6 +1435,9 @@ def launch_counters():
             "flash_attention_segmented": fa.segmented_fwd_launches,
             "flash_attention_bwd_dq_segmented": fa.segmented_dq_launches,
             "flash_attention_bwd_dkv_segmented": fa.segmented_dkv_launches,
+            "flash_attention_fp16": fa.f16_launches,
+            "flash_attention_bwd_dq_fp16": fa.f16_dq_launches,
+            "flash_attention_bwd_dkv_fp16": fa.f16_dkv_launches,
             "paged_attention": pa.launches,
             "paged_attention_int8": pa.int8_launches,
             "mixed_paged_attention": pa.mixed_launches,
@@ -1408,6 +1458,7 @@ def reset_launch_counters():
     fa.launches = fa.dq_launches = fa.dkv_launches = 0
     fa.segmented_fwd_launches = fa.segmented_dq_launches = 0
     fa.segmented_dkv_launches = fa.tma_copies = 0
+    fa.f16_launches = fa.f16_dq_launches = fa.f16_dkv_launches = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
     quant.launches = quant.bf16_launches = 0
@@ -3171,15 +3222,17 @@ ENCODER_RTOL = 1e-3
 KINK = 1e-5
 
 
-def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
-    """Kernels 1-3, non-causal, D = 64, against their plain versions
-    (O, LSE, dq, dk, dv), twice bit for bit, with ``qkv`` on strided views
-    of one ``[B, N, 3, H, D]`` projection (the TMA copies counted); timed
-    by CUDA events and profiler device time beside the plain versions,
-    torch SDPA's forward and backward (not causal) and the bounds."""
+def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False,
+                       head_dim=64, causal=False, tag="encoders"):
+    """Kernels 1-3 (non-causal, D = 64 unless told otherwise) against their
+    plain versions (O, LSE, dq, dk, dv), twice bit for bit, with ``qkv`` on
+    strided views of one ``[B, N, 3, H, D]`` projection (the TMA copies
+    counted); timed by CUDA events and profiler device time beside the
+    plain versions, torch SDPA's forward and backward (same mask) and the
+    bounds."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    d = 64
+    d = head_dim
     n_kv = n if n_kv is None else n_kv
 
     def rand(*shape):
@@ -3192,15 +3245,16 @@ def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
             rand(batch, n_kv, heads, d)
     dout = rand(batch, n, heads, d)
     copies = fa.tma_copies
-    out, lse = fa.flash_attention(q, k, v, causal=False)
-    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=False)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
     copies = fa.tma_copies - copies
-    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=False)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                                 causal=False)
+                                                 causal=causal)
     torch.cuda.synchronize()
-    name = "encoder flash B=%d N=%d Nkv=%d H=%d D=%d %s non-causal%s" % (
-        batch, n, n_kv, heads, d, str(dtype).split(".")[-1],
+    name = "%s flash B=%d N=%d Nkv=%d H=%d D=%d %s %s%s" % (
+        "encoder" if tag == "encoders" else tag, batch, n, n_kv, heads, d,
+        str(dtype).split(".")[-1], "causal" if causal else "non-causal",
         ", strided fused-QKV views" if qkv else "")
     err = {"fwd": check_close(name + " out", out, ref_out, TOL[dtype]),
            "lse": check_close(name + " lse", lse, ref_lse,
@@ -3209,9 +3263,9 @@ def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
         err[part] = check_close("%s %s" % (name, part), x, y,
                                 BWD_TOL[dtype])
     err["dkv"] = max(err.pop("dk"), err.pop("dv"))
-    again = fa.flash_attention(q, k, v, causal=False)
+    again = fa.flash_attention(q, k, v, causal=causal)
     again_bwd = fa.flash_attention_backward(q, k, v, out, lse, dout,
-                                            causal=False)
+                                            causal=causal)
     if not (all(torch.equal(a, b) for a, b in zip(again, (out, lse)))
             and all(torch.equal(a, b) for a, b in zip(again_bwd, got))):
         raise AssertionError("%s: two launches differ" % name)
@@ -3220,34 +3274,37 @@ def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2) \
         .reshape(batch * heads, n).contiguous()
     args = (q, k, v, dout, lse, delta)
-    parts = {"fwd": lambda: fa.flash_attention(q, k, v, causal=False),
-             "dq": lambda: fa.flash_attention_bwd_dq(*args, causal=False),
-             "dkv": lambda: fa.flash_attention_bwd_dkv(*args, causal=False)}
+    parts = {"fwd": lambda: fa.flash_attention(q, k, v, causal=causal),
+             "dq": lambda: fa.flash_attention_bwd_dq(*args, causal=causal),
+             "dkv": lambda: fa.flash_attention_bwd_dkv(*args,
+                                                       causal=causal)}
     for part, fn in parts.items():
         row[part + "_ms"] = time_ms(fn)
     row["device_ms"] = {part: device_ms(fn, match) for (part, fn), match
                         in zip(parts.items(), ("flash_fwd", "bwd_dq",
                                                "bwd_dkv"))}
     row["plain_fwd_ms"] = time_ms(
-        lambda: fa.flash_attention_reference(q, k, v, causal=False), 3, 3)
+        lambda: fa.flash_attention_reference(q, k, v, causal=causal), 3, 3)
     row["plain_bwd_ms"] = time_ms(
         lambda: fa.flash_attention_backward_reference(
-            q, k, v, out, lse, dout, causal=False), 3, 3)
+            q, k, v, out, lse, dout, causal=causal), 3, 3)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     with torch.no_grad():
         row["library_fwd_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+                qt, kt, vt, is_causal=causal))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal)
     g = dout.transpose(1, 2)
     row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), g, retain_graph=True))
-    row["library"] = ("torch SDPA, not causal: the forward alone, and the "
-                      "backward (dq, dk, dv together) as autograd.grad of "
-                      "one forward")
+    row["library"] = ("torch SDPA, %s: the forward alone, and the backward "
+                      "(dq, dk, dv together) as autograd.grad of one "
+                      "forward" % ("causal" if causal else "not causal"))
     esize = q.element_size()
-    pairs = batch * heads * n * n_kv
+    pairs = causal_pairs(batch * heads, n, n_kv) if causal \
+        else batch * heads * n * n_kv
     qkv_bytes = (q.numel() + k.numel() + v.numel()) * esize
     reads = qkv_bytes + dout.numel() * esize + 2 * lse.numel() * 4
     row["fwd"] = bound(qkv_bytes + out.numel() * esize + lse.numel() * 4,
@@ -3255,7 +3312,7 @@ def encoder_flash_case(gen, batch, n, heads, dtype, n_kv=None, qkv=False):
     row["dq"] = bound(reads + q.numel() * esize, 3 * 2 * d * pairs, dtype)
     row["dkv"] = bound(reads + (k.numel() + v.numel()) * esize,
                        4 * 2 * d * pairs, dtype)
-    log("[encoders] " + json.dumps(row))
+    log("[%s] %s" % (tag, json.dumps(row)))
     return row
 
 
@@ -4787,6 +4844,595 @@ def phase_seq2seq(seed, card):
 
 # -- phase 9 ----------------------------------------------------------------
 
+# -- phase 15: mixed precision, checkpoints and the training front end ------
+
+# (a) kernels 1-3 in float16 at llama1b's training attention and ERNIE's
+FP16_FLASH_CASES = (dict(batch=8, n=1024, heads=16, head_dim=128, causal=True),
+                    dict(batch=16, n=512, heads=12, head_dim=64,
+                         causal=False))
+# (a): dO ~ this x N(0, 1), clipped to float16's range, pushes dS = P (dP -
+# delta) past float16's range in the causal first rows, where a few keys
+# share a row's weight: the kernels must put inf and NaN where the plain
+# versions do (nothing clamped: the signal GradScaler skips a step on)
+FP16_OVERFLOW_DOUT = 1.5e4
+AMP_STEPS = 3         # (b), (c): AdamW steps a run
+AMP_LR = 1e-4
+# (b), (c): the kernels against their plain versions on the card, O1 in
+# the same dtype, the same steps, by dtype. The kernels round P and O at
+# other points than the plain versions, and that moves through 16 layers.
+# Sound readings on an H100 (paddle_tpu_torch/tools/amp_faults.py):
+# losses 9.3e-6 / 2.6e-6 relative, sampled gradients 1.2e-2 / 1.4e-3 of
+# their norm (bf16 / float16); the loss limits are ~4x those, the bf16
+# gradient limit ~4x. At random weights the loss sits near ln(vocab)
+# whatever attention returns, so the gradients carry the check: float16
+# attention on inputs rounded to bf16's precision reads 4.9e-3 there, so
+# float16's gradient limit sits between (2x the sound reading); the
+# causal flag flipped reads ~1 in both dtypes.
+AMP_LOSS_RTOL = {torch.bfloat16: 4e-5, torch.float16: 1e-5}
+AMP_GRAD_RTOL = {torch.bfloat16: 5e-2, torch.float16: 3e-3}
+AMP_GRADS = ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight",
+             "llama.layers.15.mlp.down_proj.weight")
+# (c): a loss scale that overflows float16 in the backward for certain
+# (dlogits alone reach 2^40 / 8192 tokens), for the skipped-step check
+OVERFLOW_SCALE = 2.0 ** 40
+# (d): llama1b's width at one layer (the checkpoint, model and AdamW
+# slots in float32, is ~2.2 GB), k steps, save, m more
+CKPT_LAYERS, CKPT_K, CKPT_M = 1, 2, 2
+# (e): ResNet-50 at the reference's chip row through Model.fit, O1 bf16
+FIT_BATCH, FIT_STEPS, FIT_WORKERS = 64, 8, 4
+FIT_LOSS_RTOL = 1e-3   # 4 workers against 0: the same batches; cuDNN's
+#                        weight gradients may sum in another order
+
+
+def imagenet_like(n, seed):
+    """A synthetic ImageNet-shaped ``io.Dataset`` of ``n`` items: item i
+    is a float32 [3, 224, 224] image and an int64 label in [0, 1000), both
+    from ``seed + i``, in numpy only (forked DataLoader workers must not
+    touch torch)."""
+    from paddle_tpu_torch.io import Dataset
+
+    class ImageNetLike(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(seed + i)
+            image = rng.standard_normal(IMAGE_SHAPE, dtype=np.float32)
+            return image, np.int64(rng.integers(0, 1000))
+
+    return ImageNetLike()
+
+
+IMAGE_SHAPE = (3, 224, 224)
+
+
+def flash_plain():
+    """Swaps the flash kernels' wrappers for their plain versions (on any
+    device) while active: the same steps through the plain path on the
+    card. Returns the restore function."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    saved = fa.flash_attention, fa.flash_attention_backward
+    fa.flash_attention = fa.flash_attention_reference
+    fa.flash_attention_backward = fa.flash_attention_backward_reference
+
+    def restore():
+        fa.flash_attention, fa.flash_attention_backward = saved
+    return restore
+
+
+def amp_run(model, ids, labels, dtype, steps, scaler=None, probe=None,
+            extra_scale=None):
+    """The reference's eager AMP loop on ``model``: under
+    ``auto_cast(dtype=dtype)`` the loss, then ``scaler.scale(loss)
+    .backward()``, ``scaler.step(opt)``, ``opt.clear_grad()``. Returns the
+    losses, the first step's sampled gradients (unscaled), the scaler's
+    (scale, good, bad) after each step and the step times. ``probe(model)``
+    registers dtype hooks for the first step."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=AMP_LR, parameters=model.parameters())
+    scaler = scaler or amp.GradScaler()
+    params = dict(model.named_parameters())
+    out = {"losses": [], "scaler": [], "skipped": [], "ms": []}
+    for i in range(steps):
+        handles = probe(model) if (probe and i == 0) else []
+        t0 = time.perf_counter()
+        with amp.auto_cast(dtype=dtype):
+            loss = model(ids, labels)
+        for h in handles:
+            h.remove()
+        scaler.scale(loss).backward()
+        before = {n: params[n].detach().clone() for n in AMP_GRADS}
+        scaler.step(opt)
+        if i == 0:
+            out["grads"] = {n: params[n].grad.float().clone()
+                            for n in AMP_GRADS}
+        if scaler._found_inf and not all(
+                torch.equal(before[n], params[n]) for n in AMP_GRADS):
+            raise AssertionError("a skipped step moved the parameters")
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss.item())
+        out["skipped"].append(scaler._found_inf)
+        sd = scaler.state_dict()
+        out["scaler"].append((sd["scale"], sd["good_steps"],
+                              sd["bad_steps"]))
+    return out
+
+
+def cast_probe(seen):
+    """Forward hooks recording the output dtypes at the cast points of
+    llama's layer 0 and of the head."""
+    def probe(model):
+        layer = model.llama.layers[0]
+        spots = {"linear (q_proj)": layer.self_attn.q_proj,
+                 "linear (lm_head)": model.lm_head,
+                 "rms_norm (input_layernorm)": layer.input_layernorm,
+                 "rms_norm (final)": model.llama.norm}
+        return [m.register_forward_hook(dtype_hook(seen, tag))
+                for tag, m in spots.items()]
+    return probe
+
+
+def dtype_hook(seen, tag):
+    """A forward hook noting its module's first output dtype in
+    ``seen[tag]`` (returning None: the output stays as it is)."""
+    def hook(module, inputs, output):
+        seen.setdefault(tag, output.dtype)
+    return hook
+
+
+# kernel-name patterns of the groups a profiled step's device time is
+# summed into (the first group a name matches; the rest is "other")
+# (lower case; torch's dtype casts run as elementwise copy kernels)
+STEP_GROUPS = (("flash", ("flash_",)),
+               ("gemm", ("gemm", "gemv", "cutlass", "nvjet", "xmma")),
+               ("cast/copy", ("copy",)), ("reduce", ("reduce",)),
+               ("elementwise", ("elementwise",)))
+
+
+def device_breakdown(fn):
+    """``fn()`` once under the profiler: the wall ms, the device's kernel
+    ms and their share of the wall, the launches, and the device ms by
+    ``STEP_GROUPS``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = dict.fromkeys([g for g, _ in STEP_GROUPS] + ["other"], 0.0)
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        launches += e.count
+        name = e.key.lower()
+        group = next((g for g, pats in STEP_GROUPS
+                      if any(p in name for p in pats)), "other")
+        groups[group] += e.self_device_time_total / 1e3
+    device = sum(groups.values())
+    return {"wall_ms": wall, "device_ms": device, "busy": device / wall,
+            "kernels": launches, "groups_ms": groups}
+
+
+def rel_norm(got, want):
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def amp_train(seed, dtype):
+    """15(b) (bf16) or 15(c) (float16): llama1b in float32 under O1 with
+    the default GradScaler, the kernels then their plain versions."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float16"
+    tag = "[amp O1 %s]" % name
+    cfg = LlamaConfig.llama1b_train(dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 15))
+    plain_model = copy.deepcopy(model)
+    rng = np.random.default_rng(seed + 15)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    seen = {}
+    reset_launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    run = amp_run(model, ids, labels, name, AMP_STEPS,
+                  probe=cast_probe(seen))
+    launches = launch_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    restore = flash_plain()
+    try:
+        plain = amp_run(plain_model, ids, labels, name, AMP_STEPS)
+    finally:
+        restore()
+    del plain_model
+    want_dtypes = {"linear (q_proj)": dtype, "linear (lm_head)": dtype,
+                   "rms_norm (input_layernorm)": torch.float32,
+                   "rms_norm (final)": torch.float32}
+    if seen != want_dtypes:
+        raise AssertionError("%s cast points %s, expected %s"
+                             % (tag, seen, want_dtypes))
+    layers = cfg.num_hidden_layers
+    suffix = "" if dtype == torch.bfloat16 else "_fp16"
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention" + suffix: 2 * layers * AMP_STEPS,
+                 "flash_attention_bwd_dq" + suffix: layers * AMP_STEPS,
+                 "flash_attention_bwd_dkv" + suffix: layers * AMP_STEPS})
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError("%s non-finite loss %s" % (tag, run["losses"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], plain["losses"]))
+    # a skipped first step leaves non-finite gradients on both sides
+    grad_err = {} if run["skipped"][0] else {
+        n: rel_norm(run["grads"][n], plain["grads"][n]) for n in AMP_GRADS}
+    if not all(map(math.isfinite, grad_err.values())):
+        raise AssertionError("%s non-finite gradients %s" % (tag, grad_err))
+    if run["scaler"] != plain["scaler"] or run["skipped"] != plain["skipped"]:
+        raise AssertionError("%s scaler sequence %s (skipped %s) differs from "
+                             "the plain versions' %s (%s)" % (
+                                 tag, run["scaler"], run["skipped"],
+                                 plain["scaler"], plain["skipped"]))
+    if loss_err > AMP_LOSS_RTOL[dtype] or max(grad_err.values(),
+                                              default=0.0) \
+            > AMP_GRAD_RTOL[dtype]:
+        raise AssertionError("%s kernels vs plain versions: losses %s vs %s "
+                             "(rel %.3g > %g?), gradients %s (> %g?)" % (
+                                 tag, run["losses"], plain["losses"],
+                                 loss_err, AMP_LOSS_RTOL[dtype], grad_err,
+                                 AMP_GRAD_RTOL[dtype]))
+    result = {"losses": run["losses"], "plain_losses": plain["losses"],
+              "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+              "scaler": run["scaler"], "skipped": run["skipped"],
+              "step_ms": run["ms"], "plain_step_ms": plain["ms"],
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / statistics.median(run["ms"][1:]) * 1e3,
+              "peak_mem_gb": peak, "cast_dtypes": {
+                  k: str(v).split(".")[-1] for k, v in seen.items()},
+              "launches": launches}
+    if dtype == torch.float16:
+        # one more step at a loss scale that overflows float16: skipped,
+        # parameters untouched (amp_run checks), the scale kept (one bad
+        # step of the two that lower it); its launches counted apart
+        params = dict(model.named_parameters())
+        before = {n: params[n].detach().clone() for n in AMP_GRADS}
+        reset_launch_counters()
+        over = amp_run(model, ids, labels, name, 1,
+                       scaler=amp.GradScaler(init_loss_scaling=OVERFLOW_SCALE))
+        over_launches = launch_counters()
+        want_over = {k: v // AMP_STEPS for k, v in want.items()}
+        if over["skipped"] != [True] or \
+                over["scaler"] != [(OVERFLOW_SCALE, 0, 1)] or \
+                not all(torch.equal(before[n], params[n]) for n in AMP_GRADS):
+            raise AssertionError("%s overflow step %s" % (tag, over))
+        if over_launches != want_over:
+            raise AssertionError("%s overflow step launches %s, expected %s"
+                                 % (tag, over_launches, want_over))
+        result["overflow_step"] = {"scale": OVERFLOW_SCALE,
+                                   "skipped": True, "scaler": over["scaler"],
+                                   "launches": over_launches}
+    # where a step's time goes: one more step, profiled
+    result["profiled_step"] = device_breakdown(
+        lambda: amp_run(model, ids, labels, name, 1))
+    log("%s llama1b float32 under O1 (%d layers, %d x %d, AdamW %g, "
+        "%.1f s): %s" % (tag, layers, TRAIN_BATCH, TRAIN_SEQ, AMP_LR,
+                         time.perf_counter() - t0, json.dumps(result)))
+    return result
+
+
+def ckpt_run(seed, steps, resume_from=None, save_to=None, save_after=None):
+    """15(d): a one-layer llama1b-width model under O1 float16 with AdamW
+    on a warm-up schedule and a GradScaler, ``steps`` steps; with
+    ``save_to``, model, optimizer (its scheduler inside) and scaler are
+    saved after ``save_after`` steps; with ``resume_from``, fresh objects
+    (other weights) load that state first. Returns the losses and the
+    final parameters."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    cfg = LlamaConfig.llama1b_train(num_hidden_layers=CKPT_LAYERS,
+                                    dtype="float32")
+    model = LlamaForCausalLM(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + (1 if resume_from else 0)))
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=10),
+                            warmup_steps=2, start_lr=1e-5, end_lr=1e-4)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters())
+    scaler = amp.GradScaler()
+    if resume_from:
+        state = paddle.load(resume_from)
+        model.load_state_dict(state["model"])
+        opt.set_state_dict(state["opt"])
+        scaler.load_state_dict(state["scaler"])
+    rng = np.random.default_rng(seed + 16)
+    batches = [tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2)) for _ in range(CKPT_K + CKPT_M)]
+    first = CKPT_K if resume_from else 0
+    losses = []
+    for i in range(first, first + steps):
+        ids, labels = batches[i]
+        with amp.auto_cast(dtype="float16"):
+            loss = model(ids, labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.item())
+        if save_to and i + 1 == save_after:
+            paddle.save({"model": model.state_dict(),
+                         "opt": opt.state_dict(),
+                         "scaler": scaler.state_dict()}, save_to)
+    return losses, {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+
+
+def ckpt_resume(seed, tmp):
+    """15(d): k steps, save, fresh objects, load, m steps, against two
+    uninterrupted runs of k + m steps: bit for bit where those two agree
+    bit for bit, else within their own gap."""
+    tag = "[amp checkpoint]"
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "ckpt.pd")
+    steps = CKPT_K + CKPT_M
+    full_a, params_a = ckpt_run(seed, steps, save_to=path,
+                                save_after=CKPT_K)
+    size = os.path.getsize(path) / 1e9
+    full_b, params_b = ckpt_run(seed, steps)
+    resumed, params_r = ckpt_run(seed, CKPT_M, resume_from=path)
+    os.remove(path)
+    got = full_a[:CKPT_K] + resumed
+    bitwise = full_a == full_b and all(
+        torch.equal(params_a[n], params_b[n]) for n in params_a)
+    if bitwise:
+        ok = got == full_a and all(torch.equal(params_r[n], params_a[n])
+                                   for n in params_a)
+        gap = 0.0
+    else:
+        gap = max(float((params_a[n] - params_b[n]).abs().max())
+                  for n in params_a)
+        loss_gap = max(abs(a - b) for a, b in zip(full_a, full_b))
+        ok = all(abs(a - b) <= loss_gap for a, b in zip(got, full_a)) and \
+            all(float((params_r[n] - params_a[n]).abs().max()) <= gap
+                for n in params_a)
+    result = {"depth": CKPT_LAYERS, "k": CKPT_K, "m": CKPT_M,
+              "checkpoint_gb": size, "uninterrupted": full_a,
+              "uninterrupted_again": full_b, "resumed": got,
+              "two_runs_bitwise": bitwise, "their_param_gap": gap}
+    log("%s llama1b width at %d layer (a depth cut: the checkpoint is "
+        "%.2f GB), O1 float16, %.1f s: %s" % (
+            tag, CKPT_LAYERS, size, time.perf_counter() - t0,
+            json.dumps(result)))
+    if not ok:
+        raise AssertionError("%s the resumed run differs from the "
+                             "uninterrupted one" % tag)
+    return result
+
+
+def resnet_fit_run(seed, workers, tmp, probe=None):
+    """15(e): ResNet-50 through Model.fit under O1 bf16 over a DataLoader
+    (``workers`` processes, pinned memory) with ModelCheckpoint; returns
+    the model, the per-step losses and the wall time."""
+    from paddle_tpu_torch import amp, hapi
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    net = resnet50(num_classes=1000, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 17))
+    model = hapi.Model(net).prepare(
+        Momentum(learning_rate=0.1, momentum=0.9,
+                 parameters=net.parameters()),
+        CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    loader = DataLoader(imagenet_like(FIT_BATCH * FIT_STEPS, seed),
+                        batch_size=FIT_BATCH, shuffle=True,
+                        num_workers=workers, pin_memory=True)
+    losses, stamps = [], []
+
+    class Record(hapi.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])   # read on the host: synced
+            stamps.append(time.perf_counter())
+
+    handles = probe(net) if probe else []
+    np.random.seed(seed)   # the sampler's shuffle
+    t0 = time.perf_counter()
+    with amp.auto_cast():
+        history = model.fit(loader, epochs=1, verbose=0, callbacks=[
+            Record(), hapi.ModelCheckpoint(save_dir=tmp)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    # the steps after the first (its warm-up), ModelCheckpoint's saves
+    # (each epoch's end and the train's) left out
+    step_ms = statistics.median(
+        (b - a) * 1e3 for a, b in zip(stamps, stamps[1:]))
+    return model, losses, history, wall, step_ms
+
+
+def resnet_fit(seed, tmp):
+    """15(e): ResNet-50 through Model.fit at batch 64, 224^2, NCHW, O1
+    bf16, 4 forked workers with pinned memory, ModelCheckpoint, then
+    evaluate, predict, Model.save / load and flops."""
+    from paddle_tpu_torch import amp, flops, hapi
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    tag = "[amp resnet fit]"
+    seen = {}
+
+    def probe(net):
+        return [m.register_forward_hook(dtype_hook(seen, t))
+                for t, m in (("conv2d (conv1)", net.conv1),
+                         ("batch_norm_train (bn1)", net.bn1),
+                         ("linear (fc)", net.fc))]
+
+    reset_launch_counters()
+    model, losses, history, wall, step_ms = resnet_fit_run(
+        seed, FIT_WORKERS, tmp, probe)
+    launches = launch_counters()
+    _, losses0, _, wall0, step_ms0 = resnet_fit_run(seed, 0, tmp)
+    want_dtypes = {"conv2d (conv1)": torch.bfloat16,
+                   "batch_norm_train (bn1)": torch.float32,
+                   "linear (fc)": torch.bfloat16}
+    if seen != want_dtypes:
+        raise AssertionError("%s cast points %s, expected %s"
+                             % (tag, seen, want_dtypes))
+    if any(launches.values()):
+        raise AssertionError("%s port kernels launched: %s" % (tag, launches))
+    if len(losses) != FIT_STEPS or not all(map(math.isfinite, losses)) or \
+            any(
+                abs(a - b) > FIT_LOSS_RTOL * abs(b)
+                for a, b in zip(losses, losses0)):
+        raise AssertionError("%s losses with %d workers %s, with none %s"
+                             % (tag, FIT_WORKERS, losses, losses0))
+    saved = sorted(os.listdir(tmp))
+    if saved != ["0.pdopt", "0.pdparams", "final.pdopt", "final.pdparams"]:
+        raise AssertionError("%s ModelCheckpoint wrote %s" % (tag, saved))
+    evalset = imagenet_like(2 * FIT_BATCH, seed + 1000)
+    with amp.auto_cast():
+        logs = model.evaluate(evalset, batch_size=FIT_BATCH, verbose=0)
+        preds = model.predict(evalset, batch_size=FIT_BATCH,
+                              stack_outputs=True)
+    if preds[0].shape != (2 * FIT_BATCH, 1000) or \
+            not np.isfinite(preds[0]).all() or \
+            not math.isfinite(logs["loss"]):
+        raise AssertionError("%s evaluate %s / predict %s" % (
+            tag, logs, preds[0].shape))
+    path = os.path.join(tmp, "resnet")
+    model.save(path)
+    net2 = resnet50(num_classes=1000, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 18))
+    model2 = hapi.Model(net2).prepare(
+        Momentum(learning_rate=0.1, momentum=0.9,
+                 parameters=net2.parameters()),
+        CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    model2.load(path)
+    state, state2 = model.network.state_dict(), net2.state_dict()
+    if not all(torch.equal(state[k], state2[k]) for k in state):
+        raise AssertionError("%s Model.load left other weights" % tag)
+    with amp.auto_cast():
+        again = model2.predict(evalset, batch_size=FIT_BATCH,
+                               stack_outputs=True)
+    if not np.array_equal(again[0], preds[0]):
+        raise AssertionError("%s the loaded model predicts otherwise" % tag)
+    count = flops(model.network, [1, 3, 224, 224])
+    result = {"losses": losses, "losses_no_workers": losses0,
+              "history": history, "eval": logs, "fit_s": wall,
+              "fit_s_no_workers": wall0, "step_ms": step_ms,
+              "step_ms_no_workers": step_ms0,
+              "images_per_s": FIT_BATCH / step_ms * 1e3,
+              "images_per_s_no_workers": FIT_BATCH / step_ms0 * 1e3,
+              "checkpoint_files": saved, "flops": count,
+              "cast_dtypes": {k: str(v).split(".")[-1]
+                              for k, v in seen.items()}}
+    log("%s ResNet-50, batch %d, 224^2, NCHW, O1 bf16, Momentum(0.1, 0.9), "
+        "%d steps, %d workers, pinned: %s" % (
+            tag, FIT_BATCH, FIT_STEPS, FIT_WORKERS, json.dumps(result)))
+    log("%s flops(resnet50, [1, 3, 224, 224]) = %d (one multiply-add is "
+        "one flop)" % (tag, count))
+    return result
+
+
+def fp16_overflow_case(gen, batch, n, heads, head_dim, causal):
+    """15(a): kernels 2-3 in float16 against their plain versions where dS
+    passes float16's range (dO scaled by ``FP16_OVERFLOW_DOUT``): inf and
+    NaN in the same places of dq, dk and dv, the finite entries within the
+    float16 backward tolerance."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    shape = (batch, n, heads, head_dim)
+    q, k, v = (rand(*shape).half() for _ in range(3))
+    dout = (rand(*shape) * FP16_OVERFLOW_DOUT).clamp(-6e4, 6e4).half()
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout,
+                                                 causal=causal)
+    name = "fp16 overflow flash B=%d N=%d H=%d D=%d %s, dO ~ %g N(0, 1)" % (
+        batch, n, heads, head_dim, "causal" if causal else "non-causal",
+        FP16_OVERFLOW_DOUT)
+    row = {"case": name, "max_abs_err": {}}
+    for part, x, y in zip(("dq", "dk", "dv"), got, want):
+        for what, test in (("inf", torch.isinf), ("nan", torch.isnan)):
+            mx, my = test(x), test(y)
+            if not torch.equal(mx, my):
+                raise AssertionError(
+                    "%s %s: %s in %d places, the plain version's in %d, %d "
+                    "apart" % (name, part, what, int(mx.sum()),
+                               int(my.sum()), int((mx != my).sum())))
+            row["%s_%s" % (part, what)] = int(my.sum())
+        ok = torch.isfinite(y)
+        row["max_abs_err"][part] = check_close(
+            "%s %s (finite entries)" % (name, part), x[ok], y[ok],
+            BWD_TOL[torch.float16])
+    if not any(count for key, count in row.items()
+               if key.endswith(("_inf", "_nan"))):
+        raise AssertionError("%s: nothing overflowed" % name)
+    log("[amp] %s: %s" % (name, json.dumps(row)))
+    return row
+
+
+def phase_amp(seed, ptxas):
+    """Phase 15: (a) kernels 1-3 in float16 (and where dS overflows), (b)
+    llama1b under O1 bf16, (c) under O1 float16 with dynamic loss
+    scaling, (d) checkpoint and resume, (e) ResNet-50 through Model.fit.
+    Returns the kernel rows, the paths' launch counts and the results."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    rows = [encoder_flash_case(gen, dtype=torch.float16, tag="fp16", **case)
+            for case in FP16_FLASH_CASES]
+    overflow = fp16_overflow_case(gen, **FP16_FLASH_CASES[0])
+    # the float16 kernels are the bf16 design with other operand types:
+    # ptxas must give each the registers, stack and spills of its bf16 twin
+    report = {r["kernel"]: [r.get(k) for k in ("registers", "stack",
+                                               "spill_stores",
+                                               "spill_loads")]
+              for r in ptxas["flash_attention"] + ptxas["flash_attention_bwd"]}
+    f16 = {k: v for k, v in report.items() if k.endswith(", f16>")}
+    twins = {k: report.get(k.replace(", f16>", ", bf16>")) for k in f16}
+    log("[amp] ptxas float16 kernels: %s" % json.dumps(f16))
+    if len(f16) != 6 or any(f16[k] != twins[k] for k in f16):
+        raise AssertionError("float16 kernels' ptxas %s differ from their "
+                             "bf16 twins' %s" % (f16, twins))
+    torch.cuda.empty_cache()
+    results = {"overflow": overflow, "bf16": amp_train(seed, torch.bfloat16)}
+    torch.cuda.empty_cache()
+    results["fp16"] = amp_train(seed, torch.float16)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        results["checkpoint"] = ckpt_resume(seed, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        results["fit"] = resnet_fit(seed, tmp)
+    log("[amp] phase 15 in %.1f s" % (time.perf_counter() - t0))
+    paths = {"amp_bf16": results["bf16"]["launches"],
+             "amp_fp16": results["fp16"]["launches"]}
+    return rows, paths, results
+
+
+
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "flash_attention": dict(
@@ -4851,6 +5497,18 @@ KERNELS = {
         replaces="none: the reference's dequantize is fused by XLA "
                  "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
         mode="bfloat16 x and y, int8 weight, fp32 block scales"),
+    "flash_attention_fp16": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:161",
+        mode="float16 (wgmma .f32.f16.f16)"),
+    "flash_attention_bwd_dq_fp16": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:330",
+        mode="float16 (wgmma .f32.f16.f16)"),
+    "flash_attention_bwd_dkv_fp16": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:366",
+        mode="float16 (wgmma .f32.f16.f16)"),
 }
 # the float32 and bfloat16 modes of the mixed kernel share one counter;
 # each path's launches go to the entry of the dtype it ran (by_mode)
@@ -5024,6 +5682,33 @@ def encoder_numbers(name, rows):
             for r in cases]
 
 
+def fp16_numbers(name, rows):
+    """A float16 entry's numbers: phase 15(a) at llama1b's training
+    attention, ERNIE's beside it, and ptxas's report of its kernels."""
+    part = {"flash_attention_fp16": "fwd",
+            "flash_attention_bwd_dq_fp16": "dq",
+            "flash_attention_bwd_dkv_fp16": "dkv"}[name]
+    plain, library = (("plain_fwd_ms", "library_fwd_ms") if part == "fwd"
+                      else ("plain_bwd_ms", "library_bwd_ms"))
+    kernel = {"fwd": "flash_fwd_wgmma", "dq": "flash_bwd_dq_wgmma",
+              "dkv": "flash_bwd_dkv_wgmma"}[part]
+
+    def brief(r):
+        return dict(case=r["case"], ms=r[part + "_ms"],
+                    device_ms=r["device_ms"][part], plain_ms=r[plain],
+                    library_ms=r[library], bound_ms=r[part]["bound_ms"],
+                    bound_by=r[part]["bound_by"])
+
+    llama, ernie = rows["fp16"]
+    source = "flash_attention" if part == "fwd" else "flash_attention_bwd"
+    return dict(brief(llama), library=llama["library"],
+                max_abs_err=max(r["max_abs_err"][part] for r in rows["fp16"]),
+                timed_case=llama["case"], ernie=brief(ernie),
+                ptxas=[r for r in rows["ptxas"][source]
+                       if r["kernel"].startswith(kernel + "_kernel<")
+                       and r["kernel"].endswith(", f16>")])
+
+
 def summary(rows, paths):
     """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
     an entry's ``launches`` sums them over the paths."""
@@ -5039,6 +5724,8 @@ def summary(rows, paths):
                 if r["kernel"].startswith(W8_BF16_KERNELS) == bf16]
         elif name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
+        elif name.endswith("_fp16"):
+            numbers = fp16_numbers(name, rows)
         elif name.startswith("fused_ce"):
             numbers = fused_numbers(name, rows["fused_ce"],
                                     rows["ptxas"]["fused_ce"])
@@ -5186,6 +5873,8 @@ def main(argv=None):
     _, resnet_paths, _ = phase_resnet(args.seed, card)
     torch.cuda.empty_cache()
     _, seq2seq_paths, _ = phase_seq2seq(args.seed, card)
+    torch.cuda.empty_cache()
+    rows["fp16"], amp_paths, _ = phase_amp(args.seed, ptxas)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -5199,6 +5888,7 @@ def main(argv=None):
     paths.update(encoder_paths)
     paths.update(resnet_paths)
     paths.update(seq2seq_paths)
+    paths.update(amp_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

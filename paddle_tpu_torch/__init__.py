@@ -14,6 +14,11 @@ cuDNN: the two packages then compute comparable float32 numbers. Its
 bfloat16 products sum in float32, so cuBLAS is also told not to sum a
 bf16 GEMM's split-K partials in bf16, which PyTorch allows by default
 (``allow_bf16_reduced_precision_reduction``).
+
+The training front end sits at the top, as in the reference: ``save`` /
+``load`` (``framework.io``), ``Model`` / ``summary`` / ``flops``
+(``hapi``), and the ``amp``, ``io``, ``metric`` and ``callbacks``
+modules.
 """
 import torch
 
@@ -23,4 +28,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-__all__ = ["resolve_device"]
+from . import amp, callbacks, hapi, io, metric  # noqa: E402
+from .framework.io import load, save  # noqa: E402
+from .hapi import Model, flops, summary  # noqa: E402
+
+__all__ = ["Model", "amp", "callbacks", "flops", "hapi", "io", "load",
+           "metric", "resolve_device", "save", "summary"]

@@ -67,6 +67,16 @@
 //  * O = acc / max(l, 1e-30) goes out as bf16 from the fragments; rows >= N
 //    are not written.
 //
+// float16 (the same kernel with T = __half): the reference's `_dot`
+// (paddle_tpu/kernels/flash_attention.py:47-65) takes two float16 operands
+// and sums in float32, so the float16 mode is the bf16 design with
+// `wgmma ... .f32.f16.f16`, float16 tensor maps and fragments, the same
+// float32 statistics and the same rounding points (p rounded to float16
+// before P.V, O once at the end). Nothing is clamped: a value past
+// float16's range rounds to inf, where the plain version's cast does. The
+// type is a template parameter; Args and the bf16 instantiation are
+// unchanged.
+//
 // float32 (CUDA cores, TF32 off):
 //  * 256 threads as 16 x 16; with 128-row query tiles thread (ty, tx)
 //    owns query rows ty + 16 i (i < 8) and, per key tile, keys tx + 16 j
@@ -365,24 +375,24 @@ constexpr uint32_t BOX_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 static_assert(ROWS == BN, "a streamed tile is one key tile");
 
-template <int D>
+template <int D, typename T>
 struct Smem {
-  bf16 q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
-  bf16 k[STAGES][D / 64][BOX];      // streamed key tiles
-  bf16 v[STAGES][D / 64][BOX];
+  T q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
+  T k[STAGES][D / 64][BOX];      // streamed key tiles
+  T v[STAGES][D / 64][BOX];
   int32_t seg[STAGES][ROWS];        // the key tile's segment ids
   uint64_t full[STAGES], empty[STAGES], loaded;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       bf16* __restrict__ o, float* __restrict__ lse,
+                       T* __restrict__ o, float* __restrict__ lse,
                        Args a) {
   using namespace ptwg;
-  Smem<D>& s = aligned_smem<Smem<D>>();
+  Smem<D, T>& s = aligned_smem<Smem<D, T>>();
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * CTA_ROWS;   // heaviest first
@@ -470,8 +480,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)   // S = Q . K^T
-          wgmma_ss<0>(sa, desc_kslice(s.q[wg][0], kk, BOX_BYTES),
-                      desc_kslice(s.k[stage][0], kk, BOX_BYTES), kk > 0);
+          wgmma_ss<0, 0, T>(sa, desc_kslice(s.q[wg][0], kk, BOX_BYTES),
+                            desc_kslice(s.k[stage][0], kk, BOX_BYTES),
+                            kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sa);
@@ -501,16 +512,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sa[i] = exp2f(sa[i] - m_r[hi]);
           l_r[hi] += sa[i];
         }
-        uint32_t pf[4][4];   // p rounded to bf16
-        acc_to_frag(pf, sa);
+        uint32_t pf[4][4];   // p rounded to the operand type
+        acc_to_frag<T>(pf, sa);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)   // O += P . V, V read MN-major
-          wgmma_rs<1>(acc, pf[kk],
-                      desc_mnmajor(s.v[stage][0], BOX_BYTES) + kk * 128, 1);
+          wgmma_rs<1, T>(acc, pf[kk],
+                         desc_mnmajor(s.v[stage][0], BOX_BYTES) + kk * 128,
+                         1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -530,37 +542,38 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l = fmaxf(l, 1e-30f);
       const int row = r0 + 8 * hi;
       if (row >= a.n) continue;
-      bf16* out = o + ((int64_t(b) * a.n + row) * a.heads + h) * D;
+      T* out = o + ((int64_t(b) * a.n + row) * a.heads + h) * D;
 #pragma unroll
       for (int i = 2 * hi; i < D / 2; i += 4)
-        *reinterpret_cast<__nv_bfloat162*>(out + acc_col(i, lane)) =
-            __floats2bfloat162_rn(acc[i] / l, acc[i + 1] / l);
+        store2(out + acc_col(i, lane), acc[i] / l, acc[i + 1] / l);
       if ((lane & 3) == 0)
         lse[int64_t(bh) * a.n + row] = (m_r[hi] + log2f(l)) * LN2;
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, const Args& a, cudaStream_t stream) {
   CUtensorMap m[3];
   cudaError_t err;
   if ((err = ptwg::tile_map(&m[0], q, D, a.heads, a.n, batch, a.sqh, a.sqn,
-                            a.sqb, ROWS)) != cudaSuccess ||
+                            a.sqb, ROWS, ptwg::tma_type<T>)) != cudaSuccess ||
       (err = ptwg::tile_map(&m[1], k, D, a.kv_heads, a.n_kv, batch, a.skh,
-                            a.skn, a.skb, ROWS)) != cudaSuccess ||
+                            a.skn, a.skb, ROWS, ptwg::tma_type<T>)) !=
+          cudaSuccess ||
       (err = ptwg::tile_map(&m[2], v, D, a.kv_heads, a.n_kv, batch, a.svh,
-                            a.svn, a.svb, ROWS)) != cudaSuccess)
+                            a.svn, a.svb, ROWS, ptwg::tma_type<T>)) !=
+          cudaSuccess)
     return err;
-  const size_t smem = sizeof(Smem<D>) + 1024;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
+  const size_t smem = sizeof(Smem<D, T>) + 1024;
+  auto kernel = flash_fwd_wgmma_kernel<D, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * a.heads, (a.n + CTA_ROWS - 1) / CTA_ROWS);
   kernel<<<grid, THREADS, smem, stream>>>(m[0], m[1], m[2],
-                                          static_cast<bf16*>(o),
+                                          static_cast<T*>(o),
                                           static_cast<float*>(lse), a);
   return cudaGetLastError();
 }
@@ -578,7 +591,8 @@ const char* pt_error_string(int err) {
 // q [B, N, H, D], k/v [B, N_kv, H_kv, D] with the given element strides for
 // the first three axes (the last is contiguous; bf16 needs the addresses
 // and strides in multiples of 16 bytes, as TMA reads them); o [B, N, H, D]
-// contiguous; lse [B*H, N] float32. dtype: 0 = float32, 1 = bfloat16.
+// contiguous; lse [B*H, N] float32. dtype: 0 = float32, 1 = bfloat16,
+// 3 = float16 (kernels/flash_attention.py DTYPE_CODES).
 // segs: [B, N] int32 segment ids (needs n == n_kv), or nullptr for none.
 // Returns the launch's cudaError_t.
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -603,9 +617,13 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 0 && head_dim == 64)
     return launch_f32<64>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 128)
-    return tc::launch<128>(q, k, v, o, lse, batch, a, s);
+    return tc::launch<128, tc::bf16>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 64)
-    return tc::launch<64>(q, k, v, o, lse, batch, a, s);
+    return tc::launch<64, tc::bf16>(q, k, v, o, lse, batch, a, s);
+  if (dtype == 3 && head_dim == 128)
+    return tc::launch<128, __half>(q, k, v, o, lse, batch, a, s);
+  if (dtype == 3 && head_dim == 64)
+    return tc::launch<64, __half>(q, k, v, o, lse, batch, a, s);
   return cudaErrorInvalidValue;
 }
 

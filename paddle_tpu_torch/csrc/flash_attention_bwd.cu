@@ -68,6 +68,16 @@
 //    of spill stores for dk/dv at D = 64 / 128, the D = 64 ones all in
 //    the producer warp's lse/delta staging; they cost no measurable
 //    time. chip_smoke.py phase 2 prints the report.
+//  * float16: the same two kernels with T = __half (`wgmma ...
+//    .f32.f16.f16`, float16 tensor maps and fragments), the reference's
+//    float16 mode (its `_dot` takes any float operands and sums in
+//    float32). The rounding points are bf16's: P and dS rounded to
+//    float16 where they become operands, dq/dk/dv once at the end.
+//    Nothing is clamped or rescaled: under a large loss scale dP and dS
+//    can pass float16's range and round to inf, and that inf reaches the
+//    gradients as the plain version's does, for GradScaler to find. The
+//    type is a template parameter, so Args does not grow and the bf16
+//    instantiations compile as before.
 //  Where trouble was likely, and what the design does:
 //   1. the TMA swizzle and the wgmma descriptor must agree (128-byte
 //      swizzle, 1024-aligned boxes, K-major and MN-major): the MMA probe
@@ -645,29 +655,29 @@ constexpr uint32_t BOX_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <int D, typename T>
 struct DqSmem {
-  bf16 q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
-  bf16 o[CONSUMERS][D / 64][BOX];   // and their dO rows
-  bf16 k[STAGES][D / 64][BOX];      // streamed key tiles
-  bf16 v[STAGES][D / 64][BOX];
+  T q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
+  T o[CONSUMERS][D / 64][BOX];   // and their dO rows
+  T k[STAGES][D / 64][BOX];      // streamed key tiles
+  T v[STAGES][D / 64][BOX];
   int32_t seg[STAGES][ROWS];        // the key tile's segment ids
   uint64_t full[STAGES], empty[STAGES], loaded;
 };
 
-template <int D>
+template <int D, typename T>
 struct DkvSmem {
-  bf16 k[CONSUMERS][D / 64][BOX];   // each consumer's 64 keys
-  bf16 v[CONSUMERS][D / 64][BOX];
-  bf16 q[STAGES][D / 64][BOX];      // streamed query tiles
-  bf16 o[STAGES][D / 64][BOX];
+  T k[CONSUMERS][D / 64][BOX];   // each consumer's 64 keys
+  T v[CONSUMERS][D / 64][BOX];
+  T q[STAGES][D / 64][BOX];      // streamed query tiles
+  T o[STAGES][D / 64][BOX];
   float lse[STAGES][ROWS];          // log2(e) * lse of the tile's queries
   float delta[STAGES][ROWS];
   int32_t seg[STAGES][ROWS];
   uint64_t full[STAGES], empty[STAGES], loaded;
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -675,9 +685,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap to,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dq, Args a) {
+                          T* __restrict__ dq, Args a) {
   using namespace ptwg;
-  DqSmem<D>& s = aligned_smem<DqSmem<D>>();
+  DqSmem<D, T>& s = aligned_smem<DqSmem<D, T>>();
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * CTA_ROWS;   // heaviest first
@@ -773,13 +783,15 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)   // S = Q . K^T
-          wgmma_ss<0>(sa, desc_kslice(s.q[wg][0], kk, BOX_BYTES),
-                      desc_kslice(s.k[stage][0], kk, BOX_BYTES), kk > 0);
+          wgmma_ss<0, 0, T>(sa, desc_kslice(s.q[wg][0], kk, BOX_BYTES),
+                            desc_kslice(s.k[stage][0], kk, BOX_BYTES),
+                            kk > 0);
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)   // dP = dO . V^T
-          wgmma_ss<0>(pa, desc_kslice(s.o[wg][0], kk, BOX_BYTES),
-                      desc_kslice(s.v[stage][0], kk, BOX_BYTES), kk > 0);
+          wgmma_ss<0, 0, T>(pa, desc_kslice(s.o[wg][0], kk, BOX_BYTES),
+                            desc_kslice(s.v[stage][0], kk, BOX_BYTES),
+                            kk > 0);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(sa);
@@ -795,16 +807,17 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         fence_regs(pa);
 #pragma unroll
-        for (int i = 0; i < 32; ++i)   // dS, rounded to bf16 by the pack
+        for (int i = 0; i < 32; ++i)   // dS, rounded to T by the pack
           pa[i] = sa[i] * (pa[i] - dlt[(i >> 1) & 1]);
         uint32_t ds[4][4];
-        acc_to_frag(ds, pa);
+        acc_to_frag<T>(ds, pa);
         fence_regs(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)   // dq += dS . K, K read MN-major
-          wgmma_rs<1>(acc, ds[kk],
-                      desc_mnmajor(s.k[stage][0], BOX_BYTES) + kk * 128, 1);
+          wgmma_rs<1, T>(acc, ds[kk],
+                         desc_mnmajor(s.k[stage][0], BOX_BYTES) + kk * 128,
+                         1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -820,16 +833,16 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int hi = 0; hi < 2; ++hi) {
       const int row = r0 + 8 * hi;
       if (row >= a.n) continue;
-      bf16* out = dq + ((int64_t(b) * a.n + row) * a.heads + h) * D;
+      T* out = dq + ((int64_t(b) * a.n + row) * a.heads + h) * D;
 #pragma unroll
       for (int i = 2 * hi; i < D / 2; i += 4)
-        *reinterpret_cast<__nv_bfloat162*>(out + acc_col(i, lane)) =
-            __floats2bfloat162_rn(acc[i] * a.scale, acc[i + 1] * a.scale);
+        store2(out + acc_col(i, lane), acc[i] * a.scale,
+               acc[i + 1] * a.scale);
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -837,10 +850,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap to,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           T* __restrict__ dk, T* __restrict__ dv,
                            Args a) {
   using namespace ptwg;
-  DkvSmem<D>& s = aligned_smem<DkvSmem<D>>();
+  DkvSmem<D, T>& s = aligned_smem<DkvSmem<D, T>>();
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int k0 = blockIdx.x * CTA_ROWS;   // the first key tiles go first
@@ -940,13 +953,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)   // S^T = K . Q^T
-            wgmma_ss<0>(sa, desc_kslice(s.k[wg][0], kk, BOX_BYTES),
-                        desc_kslice(s.q[stage][0], kk, BOX_BYTES), kk > 0);
+            wgmma_ss<0, 0, T>(sa, desc_kslice(s.k[wg][0], kk, BOX_BYTES),
+                              desc_kslice(s.q[stage][0], kk, BOX_BYTES),
+                              kk > 0);
           wgmma_commit();
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk)   // dP^T = V . dO^T
-            wgmma_ss<0>(pa, desc_kslice(s.v[wg][0], kk, BOX_BYTES),
-                        desc_kslice(s.o[stage][0], kk, BOX_BYTES), kk > 0);
+            wgmma_ss<0, 0, T>(pa, desc_kslice(s.v[wg][0], kk, BOX_BYTES),
+                              desc_kslice(s.o[stage][0], kk, BOX_BYTES),
+                              kk > 0);
           wgmma_commit();
           wgmma_wait<1>();
           fence_regs(sa);
@@ -959,26 +974,28 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 (sb == nullptr || seg_r[(i >> 1) & 1] == s.seg[stage][c]);
             sa[i] = ok ? exp2f(sa[i] * scale2 - s.lse[stage][c]) : 0.f;
           }
-          uint32_t pf[4][4];   // P^T rounded to bf16
-          acc_to_frag(pf, sa);
+          uint32_t pf[4][4];   // P^T rounded to T
+          acc_to_frag<T>(pf, sa);
           wgmma_wait<0>();
           fence_regs(pa);
 #pragma unroll
           for (int i = 0; i < 32; ++i)   // dS^T
             pa[i] = sa[i] * (pa[i] - s.delta[stage][acc_col(i, lane)]);
-          uint32_t df[4][4];   // dS^T rounded to bf16
-          acc_to_frag(df, pa);
+          uint32_t df[4][4];   // dS^T rounded to T
+          acc_to_frag<T>(df, pa);
           fence_regs(acc_v);
           fence_regs(acc_k);
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)   // dv += P^T . dO, dO MN-major
-            wgmma_rs<1>(acc_v, pf[kk],
-                        desc_mnmajor(s.o[stage][0], BOX_BYTES) + kk * 128, 1);
+            wgmma_rs<1, T>(acc_v, pf[kk],
+                           desc_mnmajor(s.o[stage][0], BOX_BYTES) + kk * 128,
+                           1);
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)   // dk += dS^T . Q, Q MN-major
-            wgmma_rs<1>(acc_k, df[kk],
-                        desc_mnmajor(s.q[stage][0], BOX_BYTES) + kk * 128, 1);
+            wgmma_rs<1, T>(acc_k, df[kk],
+                           desc_mnmajor(s.q[stage][0], BOX_BYTES) + kk * 128,
+                           1);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(acc_v);
@@ -1001,10 +1018,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 2 * hi; i < D / 2; i += 4) {
         const int c = acc_col(i, lane);
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + c) =
-            __floats2bfloat162_rn(acc_k[i] * a.scale, acc_k[i + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + c) =
-            __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+        store2(dk + at + c, acc_k[i] * a.scale, acc_k[i + 1] * a.scale);
+        store2(dv + at + c, acc_v[i], acc_v[i + 1]);
       }
     }
   }
@@ -1012,61 +1027,65 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // the four operands' tensor maps: q, dO [B, N, H, D] and k, v [B, N_kv,
 // H_kv, D] through their strides, 64-row boxes
-template <int D>
+template <int D, typename T>
 cudaError_t operand_maps(CUtensorMap (&m)[4], const void* q, const void* k,
                          const void* v, const void* dout, int batch,
                          const Args& a) {
   cudaError_t err;
   if ((err = ptwg::tile_map(&m[0], q, D, a.heads, a.n, batch, a.sqh, a.sqn,
-                            a.sqb, ROWS)) != cudaSuccess ||
+                            a.sqb, ROWS,
+                            ptwg::tma_type<T>)) != cudaSuccess ||
       (err = ptwg::tile_map(&m[1], k, D, a.kv_heads, a.n_kv, batch, a.skh,
-                            a.skn, a.skb, ROWS)) != cudaSuccess ||
+                            a.skn, a.skb, ROWS,
+                            ptwg::tma_type<T>)) != cudaSuccess ||
       (err = ptwg::tile_map(&m[2], v, D, a.kv_heads, a.n_kv, batch, a.svh,
-                            a.svn, a.svb, ROWS)) != cudaSuccess ||
+                            a.svn, a.svb, ROWS,
+                            ptwg::tma_type<T>)) != cudaSuccess ||
       (err = ptwg::tile_map(&m[3], dout, D, a.heads, a.n, batch, a.soh,
-                            a.son, a.sob, ROWS)) != cudaSuccess)
+                            a.son, a.sob, ROWS,
+                            ptwg::tma_type<T>)) != cudaSuccess)
     return err;
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int batch, const Args& a,
                       cudaStream_t stream) {
   CUtensorMap m[4];
-  cudaError_t err = operand_maps<D>(m, q, k, v, dout, batch, a);
+  cudaError_t err = operand_maps<D, T>(m, q, k, v, dout, batch, a);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(DqSmem<D>) + 1024;
-  auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  const size_t smem = sizeof(DqSmem<D, T>) + 1024;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n + CTA_ROWS - 1) / CTA_ROWS, batch * a.heads);
   kernel<<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), a);
+      static_cast<const float*>(delta), static_cast<T*>(dq), a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int batch, const Args& a,
                        cudaStream_t stream) {
   CUtensorMap m[4];
-  cudaError_t err = operand_maps<D>(m, q, k, v, dout, batch, a);
+  cudaError_t err = operand_maps<D, T>(m, q, k, v, dout, batch, a);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(DkvSmem<D>) + 1024;
-  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  const size_t smem = sizeof(DkvSmem<D, T>) + 1024;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, T>;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_kv + CTA_ROWS - 1) / CTA_ROWS, batch * a.kv_heads);
   kernel<<<grid, THREADS, smem, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), a);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), a);
   return cudaGetLastError();
 }
 
@@ -1084,7 +1103,7 @@ const char* pt_error_string(int err) {
 // strides for their first three axes (the last is contiguous; bf16 needs
 // the addresses and strides in multiples of 16 bytes, as TMA reads
 // them); lse and delta [B*H, N] float32; dq [B, N, H, D] contiguous.
-// dtype: 0 = float32, 1 = bfloat16. segs: [B, N] int32 segment ids
+// dtype: 0 = float32, 1 = bfloat16, 3 = float16. segs: [B, N] int32 segment ids
 // (needs n == n_kv), or nullptr for none. Returns the launch's cudaError_t.
 int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
@@ -1105,9 +1124,17 @@ int pt_flash_attention_bwd_dq(
   if (dtype == 0 && head_dim == 64)
     return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, batch, a, vec, s);
   if (dtype == 1 && head_dim == 128)
-    return tc::launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, a, s);
+    return tc::launch_dq<128, tc::bf16>(q, k, v, dout, lse, delta, dq, batch,
+                                        a, s);
   if (dtype == 1 && head_dim == 64)
-    return tc::launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, a, s);
+    return tc::launch_dq<64, tc::bf16>(q, k, v, dout, lse, delta, dq, batch,
+                                       a, s);
+  if (dtype == 3 && head_dim == 128)
+    return tc::launch_dq<128, __half>(q, k, v, dout, lse, delta, dq, batch,
+                                      a, s);
+  if (dtype == 3 && head_dim == 64)
+    return tc::launch_dq<64, __half>(q, k, v, dout, lse, delta, dq, batch, a,
+                                     s);
   return cudaErrorInvalidValue;
 }
 
@@ -1134,11 +1161,17 @@ int pt_flash_attention_bwd_dkv(
     return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, batch, a,
                               vec, s);
   if (dtype == 1 && head_dim == 128)
-    return tc::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, batch, a,
-                               s);
+    return tc::launch_dkv<128, tc::bf16>(q, k, v, dout, lse, delta, dk, dv,
+                                         batch, a, s);
   if (dtype == 1 && head_dim == 64)
-    return tc::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, batch, a,
-                              s);
+    return tc::launch_dkv<64, tc::bf16>(q, k, v, dout, lse, delta, dk, dv,
+                                        batch, a, s);
+  if (dtype == 3 && head_dim == 128)
+    return tc::launch_dkv<128, __half>(q, k, v, dout, lse, delta, dk, dv,
+                                       batch, a, s);
+  if (dtype == 3 && head_dim == 64)
+    return tc::launch_dkv<64, __half>(q, k, v, dout, lse, delta, dk, dv,
+                                      batch, a, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,9 @@
 // bf16 warpgroup tensor-core building blocks for Hopper (sm_90a): wgmma,
-// its shared-memory descriptors, mbarriers and TMA tile loads. Header
-// only: no entry points. Used by csrc/flash_attention.cu (the bf16
+// its shared-memory descriptors, mbarriers and TMA tile loads; the
+// products, fragment packs and operand tensor maps also take fp16, for
+// the flash attention kernels' float16 mode (a template parameter, bf16
+// by default, so every bf16 caller compiles as before). Header only: no
+// entry points. Used by csrc/flash_attention.cu (the bf16
 // forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels),
 // csrc/fused_ce.cu (the bf16 lm_head + CE forward and backward products)
 // and csrc/mma_probe.cu, which checks every form the kernels use on its own
@@ -50,8 +53,11 @@
 
 #include <cuda.h>   // CUtensorMap and the driver's enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptwg {
 
@@ -113,125 +119,123 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The operand types of the products: bf16 (every kernel) and fp16 (the
+// flash attention kernels' float16 mode), both summed in fp32. Each
+// product below takes the type as a template parameter, bf16 by default,
+// and names its full instruction; the macros carry the operands. The asm
+// text of the two types differs only in the type names, so a bf16
+// instantiation is the one the kernels had before fp16 was added.
+template <typename T>
+constexpr bool is_f16 = std::is_same<T, __half>::value;
+
+// the accumulators of an m64n64 (32 registers) or m64n128 (64) product
+#define PTWG_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define PTWG_ACC64 \
+  PTWG_ACC32, \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define PTWG_DST32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  " %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23," \
+  " %24, %25, %26, %27, %28, %29, %30, %31}"
+#define PTWG_DST64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  " %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23," \
+  " %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39," \
+  " %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55," \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+
 // d = A . B (accumulate = 0) or d += A . B, one k16 slice. TRANS_B = 0:
 // B K-major; 1: B MN-major. TRANS_A likewise for A (default K-major).
-template <int TRANS_B, int TRANS_A = 0>
+#define PTWG_SS_N64(INSTR)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" INSTR " "     \
+               PTWG_DST32 ", %32, %33, p, 1, 1, %36, %35;\n}\n"         \
+               : PTWG_ACC32                                               \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B), \
+                 "n"(TRANS_A))
+#define PTWG_RS_N64(INSTR)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" INSTR " "     \
+               PTWG_DST32 ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+               : PTWG_ACC32                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "r"(accumulate), "n"(TRANS_B))
+#define PTWG_SS_N128(INSTR)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" INSTR " "     \
+               PTWG_DST64 ", %64, %65, p, 1, 1, %68, %67;\n}\n"         \
+               : PTWG_ACC64                                               \
+               : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B), \
+                 "n"(TRANS_A))
+#define PTWG_RS_N128(INSTR)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" INSTR " "     \
+               PTWG_DST64 ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+               : PTWG_ACC64                                               \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "r"(accumulate), "n"(TRANS_B))
+
+template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B),
-        "n"(TRANS_A));
+  if constexpr (is_f16<T>)
+    PTWG_SS_N64("wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16");
+  else
+    PTWG_SS_N64("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16");
 }
 
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    PTWG_RS_N64("wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16");
+  else
+    PTWG_RS_N64("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16");
 }
 
-template <int TRANS_B, int TRANS_A = 0>
+template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, %68, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B),
-        "n"(TRANS_A));
+  if constexpr (is_f16<T>)
+    PTWG_SS_N128("wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16");
+  else
+    PTWG_SS_N128("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16");
 }
 
-template <int TRANS_B>
+template <int TRANS_B, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate), "n"(TRANS_B));
+  if constexpr (is_f16<T>)
+    PTWG_RS_N128("wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16");
+  else
+    PTWG_RS_N128("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16");
 }
+
+#undef PTWG_SS_N64
+#undef PTWG_RS_N64
+#undef PTWG_SS_N128
+#undef PTWG_RS_N128
+#undef PTWG_ACC32
+#undef PTWG_ACC64
+#undef PTWG_DST32
+#undef PTWG_DST64
 
 // the column of accumulator element i of this thread within the
 // warpgroup's tile (its row is the thread's 16 * (warp % 4) + lane / 4,
@@ -246,15 +250,37 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// the A fragments of every k16 slice of an accumulator of N columns
-template <int R>
+// two floats rounded to T (bf16 or fp16; fp16 overflows to inf past
+// 65504, which no kernel clamps), the first in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16x2(lo, hi);
+  }
+}
+
+// two floats rounded to T, stored at p (4-byte aligned)
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  if constexpr (is_f16<T>)
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(lo, hi);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+
+// the A fragments of every k16 slice of an accumulator of N columns,
+// rounded to T
+template <typename T = __nv_bfloat16, int R>
 __device__ __forceinline__ void acc_to_frag(uint32_t (&a)[R / 8][4],
                                             const float (&d)[R]) {
 #pragma unroll
   for (int s = 0; s < R / 8; ++s)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      a[s][j] = pack_bf16x2(d[8 * s + 2 * j], d[8 * s + 2 * j + 1]);
+      a[s][j] = pack2<T>(d[8 * s + 2 * j], d[8 * s + 2 * j + 1]);
 }
 
 // the kernel's dynamic shared memory as an S, 1024-aligned for the
@@ -367,13 +393,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 operand [batch, rows, heads, cols] with element strides sb, sr,
-// sh for its first three axes (the last contiguous), read in boxes of 64
-// columns x box_rows rows of one (batch, head), 128-byte swizzle, rows
-// past `rows` zero-filled.
-inline cudaError_t tile_map(CUtensorMap* map, const void* base, int cols,
-                            int heads, int rows, int batch, long long sh,
-                            long long sr, long long sb, int box_rows) {
+// the tensor map's element type of an operand of type T
+template <typename T>
+constexpr CUtensorMapDataType tma_type =
+    is_f16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+// A 2-byte operand [batch, rows, heads, cols] (bf16, or `type`) with
+// element strides sb, sr, sh for its first three axes (the last
+// contiguous), read in boxes of 64 columns x box_rows rows of one (batch,
+// head), 128-byte swizzle, rows past `rows` zero-filled.
+inline cudaError_t tile_map(
+    CUtensorMap* map, const void* base, int cols, int heads, int rows,
+    int batch, long long sh, long long sr, long long sb, int box_rows,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   // bytes; a length-1 axis takes the stride that follows the one before
@@ -386,7 +419,7 @@ inline cudaError_t tile_map(CUtensorMap* map, const void* base, int cols,
   const cuuint32_t box[4] = {64, 1, cuuint32_t(box_rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, type, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -19,8 +19,9 @@ through their strides (last axis contiguous), mask ragged lengths
 themselves, and map GQA query heads onto their kv head, so the caller
 never folds, pads or repeats; dk/dv come back for the kv heads, summed
 over each group's query heads (what the reference's repeat_interleave
-VJP gives). The bf16 kernels (forward, dq and dk/dv, on ``wgmma``) load
-their tiles with TMA, which needs 16-byte aligned addresses and strides:
+VJP gives). The bf16 and float16 kernels (forward, dq and dk/dv, on
+``wgmma``; float16 is the same kernels with ``f16`` operands, the
+reference's float16 mode) load their tiles with TMA, which needs 16-byte aligned addresses and strides:
 an operand that breaks that is copied first and counted in
 ``tma_copies`` (the kernels are the only route; the copy is the remedy,
 never a fallback). The float32 kernels run on the CUDA cores and read
@@ -54,16 +55,24 @@ HEAD_DIMS = (64, 128)
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): the forward, the backward's dq kernel and its dk/dv kernel,
-# without and with segment ids
+# without and with segment ids, and float16 launches (either way) on
+# counters of their own
 launches = 0
 dq_launches = 0
 dkv_launches = 0
 segmented_fwd_launches = 0
 segmented_dq_launches = 0
 segmented_dkv_launches = 0
-# bf16 operands the forward or backward copied because TMA could not
-# read them in place (``tma_aligned``); 0 on every main path
+f16_launches = 0
+f16_dq_launches = 0
+f16_dkv_launches = 0
+# bf16 or float16 operands the forward or backward copied because TMA
+# could not read them in place (``tma_aligned``); 0 on every main path
 tma_copies = 0
+# the element types the kernels take, by the code their C entry points
+# expect: the shared codes and float16 (3; 2 is the paged kernels' int8
+# pool code). Every type but float32 runs on the TMA (wgmma) kernels.
+DTYPE_CODES = {**_build.DTYPE_CODES, torch.float16: 3}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, out, lse; sizes; the strides of q, k and v; scale, causal,
@@ -121,8 +130,8 @@ def _segs_ptr(segs):
 
 
 def _acc_dtype(x):
-    """float32 statistics for float32/bfloat16 inputs; float64 stays
-    float64 (gradcheck)."""
+    """float32 statistics for float32, bfloat16 and float16 inputs;
+    float64 stays float64 (gradcheck)."""
     return torch.promote_types(x.dtype, torch.float32)
 
 
@@ -170,9 +179,10 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
     optional ``segment_ids [B, N]`` (needs ``N_kv == N``)
     -> ``(out [B, N, H, D], lse [B*H, N] float32)``.
 
-    CUDA tensors launch the kernel (float32 or bfloat16, head_dim 64 or
-    128, last axis contiguous; bf16 on ``wgmma`` with TMA loads, float32
-    on the CUDA cores) or raise; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (float32, bfloat16 or float16,
+    head_dim 64 or 128, last axis contiguous; bf16 and float16 on
+    ``wgmma`` with TMA loads, float32 on the CUDA cores) or raise; CPU
+    tensors take the plain version."""
     _check_shapes(q, k, v)
     b, n, h, d = q.shape
     n_kv, h_kv = k.shape[1], k.shape[2]
@@ -184,11 +194,11 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         raise ValueError("flash_attention: q, k, v must all be on one CUDA "
                          "device or all on the CPU (got %s, %s, %s)"
                          % (q.device, k.device, v.device))
-    if (q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype
+    if (q.dtype not in DTYPE_CODES or k.dtype != q.dtype
             or v.dtype != q.dtype):
-        raise ValueError("flash_attention: the kernel takes float32 or "
-                         "bfloat16 q/k/v of one dtype, got %s/%s/%s"
-                         % (q.dtype, k.dtype, v.dtype))
+        raise ValueError("flash_attention: the kernel takes float32, "
+                         "bfloat16 or float16 q/k/v of one dtype, got "
+                         "%s/%s/%s" % (q.dtype, k.dtype, v.dtype))
     if d not in HEAD_DIMS:
         raise ValueError("flash_attention: head_dim %d not in %s"
                          % (d, HEAD_DIMS))
@@ -209,11 +219,13 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, n, n_kv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, int(bool(causal)), _build.DTYPE_CODES[q.dtype],
+        scale, int(bool(causal)), DTYPE_CODES[q.dtype],
         _segs_ptr(segs), _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention")
-    global launches, segmented_fwd_launches
-    if segs is None:
+    global launches, segmented_fwd_launches, f16_launches
+    if q.dtype == torch.float16:
+        f16_launches += 1
+    elif segs is None:
         launches += 1
     else:
         segmented_fwd_launches += 1
@@ -221,7 +233,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
 
 
 def tma_aligned(x):
-    """Whether the bf16 kernels' TMA loads read ``x`` ``[B, N, H, D]``
+    """Whether the bf16 and float16 kernels' TMA loads read ``x`` ``[B, N, H, D]``
     (last axis contiguous) in place: its address and the byte stride
     of every other axis are multiples of 16 bytes. The stride of a
     length-1 axis is never used and does not count."""
@@ -233,13 +245,14 @@ def tma_aligned(x):
 
 
 def _tma_operands(*xs):
-    """``xs``, each bf16 tensor that ``tma_aligned`` refuses replaced by a
-    contiguous copy (counted in ``tma_copies``); float32 tensors go to the
-    CUDA-core kernels, which read any stride, as they are."""
+    """``xs``, each bf16 or float16 tensor that ``tma_aligned`` refuses
+    replaced by a contiguous copy (counted in ``tma_copies``); float32
+    tensors go to the CUDA-core kernels, which read any stride, as they
+    are."""
     global tma_copies
     out = []
     for x in xs:
-        if x.dtype == torch.bfloat16 and not tma_aligned(x):
+        if x.dtype != torch.float32 and not tma_aligned(x):
             x = x.clone(memory_format=torch.contiguous_format)
             tma_copies += 1
         out.append(x)
@@ -310,12 +323,12 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention_backward: all tensors must be on "
                          "one CUDA device or all on the CPU")
-    if (q.dtype not in _build.DTYPE_CODES
+    if (q.dtype not in DTYPE_CODES
             or any(t.dtype != q.dtype for t in (k, v, out, dout))
             or lse.dtype != torch.float32):
         raise ValueError("flash_attention_backward: the kernels take "
-                         "float32 or bfloat16 q/k/v/out/dout of one dtype "
-                         "and a float32 lse")
+                         "float32, bfloat16 or float16 q/k/v/out/dout of "
+                         "one dtype and a float32 lse")
     b, n, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError("flash_attention_backward: head_dim %d not in %s"
@@ -360,7 +373,7 @@ def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, segs,
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, n, k.shape[1], h, k.shape[2], d, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
-        int(bool(causal)), _build.DTYPE_CODES[q.dtype], _segs_ptr(segs),
+        int(bool(causal)), DTYPE_CODES[q.dtype], _segs_ptr(segs),
         _build.stream_handle(q.device))
     _build.check(lib, err, what)
 
@@ -374,8 +387,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _bwd_launch("pt_flash_attention_bwd_dq", q, k, v, dout, lse, delta,
                 (dq,), causal, scale, segs, "flash_attention_backward (dq)")
-    global dq_launches, segmented_dq_launches
-    if segs is None:
+    global dq_launches, segmented_dq_launches, f16_dq_launches
+    if q.dtype == torch.float16:
+        f16_dq_launches += 1
+    elif segs is None:
         dq_launches += 1
     else:
         segmented_dq_launches += 1
@@ -392,8 +407,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     _bwd_launch("pt_flash_attention_bwd_dkv", q, k, v, dout, lse, delta,
                 (dk, dv), causal, scale, segs,
                 "flash_attention_backward (dk/dv)")
-    global dkv_launches, segmented_dkv_launches
-    if segs is None:
+    global dkv_launches, segmented_dkv_launches, f16_dkv_launches
+    if q.dtype == torch.float16:
+        f16_dkv_launches += 1
+    elif segs is None:
         dkv_launches += 1
     else:
         segmented_dkv_launches += 1

@@ -21,7 +21,9 @@ Training: ``forward(input_ids, labels)`` returns the mean cross-entropy
 over the flattened tokens, and ``LlamaConfig(recompute=True)`` wraps
 each decoder layer in ``torch.utils.checkpoint`` (the reference's
 ``_remat_layer``), so the backward re-runs each layer's forward instead
-of keeping its activations. With ``FLAGS_fused_lm_head_ce`` on and a
+of keeping its activations, under the forward's ``amp.auto_cast`` state
+(the reference's eager recompute re-runs it without: "Faults of the
+reference" 15 in ROADMAP.md). With ``FLAGS_fused_lm_head_ce`` on and a
 token count that tiles 256 (``kernels.fused_ce.fused_ce_applies``), the
 loss tail goes through the fused lm_head + cross-entropy kernels and the
 ``[B*S, V]`` logits are never built (``_maybe_fused_ce``, the reference's
@@ -43,6 +45,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import amp
 from ..core.tensor import name_parameters
 from ..device import resolve_device
 from ..kernels.fused_ce import fused_ce_applies, fused_mean_ce
@@ -282,12 +285,21 @@ class LlamaModel(nn.Module):
         remat = self.config.recompute and caches is None
         for i, layer in enumerate(self.layers):
             if remat:
-                x = checkpoint(layer, x, use_reentrant=False)
+                x = checkpoint(_run_layer, layer, x, amp.amp_state(),
+                               use_reentrant=False)
             elif caches is None:
                 x = layer(x)
             else:
                 x, caches[i] = layer(x, caches[i], position_offset)
         return self.norm(x)
+
+
+def _run_layer(layer, x, amp_state):
+    """A decoder layer under the AMP state of the forward that checkpointed
+    it: the backward's recomputation runs outside ``auto_cast``, and
+    would otherwise recompute in other dtypes than the forward did."""
+    with amp.state_scope(amp_state):
+        return layer(x)
 
 
 class LlamaForCausalLM(GenerationMixin, nn.Module):

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import cast_inputs
+
 _tf = torch.nn.functional
 
 _DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
@@ -142,10 +144,12 @@ def softsign(x):
 
 
 def softmax(x, axis=-1, dtype=None):
+    x, = cast_inputs("softmax", x)
     return torch.softmax(_cast(x, dtype), dim=int(axis))
 
 
 def log_softmax(x, axis=-1, dtype=None):
+    x, = cast_inputs("log_softmax", x)
     return torch.log_softmax(_cast(x, dtype), dim=int(axis))
 
 

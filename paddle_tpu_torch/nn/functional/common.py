@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from ...amp import cast_inputs
 from ...ops.manipulation import CHANNEL_LAST, _pads4, pad
 from ...ops.manipulation import unfold as _unfold
 
@@ -39,6 +40,7 @@ _ALPHA, _SCALE = 1.6732632423543772, 1.0507009873554805
 
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)``, ``weight`` in Paddle's ``[in, out]``."""
+    x, weight, bias = cast_inputs("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 

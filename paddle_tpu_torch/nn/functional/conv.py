@@ -35,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from ...amp import cast_inputs
+
 _CONV = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
 _CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
            3: TF.conv_transpose3d}
@@ -113,6 +115,7 @@ def _add_bias(out, bias):
 
 def _conv(x, weight, bias, stride, padding, dilation, groups, n,
           channel_last):
+    x, weight, bias = cast_inputs("conv%dd" % n, x, weight, bias)
     stride = _norm_tuple(stride, n)
     dilation = _norm_tuple(dilation, n)
     x = channels_first(x, channel_last)

@@ -41,6 +41,8 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ...amp import cast_inputs
+
 _REDUCTIONS = ("mean", "sum", "none")
 
 
@@ -86,7 +88,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``label`` class ids (``[...]`` or 1 on ``axis``) or, with
     ``soft_label``, a distribution of ``input``'s shape."""
     _check_reduction(reduction)
-    x = input
+    x, label, weight = cast_inputs("cross_entropy", input, label, weight)
     axis = axis % x.dim()
     n_cls = x.shape[axis]
     if (use_softmax and not soft_label and weight is None
@@ -145,7 +147,7 @@ def nll_loss(input, label, weight=None, ignore_index=-100,
     """``input`` log-probabilities ``[C]``, ``[N, C]`` or
     ``[N, C, d1, ...]`` (classes on axis 1), ``label`` ``[N, d1, ...]``."""
     _check_reduction(reduction)
-    logp = input
+    logp, label, weight = cast_inputs("nll_loss", input, label, weight)
     li = torch.as_tensor(label, device=logp.device).long()
     n_cls = logp.shape[-1] if logp.dim() == 1 else logp.shape[1]
     if logp.dim() > 2:

@@ -28,10 +28,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
+from ...amp import cast_inputs
+
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the trailing ``normalized_shape`` axes with the
     biased variance, in ``x``'s dtype, as the reference computes it."""
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
@@ -49,6 +52,7 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm with float32 statistics for any input dtype; the result is
     cast back to ``x``'s dtype before the weight multiplies it, as in the
     reference."""
+    x, weight = cast_inputs("rms_norm", x, weight)
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     out = (xf * torch.reciprocal(torch.sqrt(ms + epsilon))).to(x.dtype)
@@ -65,6 +69,8 @@ def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
                      epsilon=1e-5, data_format="NCHW"):
     """``(x - mean) / sqrt(var + epsilon) * weight + bias`` on the given
     statistics, per channel."""
+    x, running_mean, running_var, weight, bias = cast_inputs(
+        "batch_norm_infer", x, running_mean, running_var, weight, bias)
     ch = _channel_axis(x, data_format)
     shape = [-1 if d == ch else 1 for d in range(x.dim())]
     out = (x - running_mean.reshape(shape)) / torch.sqrt(
@@ -124,7 +130,9 @@ def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
     batch_var)``, the statistics out of the same pass through scratch
     running statistics at momentum 1, carrying no gradient (torch's
     running variance is the unbiased one: it is scaled by ``(n - 1) /
-    n``)."""
+    n``). The reference's ``batch_norm_train`` primitive: its AMP cast
+    point."""
+    x, weight, bias = cast_inputs("batch_norm_train", x, weight, bias)
     ch = _channel_axis(x, data_format)
     xc = x.movedim(ch, 1)
     n = xc.numel() // xc.shape[1]

@@ -65,13 +65,10 @@ class Linear(nn.Module):
 
     def forward(self, x):
         qw = routed_int8_weight(self)
-        if qw is not None:
-            out = int8_weight_matmul(x, *qw)
-        else:
-            out = torch.matmul(x, self.weight)
-        if self.bias is not None:
-            out = out + self.bias
-        return out
+        if qw is None:
+            return F.linear(x, self.weight, self.bias)
+        out = int8_weight_matmul(x, *qw)
+        return out if self.bias is None else out + self.bias
 
     def extra_repr(self):
         return "in=%d, out=%d" % (self.in_features, self.out_features)

@@ -1,0 +1,106 @@
+"""Plant faults in the attention of ``chip_smoke.py`` phase 15(b)/(c) and
+show that the phase's limits catch them, on one GPU.
+
+    python3 paddle_tpu_torch/tools/amp_faults.py [--seed N]
+
+Runs ``chip_smoke.amp_train`` (llama1b with float32 weights under O1,
+three AdamW steps through the flash kernels, then the same steps through
+their plain versions) sound in bf16 and in float16, then with each fault
+planted on the kernel side only. A fault wraps the kernels' wrappers and
+leaves their sources alone:
+
+  bf16_rounding   float16 only: q, k, v and dO rounded to bf16's
+                  precision before the float16 kernels (attention
+                  computed at bf16's precision)
+  causal_flipped  the kernels given the opposite causal flag
+
+Each run reads the losses' and the sampled gradients' distance from the
+plain versions' (``chip_smoke.AMP_LOSS_RTOL`` / ``AMP_GRAD_RTOL`` lifted
+for the reading, every other check of the phase kept) and judges it
+against the limits. It prints one JSON line per run and exits 1 if a
+sound run fails or a faulty one passes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+def _bf16_rounding(fwd, bwd):
+    def rounded(x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    def fault_fwd(q, k, v, causal=False, scale=None, segment_ids=None):
+        return fwd(rounded(q), rounded(k), rounded(v), causal, scale,
+                   segment_ids)
+
+    def fault_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
+                  segment_ids=None):
+        return bwd(rounded(q), rounded(k), rounded(v), out, lse,
+                   rounded(dout), causal, scale, segment_ids)
+    return fault_fwd, fault_bwd
+
+
+def _causal_flipped(fwd, bwd):
+    def fault_fwd(q, k, v, causal=False, scale=None, segment_ids=None):
+        return fwd(q, k, v, not causal, scale, segment_ids)
+
+    def fault_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
+                  segment_ids=None):
+        return bwd(q, k, v, out, lse, dout, not causal, scale, segment_ids)
+    return fault_fwd, fault_bwd
+
+
+FAULTS = {"bf16_rounding": _bf16_rounding, "causal_flipped": _causal_flipped}
+RUNS = (("bfloat16", None), ("float16", None), ("float16", "bf16_rounding"),
+        ("float16", "causal_flipped"), ("bfloat16", "causal_flipped"))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("amp_faults: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    limits = {"loss": dict(cs.AMP_LOSS_RTOL), "grad": dict(cs.AMP_GRAD_RTOL)}
+    cs.AMP_LOSS_RTOL = dict.fromkeys(limits["loss"], math.inf)
+    cs.AMP_GRAD_RTOL = dict.fromkeys(limits["grad"], math.inf)
+    saved = fa.flash_attention, fa.flash_attention_backward
+    wrong = 0
+    for name, fault in RUNS:
+        dtype = getattr(torch, name)
+        if fault:
+            fa.flash_attention, fa.flash_attention_backward = \
+                FAULTS[fault](*saved)
+        try:
+            res = cs.amp_train(args.seed, dtype)
+            loss, grad = res["loss_rel_err"], max(res["grad_rel_err"].values())
+            caught = (loss > limits["loss"][dtype]
+                      or grad > limits["grad"][dtype])
+            row = {"loss_rel_err": loss, "grad_rel_err": res["grad_rel_err"]}
+        except AssertionError as e:     # another check of the phase
+            caught, row = True, {"failed": str(e)[:2000]}
+        finally:
+            fa.flash_attention, fa.flash_attention_backward = saved
+            torch.cuda.empty_cache()
+        wrong += caught != bool(fault)
+        print(json.dumps(dict(
+            run="%s %s" % (name, fault or "sound"), caught=caught,
+            loss_limit=limits["loss"][dtype], grad_limit=limits["grad"][dtype],
+            device=torch.cuda.get_device_name(0), **row)), flush=True)
+    sys.exit(1 if wrong else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -48,7 +48,7 @@ SMEM_LIMIT = 232448
 class TestSource:
     def test_float32_section_stays_off_the_tensor_cores(self):
         assert "wgmma" not in F32 and "mma" not in F32.replace("fmaf", "")
-        assert "typename T" not in TEXT and "round_as" not in TEXT
+        assert "typename T" not in F32 and "round_as" not in TEXT
         assert "atomic" not in F32
 
     def test_every_float32_branch_launches_the_cuda_core_kernels(self):

@@ -48,7 +48,8 @@ class TestDispatch:
             r"dtype == (\d) && head_dim == (\d+)\)\s*return (\S+)<", entry)
         assert sorted(branches) == sorted([
             ("0", "128", "launch_f32"), ("0", "64", "launch_f32"),
-            ("1", "128", "tc::launch"), ("1", "64", "tc::launch")])
+            ("1", "128", "tc::launch"), ("1", "64", "tc::launch"),
+            ("3", "128", "tc::launch"), ("3", "64", "tc::launch")])
         # tc::launch starts flash_fwd_wgmma_kernel and nothing else
         tc = text[text.index("namespace tc {"):text.index("}  // namespace tc")]
         assert re.findall(r"auto kernel = (\w+)<", tc) == [
