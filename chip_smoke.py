@@ -276,7 +276,7 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 kernels), and the port's LSTM against torch.nn.LSTM
                 (cuDNN's fused _VF.lstm) on the same weights at the
                 encoder's shape, beside the card's name and power limit
-  15. amp      run last: (a) kernels 1-3 in float16 against their plain
+  15. amp      run after 14: (a) kernels 1-3 in float16 against their plain
                 versions at llama1b's training attention (8 x 1024, 16 x
                 128, causal) and ERNIE's (16 x 512, 12 x 64, non-causal),
                 twice bit for bit, timed by CUDA events and profiler device
@@ -305,6 +305,39 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 evaluate, predict, Model.save / load; conv outputs bf16 and
                 batch-norm outputs float32, the losses equal to a run with
                 no worker, flops(resnet50, [1, 3, 224, 224]) printed
+  16. float16   run last: (a) kernels 4-6 in float16 (wgmma .f32.f16.f16)
+      model     against their plain versions at llama1b's loss tail (T =
+                8192, H = 2048, V = 32000, timed beside torch.matmul of the
+                same products and the bound, twice bit for bit) and at
+                ERNIE's MLM tail (H = 896, V = 40000), 1/8 of the labels
+                ignored, each at an unscaled 1 / T, GradScaler's 2^15 and
+                a 2^30 scale that overflows dl at the label: inf and NaN
+                of dh and dW (and dW's zeros unscaled) where the plain
+                versions put them; kernels 7 and 8 with float16 q and
+                pools and with float16 q over int8 pages at their table
+                rows' shapes (the decode batch, mixed step (a), suffix
+                prefill (b)), timed, twice bit for bit; kernel 10's
+                float16 mode at one llama1b layer's 7 projections, M = 16
+                and 256, within one float16 ulp, timed beside torch.matmul
+                on the float16-dequantized weight; (b) llama1b's training
+                row in float16 (16 layers, recompute, 8 x 1024, 1/8 of the
+                labels -100) with FLAGS_fused_lm_head_ce, AdamW and the
+                default GradScaler: 3 steps on the kernels, then the same
+                3 on every plain version, losses and sampled gradients
+                within FP16_LOSS_RTOL / FP16_GRAD_RTOL (each limit backed
+                by a fault planted in the fused CE kernels,
+                paddle_tpu_torch/tools/amp_faults.py --fp16-model), the
+                scaler's sequence equal, exact float16 launch counts of
+                kernels 1-6, a step at 2^40 skipped with the parameters
+                untouched, then 2 steps through TrainStep(labels_to_model=
+                True) without a scaler; (c) llama1b in float16 behind
+                serving.Engine with the flags off, prefix cache + chunked
+                prefill, int8 KV, int8 weights, and prefix cache + chunked
+                prefill over int8 pages: greedy tokens equal to
+                the same engine's with every kernel swapped for its plain
+                version on the card (or diverging first at a near-tie),
+                exact launch counts of kernels 1, 7, 8 (22 a decode or
+                mixed step) and 10 (154 a step)
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -375,6 +408,7 @@ def check_close(name, got, want, tol):
     atol = tol["atol"]
     if tol.get("scaled"):
         atol *= float(want.float().abs().max())
+    atol = max(atol, tol.get("floor", 0.0))
     bad = err > atol + tol["rtol"] * want.float().abs()
     max_err = float(err.max())
     if bool(bad.any()):
@@ -1199,7 +1233,14 @@ def phase_segmented_kernels(seed):
 # 1e-2 x max|grad|, rtol 1e-2.
 FCE_FWD_TOL = dict(atol=1e-3, rtol=1e-4)
 FCE_BWD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-3, scaled=True),
-               torch.bfloat16: dict(atol=1e-2, rtol=1e-2, scaled=True)}
+               torch.bfloat16: dict(atol=1e-2, rtol=1e-2, scaled=True),
+               # float16 keeps 11 bits where bf16 keeps 8: a quarter of
+               # bf16's, and at least one float16 subnormal step (2^-24:
+               # at an unscaled 1 / T, dh and dW lie in float16's
+               # subnormal range, where a rounding flip moves an element
+               # by one step)
+               torch.float16: dict(atol=2.5e-3, rtol=2.5e-3, scaled=True,
+                                   floor=2.0 ** -24)}
 # (T, H, V, dtype, timed): the training shape, ragged vocabs (the bf16
 # forward's last 256-column tile 64 and 208 wide), a ragged T (the last
 # 128-row tile 104 deep), float32: the float32 training shape (phase 6f's
@@ -1256,7 +1297,8 @@ def fused_ce_case(gen, t_len, hid, vocab, dtype, timed,
            "chunk": fc.chunk_columns(vocab),
            "splits": fc.forward_splits(t_len, vocab, dtype)}
     if timed:
-        iters, reps = (10, 5) if dtype is torch.bfloat16 else (3, 3)
+        iters, reps = ((10, 5) if dtype in (torch.bfloat16, torch.float16)
+                       else (3, 3))
         row["fwd_ms"] = time_ms(lambda: fc.fused_lm_head_ce_forward(
             h, w, safe), iters, reps)
         split = []
@@ -1422,9 +1464,9 @@ def phase_slice(seed):
 
 def launch_counters():
     """Every attention kernel's launch counter, by summary entry (the
-    float32 and bfloat16 modes of the mixed kernel share one counter), the
-    int8-weight GEMM's (both modes, and its bf16 mode), and the bf16
-    kernels' TMA operand copies."""
+    float32 and bfloat16 modes of the mixed kernel share one counter; the
+    float16 modes count apart), the int8-weight GEMM's (every mode, and its
+    bf16 and float16 modes), and the bf16 kernels' TMA operand copies."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quant
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
@@ -1443,8 +1485,13 @@ def launch_counters():
             "mixed_paged_attention": pa.mixed_launches,
             "mixed_paged_attention_bf16": pa.mixed_launches,
             "mixed_paged_attention_int8": pa.mixed_int8_launches,
+            "paged_attention_fp16": pa.f16_launches,
+            "paged_attention_int8_fp16": pa.f16_int8_launches,
+            "mixed_paged_attention_fp16": pa.f16_mixed_launches,
+            "mixed_paged_attention_int8_fp16": pa.f16_mixed_int8_launches,
             "int8_weight_matmul": quant.launches,
             "int8_weight_matmul_bf16": quant.bf16_launches,
+            "int8_weight_matmul_fp16": quant.f16_launches,
             # not a kernel: operand copies the bf16 forward and backward
             # made for TMA, which every main path's exact count holds at 0
             "tma_copies": fa.tma_copies}
@@ -1461,7 +1508,9 @@ def reset_launch_counters():
     fa.f16_launches = fa.f16_dq_launches = fa.f16_dkv_launches = 0
     pa.launches = pa.int8_launches = 0
     pa.mixed_launches = pa.mixed_int8_launches = 0
-    quant.launches = quant.bf16_launches = 0
+    pa.f16_launches = pa.f16_int8_launches = 0
+    pa.f16_mixed_launches = pa.f16_mixed_int8_launches = 0
+    quant.launches = quant.bf16_launches = quant.f16_launches = 0
 
 
 def tier2_engine(model, prefix, chunked, quant_kv, device=None, **kw):
@@ -2170,11 +2219,12 @@ def phase_w8_kernel(seed, model):
     return rows
 
 
-def w8_layer_numbers(rows, bf16=False):
+def w8_layer_numbers(rows, bf16=False, half="bf16"):
     """One layer's seven projections (``W8_SHAPES`` with a count), summed at
     the decode batch (M = 16, the cluster split-K regime) and the mixed
     step (M = 256, the register-tiled GEMM); the error over every case.
-    ``bf16``: the bf16 mode's rows (no fp32-weight yardstick)."""
+    ``bf16``: a 16-bit mode's rows (no fp32-weight yardstick), ``half``
+    naming it: "bf16" or "fp16"."""
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
             "bytes_ms", "operations_ms")
     if not bf16:
@@ -2183,6 +2233,8 @@ def w8_layer_numbers(rows, bf16=False):
     def layer(m):
         out = dict.fromkeys(keys, 0.0)
         for k, n, count, _ in W8_SHAPES:
+            if not count:           # the fused shapes: not one layer's
+                continue
             row = next(r for r in rows if r["mkn"] == [m, k, n])
             for key in keys:
                 out[key] += count * row[key]
@@ -2193,25 +2245,27 @@ def w8_layer_numbers(rows, bf16=False):
     decode = layer(16)
     mixed = layer(256)
     if bf16:
-        log("[w8 bf16] one layer's 7 projections: M = 16 (mma.sync, 16-row "
+        ulp = {"bf16": "2^-7", "fp16": "2^-10"}[half]
+        log("[w8 %s] one layer's 7 projections: M = 16 (mma.sync, 16-row "
             "CTAs) %.4f ms (device %.4f), bound %.4f, torch.matmul "
-            "bf16-dequantized weight %.4f; M = 256 (wgmma, 64/128-row "
+            "%s-dequantized weight %.4f; M = 256 (wgmma, 64/128-row "
             "CTAs) %.4f ms (device %.4f), bound %.4f, torch.matmul %.4f" % (
-                decode["ms"], decode["device_ms"], decode["bound_ms"],
+                half, decode["ms"], decode["device_ms"], decode["bound_ms"],
+                half,
                 decode["library_ms"], mixed["ms"], mixed["device_ms"],
                 mixed["bound_ms"], mixed["library_ms"]))
         return dict(ms=decode["ms"], device_ms=decode["device_ms"],
                     plain_ms=decode["plain_ms"], bound_ms=decode["bound_ms"],
                     bound_by=decode["bound_by"],
                     library_ms=decode["library_ms"],
-                    library="torch.matmul on the weight dequantized to bf16 "
-                            "(a yardstick: the port never calls it)",
+                    library="torch.matmul on the weight dequantized to %s "
+                            "(a yardstick: the port never calls it)" % half,
                     max_abs_err=max(r["max_abs_err"] for r in rows),
-                    tolerance="one bf16 ulp of the plain version's value "
-                              "(2^-7 |y|) + 2^-16 max|y|",
-                    timed_case="one bf16 llama1b layer's 7 projections, "
+                    tolerance="one %s ulp of the plain version's value "
+                              "(%s |y|) + 2^-16 max|y|" % (half, ulp),
+                    timed_case="one %s llama1b layer's 7 projections, "
                                "M = 16 (the decode step; mma.sync, 16-row "
-                               "CTAs, cluster split-K)",
+                               "CTAs, cluster split-K)" % half,
                     mixed_step=dict(case="the same, M = 256 (the mixed "
                                          "step; wgmma, 64/128-row CTAs)",
                                     **{k: v for k, v in mixed.items()
@@ -2395,17 +2449,21 @@ W8_BF16_EDGE_SHAPES = ((1000, 24), (1000, 2048), (1032, 2048), (1032, 37))
 W8_BF16_MS = (1, 5, 16, 17, 33, 64, 256)
 
 
+# phase 16(a): the float16 mode, one float16 ulp (<= 2^-10 |y|) likewise
+W8_ULP = {torch.bfloat16: W8_BF16_ULP, torch.float16: 2.0 ** -10}
+
+
 def check_ulp(name, got, want):
-    """Phase 10(a)'s tolerance (``W8_BF16_ULP``, ``W8_BF16_FLOOR``);
-    returns the max abs error."""
+    """Phase 10(a)'s tolerance (``W8_BF16_ULP``, ``W8_BF16_FLOOR``), or
+    in float16 one float16 ulp; returns the max abs error."""
+    ulp = W8_ULP[got.dtype]
     want = want.float()
     err = (got.float() - want).abs()
-    limit = (W8_BF16_ULP * want.abs()
-             + W8_BF16_FLOOR * float(want.abs().max()))
+    limit = ulp * want.abs() + W8_BF16_FLOOR * float(want.abs().max())
     bad = err > limit
     if bool(bad.any()):
-        raise AssertionError("%s: %d elements beyond one bf16 ulp, max abs "
-                             "err %.3g" % (name, int(bad.sum()),
+        raise AssertionError("%s: %d elements beyond one ulp (%g), max abs "
+                             "err %.3g" % (name, int(bad.sum()), ulp,
                                            float(err.max())))
     return float(err.max())
 
@@ -2419,7 +2477,7 @@ def w8_bf16_case(x, q, scales, tag, timed):
     again = quant.int8_weight_matmul(x, q, scales)
     want = quant.int8_weight_matmul_reference(x, q, scales)
     torch.cuda.synchronize()
-    if got.dtype != torch.bfloat16:
+    if got.dtype != x.dtype or x.dtype not in W8_ULP:
         raise AssertionError("%s: output dtype %s" % (tag, got.dtype))
     bm, chunk, splits = quant.w8_plan_bf16(m, n, k)
     row = {"case": tag, "mkn": [m, k, n],
@@ -2430,7 +2488,7 @@ def w8_bf16_case(x, q, scales, tag, timed):
     if not row["bitwise"]:
         raise AssertionError("%s: two launches differ" % tag)
     if timed:
-        deq = quant.dequantize_int8_weight(q, scales, torch.bfloat16)
+        deq = quant.dequantize_int8_weight(q, scales, x.dtype)
         nbytes = q.numel() + scales.numel() * 4 + x.numel() * 2 + m * n * 2
 
         def kernel():
@@ -2441,8 +2499,9 @@ def w8_bf16_case(x, q, scales, tag, timed):
                        lambda: quant.int8_weight_matmul_reference(x, q,
                                                                   scales)),
                    library_ms=time_ms(lambda: torch.matmul(x, deq)),
-                   **bound(nbytes, 2 * m * n * k, torch.bfloat16))
-    log("[w8 bf16] " + json.dumps(row))
+                   **bound(nbytes, 2 * m * n * k, x.dtype))
+    log("[w8 %s] " % ("bf16" if x.dtype == torch.bfloat16 else "fp16")
+        + json.dumps(row))
     return row
 
 
@@ -5433,6 +5492,526 @@ def phase_amp(seed, ptxas):
 
 
 
+# -- phase 16: the float16 model ---------------------------------------------
+
+# (a) kernels 4-6 in float16 at llama1b's loss tail and at ERNIE's fused MLM
+# tail (H = 768 + 128, V = 40000: a vocab the 256-column tiles do not
+# divide), 1/8 of the labels ignored, each at three scales of the mean's
+# 1 / (valid tokens): unscaled (every dl off the label column under half
+# float16's smallest subnormal: zero), GradScaler's default 2^15, and 2^30
+# (g ~ 1.5e5: dl at the label past 65504, -inf, so dh and dW take inf and
+# NaN from it, while every other dl stays near 5 and dW's finite sums far
+# below 65504). The kernels must put inf, NaN and (unscaled) dW's zeros
+# where the plain versions do; finite entries within FCE_BWD_TOL. (At
+# 2^40 every dW sum passes 65504 too, and which of the sums within an
+# fp32 rounding of 65520 round to inf depends on the order of summation:
+# 690 of 65.5M entries differed in a trial run on an H100.)
+FP16_FCE_CASES = ((TRAIN_BATCH * TRAIN_SEQ, 2048, 32000), ENCODER_FCE_CASE)
+FP16_FCE_SCALES = (("unscaled", 1.0), ("GradScaler default", 2.0 ** 15),
+                   ("overflowing", 2.0 ** 30))
+# (b): llama1b's training row in float16 (16 layers, recompute, 8 x 1024,
+# AdamW, the default GradScaler, FLAGS_fused_lm_head_ce): the kernels
+# against their plain versions on the card, the same 3 steps. Sound
+# readings on an H100 (paddle_tpu_torch/tools/amp_faults.py --fp16-model):
+# losses 1.4e-6 relative, sampled gradients 1.6e-3 / 2.6e-3 / 3.2e-3 of
+# their norm, the rounding of 16 float16 layers (kernels and plain
+# versions round P, O and the products at other points). The limits are
+# ~7x and ~3x those, each backed by a fault planted in the fused CE
+# kernels that it catches: a vocab tile summed twice into the lse (the
+# loss), dW's last vocab chunk left unwritten (the gradients)
+FP16_TRAIN_STEPS = 3
+FP16_LOSS_RTOL = 1e-5
+FP16_GRAD_RTOL = 1e-2
+FP16_GRADS = ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight",
+              "llama.layers.15.mlp.down_proj.weight")
+# (c): llama1b in float16 behind serving.Engine, each run's greedy tokens
+# against the same engine with every kernel swapped for its plain version
+# on the card: equal, or first diverging where the plain run's top-2 gap
+# is under FP16_NEAR_TIE x the row's max |logit| (a few float16 ulps: the
+# plain paged versions round the probabilities to float16, the kernels
+# keep them in fp32). Over int8 pages the two sides quantize K/V rows that
+# already differ by an ulp, and one int8 rounding apart moves an element
+# by max|row| / 127: there the limit is phase 10(b)'s 2^-4 (a trial run
+# on an H100 diverged at a gap of 0.0127, 0.009 of the row's max, with
+# int8 pages under prefix + chunked prefill)
+FP16_NEAR_TIE = 2.0 ** -7
+FP16_NEAR_TIE_INT8_KV = 2.0 ** -4
+FP16_RUNS = (("flags off", dict()),
+             ("prefix+chunked", dict(prefix=True, chunked=True)),
+             ("int8 KV", dict(quant_kv=True)),
+             ("int8 weights", dict(quant_weights=True)),
+             # kernel 8 over int8 pages under float16 q
+             ("prefix+chunked+int8 KV", dict(prefix=True, chunked=True,
+                                             quant_kv=True)))
+FP16_NEW_TOKENS = 8
+
+
+def masks_equal(name, got, want, tests):
+    """Each ``(what, test)`` mask of ``got`` must equal ``want``'s; returns
+    the counts."""
+    counts = {}
+    for what, test in tests:
+        mx, my = test(got), test(want)
+        if not torch.equal(mx, my):
+            raise AssertionError(
+                "%s: %s in %d places, the plain version's in %d, %d apart"
+                % (name, what, int(mx.sum()), int(my.sum()),
+                   int((mx != my).sum())))
+        counts[what] = int(my.sum())
+    return counts
+
+
+def fp16_fce_scales(gen, t_len, hid, vocab):
+    """16(a): kernels 4-6 in float16 against their plain versions at
+    ``FP16_FCE_SCALES`` (both sides given the kernels' lse): the loss and
+    lse, then per scale the inf and NaN masks of dh and dW, dW's zero mask
+    unscaled, and the finite entries."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    h = torch.randn((t_len, hid), generator=gen, device="cuda").half()
+    w = (torch.randn((hid, vocab), generator=gen, device="cuda")
+         * math.sqrt(2.0 / (hid + vocab))).half()
+    labels = torch.randint(0, vocab, (t_len,), generator=gen, device="cuda")
+    labels[::8] = -100
+    valid = labels != -100
+    safe = torch.where(valid, labels, 0)
+    loss, lse = fc.fused_lm_head_ce_forward(h, w, safe)
+    want_loss, want_lse = fc.fused_lm_head_ce_forward_reference(h, w, safe)
+    name = "fp16 fused_ce T=%d H=%d V=%d" % (t_len, hid, vocab)
+    row = {"case": name, "scales": {},
+           "loss_err": check_close(name + " loss", loss, want_loss,
+                                   FCE_FWD_TOL),
+           "lse_err": check_close(name + " lse", lse, want_lse, FCE_FWD_TOL)}
+    n_valid = int(valid.sum())
+    for tag, scale in FP16_FCE_SCALES:
+        g_t = torch.where(valid, scale / n_valid, 0.0).float()
+        got = fc.fused_lm_head_ce_backward(h, w, safe, lse, g_t)
+        want = fc.fused_lm_head_ce_backward_reference(h, w, safe, lse, g_t)
+        torch.cuda.synchronize()
+        sub = {"g": scale / n_valid}
+        for part, x, y in zip(("dh", "dw"), got, want):
+            tests = [("inf", torch.isinf), ("nan", torch.isnan),
+                     ("zero", lambda z: z == 0)]
+            if part == "dh" or scale != 1.0:
+                tests = tests[:2]
+            case = "%s %s %s" % (name, tag, part)
+            sub[part] = masks_equal(case, x, y, tests)
+            ok = torch.isfinite(y)
+            sub[part]["max_abs_err"] = check_close(
+                case + " (finite entries)", x[ok], y[ok],
+                FCE_BWD_TOL[torch.float16]) if bool(ok.any()) else 0.0
+        if scale == FP16_FCE_SCALES[2][1] and not (sub["dh"]["inf"]
+                                                   + sub["dh"]["nan"]):
+            raise AssertionError("%s %s: nothing overflowed" % (name, tag))
+        if scale == 1.0 and not sub["dw"]["zero"]:
+            raise AssertionError("%s %s: nothing underflowed" % (name, tag))
+        row["scales"][tag] = sub
+        del got, want
+    log("[fp16 model] " + json.dumps(row))
+    return row
+
+
+def fp16_kernels(seed):
+    """16(a): kernels 4-6, 7, 8 and 10 in float16 against their plain
+    versions at their table rows' shapes, twice bit for bit, timed."""
+    from paddle_tpu_torch.kernels import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    f16 = torch.float16
+    t0 = time.perf_counter()
+    rows = {"fused_ce_fp16": [fused_ce_case(gen, *FP16_FCE_CASES[0], f16,
+                                            timed=True, profiled=True)]}
+    rows["fused_ce_fp16_scales"] = [fp16_fce_scales(gen, *case)
+                                    for case in FP16_FCE_CASES]
+    torch.cuda.empty_cache()
+    rows["paged_attention_fp16"] = [
+        paged_case(gen, PAGED_LENS, 16, 16, f16, timed=True, bitwise=True),
+        paged_case(gen, PAGED_LENS, 16, 4, f16)]
+    rows["paged_attention_int8_fp16"] = [
+        paged_case(gen, PAGED_LENS, 16, 16, f16, timed=True, int8=True,
+                   bitwise=True)]
+    rows["mixed_paged_attention_fp16"] = [
+        mixed_case(gen, dtype=f16, timed=True, bitwise=True, **MIXED_STEP),
+        mixed_case(gen, dtype=f16, timed=True, bitwise=True,
+                   **SUFFIX_PREFILL),
+        mixed_case(gen, dtype=f16, **MIXED_GQA)]
+    rows["mixed_paged_attention_int8_fp16"] = [
+        mixed_case(gen, dtype=f16, timed=True, int8=True, bitwise=True,
+                   **MIXED_STEP),
+        mixed_case(gen, dtype=f16, timed=True, int8=True, **SUFFIX_PREFILL)]
+    # kernel 10's float16 mode at one llama1b layer's 7 projections
+    # (W8_SHAPES; weights of the projections' scale), M = 16 and 256
+    w8 = []
+    with torch.no_grad():
+        for k, n, count, name in W8_SHAPES:
+            if not count:
+                continue
+            w = (torch.randn(k, n, generator=gen, device="cuda")
+                 * 0.02).half()
+            q, scales = quant.quantize_int8_weight(w)
+            for m in W8_TIMED_MS:
+                x = torch.randn(m, k, generator=gen, device="cuda").half()
+                w8.append(w8_bf16_case(
+                    x, q, scales, "%s M=%d K=%d N=%d b=%d fp16" % (
+                        name, m, k, n, quant.weight_block(k)), timed=True))
+    rows["int8_weight_matmul_fp16"] = w8
+    log("[fp16 model] (a) kernels in %.1f s" % (time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_kernels():
+    """Swaps every kernel wrapper of the float16 model's paths (kernels
+    1-8 and 10) for its plain version, on any device, while active: the
+    same steps or requests through the plain path on the card. Returns the
+    restore function."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+    from paddle_tpu_torch.nn.layers import common
+    from paddle_tpu_torch.serving import kv_cache
+    from paddle_tpu_torch.serving.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import quant
+
+    restore_flash = flash_plain()
+    saved = (fc.fused_lm_head_ce_forward, fc.fused_lm_head_ce_backward,
+             kv_cache.paged_attention, kv_cache.mixed_paged_attention,
+             common.int8_weight_matmul)
+    fc.fused_lm_head_ce_forward = fc.fused_lm_head_ce_forward_reference
+    fc.fused_lm_head_ce_backward = \
+        lambda *a, **kw: fc.fused_lm_head_ce_backward_reference(*a[:5])
+    kv_cache.paged_attention = pa.paged_attention_reference
+    kv_cache.mixed_paged_attention = pa.mixed_paged_attention_reference
+    common.int8_weight_matmul = quant.int8_weight_matmul_reference
+
+    def restore():
+        restore_flash()
+        (fc.fused_lm_head_ce_forward, fc.fused_lm_head_ce_backward,
+         kv_cache.paged_attention, kv_cache.mixed_paged_attention,
+         common.int8_weight_matmul) = saved
+    return restore
+
+
+def fp16_counters():
+    """The float16 launch counters of kernels 1-8 and 10, by summary
+    entry, beside every other counter (``launch_counters``)."""
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    return dict(launch_counters(), fused_ce_fwd=fc.fwd_launches,
+                fused_ce_dh=fc.dh_launches, fused_ce_dw=fc.dw_launches,
+                fused_ce_fwd_fp16=fc.f16_fwd_launches,
+                fused_ce_dh_fp16=fc.f16_dh_launches,
+                fused_ce_dw_fp16=fc.f16_dw_launches)
+
+
+def reset_fp16_counters():
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    reset_launch_counters()
+    fc.fwd_launches = fc.dh_launches = fc.dw_launches = 0
+    fc.f16_fwd_launches = fc.f16_dh_launches = fc.f16_dw_launches = 0
+
+
+def fp16_train_run(model, ids, labels, steps, scaler=None):
+    """The float16 model's eager loop with the fused tail
+    (FLAGS_fused_lm_head_ce on, the loss computed inside the model):
+    ``scaler.scale(loss).backward()``, ``scaler.step(opt)``,
+    ``opt.clear_grad()``. Returns the losses, the first step's sampled
+    gradients (unscaled), the scaler's (scale, good, bad) after each step,
+    the skipped steps and the step times."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=AMP_LR, parameters=model.parameters())
+    scaler = scaler or amp.GradScaler()
+    params = dict(model.named_parameters())
+    out = {"losses": [], "scaler": [], "skipped": [], "ms": []}
+    flags.set_flags({"FLAGS_fused_lm_head_ce": True})
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss = model(ids, labels)
+            scaler.scale(loss).backward()
+            before = {n: params[n].detach().clone() for n in FP16_GRADS}
+            scaler.step(opt)
+            if i == 0:
+                out["grads"] = {n: params[n].grad.float().clone()
+                                for n in FP16_GRADS}
+            if scaler._found_inf and not all(
+                    torch.equal(before[n], params[n]) for n in FP16_GRADS):
+                raise AssertionError("a skipped step moved the parameters")
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss.item())
+            out["skipped"].append(scaler._found_inf)
+            sd = scaler.state_dict()
+            out["scaler"].append((sd["scale"], sd["good_steps"],
+                                  sd["bad_steps"]))
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    return out
+
+
+def fp16_train(seed):
+    """16(b): llama1b's training row in float16 with the fused tail, the
+    default GradScaler and AdamW, 3 steps on the kernels then the same 3 on
+    their plain versions; exact float16 launch counts of kernels 1-6; a
+    step at OVERFLOW_SCALE skipped with the parameters untouched; then two
+    steps through TrainStep(labels_to_model=True) without a scaler (the
+    reference's compiled path)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    tag = "[fp16 model train]"
+    cfg = LlamaConfig.llama1b_train(dtype="float16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 16))
+    plain_model = copy.deepcopy(model)
+    rng = np.random.default_rng(seed + 16)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    labels[:, ::8] = -100       # ignored positions, as a padded batch has
+    reset_fp16_counters()
+    torch.cuda.reset_peak_memory_stats()
+    run = fp16_train_run(model, ids, labels, FP16_TRAIN_STEPS)
+    launches = fp16_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    restore = plain_kernels()
+    try:
+        plain = fp16_train_run(plain_model, ids, labels, FP16_TRAIN_STEPS)
+    finally:
+        restore()
+    del plain_model
+    layers, steps = cfg.num_hidden_layers, FP16_TRAIN_STEPS
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention_fp16": 2 * layers * steps,
+                 "flash_attention_bwd_dq_fp16": layers * steps,
+                 "flash_attention_bwd_dkv_fp16": layers * steps,
+                 "fused_ce_fwd_fp16": steps, "fused_ce_dh_fp16": steps,
+                 "fused_ce_dw_fp16": steps})
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError("%s non-finite loss %s" % (tag, run["losses"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], plain["losses"]))
+    grad_err = {} if run["skipped"][0] else {
+        n: rel_norm(run["grads"][n], plain["grads"][n]) for n in FP16_GRADS}
+    if not all(map(math.isfinite, grad_err.values())):
+        raise AssertionError("%s non-finite gradients %s" % (tag, grad_err))
+    if run["scaler"] != plain["scaler"] or run["skipped"] != plain["skipped"]:
+        raise AssertionError("%s scaler sequence %s (skipped %s) differs from "
+                             "the plain versions' %s (%s)" % (
+                                 tag, run["scaler"], run["skipped"],
+                                 plain["scaler"], plain["skipped"]))
+    if loss_err > FP16_LOSS_RTOL or max(grad_err.values(), default=0.0) \
+            > FP16_GRAD_RTOL:
+        raise AssertionError("%s kernels vs plain versions: losses %s vs %s "
+                             "(rel %.3g > %g?), gradients %s (> %g?)" % (
+                                 tag, run["losses"], plain["losses"],
+                                 loss_err, FP16_LOSS_RTOL, grad_err,
+                                 FP16_GRAD_RTOL))
+    result = {"losses": run["losses"], "plain_losses": plain["losses"],
+              "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+              "scaler": run["scaler"], "skipped": run["skipped"],
+              "step_ms": run["ms"], "plain_step_ms": plain["ms"],
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / statistics.median(run["ms"][1:]) * 1e3,
+              "peak_mem_gb": peak, "launches": launches}
+    # a step at a loss scale that overflows float16: skipped, parameters
+    # untouched (fp16_train_run checks), the scale kept (one bad step of
+    # the two that lower it); its launches counted apart
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in FP16_GRADS}
+    reset_fp16_counters()
+    over = fp16_train_run(model, ids, labels, 1, scaler=amp.GradScaler(
+        init_loss_scaling=OVERFLOW_SCALE))
+    over_launches = fp16_counters()
+    want_over = {k: v // steps for k, v in want.items()}
+    if over["skipped"] != [True] or \
+            over["scaler"] != [(OVERFLOW_SCALE, 0, 1)] or \
+            not all(torch.equal(before[n], params[n]) for n in FP16_GRADS):
+        raise AssertionError("%s overflow step %s" % (tag, over))
+    if over_launches != want_over:
+        raise AssertionError("%s overflow step launches %s, expected %s"
+                             % (tag, over_launches, want_over))
+    result["overflow_step"] = {"scale": OVERFLOW_SCALE, "skipped": True,
+                               "scaler": over["scaler"],
+                               "launches": over_launches}
+    # the reference's compiled path: TrainStep with the loss inside the
+    # model (fused_ce_applies), no scaler
+    step = TrainStep(model, None, AdamW(learning_rate=AMP_LR,
+                                        parameters=model.parameters()),
+                     labels_to_model=True)
+    flags.set_flags({"FLAGS_fused_lm_head_ce": True})
+    reset_fp16_counters()
+    try:
+        losses = [step(ids, labels).item() for _ in range(2)]
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    ts_launches = fp16_counters()
+    want_ts = {k: v * 2 // steps for k, v in want.items()}
+    if ts_launches != want_ts or not all(map(math.isfinite, losses)):
+        raise AssertionError("%s TrainStep: losses %s, launches %s, "
+                             "expected %s" % (tag, losses, ts_launches,
+                                              want_ts))
+    result["train_step"] = {"losses": losses, "launches": ts_launches}
+    log("%s llama1b float16 (%d layers, %d x %d, recompute, fused tail, "
+        "AdamW %g, %.1f s): %s" % (tag, layers, TRAIN_BATCH, TRAIN_SEQ,
+                                   AMP_LR, time.perf_counter() - t0,
+                                   json.dumps(result)))
+    del model, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def fp16_serve(model, prompts, opts):
+    """Serve the first prompts, then the second (prefix-cache hits) through
+    an Engine on the card with ``opts``' flags; returns the tokens and the
+    engine's stats."""
+    first, second = prompts
+    engine = bf16_engine(model, None, **opts)
+    ids = [engine.add_request(p, max_new_tokens=FP16_NEW_TOKENS)
+           for p in first]
+    engine.run()
+    ids += [engine.add_request(p, max_new_tokens=FP16_NEW_TOKENS)
+            for p in second]
+    engine.run()
+    out = [engine.output(i) for i in ids], engine.stats()
+    del engine
+    return out
+
+
+def fp16_near_tie(tag, model, prompt, want, got, rel=FP16_NEAR_TIE):
+    """True when equal; else the first divergence must sit where the plain
+    run's top-2 logit gap (a dense forward on the card through the plain
+    versions) is under ``rel`` x the row's max |logit|."""
+    if got == want:
+        return True
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    restore = plain_kernels()
+    try:
+        with torch.no_grad():
+            logits = model(torch.tensor([prompt + want[:i]],
+                                        device="cuda"))[0, -1].float()
+    finally:
+        restore()
+    top2 = logits.topk(2).values
+    gap = float(top2[0] - top2[1])
+    limit = rel * float(logits.abs().max())
+    log("%s first divergence at token %d, top-2 logit gap %.4g (limit %.4g)"
+        % (tag, i, gap, limit))
+    if gap >= limit:
+        raise AssertionError("%s diverges at token %d with a top-2 gap of "
+                             "%.4g (>= %.4g): not a near-tie"
+                             % (tag, i, gap, limit))
+    return False
+
+
+def fp16_launch_want(opts, st, layers):
+    """The exact float16 launches of a serving run: kernel 1 per prefill
+    and layer (none with chunked prefill), kernel 7 per decode step and
+    layer, kernel 8 per mixed step and layer, kernel 10's float16 mode 7
+    times per layer and decode or mixed step (int8 weights, which count in
+    both of its counters); int8 pools take the int8 entries."""
+    mode = "_int8" if opts.get("quant_kv") else ""
+    want = dict.fromkeys(fp16_counters(), 0)
+    if opts.get("chunked"):
+        want["mixed_paged_attention%s_fp16" % mode] = \
+            layers * st["mixed_steps"]
+    else:
+        want["flash_attention_fp16"] = layers * st["prefill_runs"]
+        want["paged_attention%s_fp16" % mode] = layers * st["decode_steps"]
+    if opts.get("quant_weights"):
+        want["int8_weight_matmul"] = want["int8_weight_matmul_fp16"] = \
+            7 * layers * (st["decode_steps"] + st["mixed_steps"])
+    return want
+
+
+def fp16_serving(seed):
+    """16(c): llama1b in float16 behind serving.Engine on the card with the
+    flags off, prefix cache + chunked prefill, int8 KV, int8 weights, and
+    prefix cache + chunked prefill over int8 pages;
+    greedy tokens against the same engine on the plain versions; exact
+    launch counts of kernels 1, 7, 8 and 10."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama1b(dtype="float16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 17))
+    fp16_serve(model, ([[1, 2, 3]], []), {})   # warm-up, unmeasured
+    results, paths = {}, {}
+    for tag, opts in FP16_RUNS:
+        name = "[fp16 model serve %s]" % tag
+        prompts = bf16_prompts(seed, cfg.vocab_size)
+        flat = prompts[0] + prompts[1]
+        reset_fp16_counters()
+        t1 = time.perf_counter()
+        tokens, st = fp16_serve(model, prompts, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = fp16_counters()
+        want = fp16_launch_want(opts, st, cfg.num_hidden_layers)
+        if launches != want:
+            raise AssertionError("%s launches %s, expected %s"
+                                 % (name, launches, want))
+        if opts.get("prefix") and not st["prefix_hit_tokens"] >= 240:
+            raise AssertionError("%s expected a 240-token prefix hit: %s"
+                                 % (name, st))
+        restore = plain_kernels()
+        try:
+            plain_tokens, plain_st = fp16_serve(model, prompts, opts)
+        finally:
+            restore()
+        rel = FP16_NEAR_TIE_INT8_KV if opts.get("quant_kv") else FP16_NEAR_TIE
+        same = [fp16_near_tie(name + " kernels vs plain", model, p, w, g, rel)
+                for p, w, g in zip(flat, plain_tokens, tokens)]
+        results[tag] = {
+            "wall_s": wall, "prompt_lens": [len(p) for p in flat],
+            "identical": "%d of %d" % (sum(same), len(same)),
+            "prefill_runs": st["prefill_runs"],
+            "decode_steps": st["decode_steps"],
+            "mixed_steps": st["mixed_steps"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "launches": launches}
+        log(name + " " + json.dumps(results[tag]))
+        paths["fp16 serving " + tag] = launches
+    log("[fp16 model] (c) serving in %.1f s" % (time.perf_counter() - t0))
+    del model
+    torch.cuda.empty_cache()
+    return results, paths
+
+
+def phase_fp16_model(seed):
+    """Phase 16: (a) kernels 4-8 and 10 in float16, (b) a float16 llama1b
+    trained with the fused tail, (c) served with each tier-2 flag. Returns
+    the kernel rows, the paths' launch counts and the results."""
+    t0 = time.perf_counter()
+    rows = fp16_kernels(seed)
+    train = fp16_train(seed)
+    serving, paths = fp16_serving(seed)
+    paths["fp16 train"] = train["launches"]
+    paths["fp16 train overflow step"] = train["overflow_step"]["launches"]
+    paths["fp16 TrainStep"] = train["train_step"]["launches"]
+    ran = {k: sum(c[k] for c in paths.values())
+           for k in FP16_MODEL_ENTRIES + ("flash_attention_fp16",
+                                          "flash_attention_bwd_dq_fp16",
+                                          "flash_attention_bwd_dkv_fp16")}
+    if not all(ran.values()):
+        raise AssertionError("[fp16 model] a kernel never ran in float16: %s"
+                             % ran)
+    log("[fp16 model] phase 16 in %.1f s" % (time.perf_counter() - t0))
+    return rows, paths, {"train": train, "serving": serving}
+
+
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "flash_attention": dict(
@@ -5509,7 +6088,48 @@ KERNELS = {
         source=BWD_SOURCE,
         replaces="paddle_tpu/kernels/flash_attention.py:366",
         mode="float16 (wgmma .f32.f16.f16)"),
+    "fused_ce_fwd_fp16": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:147",
+        mode="float16 h and W (wgmma .f32.f16.f16)"),
+    "fused_ce_dh_fp16": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:177",
+        mode="float16 h and W (wgmma .f32.f16.f16)"),
+    "fused_ce_dw_fp16": dict(
+        source="paddle_tpu_torch/csrc/fused_ce.cu",
+        replaces="paddle_tpu/kernels/fused_ce.py:193",
+        mode="float16 h and W (wgmma .f32.f16.f16)"),
+    "paged_attention_fp16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:167",
+        mode="float16 q and pools, fp32 math"),
+    "paged_attention_int8_fp16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:167",
+        mode="float16 q, int8 pages + fp32 scales"),
+    "mixed_paged_attention_fp16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="float16 q and pools, fp32 math"),
+    "mixed_paged_attention_int8_fp16": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="float16 q, int8 pages + fp32 scales"),
+    "int8_weight_matmul_fp16": dict(
+        source="paddle_tpu_torch/csrc/w8_gemm.cu",
+        replaces="none: the reference's dequantize is fused by XLA "
+                 "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
+        mode="float16 x and y, int8 weight, fp32 block scales "
+             "(mma.sync / wgmma .f32.f16.f16)"),
 }
+# the entries phase 16 fills (the float16 model's kernels but 1-3)
+FP16_MODEL_ENTRIES = ("fused_ce_fwd_fp16", "fused_ce_dh_fp16",
+                      "fused_ce_dw_fp16", "paged_attention_fp16",
+                      "paged_attention_int8_fp16",
+                      "mixed_paged_attention_fp16",
+                      "mixed_paged_attention_int8_fp16",
+                      "int8_weight_matmul_fp16")
 # the float32 and bfloat16 modes of the mixed kernel share one counter;
 # each path's launches go to the entry of the dtype it ran (by_mode)
 SHARED_COUNTER = {"mixed_paged_attention": "mixed_launches of the float32 "
@@ -5522,12 +6142,14 @@ def by_mode(counts, bf16):
     """A path's launch counts with the shared counters given to the entry
     of the dtype the path ran: the mixed kernel's count to its float32 or
     its bf16 entry, and the int8-weight GEMM's fp32 entry without the bf16
-    mode's launches."""
+    and float16 modes' launches."""
     counts = dict(counts)
+    if "int8_weight_matmul" in counts:
+        counts["int8_weight_matmul"] -= (
+            counts.get("int8_weight_matmul_bf16", 0)
+            + counts.get("int8_weight_matmul_fp16", 0))
     if bf16:
         counts["mixed_paged_attention"] = 0
-        counts["int8_weight_matmul"] = (counts.get("int8_weight_matmul", 0)
-                                        - counts["int8_weight_matmul_bf16"])
     elif "mixed_paged_attention_bf16" in counts:
         counts["mixed_paged_attention_bf16"] = 0
     return counts
@@ -5658,6 +6280,8 @@ def forward_bf16_numbers(rows):
 def encoder_numbers(name, rows):
     """Phase 12's cases of a kernel entry (kernels 1-3 at the encoders'
     attention, 4-6 at ERNIE's fused MLM tail), or None."""
+    if name.endswith("_fp16"):      # phase 12 runs no float16 case
+        return None
     flash = {"flash_attention": "fwd", "flash_attention_bwd_dq": "dq",
              "flash_attention_bwd_dkv": "dkv"}
     if name in flash:
@@ -5709,6 +6333,72 @@ def fp16_numbers(name, rows):
                        and r["kernel"].endswith(", f16>")])
 
 
+def fp16_model_numbers(name, rows):
+    """A phase-16(a) entry's numbers: kernels 4-6 at llama1b's float16
+    tail (timed) with every scale's masks beside, kernels 7-8 at their
+    table rows' shapes (the decode batch or mixed step (a) timed, the
+    suffix prefill (b) beside), kernel 10 per llama1b layer at M = 16 and
+    256; the largest error over the entry's cases; ptxas's report of its
+    float16 kernels."""
+    got = rows["fp16_model"]
+    ptxas = rows["ptxas"]
+    if name.startswith("fused_ce"):
+        part = name.split("_")[2]
+        r = got["fused_ce_fp16"][0]
+        err_key = "loss" if part == "fwd" else part
+        plain, unfused = (("plain_fwd_ms", "unfused_fwd_ms") if part == "fwd"
+                          else ("plain_bwd_ms", "unfused_fwd_bwd_ms"))
+        scales = [{"case": c["case"], **{
+            tag: {k: v for k, v in sub.items() if k in ("g", "dh", "dw")}
+            for tag, sub in c["scales"].items()}}
+            for c in got["fused_ce_fp16_scales"]]
+        errs = [r["max_abs_err"][err_key]] + [
+            c["loss_err"] if part == "fwd" else
+            max(sub[part]["max_abs_err"] for sub in c["scales"].values())
+            for c in got["fused_ce_fp16_scales"]]
+        kernels = {"fwd": ("fce_fwd_wgmma",),
+                   "dh": ("fce_bwd_dl_wgmma", "fce_bwd_dh_wgmma"),
+                   "dw": ("fce_bwd_dw_wgmma",)}[part]
+        return dict(ms=r[part + "_ms"], device_ms=r["device_ms"][part],
+                    plain_ms=r[plain], bound_ms=r[part]["bound_ms"],
+                    bound_by=r[part]["bound_by"],
+                    library_ms=r["library_ms"][part], library=r["library"],
+                    unfused_ms=r[unfused], max_abs_err=max(errs),
+                    timed_case=r["case"], scales=scales,
+                    ptxas=[x for x in ptxas["fused_ce"]
+                           if x["kernel"] in ["%s<f16>" % k
+                                              for k in kernels]])
+    if name.startswith("int8_weight_matmul"):
+        numbers = w8_layer_numbers(got[name], bf16=True, half="fp16")
+        numbers["ptxas"] = [x for x in ptxas["w8_gemm"]
+                            if x["kernel"].startswith(W8_BF16_KERNELS)
+                            and x["kernel"].endswith(", f16>")]
+        return numbers
+    cases = got[name]
+    timed = [r for r in cases if "ms" in r]
+    keys = ("case", "ms", "plain_ms", "bound_ms", "bound_by", "split")
+    numbers = dict(ms=timed[0]["ms"], plain_ms=timed[0]["plain_ms"],
+                   bound_ms=timed[0]["bound_ms"],
+                   bound_by=timed[0]["bound_by"], library_ms=None,
+                   library=timed[0]["library"],
+                   max_abs_err=max(r["max_abs_err"] for r in cases),
+                   timed_case=timed[0]["case"], split=timed[0]["split"])
+    if "device_ms" in timed[0]:
+        numbers["device_ms"] = timed[0]["device_ms"]
+    if len(timed) > 1:
+        numbers["suffix_prefill"] = {k: timed[1][k] for k in keys}
+    errs = [r["vs_unquantized_err"] for r in cases
+            if "vs_unquantized_err" in r]
+    if errs:
+        numbers["max_abs_err_vs_unquantized"] = max(errs)
+    kind = "paged_decode" if name.startswith("paged") else "mixed_paged"
+    pool = "f16, int8" if "int8" in name else "f16, f16"
+    numbers["ptxas"] = [x for x in ptxas["paged_attention"]
+                        if x["kernel"].startswith(kind)
+                        and x["kernel"].split("<")[-1].startswith(pool)]
+    return numbers
+
+
 def summary(rows, paths):
     """``paths``: each main path's launch counts, ``{path: {kernel: N}}``;
     an entry's ``launches`` sums them over the paths."""
@@ -5716,12 +6406,15 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name.startswith("int8_weight_matmul"):
+        if name in FP16_MODEL_ENTRIES:
+            numbers = fp16_model_numbers(name, rows)
+        elif name.startswith("int8_weight_matmul"):
             bf16 = name.endswith("_bf16")
             numbers = w8_layer_numbers(rows[name], bf16=bf16)
             numbers["ptxas"] = [
                 r for r in rows["ptxas"]["w8_gemm"]
-                if r["kernel"].startswith(W8_BF16_KERNELS) == bf16]
+                if r["kernel"].startswith(W8_BF16_KERNELS) == bf16
+                and not r["kernel"].endswith(", f16>")]
         elif name.endswith("_segmented"):
             numbers = segmented_numbers(name, rows["segmented"])
         elif name.endswith("_fp16"):
@@ -5875,6 +6568,8 @@ def main(argv=None):
     _, seq2seq_paths, _ = phase_seq2seq(args.seed, card)
     torch.cuda.empty_cache()
     rows["fp16"], amp_paths, _ = phase_amp(args.seed, ptxas)
+    torch.cuda.empty_cache()
+    rows["fp16_model"], fp16_paths, _ = phase_fp16_model(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -5889,6 +6584,7 @@ def main(argv=None):
     paths.update(resnet_paths)
     paths.update(seq2seq_paths)
     paths.update(amp_paths)
+    paths.update(fp16_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

@@ -40,8 +40,10 @@ HEADERS = {"fused_ce": ("f32_gemm.cuh", "f32_tiles.cuh", "wgmma_bf16.cuh"),
            "w8_gemm": ("mma_bf16.cuh", "wgmma_bf16.cuh")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# the element types every C entry point takes, by the code it expects
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the element types the C entry points take, by the code they expect (2 is
+# the paged kernels' int8 pool code): the one table of which dtypes a
+# kernel takes
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 
 _libs = {}
 _lock = threading.Lock()

@@ -63,9 +63,19 @@
 //   dW:  dW[:, chunk] = h^T . dl over the whole token axis, written once in
 //        W's dtype; columns of dW >= V are never written.
 //
-// bfloat16 (namespace tc) runs all four products, the forward's logits and
-// the backward's three, through one warp-specialized wgmma main loop,
-// gemm(), building blocks in csrc/wgmma_bf16.cuh:
+// bfloat16 and float16 (namespace tc) run all four products, the forward's
+// logits and the backward's three, through one warp-specialized wgmma
+// main loop, gemm(), building blocks in csrc/wgmma_bf16.cuh. float16 (the
+// reference's kernels take any float dtype: fused_ce.py:44-133) is the
+// same code with another operand type: the kernels and epilogues take it
+// as a template parameter T (bf16 or __half), the tensor maps name it
+// (ptwg::tma_type<T>), wgmma runs .f32.f16.f16 where bf16 runs
+// .f32.bf16.bf16, and each epilogue's pair store rounds to T (ptwg::
+// store2<T>: __floats2half2_rn in float16). Nothing is clamped: dl
+// underflows to zero and dh / dW overflow to inf in float16 exactly where
+// a rounding to float16 puts them, as in the plain version. The launch
+// arguments do not grow (a by-value Args grown by one int slowed the flash
+// backward ~45 %), so the bf16 instances compile as before:
 //  * 384 threads a CTA, one CTA an SM, persistent over the product's
 //    128 x 256 output tiles, M tile fastest: a producer warpgroup (24
 //    registers after setmaxnreg; its first warp issues the TMA, the other
@@ -73,14 +83,14 @@
 //    rows each, on two m64n128k16 wgmma per k16 slice with 128 fp32
 //    accumulators a thread. (128 x 128 tiles were right first, and slower:
 //    the 256-wide B tile halves the A traffic per product.)
-//  * operands come as 64 x 64 bf16 boxes with 128-byte swizzle through
+//  * operands come as 64 x 64 boxes of T with 128-byte swizzle through
 //    rank-2 tensor maps into a ring of 4 stages (48 KB each: two A boxes,
 //    one per consumer, and four B boxes), guarded by full (one arrival
 //    plus the bytes) and empty (one arrival per consumer warp) mbarriers.
 //    The ring runs on across tiles, so the next tile's loads overlap this
 //    tile's epilogue.
 //  * each epilogue reads its accumulators in registers (the layout of
-//    wgmma_bf16.cuh) and writes partials, bf16x2 pairs or fp32 pairs
+//    wgmma_bf16.cuh) and writes partials, T pairs or fp32 pairs
 //    straight to device memory; nothing goes through an fp32 shared-memory
 //    tile and no epilogue has a __syncthreads().
 //  * forward (fce_fwd_wgmma): C[T, V] = h . W in one product over the
@@ -421,6 +431,8 @@ constexpr int BOX = 64 * KSTEP;               // elements of one 64 x 64 box
 constexpr uint32_t BOX_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
+// the operand boxes hold 2-byte elements of either type (bf16 storage;
+// only TMA writes them and only wgmma reads them)
 struct Smem {
   bf16 a[STAGES][CONSUMERS][BOX];   // A: each consumer's 64 M x 64 K
   bf16 b[STAGES][TN / 64][BOX];     // B: TN N x 64 K in 64-wide blocks
@@ -464,6 +476,7 @@ __device__ __forceinline__ int acc_row(int m) {
 // one's epilogue) and each consumer warpgroup takes 64 rows of the tile
 // through two m64n128k16 products per k16 slice, then hands its fp32
 // accumulators, in registers, to `epi(first row, first column, acc)`.
+// The operands' type is the epilogue's (Epilogue::Elem: bf16 or __half).
 template <bool A_MN, bool B_MN, typename Epilogue>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta,
                                      const CUtensorMap* tb, const Product p,
@@ -518,7 +531,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta,
         for (int kk = 0; kk < KSTEP / 16; ++kk)
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb)
-            wgmma_ss<B_MN, A_MN>(
+            wgmma_ss<B_MN, A_MN, typename Epilogue::Elem>(
                 acc[nb], slice_desc<A_MN>(s.a[stage][wg], kk),
                 slice_desc<B_MN>(s.b[stage][2 * nb], kk), k > 0 || kk > 0);
         wgmma_commit();
@@ -558,7 +571,9 @@ __device__ __forceinline__ float ex2(float x) {
 // wholly inside the vocab skips the test); rows >= T are not written. The
 // max is in the natural log (the combine takes expf(m_i - M) and logf),
 // the sum 2^((x - max) * log2(e)).
+template <typename T>
 struct FwdEpilogue {
+  using Elem = T;
   const int* labels;
   float* part;   // [3, splits, T]
   int t_len, vocab, splits;
@@ -621,14 +636,16 @@ struct FwdEpilogue {
   }
 };
 
-// dl = (exp(acc - lse) - [c == label]) * g, rounded to bf16, into the
+// dl = (exp(acc - lse) - [c == label]) * g, rounded to T, into the
 // [T, ld] workspace; columns c >= cw (W's next chunk, or zeros past V)
 // get nothing, rows past T neither.
+template <typename T>
 struct DlEpilogue {
+  using Elem = T;
   const int* labels;
   const float* lse;
   const float* g;
-  bf16* dl;
+  T* dl;
   int t_len, c0, cw, ld;
 
   __device__ __forceinline__ void operator()(int m, int n0,
@@ -648,7 +665,7 @@ struct DlEpilogue {
     for (int hi = 0; hi < 2; ++hi) {
       const int row = acc_row(m) + 8 * hi;
       if (row >= t_len) continue;
-      bf16* out = dl + static_cast<long long>(row) * ld;
+      T* out = dl + static_cast<long long>(row) * ld;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
@@ -657,21 +674,23 @@ struct DlEpilogue {
           if (c >= cw) continue;   // cw is even: c + 1 < cw too
           const float p0 = exp2f(fmaf(acc[nb][i], LOG2E, -x[hi]));
           const float p1 = exp2f(fmaf(acc[nb][i + 1], LOG2E, -x[hi]));
-          *reinterpret_cast<__nv_bfloat162*>(out + c) = __floats2bfloat162_rn(
-              (p0 - (c == label[hi] ? 1.f : 0.f)) * gt[hi],
-              (p1 - (c + 1 == label[hi] ? 1.f : 0.f)) * gt[hi]);
+          ptwg::store2<T>(out + c,
+                          (p0 - (c == label[hi] ? 1.f : 0.f)) * gt[hi],
+                          (p1 - (c + 1 == label[hi] ? 1.f : 0.f)) * gt[hi]);
         }
     }
   }
 };
 
 // dh (+)= acc: the chunk's sum joins the fp32 [T, H] buffer (first: is
-// it); at the last chunk the total goes to dh in bf16 instead. The
+// it); at the last chunk the total goes to dh in T instead. The
 // buffer's 16 pairs of a row half load before any is added, so their
 // latencies overlap.
+template <typename T>
 struct DhEpilogue {
+  using Elem = T;
   float* buf;
-  bf16* dh;
+  T* dh;
   int t_len, hid, first, last;
 
   __device__ __forceinline__ void operator()(int m, int n0,
@@ -682,7 +701,7 @@ struct DhEpilogue {
       const int row = acc_row(m) + 8 * hi;
       if (row >= t_len) continue;
       float* brow = buf + static_cast<long long>(row) * hid;
-      bf16* drow = dh + static_cast<long long>(row) * hid;
+      T* drow = dh + static_cast<long long>(row) * hid;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         float2 old[16];
@@ -700,8 +719,7 @@ struct DhEpilogue {
           if (col >= hid) continue;
           const float x = acc[nb][i] + old[j].x, y = acc[nb][i + 1] + old[j].y;
           if (last)
-            *reinterpret_cast<__nv_bfloat162*>(drow + col) =
-                __floats2bfloat162_rn(x, y);
+            ptwg::store2<T>(drow + col, x, y);
           else
             *reinterpret_cast<float2*>(brow + col) = make_float2(x, y);
         }
@@ -710,9 +728,11 @@ struct DhEpilogue {
   }
 };
 
-// dW[j][c0 + c] = acc rounded to bf16, for j < H and c < cw
+// dW[j][c0 + c] = acc rounded to T, for j < H and c < cw
+template <typename T>
 struct DwEpilogue {
-  bf16* dw;
+  using Elem = T;
+  T* dw;
   int hid, vocab, c0, cw;
 
   __device__ __forceinline__ void operator()(int m, int n0,
@@ -722,15 +742,13 @@ struct DwEpilogue {
     for (int hi = 0; hi < 2; ++hi) {
       const int row = acc_row(m) + 8 * hi;
       if (row >= hid) continue;
-      bf16* out = dw + static_cast<long long>(row) * vocab + c0;
+      T* out = dw + static_cast<long long>(row) * vocab + c0;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
         for (int i = 2 * hi; i < 64; i += 4) {
           const int c = n0 + 128 * nb + ptwg::acc_col(i, lane);
-          if (c < cw)
-            *reinterpret_cast<__nv_bfloat162*>(out + c) =
-                __floats2bfloat162_rn(acc[nb][i], acc[nb][i + 1]);
+          if (c < cw) ptwg::store2<T>(out + c, acc[nb][i], acc[nb][i + 1]);
         }
     }
   }
@@ -738,36 +756,40 @@ struct DwEpilogue {
 
 // the forward's logits h . W over the whole vocab: A = h (K-major),
 // B = W (MN-major)
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     fce_fwd_wgmma(const __grid_constant__ CUtensorMap th,
                   const __grid_constant__ CUtensorMap tw, const Product p,
-                  const FwdEpilogue e) {
+                  const FwdEpilogue<T> e) {
   gemm<false, true>(&th, &tw, p, e);
 }
 
 // dl = h . W[:, chunk]: A = h (K-major), B = W (MN-major, from column c0)
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     fce_bwd_dl_wgmma(const __grid_constant__ CUtensorMap th,
                      const __grid_constant__ CUtensorMap tw, const Product p,
-                     const DlEpilogue e) {
+                     const DlEpilogue<T> e) {
   gemm<false, true>(&th, &tw, p, e);
 }
 
 // dh (+)= dl . W[:, chunk]^T: A = dl (K-major), B(k = v, n = j) =
 // W[j][c0 + v] (K-major)
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     fce_bwd_dh_wgmma(const __grid_constant__ CUtensorMap tl,
                      const __grid_constant__ CUtensorMap tw, const Product p,
-                     const DhEpilogue e) {
+                     const DhEpilogue<T> e) {
   gemm<false, false>(&tl, &tw, p, e);
 }
 
 // dW[:, chunk] = h^T . dl: A(m = j, k = t) = h[t][j] and B(k = t, n = c)
 // = dl[t][c], both MN-major
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
     fce_bwd_dw_wgmma(const __grid_constant__ CUtensorMap th,
                      const __grid_constant__ CUtensorMap tl, const Product p,
-                     const DwEpilogue e) {
+                     const DwEpilogue<T> e) {
   gemm<true, true>(&th, &tl, p, e);
 }
 
@@ -778,11 +800,16 @@ int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// C[m, n] over k: one CTA per SM, or per tile where there are fewer
-template <typename Kernel, typename Epilogue>
-cudaError_t launch(Kernel kernel, const CUtensorMap& ta,
-                   const CUtensorMap& tb, int m, int n, int k, int b_col,
-                   const Epilogue& e, cudaStream_t s) {
+// C[m, n] over k: one CTA per SM, or per tile where there are fewer. The
+// kernel template's instance is the one whose epilogue is e's: the
+// parameter below names its type, so the fce_fwd_wgmma template given a
+// FwdEpilogue<T> launches as fce_fwd_wgmma<T>.
+template <typename Epilogue>
+cudaError_t launch(void (*kernel)(CUtensorMap, CUtensorMap, Product,
+                                  Epilogue),
+                   const CUtensorMap& ta, const CUtensorMap& tb, int m,
+                   int n, int k, int b_col, const Epilogue& e,
+                   cudaStream_t s) {
   const Product p{(m + TM - 1) / TM, (n + TN - 1) / TN,
                   (k + KSTEP - 1) / KSTEP, b_col};
   const int smem = static_cast<int>(sizeof(Smem)) + 1024;
@@ -795,61 +822,73 @@ cudaError_t launch(Kernel kernel, const CUtensorMap& ta,
 }
 
 // one product over the whole vocab, one split per TN-column tile (the
-// wrapper passes splits = ceil(V / TN)), then the combine
+// wrapper passes splits = ceil(V / TN)), then the combine. T (bf16 by
+// default, or __half) is h's and W's type, which the tensor maps name.
+template <typename T = bf16>
 cudaError_t launch_fwd(const void* h, const void* w, const int* labels,
                        float* loss, float* lse, float* part, int t_len,
                        int hid, int vocab, int splits, cudaStream_t s) {
   if (splits != (vocab + TN - 1) / TN) return cudaErrorInvalidValue;
   CUtensorMap th, tw;
   cudaError_t err;
-  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
-      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess)
     return err;
-  const FwdEpilogue e{labels, part, t_len, vocab, splits};
+  const FwdEpilogue<T> e{labels, part, t_len, vocab, splits};
   if ((err = launch(fce_fwd_wgmma, th, tw, t_len, vocab, hid, 0, e, s)) !=
       cudaSuccess)
     return err;
   return combine(part, loss, lse, t_len, splits, s);
 }
 
+template <typename T = bf16>
 cudaError_t launch_dl(const void* h, const void* w, const int* labels,
                       const float* lse, const float* g, void* dl, int t_len,
                       int hid, int vocab, int c0, int cw, int ld_dl,
                       cudaStream_t s) {
   CUtensorMap th, tw;
   cudaError_t err;
-  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
-      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess)
     return err;
-  const DlEpilogue e{labels, lse, g, static_cast<bf16*>(dl), t_len, c0, cw,
-                     ld_dl};
+  const DlEpilogue<T> e{labels, lse, g, static_cast<T*>(dl), t_len, c0, cw,
+                        ld_dl};
   return launch(fce_bwd_dl_wgmma, th, tw, t_len, cw, hid, c0, e, s);
 }
 
 // the workspace's map stops at column cw: columns cw .. ld_dl - 1 still
 // hold an earlier chunk's dl and must read as zeros
+template <typename T = bf16>
 cudaError_t launch_dh(const void* dl, const void* w, float* acc, void* dh,
                       int t_len, int hid, int vocab, int c0, int cw,
                       int ld_dl, int first, int last, cudaStream_t s) {
   CUtensorMap tl, tw;
   cudaError_t err;
-  if ((err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64)) !=
-          cudaSuccess ||
-      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64)) != cudaSuccess)
+  if ((err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tw, w, hid, vocab, vocab, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess)
     return err;
-  const DhEpilogue e{acc, static_cast<bf16*>(dh), t_len, hid, first, last};
+  const DhEpilogue<T> e{acc, static_cast<T*>(dh), t_len, hid, first, last};
   return launch(fce_bwd_dh_wgmma, tl, tw, t_len, hid, cw, c0, e, s);
 }
 
+template <typename T = bf16>
 cudaError_t launch_dw(const void* h, const void* dl, void* dw, int t_len,
                       int hid, int vocab, int c0, int cw, int ld_dl,
                       cudaStream_t s) {
   CUtensorMap th, tl;
   cudaError_t err;
-  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64)) != cudaSuccess ||
-      (err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64)) != cudaSuccess)
+  if ((err = ptwg::matrix_map(&th, h, t_len, hid, hid, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess ||
+      (err = ptwg::matrix_map(&tl, dl, t_len, cw, ld_dl, 64,
+                              ptwg::tma_type<T>)) != cudaSuccess)
     return err;
-  const DwEpilogue e{static_cast<bf16*>(dw), hid, vocab, c0, cw};
+  const DwEpilogue<T> e{static_cast<T*>(dw), hid, vocab, c0, cw};
   return launch(fce_bwd_dw_wgmma, th, tl, hid, cw, t_len, 0, e, s);
 }
 
@@ -929,10 +968,11 @@ const char* pt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// h [T, H], w [H, V] contiguous, dtype 0 = float32, 1 = bfloat16; labels
-// [T] int32 in [0, V); loss, lse [T] float32; part [3, splits, T] float32
-// scratch, 1 <= splits <= ceil(V / 128) in float32 and splits =
-// ceil(V / 256) in bfloat16. Two launches (partials, combine).
+// h [T, H], w [H, V] contiguous, dtype 0 = float32, 1 = bfloat16, 3 =
+// float16; labels [T] int32 in [0, V); loss, lse [T] float32; part [3,
+// splits, T] float32 scratch, 1 <= splits <= ceil(V / 128) in float32 and
+// splits = ceil(V / 256) in bfloat16 and float16. Two launches (partials,
+// combine).
 int pt_fused_ce_fwd(const void* h, const void* w, const void* labels,
                     void* loss, void* lse, void* part, int t_len, int hid,
                     int vocab, int splits, int dtype, void* stream) {
@@ -946,6 +986,9 @@ int pt_fused_ce_fwd(const void* h, const void* w, const void* labels,
   if (dtype == 1)
     return tc::launch_fwd(h, w, lab, lo, ls, pa, t_len, hid, vocab, splits,
                           s);
+  if (dtype == 3)
+    return tc::launch_fwd<__half>(h, w, lab, lo, ls, pa, t_len, hid, vocab,
+                                  splits, s);
   return cudaErrorInvalidValue;
 }
 
@@ -965,6 +1008,9 @@ int pt_fused_ce_bwd_dl(const void* h, const void* w, const void* labels,
   if (dtype == 1)
     return tc::launch_dl(h, w, lab, ls, gt, dl, t_len, hid, vocab, c0, cw,
                          ld_dl, s);
+  if (dtype == 3)
+    return tc::launch_dl<__half>(h, w, lab, ls, gt, dl, t_len, hid, vocab,
+                                 c0, cw, ld_dl, s);
   return cudaErrorInvalidValue;
 }
 
@@ -981,6 +1027,9 @@ int pt_fused_ce_bwd_dh(const void* dl, const void* w, void* acc, void* dh,
   if (dtype == 1)
     return tc::launch_dh(dl, w, a, dh, t_len, hid, vocab, c0, cw, ld_dl,
                          first, last, s);
+  if (dtype == 3)
+    return tc::launch_dh<__half>(dl, w, a, dh, t_len, hid, vocab, c0, cw,
+                                 ld_dl, first, last, s);
   return cudaErrorInvalidValue;
 }
 
@@ -993,6 +1042,9 @@ int pt_fused_ce_bwd_dw(const void* h, const void* dl, void* dw, int t_len,
     return bwd_dw(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
   if (dtype == 1)
     return tc::launch_dw(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl, s);
+  if (dtype == 3)
+    return tc::launch_dw<__half>(h, dl, dw, t_len, hid, vocab, c0, cw, ld_dl,
+                                 s);
   return cudaErrorInvalidValue;
 }
 

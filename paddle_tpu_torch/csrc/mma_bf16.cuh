@@ -1,9 +1,9 @@
 // bf16 tensor-core building blocks for Hopper (sm_90a). Header only: no
 // entry points. Used by csrc/mma_probe.cu, which checks every form below
 // on its own, where a wrong fragment layout is easy to read, and by
-// csrc/w8_gemm.cu's bf16 mode (load_a, ldmatrix_x4_trans over int8 pairs,
-// mma_bf16). csrc/fused_ce.cu's bf16 products run on wgmma, csrc/
-// wgmma_bf16.cuh, and its float32 ones on csrc/f32_gemm.cuh.
+// csrc/w8_gemm.cu's bf16 and float16 modes (load_a, ldmatrix_x4_trans over
+// int8 pairs, mma_bf16 and mma_f16). csrc/fused_ce.cu's bf16 products run
+// on wgmma, csrc/wgmma_bf16.cuh, and its float32 ones on csrc/f32_gemm.cuh.
 //
 // The product is warp-level `mma.sync.aligned.m16n8k16.row.col.f32.bf16.
 // bf16.f32` (inline PTX): a 16 x 16 bf16 A fragment times a 16 x 8 bf16 B
@@ -69,6 +69,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b on the fp16 tensor cores, fp32 accumulators (the same
+// fragment layouts as mma_bf16; csrc/w8_gemm.cu's float16 mode)
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,6 +1,6 @@
 // Paged attention for Hopper (sm_90a): queries over a history that lives
 // scattered across fixed-size pool pages [NB, bs, Hkv, D], in float32,
-// bfloat16 or int8 (with fp32 scale planes [NB, bs, Hkv]).
+// bfloat16, float16 or int8 (with fp32 scale planes [NB, bs, Hkv]).
 //
 // Replaces paddle_tpu/serving/kernels/paged_attention.py:
 //  * paged_attention_kernel -> _pa_kernel (the pallas_call at line 167):
@@ -12,9 +12,15 @@
 //    exact zeros for rows past q_len. It carries chunked prefill (C = the
 //    chunk, decode rows q_len 1) and the prefix-cache suffix prefill
 //    (S = 1, C = the bucket).
-// Both in all three pool modes: fp32 and bf16 pages, and int8 pages
+// Both in every pool mode: fp32, bf16 and float16 pages, and int8 pages
 // multiplied by their per-vector scale after they arrive in shared memory,
 // exactly as dequantize_int8_block does (q * scale in fp32, one rounding).
+// The query and the output take fp32, bf16 or float16 (the reference's
+// kernels upcast q and pages to fp32, paged_attention.py:90-111, 256-282,
+// and write the output in q's dtype): every element is widened to fp32 as
+// it is read, the softmax and both products run in fp32, and only the
+// output is rounded, once, to q's type. float16 is the bf16 code with
+// other element types (to_f32, store, ld4 and ld2 overloads).
 // A slot's rep*C query rows of one kv head are flattened chunk-index-major
 // (row j = ci * rep + r) and cut into tiles; valid rows (ci < q_len) are a
 // prefix of the tile.
@@ -70,6 +76,7 @@
 //    an SM), and at the suffix prefill the causal spread of work over 128
 //    CTAs, which two history splits even out in part.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,9 +96,14 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+// rounds to nearest even; past 65504 the value is inf, never clamped
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // 4 (or 2) consecutive elements widened to fp32; p aligned to their size
@@ -106,6 +118,12 @@ __device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 ld4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ float4 ld4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   return make_float4(c.x, c.y, c.z, c.w);
@@ -115,6 +133,9 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 }
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
 }
 __device__ __forceinline__ float2 ld2(const int8_t* p) {
   const char2 c = *reinterpret_cast<const char2*>(p);
@@ -1088,8 +1109,8 @@ cudaError_t launch_mixed(Args a, int tile_rows, cudaStream_t stream) {
 }
 
 // Calls f(TQ{}, TKV{}, std::integral_constant<int, D>{}) for the element
-// types named by the codes (0 float32, 1 bfloat16; pools also 2 int8) and
-// head_dim; invalid combinations return cudaErrorInvalidValue.
+// types named by the codes (0 float32, 1 bfloat16, 3 float16; pools also
+// 2 int8) and head_dim; invalid combinations return cudaErrorInvalidValue.
 template <typename F>
 cudaError_t dispatch(int dtype, int kv_dtype, int head_dim, F&& f) {
   using D64 = std::integral_constant<int, 64>;
@@ -1106,6 +1127,10 @@ cudaError_t dispatch(int dtype, int kv_dtype, int head_dim, F&& f) {
   if (dtype == 1 && kv_dtype == 2)
     return wide ? f(__nv_bfloat16{}, int8_t{}, D128{})
                 : f(__nv_bfloat16{}, int8_t{}, D64{});
+  if (dtype == 3 && kv_dtype == 3)
+    return wide ? f(__half{}, __half{}, D128{}) : f(__half{}, __half{}, D64{});
+  if (dtype == 3 && kv_dtype == 2)
+    return wide ? f(__half{}, int8_t{}, D128{}) : f(__half{}, int8_t{}, D64{});
   return cudaErrorInvalidValue;
 }
 
@@ -1162,7 +1187,8 @@ const char* pt_error_string(int err) {
 // q [S, H, D]; k/v pools [NB, bs, Hkv, D]; k/v scales [NB, bs, Hkv] fp32
 // (int8 pools only, else ignored); block_tables [S, MB] int32; seq_lens [S]
 // int32; out [S, H, D]; all contiguous, pools 16-byte aligned. dtype (q,
-// out): 0 = float32, 1 = bfloat16; kv_dtype: the same code, or 2 = int8.
+// out): 0 = float32, 1 = bfloat16, 3 = float16; kv_dtype: the same code,
+// or 2 = int8.
 // The split plan: `splits` splits of `split_pages` pages (splits *
 // split_pages >= MB); with splits > 1, scratch holds S * H * splits *
 // (D + 2) floats of partials. Requires H % Hkv == 0. Launches the decode

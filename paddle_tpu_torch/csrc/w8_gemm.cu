@@ -94,6 +94,17 @@
 // split-K partials meet in fp32 in rank order (the fp32 mode's cluster
 // reduction), and y is rounded once to bf16 at the store; no atomics.
 //
+// float16 mode (pt_w8_gemm_f16: float16 x and y, for a float16 model,
+// whose weight-only decode the reference serves through
+// dequantize_int8_weight(q, s, float16) and a float16 matmul): the bf16
+// mode's kernels with another 16-bit type TX (a template parameter of
+// every tensor-core kernel, bf16 or __half), mma.sync ... .f32.f16.f16.f32
+// and wgmma ... .f32.f16.f16 in place of the bf16 forms, each weight q * s
+// rounded once to float16, fp32 sums, y rounded once to float16 (past
+// 65504 to inf: nothing is clamped). Its plan is the bf16 mode's
+// (w8_plan_bf16): the kernels' tiles, shared memory and registers are the
+// same.
+//
 // What bounds it (llama1b, one layer's 7 projections): at the decode batch
 // (M = 16) the 50.6 MB of int8 planes, 0.015 ms at 3.35 TB/s (1.6 GFLOP is
 // nothing to the tensor cores), and each launch's fixed cost (the first
@@ -141,6 +152,7 @@
 // false: plain loads into the same tiles).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,10 +177,13 @@ constexpr int kLargeBN = 128;         // columns a large-M CTA computes
 constexpr int kLargeStages = 4;
 constexpr int kXStride = kKT + 4;     // floats a staged x row, large M
 
-// two bf16 values packed in a word (the first in the low half)
-__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// x rounded once to the 16-bit type T (bf16 or __half)
+template <typename T>
+__device__ __forceinline__ T round16(float x) {
+  if constexpr (ptwg::is_f16<T>)
+    return __float2half_rn(x);
+  else
+    return __float2bfloat16_rn(x);
 }
 
 // 8 consecutive staged x values (16-byte aligned)
@@ -236,8 +251,8 @@ __device__ __forceinline__ void dequant4(uint32_t word, const float* sc,
   w[3] = i8f(b, 0x7543) * sc[3];
 }
 
-// v at y[row, col..col + 3], masked to M and N; a bf16 y rounds each value
-// once here
+// v at y[row, col..col + 3], masked to M and N; a bf16 or float16 y
+// rounds each value once here
 template <bool kVec, typename TY>
 __device__ __forceinline__ void store4(TY* __restrict__ y, int row, int col,
                                        float4 v, int m_rows, int n) {
@@ -246,13 +261,13 @@ __device__ __forceinline__ void store4(TY* __restrict__ y, int row, int col,
   if constexpr (sizeof(TY) == 2) {
     if constexpr (kVec) {
       if (col < n)
-        *reinterpret_cast<uint2*>(p) =
-            make_uint2(pack_bf2(v.x, v.y), pack_bf2(v.z, v.w));
+        *reinterpret_cast<uint2*>(p) = make_uint2(
+            ptwg::pack2<TY>(v.x, v.y), ptwg::pack2<TY>(v.z, v.w));
     } else {
-      if (col < n) p[0] = __float2bfloat16_rn(v.x);
-      if (col + 1 < n) p[1] = __float2bfloat16_rn(v.y);
-      if (col + 2 < n) p[2] = __float2bfloat16_rn(v.z);
-      if (col + 3 < n) p[3] = __float2bfloat16_rn(v.w);
+      if (col < n) p[0] = round16<TY>(v.x);
+      if (col + 1 < n) p[1] = round16<TY>(v.y);
+      if (col + 2 < n) p[2] = round16<TY>(v.z);
+      if (col + 3 < n) p[3] = round16<TY>(v.w);
     }
   } else if constexpr (kVec) {
     if (col < n) *reinterpret_cast<float4*>(p) = v;
@@ -750,7 +765,8 @@ w8_gemm_large(const float* __restrict__ x, const int8_t* __restrict__ q,
 
 }  // namespace large
 
-// -- bf16 mode, M <= 32: mma.sync bf16 -> fp32, int8 B fragments by ldmatrix --
+// -- bf16 and float16 modes, M <= 32: mma.sync -> fp32, int8 B fragments by
+// ldmatrix (TX, the activations' type, is bf16 or __half) --
 
 namespace tc {
 
@@ -801,13 +817,13 @@ __device__ __forceinline__ void load_q(int8_t* sq,
   }
 }
 
-template <class T, bool kVec>
+template <class T, bool kVec, typename TX>
 __device__ __forceinline__ void load_stage(unsigned char* st,
-                                           const bf16* __restrict__ x,
+                                           const TX* __restrict__ x,
                                            const int8_t* __restrict__ q,
                                            int m0, int m_rows, int n0, int n,
                                            int k_dim, int k0, int k_end) {
-  bf16* sx = reinterpret_cast<bf16*>(st);
+  TX* sx = reinterpret_cast<TX*>(st);
   const int tid = threadIdx.x;
   if constexpr (kVec) {
 #pragma unroll
@@ -824,7 +840,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
       const int r = i / kBK, c = i % kBK;
       sx[r * kXLd + c] = m0 + r < m_rows && k0 + c < k_end
           ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + c]
-          : __float2bfloat16_rn(0.f);
+          : round16<TX>(0.f);
     }
   }
   load_q<T::kThreads, kVec>(reinterpret_cast<int8_t*>(st + T::kXBytes), q,
@@ -833,15 +849,16 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
 
 // A word that ldmatrix.trans read from the int8 tile as 16-bit pairs holds
 // q[k][c], q[k][c + 1], q[k + 1][c], q[k + 1][c + 1] (low byte first): the
-// bf16 k-pairs of column c (scale s[0]) and column c + 1 (s[1]), each value
-// q * s in fp32 rounded once to bf16.
+// TX k-pairs of column c (scale s[0]) and column c + 1 (s[1]), each value
+// q * s in fp32 rounded once to TX.
+template <typename TX>
 __device__ __forceinline__ void dequant_pairs(uint32_t word,
                                               const float (&s)[2],
                                               uint32_t& even,
                                               uint32_t& odd) {
   const uint32_t b = word ^ 0x80808080u;
-  even = pack_bf2(i8f(b, 0x7540) * s[0], i8f(b, 0x7542) * s[0]);
-  odd = pack_bf2(i8f(b, 0x7541) * s[1], i8f(b, 0x7543) * s[1]);
+  even = ptwg::pack2<TX>(i8f(b, 0x7540) * s[0], i8f(b, 0x7542) * s[0]);
+  odd = ptwg::pack2<TX>(i8f(b, 0x7541) * s[1], i8f(b, 0x7543) * s[1]);
 }
 
 // the scales of columns col, col + 1 in scale row blk, 0 past N
@@ -880,7 +897,8 @@ __device__ __forceinline__ void load_pair_scales(
 // (h, p): actual columns 16 h + 4t + p and 16 h + 4t + 2 + p. kSlow: a k
 // row of the stage is past k_end (scale 0, q byte 0) or, in a block
 // smaller than a stage, enters the next block (reload the lane's scales).
-template <class T, int MI, bool kVec, bool kSlow>
+// The x tile holds TX; ldmatrix moves its 16-bit values whatever the type.
+template <typename TX, class T, int MI, bool kVec, bool kSlow>
 __device__ __forceinline__ void mma_stage(
     const unsigned char* st, const float* __restrict__ scales,
     float (&acc)[MI][2][2][4], float (&sc)[2][2], int& blk_hi, int k0,
@@ -925,7 +943,7 @@ __device__ __forceinline__ void mma_stage(
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        dequant_pairs(r[2 * h + kh], s[h], b[h][0][kh], b[h][1][kh]);
+        dequant_pairs<TX>(r[2 * h + kh], s[h], b[h][0][kh], b[h][1][kh]);
     }
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
@@ -933,17 +951,20 @@ __device__ __forceinline__ void mma_stage(
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int p = 0; p < 2; ++p)
-          ptmma::mma_bf16(acc[mi][h][p], a[mi], b[h][p][0], b[h][p][1]);
+          if constexpr (ptwg::is_f16<TX>)
+            ptmma::mma_f16(acc[mi][h][p], a[mi], b[h][p][0], b[h][p][1]);
+          else
+            ptmma::mma_bf16(acc[mi][h][p], a[mi], b[h][p][0], b[h][p][1]);
   }
 }
 
 // grid (splits, ceil(N / 128), ceil(M / bm)); split z takes k rows
 // [z * chunk, min(K, (z + 1) * chunk)) through the ring; the `splits` CTAs
 // of a tile are one cluster, summed by cluster_reduce
-template <int MI, bool kVec>
+template <int MI, bool kVec, typename TX>
 __global__ void __launch_bounds__(Tile<MI>::kThreads, 4)
-w8_gemm_mma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-            const float* __restrict__ scales, bf16* __restrict__ y,
+w8_gemm_mma(const TX* __restrict__ x, const int8_t* __restrict__ q,
+            const float* __restrict__ scales, TX* __restrict__ y,
             int m_rows, int n, int k_dim, int block, int chunk) {
   using T = Tile<MI>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1003,11 +1024,11 @@ w8_gemm_mma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
         load_pair_scales<kVec>(scales, blk_hi / block, col, n, sn);
     }
     if (k0 + kBK <= k_end && k0 + kBK <= blk_hi)
-      mma_stage<T, MI, kVec, false>(st, scales, acc, sc, blk_hi, k0, k_end,
-                                    block, n, col, col_b);
+      mma_stage<TX, T, MI, kVec, false>(st, scales, acc, sc, blk_hi, k0,
+                                        k_end, block, n, col, col_b);
     else
-      mma_stage<T, MI, kVec, true>(st, scales, acc, sc, blk_hi, k0, k_end,
-                                   block, n, col, col_b);
+      mma_stage<TX, T, MI, kVec, true>(st, scales, acc, sc, blk_hi, k0,
+                                       k_end, block, n, col, col_b);
   }
   cp_async_wait<0>();
 
@@ -1048,7 +1069,8 @@ w8_gemm_mma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
 
 }  // namespace tc
 
-// -- bf16 mode, M > 32: wgmma on y^T = w^T x^T, w from registers ------------
+// -- bf16 and float16 modes, M > 32: wgmma on y^T = w^T x^T, w from
+// registers ---------------------------------------------------------------
 
 namespace wg {
 
@@ -1077,23 +1099,23 @@ __device__ __forceinline__ void keep(const uint32_t (&a)[2][2][4]) {
 }
 
 // a, b at y[row, col..col + 1], masked to M and N, each rounded once
-template <bool kVec>
-__device__ __forceinline__ void store2(bf16* __restrict__ y, int row, int col,
+template <bool kVec, typename TX>
+__device__ __forceinline__ void store2(TX* __restrict__ y, int row, int col,
                                        float a, float b, int m_rows, int n) {
   if (row >= m_rows) return;
-  bf16* p = y + static_cast<size_t>(row) * n + col;
+  TX* p = y + static_cast<size_t>(row) * n + col;
   if constexpr (kVec) {
-    if (col < n) *reinterpret_cast<uint32_t*>(p) = pack_bf2(a, b);
+    if (col < n) *reinterpret_cast<uint32_t*>(p) = ptwg::pack2<TX>(a, b);
   } else {
-    if (col < n) p[0] = __float2bfloat16_rn(a);
-    if (col + 1 < n) p[1] = __float2bfloat16_rn(b);
+    if (col < n) p[0] = round16<TX>(a);
+    if (col + 1 < n) p[1] = round16<TX>(b);
   }
 }
 
 // Two warpgroups own the 128 columns of a tile, warpgroup g columns
 // 64 g.., warp w of it 16 w..; BM x rows (64 or 128) are the products' n.
-// Shared memory (1024-aligned): the ring of stages, each x [BM][64] bf16
-// in 128-byte swizzle (wgmma's B, K-major) and q [64][kQLd].
+// Shared memory (1024-aligned): the ring of stages, each x [BM][64] (bf16
+// or float16) in 128-byte swizzle (wgmma's B, K-major) and q [64][kQLd].
 template <int BM>
 struct Tile {
   static constexpr int kBM = BM;
@@ -1109,9 +1131,9 @@ struct Tile {
   static_assert(BM * 8 % kThreads == 0, "whole 16-byte shares of x");
 };
 
-template <class T, bool kVec>
+template <class T, bool kVec, typename TX>
 __device__ __forceinline__ void load_stage(unsigned char* st,
-                                           const bf16* __restrict__ x,
+                                           const TX* __restrict__ x,
                                            const int8_t* __restrict__ q,
                                            int m0, int m_rows, int n0, int n,
                                            int k_dim, int k0, int k_end) {
@@ -1130,10 +1152,10 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
   } else {
     for (int i = tid; i < T::kBM * tc::kBK; i += T::kThreads) {
       const int r = i / tc::kBK, k = i % tc::kBK;
-      *reinterpret_cast<bf16*>(st + swz(r, k >> 3) + 2 * (k & 7)) =
+      *reinterpret_cast<TX*>(st + swz(r, k >> 3) + 2 * (k & 7)) =
           m0 + r < m_rows && k0 + k < k_end
               ? x[static_cast<size_t>(m0 + r) * k_dim + k0 + k]
-              : __float2bfloat16_rn(0.f);
+              : round16<TX>(0.f);
     }
   }
   tc::load_q<T::kThreads, kVec>(reinterpret_cast<int8_t*>(st + T::kXBytes),
@@ -1147,7 +1169,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st,
 // and the odd ones (rows g + 8: column 2g + 1). kSlow: a k row of the
 // stage is past k_end (scale 0, q byte 0) or, in a block smaller than a
 // stage, enters the next block.
-template <bool kVec, bool kSlow>
+template <typename TX, bool kVec, bool kSlow>
 __device__ __forceinline__ void a_frags(const int8_t* sq, int col_q, int half,
                                         const float* __restrict__ scales,
                                         float (&sc)[2], int& blk_hi, int k0,
@@ -1171,7 +1193,8 @@ __device__ __forceinline__ void a_frags(const int8_t* sq, int col_q, int half,
       s[1] = row < k_end ? sc[1] : 0.f;
     }
     const int hi = i & 1;
-    tc::dequant_pairs(r[i], s, a[i >> 1][2 * hi], a[i >> 1][2 * hi + 1]);
+    tc::dequant_pairs<TX>(r[i], s, a[i >> 1][2 * hi],
+                          a[i >> 1][2 * hi + 1]);
   }
 }
 
@@ -1186,10 +1209,10 @@ __device__ __forceinline__ void a_frags(const int8_t* sq, int col_q, int half,
 // arrives
 // by cp.async (generic proxy) and is fenced to the async proxy before
 // the barrier that hands the stage to wgmma.
-template <int BM, bool kVec>
+template <int BM, bool kVec, typename TX>
 __global__ void __launch_bounds__(Tile<BM>::kThreads, BM == 128 ? 1 : 2)
-w8_gemm_wgmma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
-              const float* __restrict__ scales, bf16* __restrict__ y,
+w8_gemm_wgmma(const TX* __restrict__ x, const int8_t* __restrict__ q,
+              const float* __restrict__ scales, TX* __restrict__ y,
               int m_rows, int n, int k_dim, int block, int chunk) {
   using T = Tile<BM>;
   constexpr int kBK = tc::kBK, kBN = tc::kBN, S = T::kStages;
@@ -1250,17 +1273,17 @@ w8_gemm_wgmma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       if (fast)
-        a_frags<kVec, false>(sq, col_q, half, scales, sc, blk_hi, k0, k_end,
-                             block, n, col, a[half]);
+        a_frags<TX, kVec, false>(sq, col_q, half, scales, sc, blk_hi, k0,
+                                 k_end, block, n, col, a[half]);
       else
-        a_frags<kVec, true>(sq, col_q, half, scales, sc, blk_hi, k0, k_end,
-                            block, n, col, a[half]);
+        a_frags<TX, kVec, true>(sq, col_q, half, scales, sc, blk_hi, k0,
+                                k_end, block, n, col, a[half]);
     }
     ptwg::wgmma_fence();
 #pragma unroll
     for (int s = 0; s < kBK / 16; ++s)
-      ptwg::wgmma_rs<0>(d, a[s >> 1][s & 1], ptwg::desc_kslice(st, s, kBox),
-                        1);
+      ptwg::wgmma_rs<0, TX>(d, a[s >> 1][s & 1],
+                            ptwg::desc_kslice(st, s, kBox), 1);
     ptwg::wgmma_commit();
     ptwg::wgmma_wait<1>();
     keep(prev);            // live until the products that read them ended
@@ -1304,8 +1327,8 @@ w8_gemm_wgmma(const bf16* __restrict__ x, const int8_t* __restrict__ q,
 
 // every kernel a plan can pick: its function, threads, shared memory and
 // columns a CTA. The fp32 mode's by rows a CTA (kSmallBM: the small
-// regime); the bf16 mode's mma.sync kernel by its row tiles a warp, its
-// wgmma kernel by its rows a CTA.
+// regime); the bf16 and float16 modes' mma.sync kernel by its row tiles a
+// warp, their wgmma kernel by its rows a CTA, each for its 16-bit type TX.
 template <int BM, bool kVec>
 struct F32Kernel {
   using T = large::Tile<BM>;
@@ -1320,19 +1343,19 @@ struct F32Kernel<kSmallBM, kVec> {
   static constexpr int kBN = kSmallBN;
   static auto fn() { return small::w8_gemm_small<kVec>; }
 };
-template <int MI, bool kVec>
+template <int MI, bool kVec, typename TX>
 struct MmaKernel {
   using T = tc::Tile<MI>;
   static constexpr int kThreads = T::kThreads, kSmem = T::kSmem;
   static constexpr int kBN = tc::kBN;
-  static auto fn() { return tc::w8_gemm_mma<MI, kVec>; }
+  static auto fn() { return tc::w8_gemm_mma<MI, kVec, TX>; }
 };
-template <int BM, bool kVec>
+template <int BM, bool kVec, typename TX>
 struct WgmmaKernel {
   using T = wg::Tile<BM>;
   static constexpr int kThreads = T::kThreads, kSmem = T::kSmem;
   static constexpr int kBN = tc::kBN;
-  static auto fn() { return wg::w8_gemm_wgmma<BM, kVec>; }
+  static auto fn() { return wg::w8_gemm_wgmma<BM, kVec, TX>; }
 };
 
 // per kernel and process: the attributes are set once, and each cluster size
@@ -1431,24 +1454,25 @@ cudaError_t dispatch(const float* x, const int8_t* q, const float* s,
                                       bm, chunk, splits, stream);
 }
 
-// the bf16 kernel for bm rows a CTA: 16 and 32 on mma.sync (MI = 1, 2
-// row tiles a warp), 64 and 128 on wgmma
-template <bool kVec>
-cudaError_t dispatch_bf16(const bf16* x, const int8_t* q, const float* s,
-                          bf16* y, int m_rows, int n, int k_dim, int block,
-                          int bm, int chunk, int splits,
-                          cudaStream_t stream) {
+// the tensor-core kernel for bm rows a CTA and 16-bit type TX (bf16 or
+// __half): 16 and 32 on mma.sync (MI = 1, 2 row tiles a warp), 64 and 128
+// on wgmma
+template <bool kVec, typename TX>
+cudaError_t dispatch_tc(const TX* x, const int8_t* q, const float* s, TX* y,
+                        int m_rows, int n, int k_dim, int block, int bm,
+                        int chunk, int splits, cudaStream_t stream) {
   if (bm == 16)
-    return launch<MmaKernel<1, kVec>>(x, q, s, y, m_rows, n, k_dim, block,
-                                      bm, chunk, splits, stream);
+    return launch<MmaKernel<1, kVec, TX>>(x, q, s, y, m_rows, n, k_dim,
+                                          block, bm, chunk, splits, stream);
   if (bm == 32)
-    return launch<MmaKernel<2, kVec>>(x, q, s, y, m_rows, n, k_dim, block,
-                                      bm, chunk, splits, stream);
+    return launch<MmaKernel<2, kVec, TX>>(x, q, s, y, m_rows, n, k_dim,
+                                          block, bm, chunk, splits, stream);
   if (bm == 64)
-    return launch<WgmmaKernel<64, kVec>>(x, q, s, y, m_rows, n, k_dim, block,
-                                         bm, chunk, splits, stream);
-  return launch<WgmmaKernel<128, kVec>>(x, q, s, y, m_rows, n, k_dim, block,
-                                        bm, chunk, splits, stream);
+    return launch<WgmmaKernel<64, kVec, TX>>(x, q, s, y, m_rows, n, k_dim,
+                                             block, bm, chunk, splits,
+                                             stream);
+  return launch<WgmmaKernel<128, kVec, TX>>(x, q, s, y, m_rows, n, k_dim,
+                                            block, bm, chunk, splits, stream);
 }
 
 bool aligned16(const void* p) {
@@ -1470,6 +1494,28 @@ bool vec_ok(const void* x, const void* q, const void* scales, const void* y,
             int n, int k_dim, int x_vec) {
   return n % 16 == 0 && k_dim % x_vec == 0 && aligned16(x) && aligned16(q) &&
          aligned16(scales) && aligned16(y);
+}
+
+// a tensor-core mode's entry point: bf16 or float16 x [M, K] and y [M, N]
+template <typename TX>
+int w8_gemm_tc(const void* x, const void* q, const void* scales, void* y,
+               int m_rows, int n, int k_dim, int block, int bm, int chunk,
+               int splits, void* stream) {
+  if ((bm != 16 && bm != 32 && bm != 64 && bm != 128) ||
+      !plan_ok(m_rows, n, k_dim, block, bm, chunk, splits, tc::kBK))
+    return cudaErrorInvalidValue;
+  const bool vec = vec_ok(x, q, scales, y, n, k_dim, 8);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xt = static_cast<const TX*>(x);
+  const auto* qi = static_cast<const int8_t*>(q);
+  const auto* sf = static_cast<const float*>(scales);
+  auto* yt = static_cast<TX*>(y);
+  const cudaError_t err =
+      vec ? dispatch_tc<true>(xt, qi, sf, yt, m_rows, n, k_dim, block, bm,
+                              chunk, splits, st)
+          : dispatch_tc<false>(xt, qi, sf, yt, m_rows, n, k_dim, block, bm,
+                               chunk, splits, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -1515,21 +1561,18 @@ int pt_w8_gemm(const void* x, const void* q, const void* scales, void* y,
 int pt_w8_gemm_bf16(const void* x, const void* q, const void* scales,
                     void* y, int m_rows, int n, int k_dim, int block, int bm,
                     int chunk, int splits, void* stream) {
-  if ((bm != 16 && bm != 32 && bm != 64 && bm != 128) ||
-      !plan_ok(m_rows, n, k_dim, block, bm, chunk, splits, tc::kBK))
-    return cudaErrorInvalidValue;
-  const bool vec = vec_ok(x, q, scales, y, n, k_dim, 8);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* qi = static_cast<const int8_t*>(q);
-  const auto* sf = static_cast<const float*>(scales);
-  auto* yb = static_cast<bf16*>(y);
-  const cudaError_t err =
-      vec ? dispatch_bf16<true>(xb, qi, sf, yb, m_rows, n, k_dim, block, bm,
-                                chunk, splits, st)
-          : dispatch_bf16<false>(xb, qi, sf, yb, m_rows, n, k_dim, block, bm,
-                                 chunk, splits, st);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return w8_gemm_tc<bf16>(x, q, scales, y, m_rows, n, k_dim, block, bm,
+                          chunk, splits, stream);
+}
+
+// The float16 mode: x [M, K] and y [M, N] float16, the rest as the bf16
+// mode's (the same kernels, plan and checks). Each weight is rounded to
+// float16 once, the sums run in fp32 and y is rounded to float16 once.
+int pt_w8_gemm_f16(const void* x, const void* q, const void* scales,
+                   void* y, int m_rows, int n, int k_dim, int block, int bm,
+                   int chunk, int splits, void* stream) {
+  return w8_gemm_tc<__half>(x, q, scales, y, m_rows, n, k_dim, block, bm,
+                            chunk, splits, stream);
 }
 
 // The CTAs that a grid of the kernel for `bm` (16, 64 or 128; vector path
@@ -1559,16 +1602,16 @@ int pt_w8_bf16_cluster_ctas(int bm, int splits, int vec, void* ctas) {
     return cudaErrorInvalidValue;
   int* out = static_cast<int*>(ctas);
   if (bm == 16)
-    return vec ? cluster_ctas<MmaKernel<1, true>>(splits, out)
-               : cluster_ctas<MmaKernel<1, false>>(splits, out);
+    return vec ? cluster_ctas<MmaKernel<1, true, bf16>>(splits, out)
+               : cluster_ctas<MmaKernel<1, false, bf16>>(splits, out);
   if (bm == 32)
-    return vec ? cluster_ctas<MmaKernel<2, true>>(splits, out)
-               : cluster_ctas<MmaKernel<2, false>>(splits, out);
+    return vec ? cluster_ctas<MmaKernel<2, true, bf16>>(splits, out)
+               : cluster_ctas<MmaKernel<2, false, bf16>>(splits, out);
   if (bm == 64)
-    return vec ? cluster_ctas<WgmmaKernel<64, true>>(splits, out)
-               : cluster_ctas<WgmmaKernel<64, false>>(splits, out);
-  return vec ? cluster_ctas<WgmmaKernel<128, true>>(splits, out)
-             : cluster_ctas<WgmmaKernel<128, false>>(splits, out);
+    return vec ? cluster_ctas<WgmmaKernel<64, true, bf16>>(splits, out)
+               : cluster_ctas<WgmmaKernel<64, false, bf16>>(splits, out);
+  return vec ? cluster_ctas<WgmmaKernel<128, true, bf16>>(splits, out)
+             : cluster_ctas<WgmmaKernel<128, false, bf16>>(splits, out);
 }
 
 }  // extern "C"

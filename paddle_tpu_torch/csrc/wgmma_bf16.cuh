@@ -1,8 +1,9 @@
 // bf16 warpgroup tensor-core building blocks for Hopper (sm_90a): wgmma,
 // its shared-memory descriptors, mbarriers and TMA tile loads; the
 // products, fragment packs and operand tensor maps also take fp16, for
-// the flash attention kernels' float16 mode (a template parameter, bf16
-// by default, so every bf16 caller compiles as before). Header only: no
+// the float16 modes of the flash attention, fused lm_head + CE and
+// int8-weight GEMM kernels (a template parameter or argument, bf16 by
+// default, so every bf16 caller compiles as before). Header only: no
 // entry points. Used by csrc/flash_attention.cu (the bf16
 // forward), csrc/flash_attention_bwd.cu (the bf16 dq and dk/dv kernels),
 // csrc/fused_ce.cu (the bf16 lm_head + CE forward and backward products)
@@ -120,7 +121,7 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // The operand types of the products: bf16 (every kernel) and fp16 (the
-// flash attention kernels' float16 mode), both summed in fp32. Each
+// kernels' float16 modes), both summed in fp32. Each
 // product below takes the type as a template parameter, bf16 by default,
 // and names its full instruction; the macros carry the operands. The asm
 // text of the two types differs only in the type names, so a bf16
@@ -426,13 +427,14 @@ inline cudaError_t tile_map(
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A bf16 matrix [rows, cols] with `ld` elements between rows (the columns
-// contiguous), read in boxes of 64 columns x box_rows rows, 128-byte
-// swizzle; columns past `cols` and rows past `rows` read as zeros, so a
-// map over the first `cols` columns of a wider buffer never shows the
-// rest. base and ld * 2 must be multiples of 16 bytes.
-inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows,
-                              int cols, long long ld, int box_rows) {
+// A 2-byte matrix [rows, cols] (bf16, or `type`) with `ld` elements
+// between rows (the columns contiguous), read in boxes of 64 columns x
+// box_rows rows, 128-byte swizzle; columns past `cols` and rows past `rows`
+// read as zeros, so a map over the first `cols` columns of a wider buffer
+// never shows the rest. base and ld * 2 must be multiples of 16 bytes.
+inline cudaError_t matrix_map(
+    CUtensorMap* map, const void* base, int rows, int cols, long long ld,
+    int box_rows, CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
@@ -440,7 +442,7 @@ inline cudaError_t matrix_map(CUtensorMap* map, const void* base, int rows,
   const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      map, type, 2, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

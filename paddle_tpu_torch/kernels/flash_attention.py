@@ -69,10 +69,6 @@ f16_dkv_launches = 0
 # bf16 or float16 operands the forward or backward copied because TMA
 # could not read them in place (``tma_aligned``); 0 on every main path
 tma_copies = 0
-# the element types the kernels take, by the code their C entry points
-# expect: the shared codes and float16 (3; 2 is the paged kernels' int8
-# pool code). Every type but float32 runs on the TMA (wgmma) kernels.
-DTYPE_CODES = {**_build.DTYPE_CODES, torch.float16: 3}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q, k, v, out, lse; sizes; the strides of q, k and v; scale, causal,
@@ -194,7 +190,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         raise ValueError("flash_attention: q, k, v must all be on one CUDA "
                          "device or all on the CPU (got %s, %s, %s)"
                          % (q.device, k.device, v.device))
-    if (q.dtype not in DTYPE_CODES or k.dtype != q.dtype
+    if (q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise ValueError("flash_attention: the kernel takes float32, "
                          "bfloat16 or float16 q/k/v of one dtype, got "
@@ -219,7 +215,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), b, n, n_kv, h, h_kv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, int(bool(causal)), DTYPE_CODES[q.dtype],
+        scale, int(bool(causal)), _build.DTYPE_CODES[q.dtype],
         _segs_ptr(segs), _build.stream_handle(dev))
     _build.check(lib, err, "flash_attention")
     global launches, segmented_fwd_launches, f16_launches
@@ -323,7 +319,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention_backward: all tensors must be on "
                          "one CUDA device or all on the CPU")
-    if (q.dtype not in DTYPE_CODES
+    if (q.dtype not in _build.DTYPE_CODES
             or any(t.dtype != q.dtype for t in (k, v, out, dout))
             or lse.dtype != torch.float32):
         raise ValueError("flash_attention_backward: the kernels take "
@@ -373,7 +369,7 @@ def _bwd_launch(fn, q, k, v, dout, lse, delta, outs, causal, scale, segs,
         lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
         b, n, k.shape[1], h, k.shape[2], d, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3], scale,
-        int(bool(causal)), DTYPE_CODES[q.dtype], _segs_ptr(segs),
+        int(bool(causal)), _build.DTYPE_CODES[q.dtype], _segs_ptr(segs),
         _build.stream_handle(q.device))
     _build.check(lib, err, what)
 

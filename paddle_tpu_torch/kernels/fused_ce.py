@@ -9,18 +9,30 @@ stream W tile by tile and never build the logits:
 
 * ``fused_lm_head_ce_forward(h, w, labels) -> (loss, lse)`` launches the
   forward (per-split partial max / sum-exp / gold, then a combine); in
-  bf16 the partials come from the same ``wgmma`` GEMM main loop as the
-  backward's, one split per 256-column tile of the whole vocab;
+  bf16 and float16 the partials come from the same ``wgmma`` GEMM main
+  loop as the backward's, one split per 256-column tile of the whole
+  vocab;
 * ``fused_lm_head_ce_backward(h, w, labels, lse, g_t) -> (dh, dw)``
   launches, per vocab chunk (``chunk_plan``), the dl kernel and the dh
   product (the reference's ``_dh_kernel``) and the dW product (its
-  ``_dw_kernel``); in bf16 all three are one ``wgmma`` GEMM main loop
-  with TMA loads and their own epilogues, in float32 CUDA-core tiles.
+  ``_dw_kernel``); in bf16 and float16 all three are one ``wgmma`` GEMM
+  main loop with TMA loads and their own epilogues, in float32 CUDA-core
+  tiles.
+
+float16 (the reference's kernels take any float dtype) runs the bf16
+kernels with float16 operands: sums in fp32, dl rounded to float16 where
+the reference rounds it (``fused_ce.py:102, 128``), dh and dW written in
+float16. Nothing is clamped: a small dl underflows to zero and a large dh
+or dW overflows to inf where the plain version's rounding puts them, which
+is what a ``GradScaler`` reads to skip a step.
 
 Each wrapper takes its plain version (``..._reference``, over the whole
 logits matrix in float32) for CPU tensors and launches the kernels or
-raises for CUDA tensors: there is no fallback. ``fwd_launches``,
-``dh_launches`` and ``dw_launches`` count the wrapper calls that launched.
+raises for CUDA tensors: there is no fallback, and a float16 input is
+never cast to float32. ``fwd_launches``, ``dh_launches`` and
+``dw_launches`` count the wrapper calls that launched in float32 and
+bf16, ``f16_fwd_launches``, ``f16_dh_launches`` and ``f16_dw_launches``
+those in float16 (apart, as the flash kernels count theirs).
 
 ``FusedLMHeadCE`` is the ``torch.autograd.Function`` (the reference's
 ``custom_vjp``), ``fused_lm_head_ce`` the per-token loss with
@@ -58,6 +70,9 @@ _WGMMA_TILE_N = 256  # vocab columns of the bf16 kernels' tile (tc::TN)
 fwd_launches = 0
 dh_launches = 0
 dw_launches = 0
+f16_fwd_launches = 0
+f16_dh_launches = 0
+f16_dw_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -85,8 +100,8 @@ def _check_cuda(what, h, w, *tensors):
         raise ValueError("%s: all tensors must be on one CUDA device or all "
                          "on the CPU" % what)
     if h.dtype not in _build.DTYPE_CODES or w.dtype != h.dtype:
-        raise ValueError("%s: the kernels take float32 or bfloat16 h and w "
-                         "of one dtype, got %s and %s"
+        raise ValueError("%s: the kernels take float32, bfloat16 or float16 "
+                         "h and w of one dtype, got %s and %s"
                          % (what, h.dtype, w.dtype))
     if not (h.is_contiguous() and w.is_contiguous()):
         raise ValueError("%s: h and w must be contiguous" % what)
@@ -124,10 +139,10 @@ def forward_splits(t_len, vocab, dtype=torch.float32, sms=132):
     ``ceil(vocab tiles / splits)`` tiles of 128 columns, and the count
     finishing soonest on ``sms`` SMs of ``_RESIDENT`` CTAs each wins: the
     fewest waves x tiles a CTA walks, then the fewest splits (longer walks,
-    fewer partials; no split left empty). bfloat16: one split per
-    256-column tile of the ``wgmma`` product, ``ceil(V / 256)``, the count
-    the C side requires."""
-    if dtype == torch.bfloat16:
+    fewer partials; no split left empty). bfloat16 and float16: one split
+    per 256-column tile of the ``wgmma`` product, ``ceil(V / 256)``, the
+    count the C side requires."""
+    if dtype in (torch.bfloat16, torch.float16):
         return -(-vocab // _WGMMA_TILE_N)
     t_tiles = -(-t_len // _TILE)
     v_tiles = -(-vocab // _TILE)
@@ -159,9 +174,9 @@ def fused_lm_head_ce_forward(h, w, labels):
     """h ``[T, H]``, w ``[H, V]``, labels ``[T]`` in ``[0, V)`` ->
     ``(loss [T], lse [T])`` float32, without building the logits.
 
-    CUDA tensors launch the kernels (float32 or bfloat16 h and w of one
-    dtype, contiguous, H and V multiples of 8) or raise; CPU tensors take
-    the plain version."""
+    CUDA tensors launch the kernels (float32, bfloat16 or float16 h and w
+    of one dtype, contiguous, 16-byte aligned, H and V multiples of 8) or
+    raise; CPU tensors take the plain version."""
     _check_shapes(h, w, labels, "fused_lm_head_ce_forward")
     if all(t.device.type == "cpu" for t in (h, w, labels)):
         return fused_lm_head_ce_forward_reference(h, w, labels)
@@ -180,8 +195,11 @@ def fused_lm_head_ce_forward(h, w, labels):
         lse.data_ptr(), part.data_ptr(), t_len, hid, vocab, splits, dtype,
         _build.stream_handle(dev))
     _build.check(lib, err, "fused_lm_head_ce_forward")
-    global fwd_launches
-    fwd_launches += 1
+    global fwd_launches, f16_fwd_launches
+    if h.dtype == torch.float16:
+        f16_fwd_launches += 1
+    else:
+        fwd_launches += 1
     return loss, lse
 
 
@@ -260,9 +278,13 @@ def fused_lm_head_ce_backward(h, w, labels, lse, g_t, events=None):
             cw, chunk, dtype, stream)
         _build.check(lib, err, "fused_lm_head_ce_backward (dw)")
         _mark(events, "dw")
-    global dh_launches, dw_launches
-    dh_launches += 1
-    dw_launches += 1
+    global dh_launches, dw_launches, f16_dh_launches, f16_dw_launches
+    if h.dtype == torch.float16:
+        f16_dh_launches += 1
+        f16_dw_launches += 1
+    else:
+        dh_launches += 1
+        dw_launches += 1
     return dh, dw
 
 

@@ -21,9 +21,10 @@ visible after dequantization instead of being clipped finite.
   same int8 planes and the same scales bit for bit.
 
 ``int8_weight_matmul(x, q, scales)`` is ``x @ dequantize_int8_weight(q,
-scales, x.dtype)`` in ``x``'s dtype, float32 or bfloat16. For CUDA tensors
-it launches ``csrc/w8_gemm.cu`` (each int8 element is dequantized once a
-CTA, so only the int8 planes and the scales are read from device memory)
+scales, x.dtype)`` in ``x``'s dtype, float32, bfloat16 or float16. For
+CUDA tensors it launches ``csrc/w8_gemm.cu`` (each int8 element is
+dequantized once a CTA, so only the int8 planes and the scales are read
+from device memory)
 with the tiles and K splits that its plan picks from the shapes, or
 raises; for CPU tensors it runs the plain version. A float32 ``x`` runs
 the kernel's fp32 mode (``pt_w8_gemm``, CUDA cores, planned by
@@ -31,11 +32,16 @@ the kernel's fp32 mode (``pt_w8_gemm``, CUDA cores, planned by
 tensor cores: ``mma.sync`` at M <= 32, ``wgmma`` above; planned by
 ``w8_plan_bf16``), the reference's numerics for a bf16 model: each
 weight rounded to bf16 once, the products summed in fp32, the output
-rounded to bf16 once. The reference has no Pallas kernel here: its
+rounded to bf16 once; a float16 ``x`` its float16 mode
+(``pt_w8_gemm_f16``: the bf16 mode's kernels and plan with float16
+operands, ``mma.sync`` / ``wgmma`` ``.f32.f16.f16``), the same numerics in
+float16, which is what the reference's weight-only decode of a float16
+model computes. The reference has no Pallas kernel here: its
 decode step dequantizes inside the traced step (to the weight's dtype)
 and XLA fuses the multiply into the matmul's operand read. ``launches``
-counts the kernel's launches in both modes and ``bf16_launches`` those of
-the bf16 mode (plain integers, reset and read by ``chip_smoke.py``).
+counts the kernel's launches in every mode, ``bf16_launches`` and
+``f16_launches`` those of the bf16 and float16 modes (plain integers,
+reset and read by ``chip_smoke.py``).
 
 ``int8_weight_routes(table)`` is the context the serving engine enters
 around its decode and mixed steps: inside it, every ``nn.Linear`` found in
@@ -100,19 +106,23 @@ W8B_SHARE = {16: 2, 32: 2, 64: 2, 128: 1}
 W8B_ROW_COST = {16: 8, 32: 9, 64: 6, 128: 8}
 W8B_RAMP = 256
 
-# kernel launches since the last reset: both modes, and the bf16 mode
+# kernel launches since the last reset: every mode, the bf16 mode and the
+# float16 mode
 launches = 0
 bf16_launches = 0
+f16_launches = 0
 # the loaded csrc/w8_gemm.cu, once built
 _lib = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"pt_w8_gemm": [_P] * 4 + [_I] * 7 + [_P],
                "pt_w8_gemm_bf16": [_P] * 4 + [_I] * 7 + [_P],
+               "pt_w8_gemm_f16": [_P] * 4 + [_I] * 7 + [_P],
                "pt_w8_cluster_ctas": [_I] * 3 + [_P],
                "pt_w8_bf16_cluster_ctas": [_I] * 3 + [_P]}
 # the C entry point of each activation dtype
-_ENTRY = {torch.float32: "pt_w8_gemm", torch.bfloat16: "pt_w8_gemm_bf16"}
+_ENTRY = {torch.float32: "pt_w8_gemm", torch.bfloat16: "pt_w8_gemm_bf16",
+          torch.float16: "pt_w8_gemm_f16"}
 
 
 def _group_scales(amax):
@@ -303,8 +313,8 @@ def int8_weight_matmul(x, q, scales):
     """``x (..., K) @ dequantize_int8_weight(q (K, N), scales (K / b, N),
     x.dtype)`` -> ``(..., N)`` in ``x``'s dtype.
 
-    CUDA tensors launch ``csrc/w8_gemm.cu`` (float32 or bfloat16 ``x``,
-    contiguous; int8 ``q`` and fp32 ``scales`` contiguous; ``b`` divides
+    CUDA tensors launch ``csrc/w8_gemm.cu`` (float32, bfloat16 or float16
+    ``x``, contiguous; int8 ``q`` and fp32 ``scales`` contiguous; ``b`` divides
     ``K``) in the mode of ``x``'s dtype, or raise; CPU tensors take the
     plain version."""
     if q.dim() != 2 or scales.dim() != 2 or x.shape[-1] != q.shape[0] \
@@ -321,9 +331,10 @@ def int8_weight_matmul(x, q, scales):
                          "CUDA device or all on the CPU")
     if x.dtype not in _ENTRY or q.dtype != torch.int8 \
             or scales.dtype != torch.float32:
-        raise ValueError("int8_weight_matmul: the kernel takes float32 or "
-                         "bfloat16 x, int8 q and float32 scales, got "
-                         "%s/%s/%s" % (x.dtype, q.dtype, scales.dtype))
+        raise ValueError("int8_weight_matmul: the kernel takes float32, "
+                         "bfloat16 or float16 x, int8 q and float32 "
+                         "scales, got %s/%s/%s"
+                         % (x.dtype, q.dtype, scales.dtype))
     if not (x.is_contiguous() and q.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("int8_weight_matmul: inputs must be contiguous")
@@ -332,18 +343,21 @@ def int8_weight_matmul(x, q, scales):
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    bf16 = x.dtype == torch.bfloat16
-    bm, chunk, splits = (w8_plan_bf16 if bf16 else w8_plan)(m, n, k)
+    # both 16-bit modes run the tensor-core kernels on the bf16 mode's plan
+    tc = x.dtype != torch.float32
+    bm, chunk, splits = (w8_plan_bf16 if tc else w8_plan)(m, n, k)
     lib = _library()
     err = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), q.data_ptr(), scales.data_ptr(), out.data_ptr(),
         m, n, k, k // scales.shape[0], bm, chunk, splits,
         _build.stream_handle(dev))
     _build.check(lib, err, "int8_weight_matmul")
-    global launches, bf16_launches
+    global launches, bf16_launches, f16_launches
     launches += 1
-    if bf16:
+    if x.dtype == torch.bfloat16:
         bf16_launches += 1
+    elif x.dtype == torch.float16:
+        f16_launches += 1
     return out
 
 

@@ -54,7 +54,8 @@ from ..nn.layers import Embedding, Linear, RMSNorm
 from .generation import (DecodeCache, GenerationMixin, cache_update,
                          decode_mask, masked_decode_attention)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 class LlamaConfig:

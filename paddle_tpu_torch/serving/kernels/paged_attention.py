@@ -4,7 +4,7 @@ Counterpart of ``paddle_tpu/serving/kernels/paged_attention.py``. The
 history of every slot lives scattered across fixed-size pool pages:
 
   k/v pools    [NB, bs, Hkv, D]  page pools (page 0 is the trash page):
-                                 float32/bfloat16, or int8 beside
+                                 float32/bfloat16/float16, or int8 beside
   k/v scales   [NB, bs, Hkv]     fp32 per-vector scales (int8 pools only,
                                  ``FLAGS_serving_quant_kv``)
   block_tables [S, MB] int32     page ids per slot, trash-padded
@@ -31,9 +31,19 @@ card, so a call never synchronises). ``*_split_reference`` compute the
 same split-then-merge in PyTorch; the CPU tests hold them against the
 reference, and nothing on the serving path calls them.
 
+float16 (the reference's kernels upcast any float q and pages to fp32 and
+write the output in q's dtype) takes float16 q with float16 pools or int8
+pools: the kernels' math stays fp32 and only the output is rounded to
+float16. The plain versions are the reference's jnp form, which also
+rounds the probabilities to v's dtype before the last product; the
+kernels keep them in fp32, as the reference's Pallas kernels do.
+
 Launch counters (plain integers, reset and read by ``chip_smoke.py``),
 one per kernel and pool mode: ``launches`` / ``int8_launches`` (decode),
-``mixed_launches`` / ``mixed_int8_launches`` (mixed).
+``mixed_launches`` / ``mixed_int8_launches`` (mixed), for float32 and
+bfloat16 q; float16 q counts apart, in ``f16_launches`` /
+``f16_int8_launches`` and ``f16_mixed_launches`` /
+``f16_mixed_int8_launches``.
 """
 from __future__ import annotations
 
@@ -69,6 +79,10 @@ launches = 0
 int8_launches = 0
 mixed_launches = 0
 mixed_int8_launches = 0
+f16_launches = 0
+f16_int8_launches = 0
+f16_mixed_launches = 0
+f16_mixed_int8_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -344,7 +358,8 @@ def _kernel_args(name, q, k_pool, v_pool, k_scale, v_scale, ints):
         raise ValueError("%s: all inputs must be on one CUDA device or all "
                          "on the CPU" % name)
     if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError("%s: the kernel takes float32 or bfloat16 q, got %s"
+        raise ValueError("%s: the kernel takes float32, bfloat16 or float16 "
+                         "q, got %s"
                          % (name, q.dtype))
     if k_scale is None:
         if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
@@ -403,8 +418,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
     """q ``[S, H, D]`` over the paged history -> ``[S, H, D]``.
 
     CUDA tensors launch the decode kernel, and with more than one split
-    the combine (float32 or bfloat16 q; pools of q's dtype, or int8 with
-    float32 ``k_scale``/``v_scale``; head_dim 64 or 128; contiguous,
+    the combine (float32, bfloat16 or float16 q; pools of q's dtype, or
+    int8 with float32 ``k_scale``/``v_scale``; head_dim 64 or 128; contiguous,
     16-byte aligned pools; int32 tables and lengths) or raise; CPU tensors
     take the plain version."""
     _check_shapes(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
@@ -433,8 +448,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
         plan.splits, scale, _build.DTYPE_CODES[q.dtype], kv_code,
         _build.stream_handle(q.device))
     _build.check(lib, err, "paged_attention")
-    global launches, int8_launches
-    if k_scale is None:
+    global launches, int8_launches, f16_launches, f16_int8_launches
+    if q.dtype == torch.float16:
+        if k_scale is None:
+            f16_launches += 1
+        else:
+            f16_int8_launches += 1
+    elif k_scale is None:
         launches += 1
     else:
         int8_launches += 1
@@ -448,8 +468,8 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
     finite from the plain version.
 
     CUDA tensors launch the mixed rows or tiles kernel (``split_plan``),
-    and with more than one split the combine (float32 or bfloat16 q;
-    pools of q's dtype, or int8 with float32 scales; head_dim 64 or 128;
+    and with more than one split the combine (float32, bfloat16 or float16
+    q; pools of q's dtype, or int8 with float32 scales; head_dim 64 or 128;
     contiguous, 16-byte aligned pools; int32 tables and lengths;
     ``hist + q_len <= MB * bs``) or raise; CPU tensors take the plain
     version."""
@@ -481,7 +501,13 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
         _build.DTYPE_CODES[q.dtype], kv_code, _build.stream_handle(q.device))
     _build.check(lib, err, "mixed_paged_attention")
     global mixed_launches, mixed_int8_launches
-    if k_scale is None:
+    global f16_mixed_launches, f16_mixed_int8_launches
+    if q.dtype == torch.float16:
+        if k_scale is None:
+            f16_mixed_launches += 1
+        else:
+            f16_mixed_int8_launches += 1
+    elif k_scale is None:
         mixed_launches += 1
     else:
         mixed_int8_launches += 1

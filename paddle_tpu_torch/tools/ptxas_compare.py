@@ -9,8 +9,8 @@ library already built in a checkout is kept), reads the ptxas report
 kept beside each library, and prints one line per kernel of OLD_ROOT:
 its registers, stack bytes, spill-store and spill-load bytes in both
 trees. A kernel that NEW_ROOT templates on its operand type is matched
-by its bf16 instance (``k<64, bf16>`` for OLD_ROOT's ``k<64>``); kernels
-only NEW_ROOT has are listed after. The names and reports are read as
+by its bf16 instance (``k<64, bf16>`` for OLD_ROOT's ``k<64>``, ``k<bf16>``
+for OLD_ROOT's ``k``); kernels only NEW_ROOT has are listed after. The names and reports are read as
 ``chip_smoke.py`` phase 2 reads them (NEW_ROOT's ``ptxas_report``). Exits
 1 if a kernel of OLD_ROOT is missing from NEW_ROOT or reads otherwise
 there.
@@ -54,7 +54,8 @@ def main(argv=None):
         seen = set()
         for r in report(old_path):
             kernel = r["kernel"]
-            twin = kernel[:-1] + ", bf16>" if kernel.endswith(">") else None
+            twin = (kernel[:-1] + ", bf16>" if kernel.endswith(">")
+                    else kernel + "<bf16>")
             key = kernel if kernel in new else twin
             n = new.get(key)
             seen.add(key)

@@ -182,20 +182,26 @@ def test_plain_bf16_matmul_is_the_references(m, k, n):
 
 def test_bf16_mode_signature_matches_the_c_entry_point():
     src = (Path(_build.CSRC) / "w8_gemm.cu").read_text()
-    for fn in ("pt_w8_gemm", "pt_w8_gemm_bf16"):
+    for fn in ("pt_w8_gemm", "pt_w8_gemm_bf16", "pt_w8_gemm_f16"):
         proto = re.search(r"int %s\(([^)]*)\)" % fn, src).group(1)
         kinds = ["p" if "*" in a else "i" for a in proto.split(",")]
         assert kinds == ["p" if t is quant._P else "i"
                          for t in quant._SIGNATURES[fn]]
-    # each dtype reaches its own entry point, and the bf16 one the
-    # tensor-core kernel's dispatch (bf16 pointers), never the fp32 mode's
+    # each dtype reaches its own entry point, and the bf16 and float16 ones
+    # the tensor-core kernels' dispatch (bf16 or __half pointers), never
+    # the fp32 mode's
     assert quant._ENTRY == {torch.float32: "pt_w8_gemm",
-                            torch.bfloat16: "pt_w8_gemm_bf16"}
-    body = re.search(r"int pt_w8_gemm_bf16\([^)]*\)\s*\{(.*?)\n\}", src,
+                            torch.bfloat16: "pt_w8_gemm_bf16",
+                            torch.float16: "pt_w8_gemm_f16"}
+    for fn, tx in (("pt_w8_gemm_bf16", "bf16"), ("pt_w8_gemm_f16", "__half")):
+        body = re.search(r"int %s\([^)]*\)\s*\{(.*?)\n\}" % fn, src,
+                         re.S).group(1)
+        assert "w8_gemm_tc<%s>(x" % tx in body
+    body = re.search(r"int w8_gemm_tc\([^)]*\)\s*\{(.*?)\n\}", src,
                      re.S).group(1)
-    assert "dispatch_bf16<true>(xb" in body
-    assert "dispatch_bf16<false>(xb" in body
-    assert "static_cast<const bf16*>(x)" in body
+    assert "dispatch_tc<true>(xt" in body
+    assert "dispatch_tc<false>(xt" in body
+    assert "static_cast<const TX*>(x)" in body
     assert re.search(r"\bdispatch<", body) is None
     assert "typedef __nv_bfloat16 bf16;" in src
 
@@ -218,9 +224,10 @@ class _FakeLib:
 
 def test_cuda_tensors_reach_the_entry_point_of_their_dtype(monkeypatch):
     """Fake CUDA tensors (no card here): float32 x reaches pt_w8_gemm,
-    bfloat16 x pt_w8_gemm_bf16 with a bf16 output, both count in
-    ``launches`` and the bf16 one in ``bf16_launches``; float16 raises.
-    The plain version never runs for CUDA tensors."""
+    bfloat16 x pt_w8_gemm_bf16 with a bf16 output and float16 x
+    pt_w8_gemm_f16 with a float16 output; all count in ``launches``, the
+    bf16 one in ``bf16_launches`` and the float16 one in ``f16_launches``;
+    a float64 x raises. The plain version never runs for CUDA tensors."""
     import warnings
 
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -232,7 +239,7 @@ def test_cuda_tensors_reach_the_entry_point_of_their_dtype(monkeypatch):
     monkeypatch.setattr(quant, "_lib", lib)
     monkeypatch.setattr(_build, "stream_handle", lambda device: None)
     monkeypatch.setattr(quant, "int8_weight_matmul_reference", no_plain)
-    before = (quant.launches, quant.bf16_launches)
+    before = (quant.launches, quant.bf16_launches, quant.f16_launches)
     with FakeTensorMode(), warnings.catch_warnings():
         warnings.simplefilter("ignore")   # FakeTensor.data_ptr()
         q = torch.empty(2048, 256, dtype=torch.int8, device="cuda")
@@ -242,12 +249,15 @@ def test_cuda_tensors_reach_the_entry_point_of_their_dtype(monkeypatch):
         y16 = quant.int8_weight_matmul(
             torch.empty(2, 8, 2048, dtype=torch.bfloat16, device="cuda"), q,
             s)
-        with pytest.raises(ValueError, match="float32 or bfloat16 x"):
+        yh = quant.int8_weight_matmul(
+            torch.empty(16, 2048, dtype=torch.float16, device="cuda"), q, s)
+        with pytest.raises(ValueError, match="bfloat16 or float16 x"):
             quant.int8_weight_matmul(
-                torch.empty(16, 2048, dtype=torch.float16, device="cuda"), q,
+                torch.empty(16, 2048, dtype=torch.float64, device="cuda"), q,
                 s)
     assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert yh.dtype == torch.float16 and tuple(yh.shape) == (16, 256)
     assert tuple(y16.shape) == (2, 8, 256)
-    assert lib.calls == ["pt_w8_gemm", "pt_w8_gemm_bf16"]
-    assert (quant.launches, quant.bf16_launches) == (before[0] + 2,
-                                                     before[1] + 1)
+    assert lib.calls == ["pt_w8_gemm", "pt_w8_gemm_bf16", "pt_w8_gemm_f16"]
+    assert (quant.launches, quant.bf16_launches, quant.f16_launches) == (
+        before[0] + 3, before[1] + 1, before[2] + 1)

@@ -72,10 +72,11 @@ WG_C = _constants(WG, TC_C)
 
 
 def _launched():
-    """``(family, n)`` of every kernel the bf16 dispatch launches, in bm
-    order: ``("MmaKernel", MI)``, ``("WgmmaKernel", WG)``."""
+    """``(family, n)`` of every kernel the tensor-core dispatch (the bf16
+    and float16 modes') launches, in bm order: ``("MmaKernel", MI)``,
+    ``("WgmmaKernel", WG)``, each for the mode's 16-bit type ``TX``."""
     return [(f, int(v)) for f, v in re.findall(
-        r"launch<(\w+)<(\d+), kVec>>", _code(_body("dispatch_bf16")))]
+        r"launch<(\w+)<(\d+), kVec, TX>>", _code(_body("dispatch_tc")))]
 
 
 def _bm(family, v):
@@ -92,27 +93,31 @@ def _wg_tile():
 def test_bf16_kernels_run_bf16_products_with_fp32_accumulators():
     tc, wg = _code(TC), _code(WG)
     # mma.sync m16n8k16, B fragments from ldmatrix.trans over the int8 tile
+    # (float16: the same fragments on mma_f16, .f32.f16.f16.f32)
     assert "ptmma::mma_bf16(acc[mi][h][p]" in tc
+    assert "ptmma::mma_f16(acc[mi][h][p]" in tc
     assert re.search(r"float acc\[MI\]\[2\]\[2\]\[4\];", tc)
-    mma = HEADER[HEADER.index("void mma_bf16("):]
-    mma = mma[:mma.index("\n}\n")]
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in mma
-    assert '"+f"(d[0])' in mma             # fp32 accumulators in and out
+    for fn, form in (("mma_bf16", "bf16.bf16"), ("mma_f16", "f16.f16")):
+        mma = HEADER[HEADER.index("void %s(" % fn):]
+        mma = mma[:mma.index("\n}\n")]
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.%s.f32" % form in mma
+        assert '"+f"(d[0])' in mma         # fp32 accumulators in and out
     assert "ldmatrix_x4_trans(r, b_row" in tc
     assert "wgmma" not in tc
     # wgmma m64nBMk16 on y^T = w^T x^T: w^T from registers (a_frags over
     # the int8 tile), x K-major (no transpose bit), fp32 accumulators
     assert re.search(r"float d\[BM / 2\];", wg)
     assert re.findall(r"ptwg::wgmma_\w+<[^>]*>", wg) == [
-        "ptwg::wgmma_rs<0>", "ptwg::wgmma_wait<1>", "ptwg::wgmma_wait<0>"]
-    assert ("ptwg::wgmma_rs<0>(d, a[s >> 1][s & 1], ptwg::desc_kslice(st, "
-            "s, kBox), 1)") in " ".join(wg.split())
+        "ptwg::wgmma_rs<0, TX>", "ptwg::wgmma_wait<1>", "ptwg::wgmma_wait<0>"]
+    assert ("ptwg::wgmma_rs<0, TX>(d, a[s >> 1][s & 1], "
+            "ptwg::desc_kslice(st, s, kBox), 1)") in " ".join(wg.split())
     for n, r in (("64", 32), ("128", 64)):
         rs = WG_HEADER[WG_HEADER.index("void wgmma_rs(float (&d)[%d]" % r):]
         rs = rs[:rs.index("\n}\n")]
-        assert ("wgmma.mma_async.sync.aligned.m64n%sk16.f32.bf16.bf16" % n
-                in rs)
-    assert "ldmatrix_x4_trans(" in wg and "tc::dequant_pairs(" in wg
+        for form in ("bf16.bf16", "f16.f16"):
+            assert ("wgmma.mma_async.sync.aligned.m64n%sk16.f32.%s"
+                    % (n, form) in rs)
+    assert "ldmatrix_x4_trans(" in wg and "tc::dequant_pairs<TX>(" in wg
     assert "fence.proxy.async.shared::cta" in wg   # cp.async x -> wgmma
     # two A register sets alternate by stage; each stays live until the
     # products that read it have ended
@@ -127,10 +132,14 @@ def test_fp32_kernels_stay_on_the_cuda_cores():
                  "bfloat16"):
         assert word not in code, word
     assert "fmaf(" in code
-    # no kernel is templated on the activation type any more: the bf16
-    # mode's kernels are the tensor-core ones alone
-    for text in (FP32, TC, WG):
-        assert "typename TX" not in text and "Act<" not in text
+    # no fp32 kernel is templated on the activation type any more: the
+    # 16-bit modes' kernels are the tensor-core ones alone, templated on
+    # their 16-bit type TX, and instantiated for bf16 and __half only
+    assert "typename TX" not in FP32 and "Act<" not in FP32
+    for text in (TC, WG):
+        assert "typename TX" in text and "Act<" not in text
+    calls = re.findall(r"w8_gemm_tc<(\w+)>\(", SRC)
+    assert sorted(calls) == ["__half", "bf16"]
 
 
 def test_no_atomics():
@@ -140,15 +149,19 @@ def test_no_atomics():
 
 
 def test_bf16_entry_reaches_only_the_tensor_core_kernels():
-    body = _code(_body("pt_w8_gemm_bf16"))
-    assert re.findall(r"dispatch\w*<", body) == ["dispatch_bf16<"] * 2
+    # the bf16 and float16 entries share one body, each with its type
+    assert "w8_gemm_tc<bf16>(" in _code(_body("pt_w8_gemm_bf16"))
+    assert "w8_gemm_tc<__half>(" in _code(_body("pt_w8_gemm_f16"))
+    body = _code(_body("w8_gemm_tc"))
+    assert "static_cast<const TX*>(x)" in body
+    assert re.findall(r"dispatch\w*<", body) == ["dispatch_tc<"] * 2
     assert _launched() == [("MmaKernel", 1), ("MmaKernel", 2),
                            ("WgmmaKernel", 64), ("WgmmaKernel", 128)]
     mma = re.search(r"struct MmaKernel \{.*?\n\};", SRC, re.S).group(0)
-    assert "tc::w8_gemm_mma<MI, kVec>" in mma
+    assert "tc::w8_gemm_mma<MI, kVec, TX>" in mma
     wgk = re.search(r"struct WgmmaKernel \{.*?\n\};", SRC, re.S).group(0)
-    assert "wg::w8_gemm_wgmma<BM, kVec>" in wgk
-    dispatch = _code(_body("dispatch_bf16"))
+    assert "wg::w8_gemm_wgmma<BM, kVec, TX>" in wgk
+    dispatch = _code(_body("dispatch_tc"))
     assert "F32Kernel" not in dispatch
     # the fp32 entry reaches only the CUDA-core kernels
     body = _code(_body("pt_w8_gemm"))
@@ -188,7 +201,7 @@ def test_bf16_plan_constants_match_the_source():
     assert quant.W8B_KT == c["kBK"]
     bms = [_bm(f, v) for f, v in _launched()]
     assert bms == sorted(quant.W8B_BM) == [16, 32, 64, 128]
-    entry = _code(_body("pt_w8_gemm_bf16"))
+    entry = _code(_body("w8_gemm_tc"))
     assert sorted(map(int, re.findall(r"bm != (\d+)", entry))) == bms
     assert "tc::kBK" in entry
     assert sorted(quant.W8B_CLUSTER_CTAS) == bms
