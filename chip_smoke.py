@@ -338,6 +338,23 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 version on the card (or diverging first at a near-tie),
                 exact launch counts of kernels 1, 7, 8 (22 a decode or
                 mixed step) and 10 (154 a step)
+  17. ops / O2  run last: (a) every op of paddle_tpu_torch.ops and
+                tensor.attribute (295 functions; the in-place forms,
+                indexing and _C_ops) on the card against the same call on
+                a CPU copy, float32 with TF32 off and bf16 / float16 where
+                the op takes them, within a limit by family (OPS_TOLS,
+                OPS_HALF_TOLS); decompositions by values and
+                reconstructions; the random ops by shape, dtype, range and
+                seed-determinism on the card; (b) llama1b's training row
+                (16 layers, recompute, 8 x 1024, AdamW,
+                FLAGS_fused_lm_head_ce) with float32 weights through
+                decorate(level="O2") under auto_cast(level="O2"): 3 steps
+                in bf16, 3 in float16 under the default GradScaler and one
+                at 2^40 skipped, each against the same steps through every
+                plain version (O2_LOSS_RTOL / O2_GRAD_RTOL, backed by
+                faults planted with paddle_tpu_torch/tools/amp_faults.py
+                --o2), exact launch counts of kernels 1-6 in each dtype
+                (the kernels line's "o2 bf16" / "o2 fp16" paths)
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -6012,6 +6029,788 @@ def phase_fp16_model(seed):
     return rows, paths, {"train": train, "serving": serving}
 
 
+# -- phase 17: the op layer and AMP O2 ----------------------------------------
+
+# (a) every op of paddle_tpu_torch.ops (creation, math, reduction,
+# comparison, manipulation, linalg, extras), tensor.attribute, the in-place
+# forms and indexing, on the card against the same call on a CPU copy.
+# Limits (rtol, atol) by family, float32 with TF32 off: sums and products
+# in another order 1e-5 / 1e-6; transcendental functions (CUDA's and the
+# CPU's libm differ by an ulp or two) 1e-4 / 1e-5; linear algebra
+# (cuSOLVER / cuBLAS against LAPACK, well-conditioned inputs) 1e-4 / 1e-4;
+# exact ("x") where an op only moves, compares or counts values. bfloat16
+# and float16 (card against the CPU in the same dtype): a rounding or two
+# of the largest value apart (a scan or a sum may round its partial sums
+# in the narrow type on one side and in float32 on the other: a bf16
+# cumsum read 0.0234 at partial sums ~6), 1e-2 / 2e-3 relative, and the
+# same times max(1, max |CPU|) absolute.
+OPS_TOLS = {"f": (1e-5, 1e-6), "t": (1e-4, 1e-5), "l": (1e-4, 1e-4)}
+OPS_HALF_TOLS = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (2e-3, 2e-3)}
+OPS_HALF = (torch.bfloat16, torch.float16)
+OPS_MODULES = ("creation", "math", "reduction", "comparison", "manipulation",
+               "linalg", "extras")
+
+
+def ops_inputs(seed):
+    """The sweep's numpy inputs by marker (floats float32)."""
+    rng = np.random.default_rng(seed + 17)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    m = rng.standard_normal((4, 4)).astype(np.float32)
+    spd = m @ m.T + 4 * np.eye(4, dtype=np.float32)
+    lu, piv = torch.linalg.lu_factor(torch.from_numpy(m))
+    return {
+        "LUM": lu.numpy(), "LUP": piv.to(torch.int32).numpy(),
+        "X": u(-2, 2, 3, 4), "Y": u(-2, 2, 3, 4), "Z": u(-2, 2, 3, 4),
+        "POS": u(0.2, 3, 3, 4), "UNIT": u(-0.9, 0.9, 3, 4),
+        "GT1": u(1.1, 3, 3, 4), "P01": u(0.05, 0.95, 3, 4),
+        "HALFUP": u(0.5, 2, 3, 4), "X3": u(-2, 2, 2, 3, 4),
+        "X3P": u(0.5, 1.5, 2, 3, 4), "M44": u(-2, 2, 4, 4),
+        "M34": u(-2, 2, 3, 4), "M43": u(-2, 2, 4, 3), "M45": u(-2, 2, 4, 5),
+        "M35": u(-2, 2, 3, 5), "M53": u(-2, 2, 5, 3), "M52": u(-2, 2, 5, 2),
+        "M42": u(-2, 2, 4, 2), "M23": u(-2, 2, 2, 3), "M32": u(-2, 2, 3, 2),
+        "B234": u(-2, 2, 2, 3, 4), "B242": u(-2, 2, 2, 4, 2),
+        "V3": u(-2, 2, 3), "V4": u(-2, 2, 4), "V12": u(-2, 2, 12),
+        "V20": u(-2, 2, 20), "C43": u(-2, 2, 4, 3), "IMG": u(-2, 2, 1, 2, 5, 5),
+        "SPD": spd, "SPD3": spd[:3, :3].copy(),
+        "LOW": np.linalg.cholesky(spd[:3, :3]).astype(np.float32),
+        "RANK2": np.outer(np.arange(4.0), np.ones(3)).astype(np.float32),
+        "NANS": np.array([np.nan, np.inf, -np.inf, 1.5], np.float32),
+        "NANROWS": np.array([[1.0, np.nan, 3.0, 2.0], [np.nan] * 4],
+                            np.float32),
+        "TIES": np.array([[1.0, 2.0, 2.0, 1.0], [3.0, 3.0, 0.0, 0.0]],
+                         np.float32),
+        "SEQ": np.array([1.0, 3.0, 5.0, 7.0], np.float32),
+        "Q3": np.array([0.1, 0.5, 0.9], np.float32),
+        "PROBS": np.array([[0.2, 0.3, 0.5], [0.6, 0.4, 0.0]], np.float32),
+        "INT": rng.integers(1, 20, (3, 4)).astype(np.int32),
+        "INT2": rng.integers(1, 20, (3, 4)).astype(np.int32),
+        "SINT": rng.integers(-9, 9, (3, 4)).astype(np.int32),
+        "BIN": rng.integers(0, 2, (3, 4)).astype(np.int32),
+        "SMALL": rng.integers(0, 3, (3, 6)).astype(np.int32),
+        "BOOL": rng.random((3, 4)) < 0.5, "BOOL2": rng.random((3, 4)) < 0.5,
+        "IDX5": rng.integers(0, 4, 5).astype(np.int64),
+        "IDX23": rng.integers(0, 3, (2, 3)).astype(np.int64),
+        "IDXND": rng.integers(0, 2, (5, 2)).astype(np.int64),
+        "IDX32": rng.integers(0, 4, (3, 2)).astype(np.int64),
+        "ROWS": np.array([2, 0], np.int64),
+        "ROWS2": np.array([[2], [0]], np.int64), "COL1": np.array(
+            [[0], [2], [1]], np.int64),
+        "ADDIDX": np.array([0, 2, 0], np.int64),
+        "REP": np.array([1, 0, 2], np.int64), "IDS": rng.integers(
+            0, 5, 12).astype(np.int64),
+        "RUNS": np.array([1, 1, 2, 2, 2, 3, 1], np.int64),
+        "TAKE": rng.integers(-12, 12, 5).astype(np.int64),
+        "WIDE": rng.integers(-30, 30, 5).astype(np.int64),
+        "SHARD": rng.integers(0, 20, (6, 1)).astype(np.int64),
+        "MUX": np.array([[1], [0], [1]], np.int64),
+        "EMPTY": np.zeros((0, 3), np.float32),
+    }
+
+
+def OP(path, *args, fam="x", half=False, **kw):
+    """One sweep case: ``path`` (``module.name``) called with ``args``
+    (markers of ``ops_inputs`` for arrays, lists of markers for lists of
+    tensors, anything else as it is)."""
+    return (path, args, kw, fam, half)
+
+
+def ops_cases():
+    cases = [
+        # creation
+        OP("creation.to_tensor", [[1, 2], [3, 4]]),
+        OP("creation.to_tensor", "X"),
+        OP("creation.zeros", [2, 3]), OP("creation.ones", [2, 3], "int32"),
+        OP("creation.full", [2, 2], 3.5), OP("creation.empty", [2]),
+        OP("creation.zeros_like", "X", half=True),
+        OP("creation.ones_like", "X", "float16"),
+        OP("creation.full_like", "X", 2.0), OP("creation.empty_like", "INT"),
+        OP("creation.arange", 5), OP("creation.arange", 1.0, 3.0, 0.5),
+        OP("creation.linspace", 0.0, 1.0, 5, fam="f"),
+        OP("creation.logspace", 0.0, 2.0, 3, fam="t"),
+        OP("creation.eye", 3, 4), OP("creation.diag", "V4"),
+        OP("creation.diag", "M44", 1), OP("creation.diag", "V3", 0, 9.0),
+        OP("creation.diagflat", "M23", 1),
+        OP("creation.tril", "M44", -1, half=True),
+        OP("creation.triu", "M44", 1, half=True),
+        OP("creation.meshgrid", "V3", "V4"), OP("creation.assign", "X"),
+        OP("creation.clone", "X", half=True), OP("creation.numel", "X"),
+    ]
+    unary = (("abs", "X", "x"), ("neg", "X", "x"), ("exp", "X", "t"),
+             ("expm1", "X", "t"), ("log", "POS", "t"), ("log2", "POS", "t"),
+             ("log10", "POS", "t"), ("log1p", "POS", "t"),
+             ("sqrt", "POS", "t"), ("rsqrt", "POS", "t"),
+             ("square", "X", "f"), ("sin", "X", "t"), ("cos", "X", "t"),
+             ("tan", "UNIT", "t"), ("asin", "UNIT", "t"),
+             ("acos", "UNIT", "t"), ("atan", "X", "t"), ("sinh", "X", "t"),
+             ("cosh", "X", "t"), ("tanh", "X", "t"), ("asinh", "X", "t"),
+             ("acosh", "GT1", "t"), ("atanh", "UNIT", "t"),
+             ("floor", "X", "x"), ("ceil", "X", "x"), ("round", "X", "x"),
+             ("round_", "X", "x"), ("trunc", "X", "x"), ("frac", "X", "f"),
+             ("sign", "X", "x"), ("reciprocal", "POS", "f"),
+             ("erf", "X", "t"), ("erfinv", "UNIT", "t"),
+             ("lgamma", "POS", "t"), ("digamma", "POS", "t"),
+             ("i0", "X", "t"), ("sigmoid", "X", "t"),
+             ("rad2deg", "X", "f"), ("deg2rad", "X", "f"),
+             ("angle", "X", "x"), ("conj", "X", "x"), ("real", "X", "x"),
+             ("imag", "X", "x"), ("isnan", "NANS", "x"),
+             ("isinf", "NANS", "x"), ("isfinite", "NANS", "x"),
+             ("squared_l2_norm", "X", "f"))
+    half_ok = {"abs", "neg", "exp", "log", "sqrt", "rsqrt", "square", "sin",
+               "cos", "tanh", "floor", "ceil", "round", "sign",
+               "reciprocal", "erf", "sigmoid", "isnan"}
+    cases += [OP("math." + n, a, fam=f, half=n in half_ok)
+              for n, a, f in unary]
+    binary = (("add", "f"), ("subtract", "f"), ("multiply", "f"),
+              ("divide", "f"), ("maximum", "x"), ("minimum", "x"),
+              ("fmax", "x"), ("fmin", "x"), ("atan2", "t"),
+              ("heaviside", "x"), ("nextafter", "x"), ("hypot", "t"),
+              ("copysign", "x"), ("logaddexp", "t"), ("lerp", "f"))
+    cases += [OP("math." + n, "X", "Y", *(() if n != "lerp" else (0.3,)),
+                 fam=f, half=n in ("add", "subtract", "multiply", "divide",
+                                   "maximum", "minimum"))
+              for n, f in binary]
+    cases += [
+        OP("math.add", "X", 2.0, fam="f", half=True),
+        OP("math.multiply", "INT", "INT2"), OP("math.divide", "INT", "INT2",
+                                               fam="f"),
+        OP("math.floor_divide", "X", "HALFUP"),
+        OP("math.floor_divide", "SINT", "INT2"),
+        OP("math.remainder", "X", "HALFUP", fam="f"),
+        OP("math.mod", "SINT", "INT2"), OP("math.floor_mod", "SINT", "INT2"),
+        OP("math.pow", "POS", "Y", fam="t"), OP("math.pow_", "X", 2,
+                                                fam="f", half=True),
+        OP("math.gcd", "INT", "INT2"), OP("math.lcm", "INT", "INT2"),
+        OP("math.scale", "X", 2.0, 1.0, fam="f", half=True),
+        OP("math.scale", "X", 2.0, 1.0, False, fam="f"),
+        OP("math.clip", "X", -0.5, 0.5, half=True),
+        OP("math.stanh", "X", fam="t"), OP("math.logit", "P01", fam="t"),
+        OP("math.logit", "P01", 0.1, fam="t"),
+        OP("math.multiply_add", "X", "Y", "Z", fam="f"),
+        OP("math.addmm", "M35", "M34", "M45", 0.5, 2.0, fam="l"),
+        OP("math.matmul", "M34", "M45", fam="l", half=True),
+        OP("math.matmul", "B234", "B242", False, False, fam="l"),
+        OP("math.dot", "M34", "Y", fam="l"), OP("math.mm", "M44", "M43",
+                                                 fam="l"),
+        OP("math.bmm", "B234", "B242", fam="l"),
+        OP("math.mv", "M44", "V4", fam="l"),
+        OP("math.inner", "M34", "X", fam="l"),
+        OP("math.outer", "V3", "M23", fam="f"),
+        OP("math.kron", "M23", "M32", fam="f"),
+        OP("math.cross", "C43", "C43"), OP("math.trace", "M44", 1, fam="f"),
+        OP("math.diagonal", "X3", 1, 1, 2),
+        OP("math.cumsum", "X", fam="f", half=True),
+        OP("math.cumsum", "INT", 0), OP("math.cumprod", "HALFUP", 1,
+                                       fam="f"),
+        OP("math.cummax_values", "X", 1), OP("math.cummin_values", "X", 0),
+        OP("math.nan_to_num", "NANS"),
+        OP("math.nan_to_num", "NANS", 1.0, 9.0, -9.0),
+        OP("math.increment", "X", 2.0, fam="f"),
+        OP("math.cast", "X", "int32"), OP("math.cast", "X", "float16"),
+        OP("math.astype", "INT", "bool"),
+        OP("math.logcumsumexp", "X", 1, fam="t"),
+        OP("math.dist", "X", "Y", fam="f"),
+        OP("math.dist", "X", "Y", float("inf")),
+        OP("math.dist", "X", "Y", 1.5, fam="t"),
+        OP("math.renorm", "X", 2.0, 0, 1.0, fam="t"),
+        OP("math.mode", "SMALL", 1), OP("math.mode", "TIES", -1, True),
+        OP("math.nanmedian", "NANROWS", 1, fam="f"),
+        OP("math.clip_by_norm", "X", 1.0, fam="f"),
+        OP("math.add_n", ["X", "Y", "Z"], fam="f"),
+        OP("math.identity_loss", "X", "mean", fam="f"),
+    ]
+    for n in ("sum", "mean", "prod", "max", "min", "amax", "amin", "nansum",
+              "nanmean", "logsumexp", "sum_", "max_", "min_"):
+        fam = "t" if n == "logsumexp" else (
+            "x" if n.rstrip("_") in ("max", "min", "amax", "amin") else "f")
+        src = "X3P" if n == "prod" else "X3"
+        cases += [OP("reduction." + n, src, fam=fam, half=n in ("sum",
+                                                                 "mean",
+                                                                 "max")),
+                  OP("reduction." + n, src, [0, 2], True, fam=fam)]
+    cases += [
+        OP("reduction.sum", "INT"), OP("reduction.sum", "X", 1, False,
+                                       "float16"),
+        OP("reduction.all", "BOOL"), OP("reduction.all_", "INT", 1),
+        OP("reduction.any", "BOOL", 0, True), OP("reduction.any_", "BIN"),
+        OP("reduction.std", "M35", fam="f"),
+        OP("reduction.var", "M35", [0, 1], False, fam="f"),
+        OP("reduction.median", "M34", 1, fam="f"),
+        OP("reduction.quantile", "M35", [0.1, 0.5, 0.9], 1, fam="f"),
+        OP("reduction.argmax", "X", half=True),
+        OP("reduction.argmax", "X", 1, True),
+        OP("reduction.argmin", "X", 0, False, "int32"),
+        OP("reduction.count_nonzero", "BIN", 1, True),
+    ]
+    cases += [OP("comparison." + n, "X", "Y", half=n == "less_than")
+              for n in ("equal", "not_equal", "greater_than",
+                        "greater_equal", "less_than", "less_equal")]
+    cases += [OP("comparison." + n, "BOOL", "BOOL2")
+              for n in ("logical_and", "logical_or", "logical_xor")]
+    cases += [OP("comparison." + n, "INT", "INT2")
+              for n in ("bitwise_and", "bitwise_or", "bitwise_xor")]
+    cases += [
+        OP("comparison.logical_not", "BOOL"),
+        OP("comparison.bitwise_not", "SINT"),
+        OP("comparison.isclose", "X", "Y", 1e-5, 2.0),
+        OP("comparison.allclose", "X", "X"),
+        OP("comparison.equal_all", "INT", "INT"),
+        OP("comparison.is_empty", "EMPTY"),
+        OP("comparison.in1d", "INT", "IDX5"),
+        # manipulation
+        OP("manipulation.reshape", "M34", [6, -1], half=True),
+        OP("manipulation.transpose", "X3", [2, 0, 1], half=True),
+        OP("manipulation.t", "M23"),
+        OP("manipulation.concat", ["M23", "M23"], 0, half=True),
+        OP("manipulation.stack", ["X", "Y"], 1),
+        OP("manipulation.split", "M34", [1, -1, 2], 1),
+        OP("manipulation.chunk", "M44", 2),
+        OP("manipulation.unbind", "M23", 1),
+        OP("manipulation.squeeze", "X3", 0),
+        OP("manipulation.unsqueeze", "M23", [0, -1]),
+        OP("manipulation.flatten", "X3", 1, 2),
+        OP("manipulation.tile", "M23", [2, 1, 2]),
+        OP("manipulation.expand", "V4", [3, -1]),
+        OP("manipulation.expand_as", "V4", "X"),
+        OP("manipulation.broadcast_to", "V4", [3, 4]),
+        OP("manipulation.broadcast_tensors", ["V4", "X"]),
+        OP("manipulation.flip", "X", [0, 1]),
+        OP("manipulation.roll", "X", [1, -1], [0, 1]),
+        OP("manipulation.rot90", "X", 1, [0, 1]),
+        OP("manipulation.gather", "C43", "IDX5", half=True),
+        OP("manipulation.index_select", "C43", "ROWS", 1),
+        OP("manipulation.gather_nd", "X3", "IDXND"),
+        OP("manipulation.take_along_axis", "X", "IDX32", 1),
+        OP("manipulation.put_along_axis", "X", "COL1", 9.0, 1),
+        OP("manipulation.put_along_axis", "X", "IDX32", "M32", 1, "add",
+           fam="f"),
+        OP("manipulation.scatter", "C43", "ROWS", "M23"),
+        OP("manipulation.scatter_nd_add", "C43", "ROWS2", "M23", fam="f"),
+        OP("manipulation.scatter_nd", "ROWS2", "M23", [5, 3]),
+        OP("manipulation.where", "BOOL", "X", "Y", half=True),
+        OP("manipulation.masked_fill", "X", "BOOL", -1.0, half=True),
+        OP("manipulation.masked_select", "X", "BOOL"),
+        OP("manipulation.nonzero", "BIN"),
+        OP("manipulation.nonzero", "BIN", True),
+        OP("manipulation.unique", "IDS", True, True, True),
+        OP("manipulation.sort", "X", 1, half=True),
+        OP("manipulation.sort", "X", 0, True),
+        OP("manipulation.argsort", "SMALL", 1, True),
+        OP("manipulation.topk", "X", 2), OP("manipulation.topk", "X", 2, 0,
+                                            False),
+        OP("manipulation.kthvalue", "SMALL", 2, 1),
+        OP("manipulation.slice_", "X3", [0, 2], [1, -3], [3, 5]),
+        OP("manipulation.strided_slice", "M45", [0, 1], [3, 4], [0, 0],
+           [-2, -2]),
+        OP("manipulation.pad", "M23", [1, 2, 0, 1]),
+        OP("manipulation.repeat_interleave", "V3", "REP"),
+        OP("manipulation.moveaxis", "X3", 0, 2),
+        OP("manipulation.swapaxes", "X3", 0, 2),
+        OP("manipulation.searchsorted", "SEQ", "X"),
+        OP("manipulation.bucketize", "X", "SEQ", False, True),
+        OP("manipulation.one_hot", "IDX5", 4),
+        OP("manipulation.index_add", "C43", "ADDIDX", 0, "SPD3", fam="f"),
+        OP("manipulation.index_put", "C43", ["ROWS", "ROWS"], 5.0),
+        OP("manipulation.as_strided", "V12", [3, 2], [4, 1], 1),
+        OP("manipulation.diff", "X", 2, 0, fam="f"),
+        OP("manipulation.unfold", "IMG", [2, 3], [1, 2], [1, 0]),
+        OP("manipulation.unstack", "M23", 1),
+        OP("manipulation.reverse", "X", 0),
+        OP("manipulation.fill", "X", 3.0),
+        OP("manipulation.fill_diagonal", "M34", 7.0, 1),
+        OP("manipulation.diag_embed", "M23", 1),
+        OP("manipulation.multiplex", ["M32", "M32"], "MUX"),
+        OP("manipulation.index_sample", "M35", "IDX32"),
+        OP("manipulation.unique_consecutive", "RUNS", True, True),
+        OP("manipulation.fill_diagonal_tensor", "M34", "V3", 1),
+        # linalg
+        OP("linalg.norm", "X", fam="l"), OP("linalg.norm", "M44", "nuc",
+                                            fam="l"),
+        OP("linalg.norm", "X", 3, 0, fam="l"),
+        OP("linalg.cholesky", "SPD", fam="l"),
+        OP("linalg.qr", "M53", fam="l"), OP("linalg.svd", "M53", fam="l"),
+        OP("linalg.inv", "SPD", fam="l"), OP("linalg.pinv", "M43", fam="l"),
+        OP("linalg.det", "SPD3", fam="l"),
+        OP("linalg.slogdet", "SPD", fam="l"),
+        OP("linalg.solve", "SPD", "M42", fam="l"),
+        OP("linalg.triangular_solve", "SPD", "M42", fam="l"),
+        OP("linalg.cholesky_solve", "M32", "LOW", fam="l"),
+        OP("linalg.matrix_power", "SPD3", -1, fam="l"),
+        OP("linalg.matrix_rank", "RANK2"),
+        OP("linalg.eigh", "SPD", fam="l"), OP("linalg.eig", "SPD", fam="l"),
+        OP("linalg.eigvalsh", "SPD", fam="l"),
+        OP("linalg.eigvals", "SPD", fam="l"),
+        OP("linalg.lstsq", "M53", "M52", fam="l"),
+        OP("linalg.lu", "SPD", fam="l"),
+        OP("linalg.lu_unpack", "LUM", "LUP", fam="l"),
+        OP("linalg.multi_dot", ["M23", "M34", "M42"], fam="l"),
+        OP("linalg.histogram", "V20", 5),
+        OP("linalg.bincount", "IDS"),
+        OP("linalg.corrcoef", "M35", fam="l"),
+        OP("linalg.cov", "M35", fam="l"),
+        OP("linalg.tensordot", "B234", "X", [[1, 2], [0, 1]], fam="l"),
+        OP("linalg.einsum", "bij,bjk->bik", "B234", "B242", fam="l",
+           half=True),
+        # extras and attribute
+        OP("extras.as_complex", "M32"), OP("extras.as_real", "X"),
+        OP("extras.complex", "X", "Y"), OP("extras.sgn", "X"),
+        OP("extras.broadcast_shape", [3, 1], [1, 4]),
+        OP("extras.check_shape", [2, -1, 3]),
+        OP("extras.floor_mod", "SINT", "INT2"), OP("extras.frexp", "X"),
+        OP("extras.nanquantile", "NANROWS", 0.5, 1, fam="f"),
+        OP("extras.take", "X", "TAKE"), OP("extras.take", "X", "WIDE",
+                                            "wrap"),
+        OP("extras.tril_indices", 4, 3, -1),
+        OP("extras.triu_indices", 3, None, 1),
+        OP("extras.vsplit", "M44", 2),
+        OP("extras.shard_index", "SHARD", 20, 2, 1),
+        OP("extras.shape", "X"), OP("extras.rank", "X"),
+        OP("extras.is_complex", "X"), OP("extras.is_floating_point", "X"),
+        OP("extras.is_integer", "INT"), OP("extras.tolist", "INT"),
+        OP("extras.iinfo", "int32"), OP("extras.crop", "M45", [2, -1],
+                                        [1, 2]),
+        OP("extras.set_printoptions", 4),
+        OP("extras.disable_signal_handler"),
+    ]
+    cases += [OP("attribute." + n, "X") for n in (
+        "rank", "shape", "is_complex", "is_floating_point", "is_integer",
+        "real", "imag")]
+    return cases
+
+
+def _ops_fn(path):
+    import paddle_tpu_torch.ops as ops
+    import paddle_tpu_torch.tensor.attribute as attribute
+
+    mod, name = path.split(".")
+    return getattr(attribute if mod == "attribute" else getattr(ops, mod),
+                   name)
+
+
+def _ops_arg(a, arrays, device, dtype):
+    if isinstance(a, str) and a in arrays:
+        v = torch.from_numpy(np.array(arrays[a])).to(device)
+        return v.to(dtype) if v.is_floating_point() else v
+    if isinstance(a, list) and a and all(
+            isinstance(i, str) and i in arrays for i in a):
+        return [_ops_arg(i, arrays, device, dtype) for i in a]
+    return a
+
+
+def _ops_compare(card, cpu, tol, where):
+    """The largest absolute difference of ``card`` from ``cpu`` (0 when
+    exact); raises past ``tol`` or on another dtype or shape."""
+    if isinstance(cpu, (list, tuple)):
+        if not isinstance(card, (list, tuple)) or len(card) != len(cpu):
+            raise AssertionError("[ops] %s: %r vs %r" % (where, card, cpu))
+        return max([_ops_compare(a, b, tol, where) for a, b in
+                    zip(card, cpu)], default=0.0)
+    if not isinstance(cpu, torch.Tensor):
+        same = card == cpu if not hasattr(cpu, "max") else (
+            card.min, card.max, card.bits) == (cpu.min, cpu.max, cpu.bits)
+        if not same:
+            raise AssertionError("[ops] %s: %r vs %r" % (where, card, cpu))
+        return 0.0
+    if card.dtype != cpu.dtype \
+            or card.shape != cpu.shape:
+        raise AssertionError("[ops] %s: card %s %s %s vs CPU %s %s" % (
+            where, card.device, card.dtype, tuple(card.shape), cpu.dtype,
+            tuple(cpu.shape)))
+    got = card.detach().cpu()
+    want = cpu.detach()
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    if tol is None or not (want.is_floating_point()):
+        if not torch.equal(got, want) and not (
+                want.is_floating_point() and torch.equal(
+                    torch.nan_to_num(got, 7.0), torch.nan_to_num(want, 7.0))
+                and torch.equal(got.isnan(), want.isnan())):
+            raise AssertionError("[ops] %s: card %s vs CPU %s (exact)" % (
+                where, got.tolist(), want.tolist()))
+        return 0.0
+    got, want = got.double(), want.double()
+    nan = want.isnan()
+    if not torch.equal(nan, got.isnan()):
+        raise AssertionError("[ops] %s: NaN masks differ" % where)
+    got, want = got[~nan], want[~nan]
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    rtol, atol = tol
+    if card.dtype in OPS_HALF and want.numel():
+        atol *= max(1.0, float(want.abs().max()))
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError("[ops] %s: max |card - CPU| %.3g past rtol %g "
+                             "atol %g" % (where, err, rtol, atol))
+    return err
+
+
+def _ops_decomposition(path, card, cpu, where):
+    """Decompositions equal up to signs or phases: their values and the
+    card's reconstruction, not their vectors."""
+    tol = OPS_TOLS["l"]
+    if path == "linalg.svd":
+        u, s, vh = card
+        err = _ops_compare(s, cpu[1], tol, where)
+        rec = (u * s.unsqueeze(-2)) @ vh
+        return max(err, _ops_compare(rec, (cpu[0] * cpu[1].unsqueeze(-2))
+                                     @ cpu[2], tol, where + " U S Vh"))
+    if path == "linalg.qr":
+        q, r = card
+        err = _ops_compare(r.abs(), cpu[1].abs(), tol, where)
+        return max(err, _ops_compare(q @ r, cpu[0] @ cpu[1], tol,
+                                     where + " QR"))
+    if path == "linalg.eigh":
+        w, v = card
+        err = _ops_compare(w, cpu[0], tol, where)
+        return max(err, _ops_compare((v * w) @ v.T, (cpu[1] * cpu[0])
+                                     @ cpu[1].T, tol, where + " V W V^T"))
+    if path in ("linalg.eig", "linalg.eigvals"):
+        w = card[0] if path == "linalg.eig" else card
+        want = cpu[0] if path == "linalg.eig" else cpu
+        order = torch.argsort(w.real.cpu())
+        return _ops_compare(w[order.to(w.device)], want[torch.argsort(
+            want.real)], tol, where)
+    return None
+
+
+def ops_sweep(seed, device="cuda"):
+    """17(a): every case of ``ops_cases`` on the card and on a CPU copy
+    (float32; bf16 and float16 too where ``half``); every public function
+    of the op modules must be among them. Returns the op count, the cases
+    run and the largest error per family and dtype with its limit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import _C_ops, ops
+    import paddle_tpu_torch.tensor.attribute as attribute
+    from paddle_tpu_torch.core import dispatch, place
+
+    arrays = ops_inputs(seed)
+    cases = ops_cases()
+    errs, runs = {}, 0
+    for path, args, kw, fam, half in cases:
+        for dtype in (torch.float32,) + (OPS_HALF if half else ()):
+            where = "%s%s (%s)" % (path, args, str(dtype)[6:])
+            fn = _ops_fn(path)
+            try:
+                card = fn(*[_ops_arg(a, arrays, device, dtype)
+                            for a in args], **kw)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            except Exception as e:
+                raise AssertionError("[ops] %s raised on the card: %r"
+                                     % (where, e)) from e
+            place.set_device("cpu")
+            try:
+                cpu = fn(*[_ops_arg(a, arrays, "cpu", dtype)
+                           for a in args], **kw)
+            finally:
+                place._current_place = None
+            if path.startswith("creation.") and isinstance(card,
+                                                           torch.Tensor):
+                if card.device.type != device:
+                    raise AssertionError("[ops] %s made on %s, not the "
+                                         "card" % (where, card.device))
+            err = _ops_decomposition(path, card, cpu, where)
+            if err is None:
+                tol = (None if fam == "x" else OPS_HALF_TOLS[dtype]
+                       if dtype in OPS_HALF else OPS_TOLS[fam])
+                err = _ops_compare(card, cpu, tol, where)
+            key = "%s %s" % (fam, str(dtype)[6:])
+            errs[key] = max(errs.get(key, 0.0), err)
+            runs += 1
+    ran = {p.split(".")[0] + "." + p.split(".")[1] for p, *_ in cases}
+    public = set()
+    for mod in OPS_MODULES + ("attribute",):
+        m = attribute if mod == "attribute" else getattr(ops, mod)
+        public |= {"%s.%s" % (mod, n) for n, v in vars(m).items()
+                   if callable(v) and not n.startswith("_")
+                   and getattr(v, "__module__", "") == m.__name__}
+    missing = sorted(public - ran - {
+        "creation." + n for n in RANDOM_OPS} - {
+        "extras.poisson", "extras.randint_like"})
+    if missing:
+        raise AssertionError("[ops] ops not swept on the card: %s" % missing)
+    # the random family on the card: shape, dtype, range, seed-determinism
+    for name in RANDOM_OPS + ("poisson", "randint_like"):
+        paddle.seed(seed)
+        first = RANDOM_OPS_CALLS[name](paddle, device)
+        paddle.seed(seed)
+        again = RANDOM_OPS_CALLS[name](paddle, device)
+        shape, dtype, lo, hi = RANDOM_OPS_WANT[name]
+        if (first.device.type != device or tuple(first.shape) != shape
+                or first.dtype != dtype or not torch.equal(first, again)
+                or (lo is not None and not (float(first.min()) >= lo
+                                            and float(first.max()) <= hi))):
+            raise AssertionError("[ops] random op %s: %s %s %s" % (
+                name, first.device, tuple(first.shape), first.dtype))
+        runs += 1
+    # methods, their in-place forms, indexing and _C_ops
+    x = torch.from_numpy(arrays["HALFUP"]).to(device)
+    for base in ops.INPLACE_BASES:
+        args = {"add": (1.0,), "subtract": (1.0,), "multiply": (2.0,),
+                "divide": (2.0,), "clip": (0.7, 1.2), "scale": (3.0,),
+                "reshape": ([4, 3],), "squeeze": (), "unsqueeze": (0,),
+                "flatten": (), "cast": ("float16",)}.get(base, ())
+        card = x.clone()
+        cpu = x.cpu().clone()
+        ops.method(base + "_")(card, *args)
+        ops.method(base + "_")(cpu, *args)
+        _ops_compare(card, cpu, OPS_TOLS["t"], base + "_")
+        runs += 1
+    # every method and operator is a swept op, or one with its operands
+    # swapped (the reflected operators)
+    swept = {id(_ops_fn(p)) for p, *_ in cases}
+    for name, fn in ops.METHODS.items():
+        inner = [c.cell_contents for c in (fn.__closure__ or ())]
+        if not (id(fn) in swept or name.endswith("_") or name in (
+                "__getitem__", "__setitem__", "numel")
+                or any(id(f) in swept for f in inner)):
+            raise AssertionError("[ops] method %s is not a swept op" % name)
+    card, cpu = x.clone(), x.cpu().clone()
+    ops.setitem(card, (1, slice(2, None)), 5.0)
+    ops.setitem(cpu, (1, slice(2, None)), 5.0)
+    _ops_compare(ops.getitem(card, card > 1.0), ops.getitem(cpu, cpu > 1.0),
+                 None, "getitem/setitem")
+    _ops_compare(_C_ops.add(x, x), _C_ops.add(x.cpu(), x.cpu()), None,
+                 "_C_ops.add")
+    runs += 2
+    limits = {k: (None if k.startswith("x") else OPS_HALF_TOLS[getattr(
+        torch, k.split()[1])] if k.split()[1] != "float32"
+        else OPS_TOLS[k[0]]) for k in errs}
+    out = {"ops": len(public), "cases": runs,
+           "registered_primitives": len(dispatch.WRAPPERS),
+           "max_abs_err": errs, "limits_rtol_atol": limits}
+    log("[ops] %d op functions, %d cases on the card against a CPU copy: %s"
+        % (len(public), runs, json.dumps(out)))
+    return out
+
+
+RANDOM_OPS = ("rand", "randn", "standard_normal", "normal", "uniform",
+              "randint", "randperm", "multinomial", "bernoulli")
+RANDOM_OPS_CALLS = {
+    "rand": lambda p, d: p.rand([2, 3]),
+    "randn": lambda p, d: p.randn([2, 3]),
+    "standard_normal": lambda p, d: p.standard_normal([4]),
+    "normal": lambda p, d: p.normal(1.0, 0.5, [3, 2]),
+    "uniform": lambda p, d: p.uniform([5], min=-3.0, max=-1.0),
+    "randint": lambda p, d: p.randint(2, 7, [4, 3]),
+    "randperm": lambda p, d: p.randperm(6),
+    "multinomial": lambda p, d: p.multinomial(
+        torch.tensor([[0.2, 0.3, 0.5]], device=d), 2),
+    "bernoulli": lambda p, d: p.bernoulli(torch.full((8,), 0.5, device=d)),
+    "poisson": lambda p, d: p.poisson(torch.full((4,), 3.0, device=d)),
+    "randint_like": lambda p, d: p.randint_like(
+        torch.zeros(3, device=d), 0, 9),
+}
+RANDOM_OPS_WANT = {
+    "rand": ((2, 3), torch.float32, 0.0, 1.0),
+    "randn": ((2, 3), torch.float32, None, None),
+    "standard_normal": ((4,), torch.float32, None, None),
+    "normal": ((3, 2), torch.float32, None, None),
+    "uniform": ((5,), torch.float32, -3.0, -1.0),
+    "randint": ((4, 3), torch.int64, 2, 6),
+    "randperm": ((6,), torch.int64, 0, 5),
+    "multinomial": ((1, 2), torch.int64, 0, 2),
+    "bernoulli": ((8,), torch.float32, 0.0, 1.0),
+    "poisson": ((4,), torch.float32, 0.0, 1e9),
+    "randint_like": ((3,), torch.float32, 0.0, 8.0),
+}
+
+
+# (b) llama1b's training row under O2: float32 weights through
+# decorate(level="O2"), FLAGS_fused_lm_head_ce, AdamW, 16 layers with
+# recompute, 8 x 1024; 3 steps in bf16, 3 in float16 under the default
+# GradScaler (then one at OVERFLOW_SCALE, skipped), each against the same
+# steps through every plain version on the card. Sound readings on an H100
+# (paddle_tpu_torch/tools/amp_faults.py --o2): losses 1.5e-5 / 3.3e-6
+# relative, sampled gradients up to 1.8e-2 / 3.2e-3 of their norm (bf16 /
+# float16: 16 layers' rounding at other points). Faults planted on the
+# kernel side read: the causal flag flipped 0.066-0.069 on the loss and
+# ~1.0 on the gradients; a vocab tile summed twice into the LSE (bf16)
+# 8.4e-4 on the loss; dW's last vocab chunk unwritten (float16) 0.31 on
+# lm_head's gradient and 2.4e-3 on the loss. The limits sit ~6x over the
+# sound loss and ~3x over the sound gradients, each under every fault's
+# reading.
+O2_STEPS = 3
+O2_GRADS = FP16_GRADS
+O2_LOSS_RTOL = {torch.bfloat16: 1e-4, torch.float16: 2e-5}
+O2_GRAD_RTOL = {torch.bfloat16: 5e-2, torch.float16: 1e-2}
+
+
+def o2_train_run(model, ids, labels, name, steps, scaler=None):
+    """The reference's eager O2 loop: under ``auto_cast(level="O2",
+    dtype=name)`` the loss (the fused tail, FLAGS_fused_lm_head_ce on),
+    then ``scaler.scale(loss).backward()``, ``scaler.step(opt)``,
+    ``opt.clear_grad()``. Returns what ``fp16_train_run`` returns."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=AMP_LR, parameters=model.parameters())
+    scaler = scaler or amp.GradScaler()
+    params = dict(model.named_parameters())
+    out = {"losses": [], "scaler": [], "skipped": [], "ms": []}
+    flags.set_flags({"FLAGS_fused_lm_head_ce": True})
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O2", dtype=name):
+                loss = model(ids, labels)
+            scaler.scale(loss).backward()
+            before = {n: params[n].detach().clone() for n in O2_GRADS}
+            scaler.step(opt)
+            if i == 0:
+                out["grads"] = {n: params[n].grad.float().clone()
+                                for n in O2_GRADS}
+            if scaler._found_inf and not all(
+                    torch.equal(before[n], params[n]) for n in O2_GRADS):
+                raise AssertionError("a skipped step moved the parameters")
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss.item())
+            out["dtype"] = loss.dtype
+            out["skipped"].append(scaler._found_inf)
+            sd = scaler.state_dict()
+            out["scaler"].append((sd["scale"], sd["good_steps"],
+                                  sd["bad_steps"]))
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    return out
+
+
+def o2_train(seed, dtype):
+    """17(b) in ``dtype``: llama1b decorated to it and trained under O2,
+    the kernels then every plain version, exact launch counts of kernels
+    1-6 in the dtype, the losses and sampled gradients within limits; in
+    float16 one more step at OVERFLOW_SCALE, skipped."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    name = "bfloat16" if dtype == torch.bfloat16 else "float16"
+    tag = "[amp O2 %s]" % name
+    cfg = LlamaConfig.llama1b_train(dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(seed + 17))
+    amp.decorate(model, level="O2", dtype=name)
+    if not all(p.dtype == dtype for p in model.parameters()):
+        raise AssertionError("%s decorate left parameters in another dtype"
+                             % tag)
+    plain_model = copy.deepcopy(model)
+    rng = np.random.default_rng(seed + 17)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    labels[:, ::8] = -100
+    seen = {}
+    handles = [m.register_forward_hook(dtype_hook(seen, tag_))
+               for tag_, m in (("decoder layer 0", model.llama.layers[0]),
+                               ("rms_norm (final)", model.llama.norm))]
+    reset_fp16_counters()
+    torch.cuda.reset_peak_memory_stats()
+    run = o2_train_run(model, ids, labels, name, O2_STEPS)
+    launches = fp16_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    for h in handles:
+        h.remove()
+    restore = plain_kernels()
+    try:
+        plain = o2_train_run(plain_model, ids, labels, name, O2_STEPS)
+    finally:
+        restore()
+    del plain_model
+    want_dtypes = {"decoder layer 0": dtype,
+                   "rms_norm (final)": torch.float32}
+    if seen != want_dtypes or run["dtype"] != torch.float32:
+        raise AssertionError("%s dtypes %s (loss %s), expected %s" % (
+            tag, seen, run["dtype"], want_dtypes))
+    layers, steps = cfg.num_hidden_layers, O2_STEPS
+    sfx = "_fp16" if dtype == torch.float16 else ""
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention" + sfx: 2 * layers * steps,
+                 "flash_attention_bwd_dq" + sfx: layers * steps,
+                 "flash_attention_bwd_dkv" + sfx: layers * steps,
+                 "fused_ce_fwd" + sfx: steps, "fused_ce_dh" + sfx: steps,
+                 "fused_ce_dw" + sfx: steps})
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError("%s non-finite loss %s" % (tag, run["losses"]))
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], plain["losses"]))
+    grad_err = {} if run["skipped"][0] else {
+        n: rel_norm(run["grads"][n], plain["grads"][n]) for n in O2_GRADS}
+    if not all(map(math.isfinite, grad_err.values())):
+        raise AssertionError("%s non-finite gradients %s" % (tag, grad_err))
+    if run["scaler"] != plain["scaler"] or run["skipped"] != plain["skipped"]:
+        raise AssertionError("%s scaler sequence %s (skipped %s) differs from "
+                             "the plain versions' %s (%s)" % (
+                                 tag, run["scaler"], run["skipped"],
+                                 plain["scaler"], plain["skipped"]))
+    if loss_err > O2_LOSS_RTOL[dtype] or max(grad_err.values(),
+                                             default=0.0) \
+            > O2_GRAD_RTOL[dtype]:
+        raise AssertionError("%s kernels vs plain versions: losses %s vs %s "
+                             "(rel %.3g > %g?), gradients %s (> %g?)" % (
+                                 tag, run["losses"], plain["losses"],
+                                 loss_err, O2_LOSS_RTOL[dtype], grad_err,
+                                 O2_GRAD_RTOL[dtype]))
+    result = {"losses": run["losses"], "plain_losses": plain["losses"],
+              "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+              "scaler": run["scaler"], "skipped": run["skipped"],
+              "step_ms": run["ms"], "plain_step_ms": plain["ms"],
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / statistics.median(run["ms"][1:]) * 1e3,
+              "peak_mem_gb": peak, "launches": launches,
+              "dtypes": {k: str(v)[6:] for k, v in seen.items()}}
+    if dtype == torch.float16:
+        params = dict(model.named_parameters())
+        before = {n: params[n].detach().clone() for n in O2_GRADS}
+        reset_fp16_counters()
+        over = o2_train_run(model, ids, labels, name, 1,
+                            scaler=amp.GradScaler(
+                                init_loss_scaling=OVERFLOW_SCALE))
+        over_launches = fp16_counters()
+        want_over = {k: v // steps for k, v in want.items()}
+        if over["skipped"] != [True] or \
+                over["scaler"] != [(OVERFLOW_SCALE, 0, 1)] or \
+                not all(torch.equal(before[n], params[n]) for n in O2_GRADS):
+            raise AssertionError("%s overflow step %s" % (tag, over))
+        if over_launches != want_over:
+            raise AssertionError("%s overflow step launches %s, expected %s"
+                                 % (tag, over_launches, want_over))
+        result["overflow_step"] = {"scale": OVERFLOW_SCALE, "skipped": True,
+                                   "scaler": over["scaler"],
+                                   "launches": over_launches}
+    # the host's share: one more step, profiled
+    result["profiled_step"] = device_breakdown(
+        lambda: o2_train_run(model, ids, labels, name, 1))
+    log("%s llama1b float32 weights decorated, under O2 (%d layers, %d x "
+        "%d, recompute, fused tail, AdamW %g, %.1f s): %s" % (
+            tag, layers, TRAIN_BATCH, TRAIN_SEQ, AMP_LR,
+            time.perf_counter() - t0, json.dumps(result)))
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_ops_o2(seed):
+    """Phase 17: (a) the op sweep, (b) llama1b under O2 in bf16 and
+    float16. Returns the sweep, the paths' launch counts and the runs."""
+    t0 = time.perf_counter()
+    sweep = ops_sweep(seed)
+    runs = {name: o2_train(seed, dtype) for name, dtype in
+            (("bf16", torch.bfloat16), ("fp16", torch.float16))}
+    paths = {"o2 bf16": runs["bf16"]["launches"],
+             "o2 fp16": runs["fp16"]["launches"],
+             "o2 fp16 overflow step": runs["fp16"]["overflow_step"][
+                 "launches"]}
+    log("[ops/O2] phase 17 in %.1f s" % (time.perf_counter() - t0))
+    return sweep, paths, runs
+
+
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "flash_attention": dict(
@@ -6514,11 +7313,16 @@ def summary(rows, paths):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-phase-17", action="store_true",
+                    help="phases 1, 2 and 17 alone (no summary line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     ptxas = phase_build()
+    if args.only_phase_17:
+        phase_ops_o2(args.seed)
+        return
     rows = phase_kernels(args.seed)
     rows["ptxas"] = ptxas
     fused_rows, probe = phase_fused_kernels(args.seed)
@@ -6570,6 +7374,8 @@ def main(argv=None):
     rows["fp16"], amp_paths, _ = phase_amp(args.seed, ptxas)
     torch.cuda.empty_cache()
     rows["fp16_model"], fp16_paths, _ = phase_fp16_model(args.seed)
+    torch.cuda.empty_cache()
+    rows["ops"], o2_paths, _ = phase_ops_o2(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -6585,6 +7391,7 @@ def main(argv=None):
     paths.update(seq2seq_paths)
     paths.update(amp_paths)
     paths.update(fp16_paths)
+    paths.update(o2_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

@@ -1,29 +1,47 @@
 """Automatic mixed precision (counterpart of paddle_tpu/amp/__init__.py).
 
-``auto_cast`` (``amp_guard``) at level O1 in bfloat16 or float16, with the
-reference's white and black lists, custom lists and thread-local state;
-``decorate``; and ``GradScaler`` with the reference's scaling rules.
+``auto_cast`` (``amp_guard``) at level O1 or O2 in bfloat16 or float16,
+with the reference's white and black lists, custom lists and thread-local
+state; ``decorate``; and ``GradScaler`` with the reference's scaling rules.
 
-The cast point. The reference casts at its dispatcher, by the primitive's
-name (``paddle_tpu/core/dispatch.py:205-209``): the Tensor arguments of a
-top-level primitive call are cast down to the AMP dtype when its name is
-on the white list and up to float32 when it is on the black list and the
-tensor is bfloat16 or float16; primitives nested inside another see raw
-arrays. The port has no dispatcher, so each port function whose reference
-counterpart is a primitive of a listed name calls ``cast_inputs(name,
-...)`` at its head (one thread-local read when AMP is off). Their names are
-``CAST_POINTS``. A custom list that names an operation without a cast
-point raises ``NotImplementedError`` when ``auto_cast`` is entered: the
-port writes those operations as plain torch calls, which nothing would
-cast.
+Where the cast happens. The reference casts at its dispatcher, by the
+primitive's name (``paddle_tpu/core/dispatch.py:205-209``,
+``paddle_tpu/amp/__init__.py:69-91``): the float tensor arguments of a
+top-level primitive call are cast down to the AMP dtype when the name is
+on the white list, or at O2 off the black list, and bfloat16 and float16
+ones up to float32 when it is on the black list; ``cast`` is never cast,
+and a primitive nested inside another sees its arguments as they are.
+The port does the same in two places:
 
-O2 is not ported: the reference's O2 casts every primitive not on the
-black list, the Tensor dunders (``add``, ``multiply``) of model code
-included, and the port writes those as raw torch operations; an exact O2
-needs the op layer of ROADMAP A.5. ``auto_cast(level="O2")`` raises.
-``decorate`` (a cast of a model's parameters and buffers to the AMP
-dtype, as the reference's ``Layer.to``) with O1 is the pure low-precision
-path.
+- **The op registry** (``core.dispatch.primitive``): every port function
+  whose reference counterpart is a primitive is one, under its name
+  (the ``ops`` package, ``nn.functional``, the RNN cells, ``rope_apply``),
+  and calls ``_cast_call`` at entry.
+- **One ``TorchFunctionMode``** (``_AmpMode``) for the raw torch calls of
+  the port's model code, which the reference writes as primitives (the
+  residual ``+``, rope's ``*``, ``view`` / ``reshape``, ``transpose``,
+  indexing). It maps each torch function to the reference primitive's
+  name (``_TORCH_NAMES``: ``add``, ``multiply``, ``reshape``,
+  ``mean``, ``sum``, ``exp``, ``softmax``, ``norm`` ...); a name missing
+  from the map is cast down at O2, as the reference casts every
+  primitive off the black list. It casts nothing inside a primitive
+  (the kernel wrappers' own calls, the float32 LSE and statistics
+  buffers, an op's body), nothing in the backward, nothing that is no op
+  (``Tensor.to`` / ``float`` / ``dtype`` / ``size`` / ``item``, the
+  factories, in-place writes: ``_NOT_OPS``), and no integer or bool
+  tensor. The mode is on inside ``auto_cast(level="O2")``, and at O1 only
+  when a custom list is given (so that a custom list naming ``add`` casts
+  model code's ``+`` as the reference's would); ``state_scope`` turns it
+  on again for a recomputed layer's forward, which the backward runs.
+
+The fused lm_head + cross-entropy tail (``kernels.fused_ce
+.fused_mean_ce``) is a primitive of its own name, ``fused_lm_head_ce``,
+off both lists: under O2 its hidden states and weight reach the kernels
+in the AMP dtype. (The reference's fused tail runs only in its compiled
+step and reads its inputs as they are.)
+
+``decorate`` casts a model's parameters and buffers to the AMP dtype (the
+reference's ``Layer.to``), the pure low-precision path that O2 pairs with.
 
 ``GradScaler`` is not ``torch.cuda.amp.GradScaler``: it keeps the
 reference's rules. It scales whenever it is enabled, bfloat16 included;
@@ -39,7 +57,9 @@ Arguments the reference accepts and never applies raise
 ``NotImplementedError`` for any value but the default ("Faults of the
 reference" in ROADMAP.md C): ``auto_cast``'s ``level`` other than O1 and
 O2 (13), ``decorate``'s ``level`` other than O2, ``master_weight`` and
-``save_dtype`` (14).
+``save_dtype`` (14). A custom list naming an operation that is neither a
+primitive nor a torch function the mode maps raises
+``NotImplementedError``: nothing would cast it.
 """
 from __future__ import annotations
 
@@ -47,7 +67,9 @@ import threading
 from contextlib import contextmanager
 
 import torch
+from torch.overrides import TorchFunctionMode
 
+from ..core import dispatch as _dispatch
 from ..device import resolve_device
 
 _state = threading.local()
@@ -63,15 +85,60 @@ BLACK_LIST = {
     "rms_norm", "batch_norm_train", "batch_norm_infer", "cumsum",
     "logsumexp",
 }
-# the listed operations whose port functions cast their inputs
-CAST_POINTS = frozenset({
-    "linear", "conv1d", "conv2d", "conv3d", "softmax", "log_softmax",
-    "cross_entropy", "nll_loss", "layer_norm", "rms_norm",
-    "batch_norm_train", "batch_norm_infer",
-})
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
            torch.bfloat16: torch.bfloat16, torch.float16: torch.float16}
 _HALF = (torch.bfloat16, torch.float16)
+
+# torch function name -> the reference primitive's name, where they differ
+_TORCH_NAMES = {
+    "__add__": "add", "__radd__": "add", "sub": "subtract",
+    "__sub__": "subtract", "__rsub__": "subtract", "rsub": "subtract",
+    "mul": "multiply", "__mul__": "multiply", "__rmul__": "multiply",
+    "div": "divide", "true_divide": "divide", "__truediv__": "divide",
+    "__rtruediv__": "divide", "__div__": "divide", "__rdiv__": "divide",
+    "__floordiv__": "floor_divide", "__rfloordiv__": "floor_divide",
+    "__mod__": "remainder", "__rmod__": "remainder", "fmod": "remainder",
+    "__pow__": "pow", "__rpow__": "pow", "float_power": "pow",
+    "__matmul__": "matmul", "__rmatmul__": "matmul",
+    "negative": "neg", "__neg__": "neg", "__abs__": "abs",
+    "absolute": "abs", "clamp": "clip", "clamp_min": "clip",
+    "clamp_max": "clip",
+    "eq": "equal", "__eq__": "equal", "ne": "not_equal",
+    "__ne__": "not_equal", "lt": "less_than", "__lt__": "less_than",
+    "le": "less_equal", "__le__": "less_equal", "gt": "greater_than",
+    "__gt__": "greater_than", "ge": "greater_equal",
+    "__ge__": "greater_equal",
+    "view": "reshape", "view_as": "reshape", "reshape_as": "reshape",
+    "permute": "transpose", "t": "transpose", "swapdims": "swapaxes",
+    "movedim": "moveaxis", "cat": "concat", "concatenate": "concat",
+    "__getitem__": "getitem", "index_select": "index_select",
+    "linalg_vector_norm": "norm", "vector_norm": "norm",
+    "matrix_norm": "norm", "linalg_matrix_norm": "norm",
+    "frobenius_norm": "norm", "special_logsumexp": "logsumexp",
+    "unsqueeze": "unsqueeze", "squeeze": "squeeze",
+}
+
+# torch functions that are no op of the reference: casts, metadata, the
+# factories, autograd plumbing, in-place writes (a cast copy would lose
+# them)
+_NOT_OPS = frozenset({
+    "__get__", "__set__", "to", "float", "double", "half", "bfloat16",
+    "int", "long", "bool", "short", "byte", "char", "type", "type_as",
+    "cpu", "cuda", "contiguous", "detach", "requires_grad_", "retain_grad",
+    "register_hook", "backward", "numpy", "tolist", "item", "size", "dim",
+    "numel", "nelement", "ndimension", "stride", "storage_offset",
+    "is_contiguous", "is_floating_point", "is_complex", "element_size",
+    "data_ptr", "untyped_storage", "storage", "get_device", "pin_memory",
+    "is_pinned", "share_memory_", "record_stream",
+    "__len__", "__bool__", "__int__", "__float__", "__index__",
+    "__format__", "__repr__", "__str__", "__hash__", "__reduce_ex__",
+    "__deepcopy__", "__setstate__", "__getstate__", "__array__",
+    "__iter__", "__contains__", "__dir__", "__setitem__",
+    "new_tensor", "new_empty", "new_zeros", "new_ones", "new_full",
+    "zeros_like", "ones_like", "empty_like", "full_like", "rand_like",
+    "randn_like", "randint_like", "empty_strided", "as_strided",
+    "copy_", "set_",
+})
 
 
 def _amp_dtype(dtype):
@@ -87,17 +154,140 @@ def amp_state():
     return getattr(_state, "amp", None)
 
 
+def _rule(st, op_name):
+    """'down', 'up' or None: what ``st`` does to ``op_name``'s float
+    tensor arguments."""
+    if op_name in st["black"]:
+        return "up"
+    if op_name in st["white"] or st["level"] == "O2":
+        return "down"
+    return None
+
+
+def _cast_tensor(t, rule, dt):
+    if not isinstance(t, torch.Tensor) or not t.is_floating_point():
+        return t
+    if rule == "down":
+        return t if t.dtype == dt else t.to(dt)
+    return t.float() if t.dtype in _HALF else t
+
+
+def _cast_tree(v, rule, dt):
+    if isinstance(v, torch.Tensor):
+        return _cast_tensor(v, rule, dt)
+    if isinstance(v, (list, tuple)) and v and not isinstance(v, torch.Size):
+        out = [_cast_tree(x, rule, dt) for x in v]
+        return out if isinstance(v, list) else tuple(out)
+    return v
+
+
+def _cast_call(op_name, args, kwargs):
+    """``(args, kwargs)`` of a top-level call of ``op_name`` as the
+    reference's dispatcher hands them to the primitive (tensors at any
+    list or tuple depth)."""
+    st = getattr(_state, "amp", None)
+    if st is None:
+        return args, kwargs
+    rule = _rule(st, op_name)
+    if rule is None:
+        return args, kwargs
+    dt = st["dtype"]
+    args = tuple(_cast_tree(a, rule, dt) for a in args)
+    if kwargs:
+        kwargs = {k: _cast_tree(v, rule, dt) for k, v in kwargs.items()}
+    return args, kwargs
+
+
+# threads inside a non-None auto_cast state; the dispatcher's cast hook is
+# installed only while there is one, so a primitive call without AMP pays
+# one global read
+_scopes = [0]
+_scopes_lock = threading.Lock()
+
+
+def _count_scope(delta):
+    with _scopes_lock:
+        _scopes[0] += delta
+        _dispatch.set_cast_hook(_cast_call if _scopes[0] else None)
+
+
+def torch_op_name(func):
+    """The reference primitive's name for a torch function, or None for
+    one that is no op (``_NOT_OPS``, private names, in-place methods)."""
+    name = getattr(func, "__name__", None)
+    if name is None or name in _NOT_OPS:
+        return None
+    if name.startswith("__i") and name.endswith("__") and name not in (
+            "__index__", "__invert__", "__int__", "__iter__"):
+        return None
+    if not name.startswith("__"):
+        if name.startswith("_") or name.endswith("_"):
+            return None
+    return _TORCH_NAMES.get(name, name)
+
+
+class _AmpMode(TorchFunctionMode):
+    """Casts the arguments of the raw torch calls made outside any
+    primitive by the thread's ``auto_cast`` state (see the module's
+    docstring). ``recompute``: pushed for a recomputed forward inside
+    the backward; otherwise calls made while autograd runs a node (the
+    backward) pass as they are."""
+
+    def __init__(self, recompute=False):
+        super().__init__()
+        self.recompute = recompute
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        st = getattr(_state, "amp", None)
+        if st is None or _dispatch.in_primitive() or (
+                not self.recompute
+                and torch._C._current_autograd_node() is not None):
+            return func(*args, **kwargs)
+        name = torch_op_name(func)
+        if name is not None:
+            args, kwargs = _cast_call(name, args, kwargs)
+        return func(*args, **kwargs)
+
+
+def _mode_active():
+    from torch.overrides import _get_current_function_mode_stack
+
+    return any(isinstance(m, _AmpMode)
+               for m in _get_current_function_mode_stack())
+
+
 @contextmanager
 def state_scope(state):
     """Run a block under ``state`` (an ``amp_state()`` taken earlier, or
     None), restoring this thread's own state after: a recomputed forward
-    runs under the AMP state of the forward it repeats."""
+    runs under the AMP state of the forward it repeats, the O2 mode
+    included."""
     prev = amp_state()
     _state.amp = state
+    if state is not None:
+        _count_scope(1)
+    mode = None
     try:
+        if state is not None and state["mode"] and not _mode_active():
+            mode = _AmpMode(
+                recompute=torch._C._current_autograd_node() is not None)
+            mode.__enter__()
         yield
     finally:
+        if mode is not None:
+            mode.__exit__(None, None, None)
+        if state is not None:
+            _count_scope(-1)
         _state.amp = prev
+
+
+def _known_names():
+    """Every name a custom list may hold: the registered primitives and
+    the names the mode gives torch functions."""
+    from .. import nn, ops  # noqa: F401  (registers their primitives)
+
+    return set(_dispatch.OPS) | set(_TORCH_NAMES.values())
 
 
 @contextmanager
@@ -105,24 +295,19 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="bfloat16"):
     state = None
     if enable:
-        if level == "O2":
-            raise NotImplementedError(
-                "auto_cast(level='O2'): the reference's O2 casts every "
-                "operation off the black list, the Tensor operators of "
-                "model code included, which the port writes as plain torch "
-                "calls; it waits for the op layer (ROADMAP.md A.5)")
-        if level != "O1":
+        if level not in ("O1", "O2"):
             raise NotImplementedError(
                 "auto_cast(level=%r): the reference casts as at O1 for "
                 "every level but O2 (\"Faults of the reference\" 13 in "
-                "ROADMAP.md); pass level='O1' or enable=False" % (level,))
+                "ROADMAP.md); pass level='O1', 'O2' or enable=False"
+                % (level,))
         custom = set(custom_white_list or ()) | set(custom_black_list or ())
-        missing = sorted(custom - CAST_POINTS)
+        missing = sorted(custom - _known_names()) if custom else []
         if missing:
             raise NotImplementedError(
-                "auto_cast: %s %s no cast point in the port (it casts at %s)"
-                % (", ".join(missing), "has" if len(missing) == 1 else
-                   "have", ", ".join(sorted(CAST_POINTS))))
+                "auto_cast: %s %s no primitive in the port, so nothing "
+                "would cast it" % (", ".join(missing), "has" if
+                                   len(missing) == 1 else "have"))
         white = set(WHITE_LIST)
         black = set(BLACK_LIST)
         if custom_white_list:
@@ -132,7 +317,8 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
             black |= set(custom_black_list)
             white -= set(custom_black_list)
         state = {"level": level, "dtype": _amp_dtype(dtype),
-                 "white": frozenset(white), "black": frozenset(black)}
+                 "white": frozenset(white), "black": frozenset(black),
+                 "mode": level == "O2" or bool(custom)}
     with state_scope(state):
         yield
 
@@ -140,24 +326,11 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 amp_guard = auto_cast
 
 
-def cast_inputs(op_name, *tensors):
-    """``tensors`` as the reference's dispatcher hands them to the
-    primitive ``op_name`` under the active ``auto_cast``: each floating
-    tensor cast to the AMP dtype on the white list, each bfloat16 or
-    float16 one to float32 on the black list; anything else (None,
-    integers, numbers) as it is. Returns a tuple."""
-    st = getattr(_state, "amp", None)
-    if st is None:
-        return tensors
-    if op_name in st["white"]:
-        dt = st["dtype"]
-        return tuple(t.to(dt) if isinstance(t, torch.Tensor)
-                     and t.is_floating_point() and t.dtype != dt else t
-                     for t in tensors)
-    if op_name in st["black"]:
-        return tuple(t.float() if isinstance(t, torch.Tensor)
-                     and t.dtype in _HALF else t for t in tensors)
-    return tensors
+def __getattr__(name):
+    if name == "CAST_POINTS":
+        # the listed operations that have a primitive in the port: all
+        return frozenset((WHITE_LIST | BLACK_LIST) & _known_names())
+    raise AttributeError(name)
 
 
 def decorate(models=None, optimizers=None, level="O2", dtype="bfloat16",
@@ -221,14 +394,15 @@ class GradScaler:
             return
         inv = 1.0 / self._scale
         peaks = []
-        for p in optimizer._get_params():
-            if p.grad is None:
-                continue
-            p.grad.mul_(inv)
-            # NaN propagates through amax, inf stays inf
-            peaks.append(p.grad.abs().amax().float())
-        self._found_inf = bool(peaks) and not bool(
-            torch.isfinite(torch.stack(peaks)).all())
+        with _dispatch.primitive_scope():     # array math, never cast
+            for p in optimizer._get_params():
+                if p.grad is None:
+                    continue
+                p.grad.mul_(inv)
+                # NaN propagates through amax, inf stays inf
+                peaks.append(p.grad.abs().amax().float())
+            self._found_inf = bool(peaks) and not bool(
+                torch.isfinite(torch.stack(peaks)).all())
 
     def step(self, optimizer):
         if not self._enable:
@@ -274,6 +448,5 @@ class GradScaler:
                             device=resolve_device(device))
 
 
-__all__ = ["auto_cast", "amp_guard", "amp_state", "cast_inputs",
-           "decorate", "GradScaler", "WHITE_LIST", "BLACK_LIST",
-           "CAST_POINTS"]
+__all__ = ["auto_cast", "amp_guard", "amp_state", "decorate", "GradScaler",
+           "WHITE_LIST", "BLACK_LIST", "CAST_POINTS"]

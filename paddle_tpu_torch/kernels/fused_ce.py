@@ -56,6 +56,7 @@ import torch
 
 from .. import _build
 from ..core import flags as _flags
+from ..core.dispatch import primitive
 
 DEFAULT_BLOCK_T = 256
 DEFAULT_IGNORE_INDEX = -100
@@ -328,9 +329,15 @@ def fused_lm_head_ce(h, w, labels, ignore_index=DEFAULT_IGNORE_INDEX,
     return FusedLMHeadCE.apply(h, w, safe.to(torch.int32), valid)
 
 
+@primitive(name="fused_lm_head_ce")
 def fused_mean_ce(h2d, w, labels_flat):
     """Mean cross-entropy over the non-ignored tokens through the fused
-    kernels: the loss tail the model wiring calls."""
+    kernels: the loss tail the model wiring calls. ``h2d`` and ``w`` of
+    two dtypes (float32 hidden states from a black-listed norm under O1
+    beside bf16 weights) meet in their promoted dtype, as ``jnp`` promotes
+    the reference's operands."""
+    dt = torch.promote_types(h2d.dtype, w.dtype)
+    h2d, w = h2d.to(dt), w.to(dt)
     per_tok = fused_lm_head_ce(h2d, w, labels_flat, DEFAULT_IGNORE_INDEX,
                                DEFAULT_BLOCK_T)
     valid = (labels_flat != DEFAULT_IGNORE_INDEX).to(per_tok.dtype)

@@ -46,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import amp
+from ..core.dispatch import primitive
 from ..core.tensor import name_parameters
 from ..device import resolve_device
 from ..kernels.fused_ce import fused_ce_applies, fused_mean_ce
@@ -123,6 +124,7 @@ class LlamaConfig:
         return cls(**d)
 
 
+@primitive
 def rope_apply(q, k, theta, position_offset=0):
     """Rotary position embedding on q and k ``[B, S, H, D]``, half-split
     pairing (dim i rotates with dim i + D/2), angles in float32.

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ...amp import cast_inputs
+from ...core.dispatch import primitive
+from ...framework import random as _random
 
 _tf = torch.nn.functional
 
@@ -37,28 +38,34 @@ def _cast(x, dtype):
     return x.to(_DTYPES[dtype] if isinstance(dtype, str) else dtype)
 
 
+@primitive
 def relu(x):
     return torch.relu(x)
 
 
+@primitive
 def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
 
+@primitive
 def gelu(x, approximate=False):
     """GELU; the exact erf form by default, the tanh form with
     ``approximate=True`` (the reference's ``jax.nn.gelu`` flag)."""
     return _tf.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@primitive
 def sigmoid(x):
     return torch.sigmoid(x)
 
 
+@primitive
 def tanh(x):
     return torch.tanh(x)
 
 
+@primitive
 def silu(x):
     return _tf.silu(x)
 
@@ -67,27 +74,33 @@ def swish(x):
     return silu(x)
 
 
+@primitive
 def mish(x):
     return x * torch.tanh(_tf.softplus(x))
 
 
+@primitive
 def elu(x, alpha=1.0):
     return _tf.elu(x, alpha=alpha)
 
 
+@primitive
 def selu(x, scale=1.0507009873554804934193349852946,
          alpha=1.6732632423543772848170429916717):
     return scale * _tf.elu(x, alpha=alpha)
 
 
+@primitive
 def celu(x, alpha=1.0):
     return _tf.celu(x, alpha=alpha)
 
 
+@primitive
 def leaky_relu(x, negative_slope=0.01):
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+@primitive
 def prelu(x, weight, data_format="NCHW"):
     """``where(x > 0, x, w * x)``; a weight of more than one element runs
     along the channel axis (1 for ``NC*`` formats, else the last)."""
@@ -100,37 +113,45 @@ def prelu(x, weight, data_format="NCHW"):
     return torch.where(x > 0, x, w * x)
 
 
+@primitive
 def rrelu(x, lower=0.125, upper=0.3333333333333333, training=False):
     slope = (lower + upper) / 2.0
     return torch.where(x >= 0, x, slope * x)
 
 
+@primitive
 def hardtanh(x, min=-1.0, max=1.0):
     return torch.clamp(x, min, max)
 
 
+@primitive
 def hardsigmoid(x, slope=0.1666667, offset=0.5):
     return torch.clamp(x * slope + offset, 0.0, 1.0)
 
 
+@primitive
 def hardswish(x):
     return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
 
 
+@primitive
 def hardshrink(x, threshold=0.5):
     return torch.where(x.abs() > threshold, x, torch.zeros_like(x))
 
 
+@primitive
 def softshrink(x, threshold=0.5):
     zero = torch.zeros_like(x)
     return torch.where(x > threshold, x - threshold,
                        torch.where(x < -threshold, x + threshold, zero))
 
 
+@primitive
 def tanhshrink(x):
     return x - torch.tanh(x)
 
 
+@primitive
 def softplus(x, beta=1.0, threshold=20.0):
     """``x`` where ``x * beta > threshold``, else
     ``log(1 + exp(x * beta)) / beta``."""
@@ -139,26 +160,28 @@ def softplus(x, beta=1.0, threshold=20.0):
     return torch.where(xb > threshold, x, soft)
 
 
+@primitive
 def softsign(x):
     return x / (1 + x.abs())
 
 
+@primitive
 def softmax(x, axis=-1, dtype=None):
-    x, = cast_inputs("softmax", x)
     return torch.softmax(_cast(x, dtype), dim=int(axis))
 
 
+@primitive
 def log_softmax(x, axis=-1, dtype=None):
-    x, = cast_inputs("log_softmax", x)
     return torch.log_softmax(_cast(x, dtype), dim=int(axis))
 
 
+@primitive
 def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, generator=None):
     """``softmax((x + g) / temperature)`` with Gumbel noise ``g``; with
     ``hard``, the one-hot of its argmax in the forward and the soft
     values' gradient (the straight-through estimator)."""
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32)
+    u = torch.rand(x.shape, generator=_random.generator_or(
+        generator, x.device), device=x.device, dtype=torch.float32)
     tiny = torch.finfo(torch.float32).tiny
     g = (-torch.log(-torch.log(u.clamp(min=tiny)))).to(x.dtype)
     y = torch.softmax((x + g) / temperature, dim=axis)
@@ -169,6 +192,7 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, generator=None):
     return y
 
 
+@primitive
 def maxout(x, groups, axis=1):
     axis = axis % x.dim()
     shape = list(x.shape)
@@ -177,15 +201,18 @@ def maxout(x, groups, axis=1):
     return x.reshape(shape).amax(dim=axis + 1)
 
 
+@primitive
 def glu(x, axis=-1):
     a, b = torch.chunk(x, 2, dim=axis)
     return a * torch.sigmoid(b)
 
 
+@primitive
 def thresholded_relu(x, threshold=1.0):
     return torch.where(x > threshold, x, torch.zeros_like(x))
 
 
+@primitive
 def log_sigmoid(x, name=None):
     return _tf.logsigmoid(x)
 

@@ -41,6 +41,7 @@ import warnings
 import numpy as np
 import torch
 
+from ...core.dispatch import primitive
 from ...kernels.flash_attention import FlashAttention
 
 # the reference's masked score (a finite value: a row masked everywhere
@@ -48,6 +49,7 @@ from ...kernels.flash_attention import FlashAttention
 MASKED = -1e30
 
 
+@primitive
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False, scale=None,
                                  training=True, _warn_rect_causal=True):
@@ -121,6 +123,7 @@ def segment_ids_from_lens(seq_lens, total):
     return segs
 
 
+@primitive
 def variable_length_attention(query, key, value, seq_lens=None,
                               segment_ids=None, is_causal=True, scale=None):
     """Packed attention over ``[B, N, H, D]`` inputs (``N_kv == N``):

@@ -23,28 +23,31 @@ linearly along each axis whatever the mode but ``nearest``.
 and the sampling runs in float32.
 
 The dropouts draw their masks from ``generator`` (a ``torch.Generator``
-on the input's device; PyTorch's default generator when None). The
-draws differ from the reference's JAX stream; the law is the same.
+on the input's device; when None, ``framework.random``'s generator for
+that device, which ``paddle_tpu_torch.seed`` fixes). The draws differ
+from the reference's JAX stream; the law is the same.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as TF
 
-from ...amp import cast_inputs
+from ...core.dispatch import primitive
+from ...framework import random as _random
 from ...ops.manipulation import CHANNEL_LAST, _pads4, pad
 from ...ops.manipulation import unfold as _unfold
 
 _ALPHA, _SCALE = 1.6732632423543772, 1.0507009873554805
 
 
+@primitive
 def linear(x, weight, bias=None):
     """``x @ weight (+ bias)``, ``weight`` in Paddle's ``[in, out]``."""
-    x, weight, bias = cast_inputs("linear", x, weight, bias)
     out = torch.matmul(x, weight)
     return out if bias is None else out + bias
 
 
+@primitive
 def embedding(x, weight, padding_idx=None, sparse=False):
     """Rows of ``weight``; rows looked up at ``padding_idx`` (negative
     counts from the end) are 0 and pass no gradient. ``sparse`` is
@@ -57,6 +60,7 @@ def embedding(x, weight, padding_idx=None, sparse=False):
     return out
 
 
+@primitive
 def dropout(x, p=0.5, training=True, mode="upscale_in_train", seed=None,
             generator=None):
     """The reference's two modes. Outside training, or at ``p == 0``, it
@@ -73,7 +77,8 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", seed=None,
         return x
     if seed is not None:
         generator = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = torch.rand(x.shape, generator=_random.generator_or(
+        generator, x.device), device=x.device) >= p
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)
@@ -87,37 +92,44 @@ def _channel_dropout(x, p, training, channel_last, generator):
     shape[0] = x.shape[0]
     ch = x.dim() - 1 if channel_last else 1
     shape[ch] = x.shape[ch]
-    keep = torch.rand(shape, generator=generator, device=x.device) >= p
+    keep = torch.rand(shape, generator=_random.generator_or(
+        generator, x.device), device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
 
 
+@primitive
 def dropout2d(x, p=0.5, training=True, data_format="NCHW", generator=None):
     return _channel_dropout(x, p, training, data_format != "NCHW",
                             generator)
 
 
+@primitive
 def dropout3d(x, p=0.5, training=True, data_format="NCDHW", generator=None):
     return _channel_dropout(x, p, training, data_format != "NCDHW",
                             generator)
 
 
+@primitive
 def alpha_dropout(x, p=0.5, training=True, generator=None):
     """SELU's dropout: a dropped element becomes ``-alpha * scale``, and
     ``a * x + b`` keeps zero mean and unit variance."""
     if not training or p == 0.0:
         return x
     alpha_p = -_ALPHA * _SCALE
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = torch.rand(x.shape, generator=_random.generator_or(
+        generator, x.device), device=x.device) >= p
     a = 1.0 / ((1.0 - p) * (1.0 + p * alpha_p ** 2)) ** 0.5
     b = -a * alpha_p * p
     return (a * torch.where(keep, x, alpha_p) + b).to(x.dtype)
 
 
+@primitive
 def normalize(x, p=2.0, axis=1, epsilon=1e-12):
     norm = x.abs().pow(p).sum(dim=axis, keepdim=True).pow(1.0 / p)
     return x / norm.clamp(min=epsilon)
 
 
+@primitive
 def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     dot = (x1 * x2).sum(dim=axis)
     n1 = torch.linalg.vector_norm(x1, dim=axis)
@@ -125,6 +137,7 @@ def cosine_similarity(x1, x2, axis=1, eps=1e-8):
     return dot / (n1 * n2).clamp(min=eps)
 
 
+@primitive
 def label_smooth(label, prior_dist=None, epsilon=0.1):
     if prior_dist is not None:
         return (1.0 - epsilon) * label + epsilon * prior_dist
@@ -209,6 +222,7 @@ def _resize_align_corners(x, axes, sizes):
     return out
 
 
+@primitive
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, data_format="NCHW"):
     channel_last = data_format in CHANNEL_LAST
@@ -238,6 +252,7 @@ def upsample(x, size=None, scale_factor=None, mode="nearest",
 
 # -- rearrangements ------------------------------------------------------
 
+@primitive
 def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
     r = int(upscale_factor)
     if data_format == "NCHW":
@@ -249,6 +264,7 @@ def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
     return x.reshape(n, h * r, w * r, c // (r * r))
 
 
+@primitive
 def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
     r = int(downscale_factor)
     if data_format == "NCHW":
@@ -276,6 +292,7 @@ def _temporal_shift(x, seg_num, shift_ratio):
     return torch.cat([back, fwd, xr[:, :, c2:]], 2).reshape(nt, c, h, w)
 
 
+@primitive
 def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW"):
     """TSM's shift of ``x [N * T, C, H, W]``: the first ``shift_ratio``
     of the channels takes frame ``t + 1``'s values, the next as many
@@ -290,10 +307,12 @@ def _channel_shuffle(x, groups):
         n, c, h, w)
 
 
+@primitive
 def channel_shuffle(x, groups, data_format="NCHW"):
     return _channels_first(_channel_shuffle, x, data_format, groups)
 
 
+@primitive
 def bilinear(x1, x2, weight, bias=None):
     """``out[b, o] = x1[b, i] weight[o, i, j] x2[b, j] (+ bias[o])``."""
     out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
@@ -320,6 +339,7 @@ def _gs_reflect(coord, size, align_corners):
     return c.clamp(0, size - 1)
 
 
+@primitive
 def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True):
     """Samples ``x [N, C, H, W]`` at ``grid [N, Hg, Wg, 2]``'s normalised
@@ -356,6 +376,7 @@ def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
     return out.permute(0, 3, 1, 2).to(x.dtype)
 
 
+@primitive
 def affine_grid(theta, out_shape, align_corners=True):
     """``theta [N, 2, 3]`` and ``out_shape (N, C, H, W)``: the sampling
     grid ``[N, H, W, 2]`` in float32."""
@@ -379,6 +400,7 @@ def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
     return _unfold(x, kernel_sizes, strides, paddings, dilations)
 
 
+@primitive
 def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0,
          dilations=1):
     """col2im, the transpose of ``unfold``: the patches of ``x [N, C * kh
@@ -401,6 +423,7 @@ def zeropad2d(x, padding, data_format="NCHW", name=None):
                data_format=data_format)
 
 
+@primitive(nondiff=True)
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     """``mask[..., j] = j < x[...]`` in ``dtype``; without ``maxlen``,
     ``max(x)`` (read back to the host, as the reference reads it)."""

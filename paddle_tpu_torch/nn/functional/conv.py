@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
-from ...amp import cast_inputs
+from ...core.dispatch import primitive
 
 _CONV = {1: TF.conv1d, 2: TF.conv2d, 3: TF.conv3d}
 _CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
@@ -115,7 +115,6 @@ def _add_bias(out, bias):
 
 def _conv(x, weight, bias, stride, padding, dilation, groups, n,
           channel_last):
-    x, weight, bias = cast_inputs("conv%dd" % n, x, weight, bias)
     stride = _norm_tuple(stride, n)
     dilation = _norm_tuple(dilation, n)
     x = channels_first(x, channel_last)
@@ -129,18 +128,21 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, n,
     return channels_back(out, channel_last)
 
 
+@primitive
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCL"):
     return _conv(x, weight, bias, stride, padding, dilation, groups, 1,
                  data_format == "NLC")
 
 
+@primitive
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCHW"):
     return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
                  data_format == "NHWC")
 
 
+@primitive
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
            data_format="NCDHW"):
     return _conv(x, weight, bias, stride, padding, dilation, groups, 3,
@@ -172,6 +174,7 @@ def _conv_transpose(x, weight, bias, stride, padding, output_padding,
     return channels_back(_add_bias(full, bias), channel_last)
 
 
+@primitive
 def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCL"):
@@ -179,6 +182,7 @@ def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
                            dilation, groups, 1, data_format == "NLC")
 
 
+@primitive
 def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCHW"):
@@ -186,6 +190,7 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                            dilation, groups, 2, data_format == "NHWC")
 
 
+@primitive
 def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                      output_padding=0, dilation=1, groups=1,
                      data_format="NCDHW"):
@@ -193,6 +198,7 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
                            dilation, groups, 3, data_format == "NDHWC")
 
 
+@primitive
 def deformable_conv(x, offset, weight, mask=None, bias=None, stride=1,
                     padding=0, dilation=1, deformable_groups=1, groups=1):
     raise NotImplementedError(

@@ -41,7 +41,8 @@ import math
 import torch
 import torch.nn.functional as TF
 
-from ...amp import cast_inputs
+from ...core.dispatch import primitive
+from ...framework import random as _random
 
 _REDUCTIONS = ("mean", "sum", "none")
 
@@ -81,6 +82,7 @@ def _class_weights(weight, li, valid, n_cls):
     return torch.where(valid, w, torch.zeros_like(w))
 
 
+@primitive
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -88,7 +90,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``label`` class ids (``[...]`` or 1 on ``axis``) or, with
     ``soft_label``, a distribution of ``input``'s shape."""
     _check_reduction(reduction)
-    x, label, weight = cast_inputs("cross_entropy", input, label, weight)
+    x = input
     axis = axis % x.dim()
     n_cls = x.shape[axis]
     if (use_softmax and not soft_label and weight is None
@@ -142,12 +144,13 @@ def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
     return loss
 
 
+@primitive
 def nll_loss(input, label, weight=None, ignore_index=-100,
              reduction="mean"):
     """``input`` log-probabilities ``[C]``, ``[N, C]`` or
     ``[N, C, d1, ...]`` (classes on axis 1), ``label`` ``[N, d1, ...]``."""
     _check_reduction(reduction)
-    logp, label, weight = cast_inputs("nll_loss", input, label, weight)
+    logp = input
     li = torch.as_tensor(label, device=logp.device).long()
     n_cls = logp.shape[-1] if logp.dim() == 1 else logp.shape[1]
     if logp.dim() > 2:
@@ -169,14 +172,17 @@ def _t(x, like):
     return torch.as_tensor(x, device=like.device)
 
 
+@primitive
 def mse_loss(input, label, reduction="mean"):
     return _reduce((input - label).square(), reduction)
 
 
+@primitive
 def l1_loss(input, label, reduction="mean"):
     return _reduce((input - label).abs(), reduction)
 
 
+@primitive
 def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
     d = input - label
     ad = d.abs()
@@ -184,6 +190,7 @@ def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
     return _reduce(loss, reduction)
 
 
+@primitive
 def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     p = input.clamp(1e-12, 1.0 - 1e-12)
     loss = -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
@@ -192,6 +199,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean"):
     return _reduce(loss, reduction)
 
 
+@primitive
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None):
     x, y = logit, label
@@ -205,6 +213,7 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
     return _reduce(loss, reduction)
 
 
+@primitive
 def kl_div(input, label, reduction="mean"):
     loss = label * (torch.log(label.clamp(min=1e-30)) - input)
     if reduction == "batchmean":
@@ -212,16 +221,19 @@ def kl_div(input, label, reduction="mean"):
     return _reduce(loss, reduction)
 
 
+@primitive
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
     loss = torch.where(label == 1.0, input, (margin - input).clamp(min=0.0))
     return _reduce(loss, reduction)
 
 
+@primitive
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
     loss = (-label * (input - other) + margin).clamp(min=0.0)
     return _reduce(loss, reduction)
 
 
+@primitive
 def cosine_embedding_loss(input1, input2, label, margin=0.0,
                           reduction="mean"):
     norms = (torch.linalg.vector_norm(input1, dim=-1)
@@ -236,6 +248,7 @@ def _p_dist(u, v, p, epsilon):
     return (u - v + epsilon).abs().pow(p).sum(-1).pow(1.0 / p)
 
 
+@primitive
 def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
                         epsilon=1e-6, swap=False, reduction="mean"):
     d_ap = _p_dist(input, positive, p, epsilon)
@@ -245,11 +258,13 @@ def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
     return _reduce((d_ap - d_an + margin).clamp(min=0.0), reduction)
 
 
+@primitive
 def log_loss(input, label, epsilon=1e-4):
     return (-label * torch.log(input + epsilon)
             - (1.0 - label) * torch.log(1.0 - input + epsilon))
 
 
+@primitive
 def square_error_cost(input, label):
     return (input - label).square()
 
@@ -257,6 +272,7 @@ def square_error_cost(input, label):
 _NEG = -1e30
 
 
+@primitive
 def ctc_loss_dense(log_probs, labels, input_lengths, label_lengths,
                    blank=0, reduction="mean"):
     """CTC's alpha recursion in log space over ``log_probs [T, N, C]`` and
@@ -301,6 +317,7 @@ def ctc_loss_dense(log_probs, labels, input_lengths, label_lengths,
     return _reduce(loss, reduction)
 
 
+@primitive
 def huber_loss(input, label, delta=1.0, reduction="mean"):
     d = input - label
     ad = d.abs()
@@ -312,6 +329,7 @@ def _bce_logits(x, y):
     return x.clamp(min=0) - x * y + torch.log1p(torch.exp(-x.abs()))
 
 
+@primitive
 def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
                        gamma=2.0, reduction="sum"):
     x, y = logit.float(), label.float()
@@ -324,6 +342,7 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
     return _reduce(loss, reduction)
 
 
+@primitive
 def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                                       normalize=False):
     valid = label != ignore_index
@@ -333,6 +352,7 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
     return loss
 
 
+@primitive
 def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
                          margin3=0.0, scale=64.0, return_softmax=False,
                          reduction="mean"):
@@ -350,6 +370,7 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
     return loss
 
 
+@primitive
 def hsigmoid_loss(input, label, num_classes, weight, bias=None,
                   path_table=None, path_code=None, is_sparse=False):
     """Hierarchical sigmoid: the default tree is the complete binary tree
@@ -384,6 +405,7 @@ def hsigmoid_loss(input, label, num_classes, weight, bias=None,
         1, keepdim=True)
 
 
+@primitive(nondiff=True)
 def class_center_sample(label, num_classes, num_samples, group=None, *,
                         generator=None):
     """``(remapped_label, sampled_class_indices)``: every positive class
@@ -402,8 +424,8 @@ def class_center_sample(label, num_classes, num_samples, group=None, *,
     is_pos[pos] = True
     neg_pool = torch.arange(num_classes, device=dev)[~is_pos]
     n_extra = max(0, min(num_samples, num_classes) - pos.numel())
-    order = torch.randperm(neg_pool.numel(), generator=generator,
-                           device=dev)
+    order = torch.randperm(neg_pool.numel(), generator=_random.generator_or(
+        generator, dev), device=dev)
     extra = torch.sort(neg_pool[order[:n_extra]]).values
     sampled = torch.cat([pos, extra])
     remap = torch.full((num_classes,), -1, dtype=torch.long, device=dev)
@@ -411,11 +433,13 @@ def class_center_sample(label, num_classes, num_samples, group=None, *,
     return remap[li], sampled
 
 
+@primitive
 def soft_margin_loss(input, label, reduction="mean", name=None):
     z = -label.to(input.dtype) * input
     return _reduce(torch.logaddexp(torch.zeros_like(z), z), reduction)
 
 
+@primitive
 def multi_label_soft_margin_loss(input, label, weight=None,
                                  reduction="mean", name=None):
     y = label.to(input.dtype)
@@ -425,6 +449,7 @@ def multi_label_soft_margin_loss(input, label, weight=None,
     return _reduce(loss.mean(-1), reduction)
 
 
+@primitive
 def npair_loss(anchor, positive, labels, l2_reg=0.002):
     """L2 on the embeddings plus the soft-target cross-entropy of
     ``anchor @ positive.T`` with same-label targets."""
@@ -437,6 +462,7 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
     return l2 - (target * logp).sum(1).mean()
 
 
+@primitive
 def dice_loss(input, label, epsilon=1e-5):
     if label.dim() == input.dim() and label.shape[-1] == 1:
         label = label.squeeze(-1)
@@ -447,6 +473,7 @@ def dice_loss(input, label, epsilon=1e-5):
     return (1.0 - (2.0 * inter + epsilon) / (union + epsilon)).mean()
 
 
+@primitive
 def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
                       reduction="mean", name=None):
     """``sum_{i != y} max(0, margin - x[y] + x[i]) ** p / C``, the weight
@@ -461,6 +488,7 @@ def multi_margin_loss(input, label, p=1, margin=1.0, weight=None,
     return _reduce(m.sum(1) / input.shape[1], reduction)
 
 
+@primitive
 def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False, name=None):
     out = _p_dist(x, y, p, epsilon)
     return out[..., None] if keepdim else out
@@ -498,6 +526,7 @@ def warpctc(logits, label, logits_length, labels_length, blank=0,
                     norm_by_times=norm_by_times)
 
 
+@primitive
 def rnnt_loss(input, label, input_lengths, label_lengths, blank=0,
               fastemit_lambda=0.0, reduction="mean", name=None):
     """RNN-T's forward variables over ``input [B, T, U + 1, V]`` logits

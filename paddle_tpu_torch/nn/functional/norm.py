@@ -28,13 +28,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as TF
 
-from ...amp import cast_inputs
+from ...core.dispatch import primitive
 
 
+@primitive
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     """LayerNorm over the trailing ``normalized_shape`` axes with the
     biased variance, in ``x``'s dtype, as the reference computes it."""
-    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
@@ -48,11 +48,11 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
+@primitive
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMSNorm with float32 statistics for any input dtype; the result is
     cast back to ``x``'s dtype before the weight multiplies it, as in the
     reference."""
-    x, weight = cast_inputs("rms_norm", x, weight)
     xf = x.float()
     ms = xf.square().mean(dim=-1, keepdim=True)
     out = (xf * torch.reciprocal(torch.sqrt(ms + epsilon))).to(x.dtype)
@@ -65,12 +65,11 @@ def _channel_axis(x, data_format):
     return 1 if data_format.startswith("NC") else x.dim() - 1
 
 
+@primitive
 def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
                      epsilon=1e-5, data_format="NCHW"):
     """``(x - mean) / sqrt(var + epsilon) * weight + bias`` on the given
     statistics, per channel."""
-    x, running_mean, running_var, weight, bias = cast_inputs(
-        "batch_norm_infer", x, running_mean, running_var, weight, bias)
     ch = _channel_axis(x, data_format)
     shape = [-1 if d == ch else 1 for d in range(x.dim())]
     out = (x - running_mean.reshape(shape)) / torch.sqrt(
@@ -124,6 +123,7 @@ class _BatchStats(torch.autograd.Function):
         return gx, None, None
 
 
+@primitive(name="batch_norm_train")
 def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
                     data_format="NCHW"):
     """torch's fused training batch norm, once: ``(out, batch_mean,
@@ -132,7 +132,6 @@ def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
     running variance is the unbiased one: it is scaled by ``(n - 1) /
     n``). The reference's ``batch_norm_train`` primitive: its AMP cast
     point."""
-    x, weight, bias = cast_inputs("batch_norm_train", x, weight, bias)
     ch = _channel_axis(x, data_format)
     xc = x.movedim(ch, 1)
     n = xc.numel() // xc.shape[1]
@@ -149,6 +148,7 @@ def batch_norm_pass(x, weight=None, bias=None, epsilon=1e-5,
     return out.movedim(1, ch), mean, var * ((n - 1) / n)
 
 
+@primitive
 def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
                      data_format="NCHW"):
     """Returns ``(out, batch_mean, batch_var)``, the statistics
@@ -160,6 +160,7 @@ def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
     return out, mean, var
 
 
+@primitive
 def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
                data_format="NCHW"):
     ch = _channel_axis(x, data_format)
@@ -168,6 +169,7 @@ def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
     return out.movedim(1, ch)
 
 
+@primitive
 def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
                   data_format="NCHW"):
     ch = _channel_axis(x, data_format)
@@ -180,6 +182,7 @@ def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
     return out.movedim(1, ch)
 
 
+@primitive
 def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
                         data_format="NCHW"):
     ch = _channel_axis(x, data_format)

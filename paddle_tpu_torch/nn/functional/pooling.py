@@ -37,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as TF
 
+from ...core.dispatch import primitive
 from .conv import (_norm_padding, _norm_tuple, channels_back,
                    channels_first, resolve_pads, torch_pad_list)
 
@@ -85,12 +86,14 @@ def _avg_pool(x, kernel_size, stride, padding, n, exclusive, channel_last):
     return channels_back(out, channel_last)
 
 
+@primitive
 def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCL"):
     return _max_pool(x, kernel_size, stride, padding, 1,
                      data_format == "NLC")
 
 
+@primitive
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCHW"):
     channel_last = data_format == "NHWC"
@@ -109,34 +112,40 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
             channels_back(mask.int(), channel_last))
 
 
+@primitive
 def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                return_mask=False, data_format="NCDHW"):
     return _max_pool(x, kernel_size, stride, padding, 3,
                      data_format == "NDHWC")
 
 
+@primitive
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
                ceil_mode=False, data_format="NCL"):
     return _avg_pool(x, kernel_size, stride, padding, 1, exclusive,
                      data_format == "NLC")
 
 
+@primitive
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW"):
     return _avg_pool(x, kernel_size, stride, padding, 2, exclusive,
                      data_format == "NHWC")
 
 
+@primitive
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCDHW"):
     return _avg_pool(x, kernel_size, stride, padding, 3, exclusive,
                      data_format == "NDHWC")
 
 
+@primitive
 def adaptive_avg_pool1d(x, output_size):
     return TF.adaptive_avg_pool1d(x, _norm_tuple(output_size, 1))
 
 
+@primitive
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     channel_last = data_format == "NHWC"
     out = TF.adaptive_avg_pool2d(channels_first(x, channel_last),
@@ -144,6 +153,7 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
     return channels_back(out, channel_last)
 
 
+@primitive
 def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
     channel_last = data_format == "NDHWC"
     out = TF.adaptive_avg_pool3d(channels_first(x, channel_last),
@@ -151,10 +161,12 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
     return channels_back(out, channel_last)
 
 
+@primitive
 def adaptive_max_pool1d(x, output_size, return_mask=False):
     return TF.adaptive_max_pool1d(x, _norm_tuple(output_size, 1))
 
 
+@primitive
 def adaptive_max_pool2d(x, output_size, return_mask=False,
                         data_format="NCHW"):
     channel_last = data_format == "NHWC"
@@ -163,6 +175,7 @@ def adaptive_max_pool2d(x, output_size, return_mask=False,
     return channels_back(out, channel_last)
 
 
+@primitive
 def adaptive_max_pool3d(x, output_size, return_mask=False,
                         data_format="NCDHW"):
     if return_mask:
@@ -189,6 +202,7 @@ def _max_unpool(x, indices, spatial):
     return flat.reshape((n, c) + tuple(spatial))
 
 
+@primitive
 def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
                  data_format="NCL", output_size=None):
     if data_format != "NCL":
@@ -201,6 +215,7 @@ def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
     return _max_unpool(x, indices, [length])
 
 
+@primitive
 def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
                  data_format="NCHW", output_size=None):
     channel_last = data_format == "NHWC"
@@ -219,6 +234,7 @@ def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
     return channels_back(_max_unpool(xv, idx, spatial), channel_last)
 
 
+@primitive
 def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
                  data_format="NCDHW", output_size=None):
     if data_format != "NCDHW":

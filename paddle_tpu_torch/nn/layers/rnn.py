@@ -37,6 +37,7 @@ import math
 import torch
 from torch import nn
 
+from ...core.dispatch import primitive
 from ...device import resolve_device
 from ..initializer import Uniform, create_parameter
 
@@ -80,6 +81,24 @@ def _gru_gates(gi, h, w_hh, b_hh):
 def _simple_gates(xw, h, w_hh, b_ih, b_hh, activation):
     out = xw + _mm(h, w_hh) + b_ih + b_hh
     return torch.tanh(out) if activation == "tanh" else torch.relu(out)
+
+
+@primitive
+def lstm_cell(x, h, c, w_ih, w_hh, b_ih, b_hh):
+    """One LSTM step: ``(h', c')``."""
+    return _lstm_gates(_mm(x, w_ih), h, c, w_hh, b_ih, b_hh)
+
+
+@primitive
+def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh):
+    """One GRU step: ``h'``."""
+    return _gru_gates(_mm(x, w_ih) + b_ih, h, w_hh, b_hh)
+
+
+@primitive
+def simple_rnn_cell(x, h, w_ih, w_hh, b_ih, b_hh, activation="tanh"):
+    """One Elman step: ``h'``."""
+    return _simple_gates(_mm(x, w_ih), h, w_hh, b_ih, b_hh, activation)
 
 
 class RNNCellBase(nn.Module):
@@ -128,8 +147,8 @@ class LSTMCell(RNNCellBase):
             c = self.get_initial_states(inputs)
         else:
             h, c = states
-        h2, c2 = _lstm_gates(_mm(inputs, self.weight_ih), h, c,
-                             self.weight_hh, self.bias_ih, self.bias_hh)
+        h2, c2 = lstm_cell(inputs, h, c, self.weight_ih, self.weight_hh,
+                           self.bias_ih, self.bias_hh)
         return h2, (h2, c2)
 
 
@@ -148,8 +167,8 @@ class GRUCell(RNNCellBase):
 
     def forward(self, inputs, states=None):
         h = states if states is not None else self.get_initial_states(inputs)
-        h2 = _gru_gates(_mm(inputs, self.weight_ih) + self.bias_ih, h,
-                        self.weight_hh, self.bias_hh)
+        h2 = gru_cell(inputs, h, self.weight_ih, self.weight_hh,
+                      self.bias_ih, self.bias_hh)
         return h2, h2
 
 
@@ -169,8 +188,8 @@ class SimpleRNNCell(RNNCellBase):
 
     def forward(self, inputs, states=None):
         h = states if states is not None else self.get_initial_states(inputs)
-        h2 = _simple_gates(_mm(inputs, self.weight_ih), h, self.weight_hh,
-                           self.bias_ih, self.bias_hh, self.activation)
+        h2 = simple_rnn_cell(inputs, h, self.weight_ih, self.weight_hh,
+                             self.bias_ih, self.bias_hh, self.activation)
         return h2, h2
 
 
@@ -196,6 +215,7 @@ def _run_direction(seq, weights, h, c, mode, activation, reverse):
     return (ys.flip(0) if reverse else ys), h, c
 
 
+@primitive(name="rnn_scan")
 def _rnn_scan(x, h0, c0, weights, mode, num_layers, direction, time_major,
               activation="tanh"):
     """``weights``: ``[w_ih, w_hh, b_ih, b_hh]`` for each layer and

@@ -23,9 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.dispatch import primitive
 from ..core.tensor import Parameter
 
 
+@primitive
 def spectral_norm_weight(weight, u, v, dim=0, power_iters=1, eps=1e-12):
     """``(weight / sigma, u, v)`` after ``power_iters`` power iterations
     from ``u`` and ``v``."""
@@ -43,6 +45,7 @@ def spectral_norm_weight(weight, u, v, dim=0, power_iters=1, eps=1e-12):
             vv.to(weight.dtype))
 
 
+@primitive
 def weight_norm_apply(v, g, dim=0):
     """``g * v / ||v||`` for each slice of ``v`` along ``dim``."""
     moved = v.movedim(dim, 0)

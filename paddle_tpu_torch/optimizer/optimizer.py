@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dispatch import primitive_scope
 from .lr import LRScheduler
 
 
@@ -89,14 +90,19 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        pg = [(p, p.grad) for p in self._get_params() if p.grad is not None]
-        if self._grad_clip is not None:
-            pg = self._grad_clip(pg)
-        lr = self.get_lr()
-        self._global_step += 1
-        for p, g in pg:
-            self._update(p, g, self._get_slots(p), lr, self._global_step,
-                         self._decay_for(p))
+        """One update of every parameter with a gradient. Its arithmetic is
+        no op of the model: ``amp.auto_cast`` casts none of it (as the
+        reference's update, pure array math, is never cast)."""
+        with primitive_scope():
+            pg = [(p, p.grad) for p in self._get_params()
+                  if p.grad is not None]
+            if self._grad_clip is not None:
+                pg = self._grad_clip(pg)
+            lr = self.get_lr()
+            self._global_step += 1
+            for p, g in pg:
+                self._update(p, g, self._get_slots(p), lr, self._global_step,
+                             self._decay_for(p))
 
     @torch.no_grad()
     def clear_grad(self):

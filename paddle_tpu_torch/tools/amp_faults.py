@@ -28,6 +28,13 @@ fault planted on the fused CE kernels' side only:
 and prints, per run, which limit caught it (loss, gradients, or another
 check of the phase).
 
+With ``--o2`` it runs ``chip_smoke.o2_train`` (phase 17(b): llama1b
+decorated to bf16 or float16 and trained under O2 with the fused tail,
+three AdamW steps on the kernels then on every plain version) sound in
+both dtypes, then ``causal_flipped`` in both, ``fce_tile_twice`` in bf16
+and ``fce_last_chunk`` in float16, against ``O2_LOSS_RTOL`` /
+``O2_GRAD_RTOL``.
+
 Each run reads the losses' and the sampled gradients' distance from the
 plain versions' (``chip_smoke.AMP_LOSS_RTOL`` / ``AMP_GRAD_RTOL``, or
 ``FP16_LOSS_RTOL`` / ``FP16_GRAD_RTOL``, lifted for the reading, every
@@ -95,11 +102,17 @@ FAULTS = {"bf16_rounding": _bf16_rounding, "causal_flipped": _causal_flipped,
 RUNS = (("bfloat16", None), ("float16", None), ("float16", "bf16_rounding"),
         ("float16", "causal_flipped"), ("bfloat16", "causal_flipped"))
 FP16_MODEL_RUNS = (None, "fce_tile_twice", "fce_last_chunk")
+O2_RUNS = (("bfloat16", None), ("float16", None),
+           ("bfloat16", "causal_flipped"), ("float16", "causal_flipped"),
+           ("bfloat16", "fce_tile_twice"), ("float16", "fce_last_chunk"))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--o2", action="store_true",
+                    help="phase 17(b): llama1b under O2, faults in the flash "
+                         "and the fused CE kernels")
     ap.add_argument("--fp16-model", action="store_true",
                     help="phase 16(b)'s float16 model, faults in the fused "
                          "CE kernels")
@@ -112,6 +125,8 @@ def main(argv=None):
 
     if args.fp16_model:
         sys.exit(fp16_model_faults(cs, args.seed))
+    if args.o2:
+        sys.exit(o2_faults(cs, args.seed))
 
     limits = {"loss": dict(cs.AMP_LOSS_RTOL), "grad": dict(cs.AMP_GRAD_RTOL)}
     cs.AMP_LOSS_RTOL = dict.fromkeys(limits["loss"], math.inf)
@@ -172,6 +187,49 @@ def fp16_model_faults(cs, seed):
         print(json.dumps(dict(
             run="float16 model %s" % (fault or "sound"), caught=caught,
             loss_limit=limits["loss"], grad_limit=limits["grad"],
+            device=torch.cuda.get_device_name(0), **row)), flush=True)
+    return 1 if wrong else 0
+
+
+def o2_faults(cs, seed):
+    """Phase 17(b) sound and with each of ``O2_RUNS``' faults planted on
+    the flash or the fused CE wrappers; returns the exit code."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ce as fc
+
+    limits = {"loss": dict(cs.O2_LOSS_RTOL), "grad": dict(cs.O2_GRAD_RTOL)}
+    cs.O2_LOSS_RTOL = dict.fromkeys(limits["loss"], math.inf)
+    cs.O2_GRAD_RTOL = dict.fromkeys(limits["grad"], math.inf)
+    wrong = 0
+    for name, fault in O2_RUNS:
+        dtype = getattr(torch, name)
+        mod, attrs = ((fc, ("fused_lm_head_ce_forward",
+                            "fused_lm_head_ce_backward"))
+                      if fault and fault.startswith("fce") else
+                      (fa, ("flash_attention", "flash_attention_backward")))
+        saved = tuple(getattr(mod, a) for a in attrs)
+        if fault:
+            for a, f in zip(attrs, FAULTS[fault](*saved)):
+                setattr(mod, a, f)
+        try:
+            res = cs.o2_train(seed, dtype)
+            loss, grad = res["loss_rel_err"], max(res["grad_rel_err"].values())
+            by = [k for k, v in (("loss", loss), ("gradients", grad))
+                  if v > limits[k[:4]][dtype]]
+            caught = bool(by)
+            row = {"loss_rel_err": loss, "grad_rel_err": res["grad_rel_err"],
+                   "caught_by": by}
+        except AssertionError as e:     # another check of the phase
+            caught, row = True, {"failed": str(e)[:2000]}
+        finally:
+            for a, f in zip(attrs, saved):
+                setattr(mod, a, f)
+            torch.cuda.empty_cache()
+        wrong += caught != bool(fault)
+        print(json.dumps(dict(
+            run="O2 %s %s" % (name, fault or "sound"), caught=caught,
+            loss_limit=limits["loss"][dtype],
+            grad_limit=limits["grad"][dtype],
             device=torch.cuda.get_device_name(0), **row)), flush=True)
     return 1 if wrong else 0
 

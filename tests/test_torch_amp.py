@@ -53,6 +53,7 @@ from paddle_tpu.models.llama import (
 from paddle_tpu.nn import initializer as jinit
 from paddle_tpu.optimizer import SGD as JaxSGD
 from paddle_tpu.vision.models.resnet import BasicBlock as JaxBasicBlock
+import paddle_tpu_torch as paddle_port
 from paddle_tpu_torch import amp, nn
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import (
@@ -344,6 +345,22 @@ def _cast_cases(rng):
         ("batch_norm_infer", lambda t: jF.batch_norm_infer(*t),
          lambda t: F.batch_norm_infer(*t),
          (img, r(3), np.abs(r(3)) + 0.5, r(3), r(3))),
+    ] + [
+        # the op layer's listed primitives (the top-level functions)
+        (name, lambda t, n=name: getattr(paddle, n)(*t),
+         lambda t, n=name: getattr(paddle_port, n)(*t), arrays)
+        for name, arrays in (
+            ("matmul", (x2, w2)), ("mm", (x2, w2)),
+            ("bmm", (r(2, 4, 6), r(2, 6, 5))), ("mv", (x2, r(6))),
+            ("addmm", (r(4, 5), x2, w2)), ("exp", (x2,)), ("log", (x2,)),
+            ("log2", (x2,)), ("log10", (x2,)), ("log1p", (x2,)),
+            ("mean", (x2,)), ("sum", (x2,)), ("cumsum", (x2,)),
+            ("logsumexp", (x2,)))
+    ] + [
+        ("einsum", lambda t: paddle.einsum("ij,jk->ik", *t),
+         lambda t: paddle_port.einsum("ij,jk->ik", *t), (x2, w2)),
+        ("norm", lambda t: paddle.linalg.norm(*t),
+         lambda t: paddle_port.linalg.norm(*t), (x2,)),
     ]
 
 
@@ -431,18 +448,69 @@ def test_grad_scaler_scales_a_loss_and_passes_through_when_off():
     assert torch.isnan(p).any() or torch.isinf(p).any()
 
 
-# -- refusals ----------------------------------------------------------------
+# -- refusals, and the levels and custom lists they used to refuse -----------
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(level="O2"), "A.5"),
     (dict(level="O0"), "Faults of the reference\" 13"),
-    (dict(custom_white_list=["matmul"]), "matmul has no cast point"),
-    (dict(custom_black_list=["exp", "mean"]), "exp, mean have no cast"),
+    (dict(level="O3", dtype="float16"), "Faults of the reference\" 13"),
+    (dict(custom_white_list=["no_such_op"]),
+     "no_such_op has no primitive in the port"),
+    (dict(custom_black_list=["exp", "no_op_a", "no_op_b"]),
+     "no_op_a, no_op_b have no primitive"),
 ])
 def test_auto_cast_refuses(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         with amp.auto_cast(**kwargs):
             pass
+    assert amp.amp_state() is None
+
+
+def _mm(t):
+    return t[0].reshape([3, 1]) @ t[1].reshape([1, 3])
+
+
+@pytest.mark.parametrize("kwargs,ref_call,port_call,inputs", [
+    # O2 casts every primitive off the black list, tensor operators of
+    # model code included, and keeps the black list in float32
+    (dict(level="O2"), lambda t: t[0] + t[1], lambda t: t[0] + t[1],
+     ("float32", "bfloat16")),
+    (dict(level="O2", dtype="float16"), lambda t: t[0] * t[1],
+     lambda t: t[0] * t[1], ("float32", "float32")),
+    (dict(level="O2"), lambda t: paddle.exp(t[1]),
+     lambda t: torch.exp(t[1]), ("float32", "bfloat16")),
+    (dict(level="O2"), lambda t: t[0].reshape([3]),
+     lambda t: t[0].view(3), ("float32", "float32")),
+    # the custom lists that used to be refused: matmul, exp and mean
+    (dict(custom_white_list=["matmul"]), _mm, _mm, ("float32", "float32")),
+    (dict(custom_black_list=["exp", "mean"]), lambda t: paddle.exp(t[1]),
+     lambda t: paddle_port.exp(t[1]), ("float32", "bfloat16")),
+    (dict(custom_black_list=["exp", "mean"]), lambda t: t[1].mean(),
+     lambda t: t[1].mean(), ("float32", "bfloat16")),
+    (dict(level="O2", custom_white_list=["mean"]),
+     lambda t: paddle.mean(t[0]), lambda t: paddle_port.mean(t[0]),
+     ("float32", "float32")),
+    (dict(custom_white_list=["add"]), lambda t: t[0] + t[1],
+     lambda t: t[0] + t[1], ("float32", "float32")),
+])
+def test_auto_cast_levels_and_custom_lists_match_the_reference(
+        kwargs, ref_call, port_call, inputs):
+    """The port's result dtype and values are the reference's for the
+    same call under the same ``auto_cast``: tensor operators, reshapes,
+    reductions and the listed primitives, at O2 and through custom lists
+    at O1."""
+    rng = np.random.RandomState(9)
+    arrays = [rng.rand(3).astype(np.float32) + 0.5 for _ in inputs]
+    with jamp.auto_cast(**kwargs):
+        want = ref_call([JaxTensor(jnp.asarray(a, d))
+                         for a, d in zip(arrays, inputs)])
+    with amp.auto_cast(**kwargs):
+        got = port_call([torch.from_numpy(a).to(getattr(torch, d))
+                         for a, d in zip(arrays, inputs)])
+    assert str(got.dtype).split(".")[-1] == str(want.dtype), (got.dtype,
+                                                             want.dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want._value, np.float32),
+                               rtol=1e-2)
     assert amp.amp_state() is None
 
 
