@@ -355,6 +355,29 @@ Phases (any failure exits non-zero; no phase swallows an exception):
                 faults planted with paddle_tpu_torch/tools/amp_faults.py
                 --o2), exact launch counts of kernels 1-6 in each dtype
                 (the kernels line's "o2 bf16" / "o2 fp16" paths)
+  18. head dim  run last: a Llama at Gemma-2B's widths (hidden 2048, 8
+      256       query heads and 1 kv head of 256, FFN 16384, 18 layers,
+                vocab 256000). (a) kernels 1-3, 7 and 8 at D = 256 in
+                float32, bf16 and float16 (and int8 pages) against their
+                plain versions at the path's shapes (B = 8, N = 1024,
+                H = 8, Hkv = 1 causal; a segment-id case; the decode
+                batch; the mixed step and the suffix prefill), twice bit
+                for bit, timed by CUDA events and profiler device time
+                beside the bound, the plain version and torch SDPA;
+                kernels 4-6 at V = 256000 and kernel 10 at the model's
+                projections against their plain versions; (b) served at
+                18 layers in each dtype, flags off and with prefix cache
+                + chunked prefill + int8 KV (float32 also int8 weights):
+                greedy tokens against the same engine on the plain
+                versions, exact launch counts, and a 2-layer copy's
+                logits card against CPU; (c) trained with the fused loss
+                tail and AdamW at 8 x 1024 in bf16 and float16 (default
+                GradScaler) at 18 layers with recompute and float32 at 2,
+                against the plain versions within limits that faults
+                planted in kernel 1 cross; (d) the tiny preset (D = 16)
+                served and trained one step on the card through the
+                plain path the head dim picks: no kernel launch.
+                --only-phase-18 runs phases 1, 2 and 18 alone
   9. summary    one JSON line of per-kernel numbers, then the result line
 
 Every exact launch count of phases 4, 4b, 6, 6b, 6c, 6d, 6e, 6f and 11
@@ -578,13 +601,15 @@ def phase_build():
 # -- phase 3 ----------------------------------------------------------------
 
 def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1,
-               kv_heads=None, n_kv=None, causal=True, offset=0):
+               kv_heads=None, n_kv=None, causal=True, offset=0,
+               profiled=False):
     """The forward kernel against its plain version (O and the LSE); two
     launches on the same inputs must give the same bits (no atomics). With
     ``offset``, q/k/v are views ``offset`` elements into rows of head_dim
     + 4: not 16-byte aligned, so float32 takes the kernel's 4-byte copies
     and bf16 the wrapper's TMA copy (3 a launch). With ``timed``, its time
-    beside the plain version's, torch SDPA's and the bound."""
+    beside the plain version's, torch SDPA's and the bound; with
+    ``profiled``, its profiler device time too."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     n_kv = n if n_kv is None else n_kv
@@ -625,12 +650,17 @@ def flash_case(gen, n, heads, head_dim, dtype, timed=False, batch=1,
             else batch * heads * n * n_kv
         row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v,
                                                        causal=causal))
+        if profiled:
+            row["device_ms"] = device_ms(
+                lambda: fa.flash_attention(q, k, v, causal=causal),
+                "flash_fwd")
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_reference(q, k, v, causal=causal))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        gqa = {"enable_gqa": True} if kv_heads != heads else {}
         row["library_ms"] = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal))
+                qt, kt, vt, is_causal=causal, **gqa))
         row.update(bound(nbytes, 4 * head_dim * pairs, dtype))
     log("[kernels] " + json.dumps(row))
     return row
@@ -644,7 +674,7 @@ def causal_pairs(heads, n, n_kv):
 
 
 def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
-                   kv_heads=None, timed=False, offset=0):
+                   kv_heads=None, timed=False, offset=0, profiled=False):
     """The dq and dk/dv kernels against their plain version; two launches
     on the same inputs must give the same bits (no atomics). With
     ``offset``, q/k/v/dO are views ``offset`` elements into rows of
@@ -705,13 +735,21 @@ def flash_bwd_case(gen, n, heads, head_dim, dtype, batch=1, n_kv=None,
             lambda: fa.flash_attention_bwd_dq(*args, causal=True))
         row["dkv_ms"] = time_ms(
             lambda: fa.flash_attention_bwd_dkv(*args, causal=True))
+        if profiled:
+            row["dq_device_ms"] = device_ms(
+                lambda: fa.flash_attention_bwd_dq(*args, causal=True),
+                "flash_bwd_dq")
+            row["dkv_device_ms"] = device_ms(
+                lambda: fa.flash_attention_bwd_dkv(*args, causal=True),
+                "flash_bwd_dkv")
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_backward_reference(
                 q, k, v, out, lse, dout, causal=True))
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=True,
+            **({"enable_gqa": True} if kv_heads != heads else {}))
         g = dout.transpose(1, 2)
         row["library_ms"] = time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), g, retain_graph=True))
@@ -802,7 +840,8 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
         raise AssertionError(name + ": idle slots are not exactly zero")
     row = {"case": name, "lens": lens, "max_blocks": max_blocks,
            "split": split_of(pa.split_plan(s, 1, heads, kv_heads, max_blocks,
-                                           block_size, decode=True)),
+                                           block_size, decode=True,
+                                           head_dim=head_dim)),
            "max_abs_err": err}
     if bitwise:
         check_bitwise(name, lambda: pa.paged_attention(
@@ -840,9 +879,10 @@ def paged_case(gen, lens, heads, kv_heads, dtype, timed=False,
 
 def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
                head_dim=128, int8=False, block_size=16, max_blocks=128,
-               bitwise=False):
+               bitwise=False, profiled=False):
     """Kernel 8 against its plain version: valid rows (ci < q_len) within
-    the tolerance, every other row exactly zero."""
+    the tolerance, every other row exactly zero; with ``profiled`` (and
+    ``timed``), its profiler device time too."""
     from paddle_tpu_torch.serving.kernels import paged_attention as pa
 
     s = len(hist)
@@ -867,7 +907,8 @@ def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
         raise AssertionError(name + ": rows past q_len are not exactly zero")
     row = {"case": name, "hist": hist, "q_lens": q_lens,
            "split": split_of(pa.split_plan(s, chunk, heads, kv_heads,
-                                           max_blocks, block_size)),
+                                           max_blocks, block_size,
+                                           head_dim=head_dim)),
            "max_abs_err": err}
     if bitwise:
         check_bitwise(name, lambda: pa.mixed_paged_attention(q, **args), out)
@@ -888,6 +929,10 @@ def mixed_case(gen, hist, q_lens, chunk, heads, kv_heads, dtype, timed=False,
                   + sum(pages) * 4 + 2 * s * 4)
         flops = 4 * heads * head_dim * visible
         row["ms"] = time_ms(lambda: pa.mixed_paged_attention(q, **args))
+        if profiled:
+            row["device_ms"] = device_ms(
+                lambda: pa.mixed_paged_attention(q, **args), "mixed_paged",
+                per_call=1 + (row["split"]["splits"] > 1))
         row["plain_ms"] = time_ms(
             lambda: pa.mixed_paged_attention_reference(q, **args))
         row["library_ms"] = None
@@ -5482,14 +5527,15 @@ def phase_amp(seed, ptxas):
     overflow = fp16_overflow_case(gen, **FP16_FLASH_CASES[0])
     # the float16 kernels are the bf16 design with other operand types:
     # ptxas must give each the registers, stack and spills of its bf16 twin
+    # (forward, dq and dk/dv at D = 64 and 128, and at D = 256 since PR 25)
     report = {r["kernel"]: [r.get(k) for k in ("registers", "stack",
                                                "spill_stores",
                                                "spill_loads")]
               for r in ptxas["flash_attention"] + ptxas["flash_attention_bwd"]}
-    f16 = {k: v for k, v in report.items() if k.endswith(", f16>")}
-    twins = {k: report.get(k.replace(", f16>", ", bf16>")) for k in f16}
+    f16 = {k: v for k, v in report.items() if k.endswith(("<f16>", ", f16>"))}
+    twins = {k: report.get(k[:-len("f16>")] + "bf16>") for k in f16}
     log("[amp] ptxas float16 kernels: %s" % json.dumps(f16))
-    if len(f16) != 6 or any(f16[k] != twins[k] for k in f16):
+    if len(f16) != 9 or any(f16[k] != twins[k] for k in f16):
         raise AssertionError("float16 kernels' ptxas %s differ from their "
                              "bf16 twins' %s" % (f16, twins))
     torch.cuda.empty_cache()
@@ -6811,6 +6857,567 @@ def phase_ops_o2(seed):
     return sweep, paths, runs
 
 
+# -- phase 18: head dim 256 ----------------------------------------------------
+
+# A Llama at Gemma-2B's widths (google/gemma-2b, config.json: hidden 2048,
+# 8 query heads and 1 kv head of 256, FFN 16384, 18 layers, vocab 256000,
+# 8192 positions) through the repo's LlamaForCausalLM: Llama's arithmetic
+# (SwiGLU, plain RMSNorm, an untied head), not Gemma's; random weights
+# from --seed
+GEMMA = dict(hidden_size=2048, intermediate_size=16384, num_hidden_layers=18,
+             num_attention_heads=8, num_key_value_heads=1, vocab_size=256000,
+             max_position_embeddings=8192)
+GEMMA_D = 256
+# (a) kernels 1-3 at the training shape (B = 8, N = 1024, H = 8, Hkv = 1,
+# causal; timed) and a ragged N (200, the forward non-causal); kernel 7 at
+# the decode batch (16 slots, lengths 0..2048); kernel 8 at the mixed step
+# (a), the suffix prefill (b) and a mixed step of 4-token chunks (32 rows a
+# slot: the rows kernel's 8-row tiles), all at H = 8, Hkv = 1
+GEMMA_TRAIN = dict(batch=TRAIN_BATCH, n=TRAIN_SEQ, heads=8, kv_heads=1,
+                   head_dim=GEMMA_D)
+GEMMA_MIXED = (dict(MIXED_STEP, heads=8, kv_heads=1),
+               dict(SUFFIX_PREFILL, heads=8, kv_heads=1),
+               dict(hist=MIXED_STEP["hist"],
+                    q_lens=[min(n, 4) for n in MIXED_STEP["q_lens"]],
+                    chunk=4, heads=8, kv_heads=1))
+# kernel 10 at the model's projections (K -> N): q/o, k/v, gate/up, down
+GEMMA_W8 = ((2048, 2048, "q_proj"), (2048, 256, "k_proj"),
+            (2048, 16384, "gate_proj"), (16384, 2048, "down_proj"))
+# (b) served at all 18 layers: (dtype, tag, flags), each run's greedy tokens
+# against the same engine on the plain versions on the card: equal, or
+# first diverging at a near-tie of the plain run (a top-2 gap under the
+# dtype's share of the row's max |logit|: float32 1e-4, a thousand times
+# the kernels' float32 rounding; bf16 / float16 phase 10(b)'s and 16(c)'s
+# 2^-4 and 2^-7; int8 pages 2^-4, as in 16(c))
+GEMMA_SERVE_RUNS = (
+    (torch.float32, "flags off", {}),
+    (torch.float32, "prefix+chunked+int8 KV+int8 weights",
+     dict(prefix=True, chunked=True, quant_kv=True, quant_weights=True)),
+    (torch.bfloat16, "flags off", {}),
+    (torch.bfloat16, "prefix+chunked+int8 KV",
+     dict(prefix=True, chunked=True, quant_kv=True)),
+    (torch.float16, "flags off", {}),
+    (torch.float16, "prefix+chunked+int8 KV",
+     dict(prefix=True, chunked=True, quant_kv=True)))
+GEMMA_NEAR_TIE = {torch.float32: 1e-4, torch.bfloat16: BF16_NEAR_TIE,
+                  torch.float16: FP16_NEAR_TIE}
+# the card against a CPU copy at 2 layers in float32: phase 5's rule
+# (LOGIT_RTOL x max |logit|) over a 64-token sequence
+GEMMA_CPU_LAYERS, GEMMA_CPU_TOKENS = 2, 64
+# (c) trained with FLAGS_fused_lm_head_ce and AdamW at 8 x 1024: bf16 and
+# float16 (the default GradScaler) at all 18 layers with recompute, 3
+# steps; float32 at 2 layers (depth cut: 18 float32 layers and their AdamW
+# slots are 36 GB before activations), 2 steps. Kernels 1-3 against their
+# plain versions from the same weights (the fused tail's kernels on both
+# sides: its plain backward at V = 256000 holds a 16.8 GB int64 one-hot
+# beside two 8.4 GB float32 logit tensors, past the card beside the model;
+# (a) holds kernels 4-6 at this shape): the losses and the first step's
+# sampled gradients by relative norm, within (loss, gradient) limits by
+# dtype: phase 17's O2 limits for a bf16 model, phase 16's for a float16
+# one; float32 phase 7's gradient limit and a loss limit of 1e-6: at 2
+# layers and random weights the loss sits near ln(vocab) whatever
+# attention returns, and in a trial run on an H100 the planted faults
+# moved it by 2.6e-6 and 5.3e-6 while the kernels matched the plain
+# versions' losses to the bit. Each limit must be crossed by a fault
+# planted in kernel 1 on the first step (GEMMA_FAULTS).
+GEMMA_TRAIN_STEPS = {torch.bfloat16: 3, torch.float16: 3, torch.float32: 2}
+GEMMA_TRAIN32_LAYERS = 2
+GEMMA_TRAIN_TOL = {torch.bfloat16: (1e-4, 5e-2),
+                   torch.float16: (FP16_LOSS_RTOL, FP16_GRAD_RTOL),
+                   torch.float32: (1e-6, TRAIN_GRAD_RTOL)}
+GEMMA_FAULTS = ("causal flag flipped", "O's second 128 columns unwritten")
+# the summary's entries of the D = 256 instances, each over every dtype
+# (and pool mode) the Gemma-width paths ran
+D256_ENTRIES = {
+    "flash_attention_d256": ("flash_attention", "flash_attention_fp16",
+                             "flash_attention_segmented"),
+    "flash_attention_bwd_dq_d256": ("flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dq_fp16",
+                                    "flash_attention_bwd_dq_segmented"),
+    "flash_attention_bwd_dkv_d256": ("flash_attention_bwd_dkv",
+                                     "flash_attention_bwd_dkv_fp16",
+                                     "flash_attention_bwd_dkv_segmented"),
+    "paged_attention_d256": ("paged_attention", "paged_attention_int8",
+                             "paged_attention_fp16",
+                             "paged_attention_int8_fp16"),
+    # "mixed_paged_attention_bf16" reads the same counter as the float32
+    # entry: counted once
+    "mixed_paged_attention_d256": ("mixed_paged_attention",
+                                   "mixed_paged_attention_int8",
+                                   "mixed_paged_attention_fp16",
+                                   "mixed_paged_attention_int8_fp16"),
+}
+# the other kernels the Gemma-width paths run, under their own entries
+GEMMA_OTHER_ENTRIES = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw",
+                       "fused_ce_fwd_fp16", "fused_ce_dh_fp16",
+                       "fused_ce_dw_fp16", "int8_weight_matmul",
+                       "int8_weight_matmul_bf16", "int8_weight_matmul_fp16")
+
+
+def gemma_path(counts):
+    """A Gemma-width run's launch counts by summary entry: the attention
+    kernels' counters summed into their D = 256 entries, the loss tail's
+    and kernel 10's under their own."""
+    out = {name: sum(counts[c] for c in parts)
+           for name, parts in D256_ENTRIES.items()}
+    out.update({name: counts[name] for name in GEMMA_OTHER_ENTRIES})
+    return out
+
+
+def gemma_kernels(seed):
+    """18(a): kernels 1-3, 7 and 8 at D = 256 in every dtype and pool mode
+    against their plain versions at the path's shapes, twice bit for bit,
+    timed (CUDA events and profiler device time) beside the bound, the
+    plain version and torch SDPA; kernels 4-6 at V = 256000 and kernel 10
+    at the model's projections against their plain versions."""
+    from paddle_tpu_torch.kernels import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    t0 = time.perf_counter()
+    rows = {"fwd": [], "bwd": [], "paged": [], "mixed": []}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        rows["fwd"] += [
+            flash_case(gen, dtype=dtype, timed=True, profiled=True,
+                       **GEMMA_TRAIN),
+            flash_case(gen, 200, 8, GEMMA_D, dtype, kv_heads=1,
+                       causal=False)]
+        rows["bwd"] += [
+            flash_bwd_case(gen, dtype=dtype, timed=True, profiled=True,
+                           **GEMMA_TRAIN),
+            flash_bwd_case(gen, 200, 8, GEMMA_D, dtype, kv_heads=1)]
+        for int8 in (False, True):
+            rows["paged"].append(paged_case(
+                gen, PAGED_LENS, 8, 1, dtype, timed=True, head_dim=GEMMA_D,
+                int8=int8, bitwise=True))
+            for i, case in enumerate(GEMMA_MIXED):
+                rows["mixed"].append(mixed_case(
+                    gen, dtype=dtype, timed=i < 2, profiled=i < 2,
+                    head_dim=GEMMA_D, int8=int8, bitwise=True, **case))
+        torch.cuda.empty_cache()
+    ids, _ = packed_ids(np.random.default_rng(seed + 18), TRAIN_BATCH,
+                        TRAIN_SEQ)
+    rows["segmented"] = [segmented_case(gen, ids, 8, GEMMA_D, torch.bfloat16,
+                                        True, "(a) D=256")]
+    rows["fused_ce"] = [fused_ce_case(gen, TRAIN_BATCH * TRAIN_SEQ, 2048,
+                                      GEMMA["vocab_size"], dtype,
+                                      timed=dtype is torch.bfloat16)
+                        for dtype in (torch.bfloat16, torch.float16,
+                                      torch.float32)]
+    torch.cuda.empty_cache()
+    w8 = []
+    with torch.no_grad():
+        for k, n, name in GEMMA_W8:
+            w = torch.randn(k, n, generator=gen, device="cuda") * 0.02
+            q, scales = quant.quantize_int8_weight(w)
+            for m in W8_TIMED_MS:
+                x = torch.randn(m, k, generator=gen, device="cuda")
+                tag = "%s M=%d K=%d N=%d" % (name, m, k, n)
+                w8.append(w8_case(x, q, scales, w, tag, timed=False))
+                for half in (torch.bfloat16, torch.float16):
+                    hq, hs = quant.quantize_int8_weight(w.to(half))
+                    w8.append(w8_bf16_case(x.to(half), hq, hs, "%s %s" % (
+                        tag, str(half).split(".")[-1]), timed=False))
+    rows["w8"] = w8
+    log("[d256] (a) kernels in %.1f s" % (time.perf_counter() - t0))
+    return rows
+
+
+def gemma_model(seed, dtype, layers=None, device=None):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**dict(GEMMA, dtype=str(dtype).split(".")[-1],
+                             num_hidden_layers=layers
+                             or GEMMA["num_hidden_layers"]))
+    if cfg.head_dim != GEMMA_D:
+        raise AssertionError("head dim %d" % cfg.head_dim)
+    return LlamaForCausalLM(cfg, device=device, generator=torch.Generator(
+        device=device or "cuda").manual_seed(seed + 18))
+
+
+def gemma_launch_want(dtype, opts, st, layers):
+    """The exact launches of a serving run: kernel 1 per prefill and layer
+    (none with chunked prefill), kernel 7 per decode step and layer, kernel
+    8 per mixed step and layer, kernel 10 7 times per layer and step with
+    int8 weights (its every-mode counter and its dtype's; with chunked
+    prefill every step is a mixed one, which the stats also count as a
+    decode step); int8 pools take the int8 entries, float16 its own."""
+    f16 = "_fp16" if dtype is torch.float16 else ""
+    kv = "_int8" if opts.get("quant_kv") else ""
+    want = dict.fromkeys(fp16_counters(), 0)
+    if opts.get("chunked"):
+        want["mixed_paged_attention%s%s" % (kv, f16)] = \
+            layers * st["mixed_steps"]
+        if not kv and not f16:   # the float32 / bf16 entries share it
+            want["mixed_paged_attention_bf16"] = want["mixed_paged_attention"]
+    else:
+        want["flash_attention" + f16] = layers * st["prefill_runs"]
+        want["paged_attention%s%s" % (kv, f16)] = layers * st["decode_steps"]
+    if opts.get("quant_weights"):
+        want["int8_weight_matmul"] = 7 * layers * st[
+            "mixed_steps" if opts.get("chunked") else "decode_steps"]
+        if dtype is not torch.float32:
+            want["int8_weight_matmul_" + ("fp16" if f16 else "bf16")] = \
+                want["int8_weight_matmul"]
+    return want
+
+
+def gemma_serving(seed):
+    """18(b): the model behind serving.Engine at all 18 layers in float32,
+    bf16 and float16, flags off and with prefix cache + chunked prefill +
+    int8 KV (float32: + int8 weights); greedy tokens against the same
+    engine on the plain versions on the card; exact launch counts; then
+    a 2-layer float32 copy's logits card against CPU."""
+    results, paths = {}, {}
+    t0 = time.perf_counter()
+    layers = GEMMA["num_hidden_layers"]
+    model, model_dtype = None, None
+    for dtype, tag, opts in GEMMA_SERVE_RUNS:
+        if dtype is not model_dtype:
+            del model
+            torch.cuda.empty_cache()
+            model, model_dtype = gemma_model(seed, dtype), dtype
+            fp16_serve(model, ([[1, 2, 3]], []), {})   # warm-up
+        name = "[d256 serve %s %s]" % (str(dtype).split(".")[-1], tag)
+        prompts = bf16_prompts(seed, GEMMA["vocab_size"])
+        flat = prompts[0] + prompts[1]
+        reset_fp16_counters()
+        t1 = time.perf_counter()
+        tokens, st = fp16_serve(model, prompts, opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = fp16_counters()
+        want = gemma_launch_want(dtype, opts, st, layers)
+        if launches != want:
+            raise AssertionError("%s launches %s, expected %s"
+                                 % (name, launches, want))
+        if opts.get("prefix") and not st["prefix_hit_tokens"] >= 240:
+            raise AssertionError("%s expected a 240-token prefix hit: %s"
+                                 % (name, st))
+        restore = plain_kernels()
+        try:
+            plain_tokens, _ = fp16_serve(model, prompts, opts)
+        finally:
+            restore()
+        rel = FP16_NEAR_TIE_INT8_KV if opts.get("quant_kv") \
+            else GEMMA_NEAR_TIE[dtype]
+        same = [fp16_near_tie(name + " kernels vs plain", model, p, w, g, rel)
+                for p, w, g in zip(flat, plain_tokens, tokens)]
+        results["%s %s" % (str(dtype).split(".")[-1], tag)] = row = {
+            "wall_s": wall, "prompt_lens": [len(p) for p in flat],
+            "identical": "%d of %d" % (sum(same), len(same)),
+            "prefill_runs": st["prefill_runs"],
+            "decode_steps": st["decode_steps"],
+            "mixed_steps": st["mixed_steps"],
+            "prefix_hit_tokens": st["prefix_hit_tokens"],
+            "launches": launches}
+        log(name + " " + json.dumps(row))
+        paths["d256 serving %s %s" % (str(dtype).split(".")[-1], tag)] = \
+            gemma_path(launches)
+    del model
+    torch.cuda.empty_cache()
+    # a 2-layer float32 copy: the card (kernels) against the CPU (plain)
+    model = gemma_model(seed, torch.float32, layers=GEMMA_CPU_LAYERS)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    ids = torch.from_numpy(np.random.default_rng(seed + 18).integers(
+        0, GEMMA["vocab_size"], (1, GEMMA_CPU_TOKENS)))
+    with torch.no_grad():
+        want = cpu_model(ids)[0]
+        got = model(ids.cuda())[0].cpu()
+    diff, scale = float((got - want).abs().max()), float(want.abs().max())
+    results["cpu_logits"] = {"layers": GEMMA_CPU_LAYERS,
+                             "tokens": GEMMA_CPU_TOKENS, "max_abs_diff": diff,
+                             "max_abs_logit": scale}
+    log("[d256 serve] card vs CPU logits at %d layers [%d, %d]: max abs diff "
+        "%.3g, max |logit| %.3g" % (GEMMA_CPU_LAYERS, *want.shape, diff,
+                                    scale))
+    if not (bool(torch.isfinite(got).all()) and diff <= LOGIT_RTOL * scale):
+        raise AssertionError("[d256 serve] card logits differ from the CPU "
+                             "plain path by %.3g (> %g x %.3g)"
+                             % (diff, LOGIT_RTOL, scale))
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    log("[d256] (b) serving in %.1f s" % (time.perf_counter() - t0))
+    return results, paths
+
+
+def gemma_grad_names(layers):
+    return ("lm_head.weight", "llama.layers.0.self_attn.q_proj.weight",
+            "llama.layers.%d.mlp.down_proj.weight" % (layers - 1))
+
+
+def gemma_train_run(model, ids, labels, steps, scaler=None):
+    """The eager loop with the fused tail (FLAGS_fused_lm_head_ce, the
+    loss inside the model) and AdamW, through the scaler when given.
+    Returns the losses, the first step's sampled gradients (unscaled) and
+    the step times."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=AMP_LR, parameters=model.parameters())
+    params = dict(model.named_parameters())
+    names = gemma_grad_names(model.config.num_hidden_layers)
+    out = {"losses": [], "ms": []}
+    flags.set_flags({"FLAGS_fused_lm_head_ce": True})
+    try:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss = model(ids, labels)
+            if scaler is None:
+                loss.backward()
+                opt.step()
+            else:
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+            if i == 0:
+                out["grads"] = {n: params[n].grad.float().clone()
+                                for n in names}
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["losses"].append(loss.item())
+    finally:
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    return out
+
+
+def gemma_fault_step(model, ids, labels, fault, scale):
+    """The first step's loss and sampled gradients (no update) with a fault
+    planted in kernel 1's wrapper: the causal flag flipped, or O's second
+    128 columns left as zeros."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    kernel = fa.flash_attention
+
+    def planted(q, k, v, causal=False, scale=None, segment_ids=None):
+        if fault == GEMMA_FAULTS[0]:
+            return kernel(q, k, v, not causal, scale, segment_ids)
+        out, lse = kernel(q, k, v, causal, scale, segment_ids)
+        out = out.clone()
+        out[..., 128:] = 0
+        return out, lse
+
+    params = dict(model.named_parameters())
+    fa.flash_attention = planted
+    flags.set_flags({"FLAGS_fused_lm_head_ce": True})
+    try:
+        loss = model(ids, labels)
+        (loss * scale).backward()
+        grads = {n: params[n].grad.float() / scale
+                 for n in gemma_grad_names(model.config.num_hidden_layers)}
+    finally:
+        fa.flash_attention = kernel
+        flags.set_flags({"FLAGS_fused_lm_head_ce": False})
+    for p in model.parameters():
+        p.grad = None
+    return loss.item(), grads
+
+
+def gemma_train(seed, dtype):
+    """18(c) in one dtype: the planted faults from the initial weights,
+    then the steps on the kernels, then on kernels 1-3's plain versions
+    from the same weights; exact launch counts; step ms, tokens/s, peak
+    memory."""
+    from paddle_tpu_torch import amp
+
+    layers = GEMMA_TRAIN32_LAYERS if dtype is torch.float32 \
+        else GEMMA["num_hidden_layers"]
+    steps = GEMMA_TRAIN_STEPS[dtype]
+    tag = "[d256 train %s]" % str(dtype).split(".")[-1]
+    t0 = time.perf_counter()
+    model = gemma_model(seed, dtype, layers=layers)
+    model.config.recompute = dtype is not torch.float32
+    plain_model = copy.deepcopy(model)
+    rng = np.random.default_rng(seed + 18)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, GEMMA["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    labels[:, ::8] = -100
+    scaler = amp.GradScaler if dtype is torch.float16 else None
+    scale = 2.0 ** 15 if scaler else 1.0
+    faults = {f: gemma_fault_step(model, ids, labels, f, scale)
+              for f in GEMMA_FAULTS}
+    reset_fp16_counters()
+    torch.cuda.reset_peak_memory_stats()
+    run = gemma_train_run(model, ids, labels, steps, scaler and scaler())
+    launches = fp16_counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    restore = flash_plain()
+    try:
+        plain = gemma_train_run(plain_model, ids, labels, steps,
+                                scaler and scaler())
+    finally:
+        restore()
+    del plain_model
+    torch.cuda.empty_cache()
+    f16 = "_fp16" if dtype is torch.float16 else ""
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attention" + f16: 2 * layers * steps
+                 if dtype is not torch.float32 else layers * steps,
+                 "flash_attention_bwd_dq" + f16: layers * steps,
+                 "flash_attention_bwd_dkv" + f16: layers * steps,
+                 "fused_ce_fwd" + f16: steps, "fused_ce_dh" + f16: steps,
+                 "fused_ce_dw" + f16: steps})
+    if launches != want:
+        raise AssertionError("%s launches %s, expected %s"
+                             % (tag, launches, want))
+    if not all(map(math.isfinite, run["losses"])):
+        raise AssertionError("%s non-finite loss %s" % (tag, run["losses"]))
+    loss_tol, grad_tol = GEMMA_TRAIN_TOL[dtype]
+
+    def errors(loss, grads):
+        return (abs(loss - plain["losses"][0]) / abs(plain["losses"][0]),
+                max(rel_norm(grads[n], plain["grads"][n]) for n in grads))
+
+    grad_err = errors(run["losses"][0], run["grads"])[1]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], plain["losses"]))
+    planted = {f: dict(zip(("loss_rel_err", "grad_rel_err"), errors(*r)))
+               for f, r in faults.items()}
+    result = {"layers": layers, "steps": steps, "losses": run["losses"],
+              "plain_losses": plain["losses"], "loss_rel_err": loss_err,
+              "grad_rel_err": grad_err,
+              "limits": {"loss": loss_tol, "grad": grad_tol},
+              "planted": planted, "step_ms": run["ms"],
+              "plain_step_ms": plain["ms"],
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+              / statistics.median(run["ms"][1:]) * 1e3,
+              "peak_mem_gb": peak, "launches": launches}
+    log("%s %d layers, %d x %d%s, fused tail, AdamW %g (%.1f s): %s" % (
+        tag, layers, TRAIN_BATCH, TRAIN_SEQ,
+        ", recompute" if layers > GEMMA_TRAIN32_LAYERS else "", AMP_LR,
+        time.perf_counter() - t0, json.dumps(result)))
+    if not (math.isfinite(grad_err) and loss_err <= loss_tol
+            and grad_err <= grad_tol):
+        raise AssertionError("%s kernels vs plain versions: loss %.3g (> %g?)"
+                             ", gradients %.3g (> %g?)" % (
+                                 tag, loss_err, loss_tol, grad_err,
+                                 grad_tol))
+    caught = [(p["loss_rel_err"] > loss_tol, p["grad_rel_err"] > grad_tol)
+              for p in planted.values()]
+    if not all(a or b for a, b in caught) or not any(a for a, _ in caught) \
+            or not any(b for _, b in caught):
+        raise AssertionError("%s a limit no planted fault crosses: %s"
+                             % (tag, planted))
+    return result
+
+
+def gemma_tiny(seed):
+    """18(d): the tiny preset (D = 16) on the card, served and trained one
+    step through SDPA's and the paged wrappers' plain path: every kernel
+    counter 0, the head-dim dispatch's counter above 0."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    cfg = LlamaConfig.tiny()
+    model = LlamaForCausalLM(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed + 18))
+    reset_fp16_counters()
+    plain = fa.plain_head_dim_calls
+    out = {}
+    for tag, opts in (("flags off", {}), ("prefix+chunked+int8 KV", dict(
+            prefix=True, chunked=True, quant_kv=True))):
+        engine = tier2_engine(model, opts.get("prefix", False),
+                              opts.get("chunked", False),
+                              opts.get("quant_kv", False), max_slots=2,
+                              block_size=16, num_blocks=32,
+                              max_model_len=cfg.max_position_embeddings)
+        rng = np.random.default_rng(seed + 18)
+        ids = [engine.add_request(rng.integers(0, cfg.vocab_size, n)
+                                  .tolist(), max_new_tokens=6)
+               for n in (5, 13, 40)]
+        engine.run()
+        out[tag] = [engine.output(i) for i in ids]
+        del engine
+    step = TrainStep(model, lm_loss(cfg.vocab_size), AdamW(
+        learning_rate=AMP_LR, parameters=model.parameters()))
+    x = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(seed))
+    out["loss"] = step(x, x).item()
+    counts = fp16_counters()
+    out["plain_head_dim_calls"] = fa.plain_head_dim_calls - plain
+    log("[d256] (d) tiny preset (D = %d) on the card: %s, kernel launches %s"
+        % (cfg.head_dim, json.dumps(out), {k: v for k, v in counts.items()
+                                           if v}))
+    if any(counts.values()) or not out["plain_head_dim_calls"] \
+            or not math.isfinite(out["loss"]):
+        raise AssertionError("[d256] (d) kernel launches %s, plain head-dim "
+                             "calls %d, loss %s" % (counts,
+                                                    out["plain_head_dim_calls"],
+                                                    out["loss"]))
+    del model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_head_dim_256(seed):
+    """Phase 18: (a) kernels 1-3, 7, 8 at D = 256 and 4-6, 10 at the
+    model's shapes, (b) a Llama at Gemma-2B's widths served, (c) trained,
+    (d) the tiny preset on the plain path. Returns the kernel rows, the
+    paths' launch counts and the results."""
+    t0 = time.perf_counter()
+    rows = gemma_kernels(seed)
+    torch.cuda.empty_cache()
+    results = {}
+    results["serving"], paths = gemma_serving(seed)
+    t1 = time.perf_counter()
+    results["train"] = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        run = gemma_train(seed, dtype)
+        results["train"][str(dtype).split(".")[-1]] = run
+        paths["d256 train %s" % str(dtype).split(".")[-1]] = \
+            gemma_path(run["launches"])
+    log("[d256] (c) training in %.1f s" % (time.perf_counter() - t1))
+    results["tiny"] = gemma_tiny(seed)
+    ran = {k: sum(c[k] for c in paths.values()) for k in D256_ENTRIES}
+    if not all(ran.values()):
+        raise AssertionError("[d256] a D = 256 kernel never ran on the "
+                             "paths: %s" % ran)
+    log("[d256] phase 18 in %.1f s" % (time.perf_counter() - t0))
+    return rows, paths, results
+
+
+def d256_numbers(name, rows, ptxas):
+    """A D = 256 entry's numbers: the bf16 timed case (the training shape,
+    the decode batch, the mixed step) with every timed mode beside it, the
+    largest float32 error, and ptxas's report of the D = 256 instances."""
+    d = rows["d256"]
+    if name == "flash_attention_d256":
+        cases, part, source = d["fwd"], None, "flash_attention"
+    elif name.startswith("flash_attention_bwd"):
+        cases, part = d["bwd"], name.split("_")[3]
+        source = "flash_attention_bwd"
+    elif name == "paged_attention_d256":
+        cases, part, source = d["paged"], None, "paged_attention"
+    else:
+        cases, part, source = d["mixed"], None, "paged_attention"
+
+    def brief(r):
+        ms = r[part + "_ms"] if part else r["ms"]
+        b = r[part] if part else r
+        out = dict(case=r["case"], ms=ms, plain_ms=r["plain_ms"],
+                   bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   library_ms=r["library_ms"])
+        dev = r.get(part + "_device_ms" if part else "device_ms")
+        if dev is not None:
+            out["device_ms"] = dev
+        return out
+
+    timed = [r for r in cases if ("%s_ms" % part if part else "ms") in r]
+    main = next(r for r in timed if "bfloat16" in r["case"])
+    errs = [r["max_abs_err"][part] if part else r["max_abs_err"]
+            for r in cases if "float32" in r["case"]]
+    return dict(brief(main), max_abs_err=max(errs), timed_case=main["case"],
+                modes=[brief(r) for r in timed],
+                ptxas=[r for r in ptxas.get(source, ())
+                       if "256" in r["kernel"]])
+
+
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 KERNELS = {
     "flash_attention": dict(
@@ -6921,6 +7528,28 @@ KERNELS = {
                  "(paddle_tpu/serving/engine.py:1074, _dequant_state)",
         mode="float16 x and y, int8 weight, fp32 block scales "
              "(mma.sync / wgmma .f32.f16.f16)"),
+    "flash_attention_d256": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/kernels/flash_attention.py:161",
+        mode="head dim 256: float32, bfloat16, float16 (and segment ids)"),
+    "flash_attention_bwd_dq_d256": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:330",
+        mode="head dim 256: float32, bfloat16, float16 (and segment ids)"),
+    "flash_attention_bwd_dkv_d256": dict(
+        source=BWD_SOURCE,
+        replaces="paddle_tpu/kernels/flash_attention.py:366",
+        mode="head dim 256: float32, bfloat16, float16 (and segment ids)"),
+    "paged_attention_d256": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:167",
+        mode="head dim 256: float32, bfloat16, float16 q over pages of q's "
+             "dtype or int8 pages"),
+    "mixed_paged_attention_d256": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/serving/kernels/paged_attention.py:345",
+        mode="head dim 256: float32, bfloat16, float16 q over pages of q's "
+             "dtype or int8 pages; rows and tiles kernels"),
 }
 # the entries phase 16 fills (the float16 model's kernels but 1-3)
 FP16_MODEL_ENTRIES = ("fused_ce_fwd_fp16", "fused_ce_dh_fp16",
@@ -7205,7 +7834,9 @@ def summary(rows, paths):
     for name, meta in KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()
                    if name in counts}
-        if name in FP16_MODEL_ENTRIES:
+        if name in D256_ENTRIES:
+            numbers = d256_numbers(name, rows, rows["ptxas"])
+        elif name in FP16_MODEL_ENTRIES:
             numbers = fp16_model_numbers(name, rows)
         elif name.startswith("int8_weight_matmul"):
             bf16 = name.endswith("_bf16")
@@ -7315,6 +7946,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only-phase-17", action="store_true",
                     help="phases 1, 2 and 17 alone (no summary line)")
+    ap.add_argument("--only-phase-18", action="store_true",
+                    help="phases 1, 2 and 18 alone (no summary line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = phase_device()
@@ -7322,6 +7955,9 @@ def main(argv=None):
     ptxas = phase_build()
     if args.only_phase_17:
         phase_ops_o2(args.seed)
+        return
+    if args.only_phase_18:
+        phase_head_dim_256(args.seed)
         return
     rows = phase_kernels(args.seed)
     rows["ptxas"] = ptxas
@@ -7376,6 +8012,8 @@ def main(argv=None):
     rows["fp16_model"], fp16_paths, _ = phase_fp16_model(args.seed)
     torch.cuda.empty_cache()
     rows["ops"], o2_paths, _ = phase_ops_o2(args.seed)
+    torch.cuda.empty_cache()
+    rows["d256"], d256_paths, _ = phase_head_dim_256(args.seed)
     paths = {"serving": serving, "train": train["launches"],
              "train_fused": train_fused["launches"], "probe": probe,
              "bench_fused": bench["launches"], "varlen": varlen["launches"],
@@ -7392,6 +8030,7 @@ def main(argv=None):
     paths.update(amp_paths)
     paths.update(fp16_paths)
     paths.update(o2_paths)
+    paths.update(d256_paths)
     paths = {path: by_mode(counts, bf16=False)
              for path, counts in paths.items()}
     paths.update({path: by_mode(counts, bf16=True)

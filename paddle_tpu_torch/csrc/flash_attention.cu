@@ -66,6 +66,11 @@
 //    computing, so no side waits for a tile the other skipped;
 //  * O = acc / max(l, 1e-30) goes out as bf16 from the fragments; rows >= N
 //    are not written.
+//  * D = 256 (a Llama at Gemma-2B's widths): Q's 128 rows take 64 KB and a
+//    K/V stage 64 KB, so the ring has 2 stages instead of 3 (192 KB of the
+//    227 KB a block may have); O is one m64n256 accumulator, 128 fp32
+//    registers beside S's 32 and P's 16 fragments, within the consumers'
+//    240. chip_smoke.py phase 2 prints ptxas's registers and spills.
 //
 // float16 (the same kernel with T = __half): the reference's `_dot`
 // (paddle_tpu/kernels/flash_attention.py:47-65) takes two float16 operands
@@ -95,7 +100,10 @@
 //    and the row sum is kept per lane and reduced at the end;
 //  * inputs are read through their [B, N, H, D] strides, and the ragged
 //    edge (N or N_kv not a multiple of the tile) is zero-filled and masked
-//    in-kernel.
+//    in-kernel;
+//  * D = 256: 64-row query tiles (4 x D/16 = 64 accumulators a thread)
+//    and one K/V buffer, 208 KB: a second buffer would be 272 KB, so the
+//    next tile loads after this one's P.V, behind a barrier.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -134,8 +142,10 @@ using ptf32::cp_async_wait_all;
 using ptf32::load_rows;
 using ptseg::next_tile;
 
-// BM query rows per CTA (64 or 128), BM / 16 per thread
-template <int D, int BM>
+// BM query rows per CTA (64 or 128), BM / 16 per thread; STAGES K/V
+// buffers: 2 (tile j + 1 lands while tile j computes) or 1 (D = 256, where
+// two do not fit: the next tile loads after this one's P.V)
+template <int D, int BM, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -144,9 +154,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NC = D / 16;    // output columns per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [BM][D], swizzled
-  float* ks = qs + BM * D;                       // [2][BN][D], swizzled
-  float* vs = ks + 2 * BN * D;                   // [2][BN][D]
-  float* pt = vs + 2 * BN * D;                   // [BN][BM] P^T, swizzled
+  float* ks = qs + BM * D;                  // [STAGES][BN][D], swizzled
+  float* vs = ks + STAGES * BN * D;         // [STAGES][BN][D]
+  float* pt = vs + STAGES * BN * D;         // [BN][BM] P^T, swizzled
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -188,19 +198,21 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   cp_async_commit();
   // the swizzle of this thread's rows: (ty + 16 i) % 8 and (tx + 16 j) % 8
   const int qsw = ty & 7, ksw = tx & 7;
-  for (int stage = 0; k0 < kv_end; stage ^= 1) {
+  for (int stage = 0; k0 < kv_end; stage = (stage + 1) % STAGES) {
     cp_async_wait_all();
     // tile k0 has landed for every thread, and every thread is done with
     // the previous tile's P.V: its buffers and P^T are free
     __syncthreads();
     const int k1 = next_tile<BN>(k0 + BN, kv_end, sb, a.n_kv, q_ids);
-    if (k1 < kv_end) {
-      load_rows<D, true, THREADS>(ks + (stage ^ 1) * BN * D, kb, a.skn, k1,
-                                  BN, a.n_kv, a.vec);
-      load_rows<D, false, THREADS>(vs + (stage ^ 1) * BN * D, vb, a.svn, k1,
-                                   BN, a.n_kv, a.vec);
+    if (STAGES == 2) {
+      if (k1 < kv_end) {
+        load_rows<D, true, THREADS>(ks + (stage ^ 1) * BN * D, kb, a.skn,
+                                    k1, BN, a.n_kv, a.vec);
+        load_rows<D, false, THREADS>(vs + (stage ^ 1) * BN * D, vb, a.svn,
+                                     k1, BN, a.n_kv, a.vec);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
 
     const float* kt = ks + stage * BN * D;
     float s[RM][RN];
@@ -305,6 +317,14 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     }
+    if (STAGES == 1) {
+      __syncthreads();   // every thread is done with this tile's K and V
+      if (k1 < kv_end) {
+        load_rows<D, true, THREADS>(ks, kb, a.skn, k1, BN, a.n_kv, a.vec);
+        load_rows<D, false, THREADS>(vs, vb, a.svn, k1, BN, a.n_kv, a.vec);
+      }
+      cp_async_commit();
+    }
     k0 = k1;
   }
   cp_async_wait_all();
@@ -328,12 +348,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, int BM>
+template <int D, int BM, int STAGES = 2>
 cudaError_t launch_f32_tiles(const void* q, const void* k, const void* v,
                              void* o, void* lse, int batch, const Args& a,
                              cudaStream_t stream) {
-  const size_t smem = size_t(BM * D + 4 * BN * D + BN * BM) * sizeof(float);
-  auto kernel = flash_fwd_f32_kernel<D, BM>;
+  const size_t smem =
+      size_t(BM * D + 2 * STAGES * BN * D + BN * BM) * sizeof(float);
+  auto kernel = flash_fwd_f32_kernel<D, BM, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -346,18 +367,24 @@ cudaError_t launch_f32_tiles(const void* q, const void* k, const void* v,
 }
 
 // 128-row query tiles, or 64-row ones for a grid that leaves SMs idle,
-// at a 4 x 4 block of S a thread (ptf32::query_tile_rows)
+// at a 4 x 4 block of S a thread (ptf32::query_tile_rows). D = 256: 64-row
+// tiles and one K/V buffer, 208 KB (a second buffer or 128 rows would be
+// 272 or 336 KB, past the 227 KB a block may have)
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        void* lse, int batch, const Args& a,
                        cudaStream_t stream) {
-  int rows = 0;
-  const cudaError_t err =
-      ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
-  if (err != cudaSuccess) return err;
-  if (rows == 128)
-    return launch_f32_tiles<D, 128>(q, k, v, o, lse, batch, a, stream);
-  return launch_f32_tiles<D, 64>(q, k, v, o, lse, batch, a, stream);
+  if constexpr (D > 128) {
+    return launch_f32_tiles<D, 64, 1>(q, k, v, o, lse, batch, a, stream);
+  } else {
+    int rows = 0;
+    const cudaError_t err =
+        ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
+    if (err != cudaSuccess) return err;
+    if (rows == 128)
+      return launch_f32_tiles<D, 128>(q, k, v, o, lse, batch, a, stream);
+    return launch_f32_tiles<D, 64>(q, k, v, o, lse, batch, a, stream);
+  }
 }
 
 // -- bf16: wgmma + TMA ------------------------------------------------------
@@ -369,7 +396,10 @@ constexpr int ROWS = 64;                    // wgmma M, and a streamed tile
 constexpr int CONSUMERS = 2;                // consumer warpgroups per CTA
 constexpr int CTA_ROWS = CONSUMERS * ROWS;  // query rows of a CTA
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int STAGES = 3;                   // ring of streamed K/V tiles
+// ring of streamed K/V tiles: 3, or 2 at D = 256, where Q (64 KB) and
+// three 64 KB K/V stages would pass the 227 KB a block may have
+template <int D>
+constexpr int STAGES = D > 128 ? 2 : 3;
 constexpr int BOX = ROWS * 64;              // elements of one 64 x 64 box
 constexpr uint32_t BOX_BYTES = BOX * 2;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
@@ -377,11 +407,12 @@ static_assert(ROWS == BN, "a streamed tile is one key tile");
 
 template <int D, typename T>
 struct Smem {
+  static constexpr int ST = STAGES<D>;
   T q[CONSUMERS][D / 64][BOX];   // each consumer's 64 query rows
-  T k[STAGES][D / 64][BOX];      // streamed key tiles
-  T v[STAGES][D / 64][BOX];
-  int32_t seg[STAGES][ROWS];        // the key tile's segment ids
-  uint64_t full[STAGES], empty[STAGES], loaded;
+  T k[ST][D / 64][BOX];          // streamed key tiles
+  T v[ST][D / 64][BOX];
+  int32_t seg[ST][ROWS];            // the key tile's segment ids
+  uint64_t full[ST], empty[ST], loaded;
 };
 
 template <int D, typename T>
@@ -393,6 +424,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        Args a) {
   using namespace ptwg;
   Smem<D, T>& s = aligned_smem<Smem<D, T>>();
+  constexpr int ST = Smem<D, T>::ST;
   const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * CTA_ROWS;   // heaviest first
@@ -402,7 +434,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int32_t* sb = a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
   const int kv_end = a.causal ? min(a.n_kv, q0 + CTA_ROWS) : a.n_kv;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
+    for (int i = 0; i < ST; ++i) {
       bar_init(&s.full[i], 32);               // the producer warp
       bar_init(&s.empty[i], CONSUMERS * 4);   // every consumer warp
     }
@@ -440,7 +472,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       } else {
         bar_arrive(&s.full[stage]);
       }
-      if (++stage == STAGES) {
+      if (++stage == ST) {
         stage = 0;
         phase ^= 1;
       }
@@ -529,7 +561,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       __syncwarp();
       if (lane == 0) bar_arrive(&s.empty[stage]);
-      if (++stage == STAGES) {
+      if (++stage == ST) {
         stage = 0;
         phase ^= 1;
       }
@@ -612,14 +644,20 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                sqh,   skb,  skn,   skh,      svb,   svn,
                svh,   scale, causal, static_cast<const int32_t*>(segs), vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 256)
+    return launch_f32<256>(q, k, v, o, lse, batch, a, s);
   if (dtype == 0 && head_dim == 128)
     return launch_f32<128>(q, k, v, o, lse, batch, a, s);
   if (dtype == 0 && head_dim == 64)
     return launch_f32<64>(q, k, v, o, lse, batch, a, s);
+  if (dtype == 1 && head_dim == 256)
+    return tc::launch<256, tc::bf16>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 128)
     return tc::launch<128, tc::bf16>(q, k, v, o, lse, batch, a, s);
   if (dtype == 1 && head_dim == 64)
     return tc::launch<64, tc::bf16>(q, k, v, o, lse, batch, a, s);
+  if (dtype == 3 && head_dim == 256)
+    return tc::launch<256, __half>(q, k, v, o, lse, batch, a, s);
   if (dtype == 3 && head_dim == 128)
     return tc::launch<128, __half>(q, k, v, o, lse, batch, a, s);
   if (dtype == 3 && head_dim == 64)

@@ -68,6 +68,11 @@
 //    of spill stores for dk/dv at D = 64 / 128, the D = 64 ones all in
 //    the producer warp's lse/delta staging; they cost no measurable
 //    time. chip_smoke.py phase 2 prints the report.
+//  * D = 256: kernels of their own (flash_bwd_dq_wgmma_d256_kernel,
+//    flash_bwd_dkv_wgmma_d256_kernel, in the section "head dim 256"):
+//    64-row CTAs whose two consumers split the output (dq's two 128-column
+//    halves; dv and dk), since the D <= 128 CTAs need 256 KB of shared
+//    memory and, for dk/dv, 256 accumulator registers.
 //  * float16: the same two kernels with T = __half (`wgmma ...
 //    .f32.f16.f16`, float16 tensor maps and fragments), the reference's
 //    float16 mode (its `_dot` takes any float operands and sums in
@@ -152,7 +157,10 @@
 //  otherwise: the bits of the unskipped kernel, and all-zero ids give the
 //  non-segmented bits. __launch_bounds__(256, 1): one CTA an SM (208-226
 //  KB of shared memory at D = 128), up to 255 registers a thread;
-//  chip_smoke.py phase 2 prints ptxas's registers and spills.
+//  chip_smoke.py phase 2 prints ptxas's registers and spills. D = 256
+//  takes one stage (the next tile loads after this one's products) and
+//  narrower streamed tiles: dq 64 rows over 32-key tiles (200 KB), dk/dv
+//  64 keys over 32-query tiles (208 KB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -314,8 +322,9 @@ __device__ __forceinline__ void next_query_tile(int& hq, int& q0, int rep,
 }
 
 // dq for BM query rows (64 or 128) of one (batch, head), streaming BN-key
-// tiles of K and V (and their segment ids) through a two-stage ring
-template <int D, int BM, int BN>
+// tiles of K and V (and their segment ids) through a ring of STAGES: 2, or
+// 1 at D = 256 (the next tile then loads after this one's dS.K)
+template <int D, int BM, int BN, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -328,10 +337,11 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [BM][D]
   float* os = qs + BM * D;                       // [BM][D] dO
-  float* ks = os + BM * D;                       // [2][BN][D]
-  float* vs = ks + 2 * BN * D;                   // [2][BN][D]
-  float* dst = vs + 2 * BN * D;                  // [BN][BM] dS^T
-  int32_t* segk = reinterpret_cast<int32_t*>(dst + BN * BM);   // [2][BN]
+  float* ks = os + BM * D;                       // [STAGES][BN][D]
+  float* vs = ks + STAGES * BN * D;              // [STAGES][BN][D]
+  float* dst = vs + STAGES * BN * D;             // [BN][BM] dS^T
+  int32_t* segk =
+      reinterpret_cast<int32_t*>(dst + BN * BM);   // [STAGES][BN]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;   // heaviest first
@@ -379,14 +389,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   int k0 = next_tile<BN>(0, kv_end, sb, a.n_kv, q_ids);
   if (k0 < kv_end) load_keys(0, k0);
   cp_async_commit();
-  for (int stage = 0; k0 < kv_end; stage ^= 1) {
+  for (int stage = 0; k0 < kv_end; stage = (stage + 1) % STAGES) {
     cp_async_wait_all();
     // tile k0 has landed for every thread, and every thread is done with
     // the previous tile's dS.K: its buffers and dS^T are free
     __syncthreads();
     const int k1 = next_tile<BN>(k0 + BN, kv_end, sb, a.n_kv, q_ids);
-    if (k1 < kv_end) load_keys(stage ^ 1, k1);
-    cp_async_commit();
+    if (STAGES == 2) {
+      if (k1 < kv_end) load_keys(stage ^ 1, k1);
+      cp_async_commit();
+    }
 
     const float* kt = ks + stage * BN * D;
     float s[RM][RN], dp[RM][RN];
@@ -412,6 +424,11 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     __syncthreads();   // dS^T is complete
     acc_tiles<D, RM, BN, false>(dst, kt, acc, dst, kt, acc, ty,
                                 tx);   // dq += dS . K
+    if (STAGES == 1) {
+      __syncthreads();   // every thread is done with this tile's K and V
+      if (k1 < kv_end) load_keys(0, k1);
+      cp_async_commit();
+    }
     k0 = k1;
   }
   cp_async_wait_all();
@@ -430,9 +447,10 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
 }
 
 // dk and dv for BK keys of one (batch, kv head), streaming BQ-query tiles
-// of Q and dO with their lse, delta and segment ids through a two-stage
-// ring, over the query heads of the GQA group in order
-template <int D, int BK, int BQ>
+// of Q and dO with their lse, delta and segment ids through a ring of
+// STAGES (2, or 1 at D = 256), over the query heads of the GQA group in
+// order
+template <int D, int BK, int BQ, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
@@ -446,11 +464,11 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);   // [BK][D]
   float* vs = ks + BK * D;                       // [BK][D]
-  float* qs = vs + BK * D;                       // [2][BQ][D]
-  float* os = qs + 2 * BQ * D;                   // [2][BQ][D] dO
-  float* pt = os + 2 * BQ * D;                   // [BQ][BK] P^T
+  float* qs = vs + BK * D;                       // [STAGES][BQ][D]
+  float* os = qs + STAGES * BQ * D;              // [STAGES][BQ][D] dO
+  float* pt = os + STAGES * BQ * D;              // [BQ][BK] P^T
   float* dst = pt + BQ * BK;                     // [BQ][BK] dS^T
-  float* rowv = dst + BQ * BK;   // [2][3][BQ]: lse, delta, segment ids
+  float* rowv = dst + BQ * BK;   // [STAGES][3][BQ]: lse, delta, ids
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = blockIdx.y * BK;   // the first key tiles are the heaviest
@@ -498,15 +516,17 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   next_query_tile<BQ>(hq, q0, rep, q_begin, sb, a.n, k_ids);
   if (hq < rep) load_queries(0, hq, q0);
   cp_async_commit();
-  for (int stage = 0; hq < rep; stage ^= 1) {
+  for (int stage = 0; hq < rep; stage = (stage + 1) % STAGES) {
     cp_async_wait_all();
     // tile (hq, q0) has landed, and every thread is done with the last
     // tile's products: its buffers, P^T and dS^T are free
     __syncthreads();
     int hq1 = hq, q1 = q0 + BQ;
     next_query_tile<BQ>(hq1, q1, rep, q_begin, sb, a.n, k_ids);
-    if (hq1 < rep) load_queries(stage ^ 1, hq1, q1);
-    cp_async_commit();
+    if (STAGES == 2) {
+      if (hq1 < rep) load_queries(stage ^ 1, hq1, q1);
+      cp_async_commit();
+    }
 
     const float* qt = qs + stage * BQ * D;
     const float* ot = os + stage * BQ * D;
@@ -537,6 +557,11 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     __syncthreads();   // P^T and dS^T are complete
     // dv += P^T . dO and dk += dS^T . Q
     acc_tiles<D, RM, BQ, true>(pt, ot, acc_v, dst, qt, acc_k, ty, tx);
+    if (STAGES == 1) {
+      __syncthreads();   // every thread is done with this tile's Q and dO
+      if (hq1 < rep) load_queries(0, hq1, q1);
+      cp_async_commit();
+    }
     hq = hq1;
     q0 = q1;
   }
@@ -560,14 +585,14 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D, int BM, int BN>
+template <int D, int BM, int BN, int STAGES = 2>
 cudaError_t launch_dq_f32_tiles(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int batch,
                                 const Args& a, int vec, cudaStream_t stream) {
-  const size_t smem =
-      size_t(2 * BM * D + 4 * BN * D + BN * BM + 2 * BN) * sizeof(float);
-  auto kernel = flash_bwd_dq_f32_kernel<D, BM, BN>;
+  const size_t smem = size_t(2 * BM * D + 2 * STAGES * BN * D + BN * BM +
+                             STAGES * BN) * sizeof(float);
+  auto kernel = flash_bwd_dq_f32_kernel<D, BM, BN, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -582,32 +607,40 @@ cudaError_t launch_dq_f32_tiles(const void* q, const void* k, const void* v,
 
 // 128 query rows or, for a grid that leaves SMs idle, 64
 // (ptf32::query_tile_rows); 128-row tiles stream 32-key tiles, so that Q,
-// dO and the K/V ring fit
+// dO and the K/V ring fit. D = 256: 64 rows, 32-key tiles, one K/V buffer
+// (200 KB; two would be 264 KB)
 template <int D>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, void* dq, int batch,
                           const Args& a, int vec, cudaStream_t stream) {
-  int rows = 0;
-  const cudaError_t err =
-      ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
-  if (err != cudaSuccess) return err;
-  if (rows == 128)
-    return launch_dq_f32_tiles<D, 128, 32>(q, k, v, dout, lse, delta, dq,
-                                           batch, a, vec, stream);
-  return launch_dq_f32_tiles<D, 64, 64>(q, k, v, dout, lse, delta, dq, batch,
-                                        a, vec, stream);
+  if constexpr (D > 128) {
+    return launch_dq_f32_tiles<D, 64, 32, 1>(q, k, v, dout, lse, delta, dq,
+                                             batch, a, vec, stream);
+  } else {
+    int rows = 0;
+    const cudaError_t err =
+        ptf32::query_tile_rows((long long)batch * a.heads, a.n, &rows);
+    if (err != cudaSuccess) return err;
+    if (rows == 128)
+      return launch_dq_f32_tiles<D, 128, 32>(q, k, v, dout, lse, delta, dq,
+                                             batch, a, vec, stream);
+    return launch_dq_f32_tiles<D, 64, 64>(q, k, v, dout, lse, delta, dq,
+                                          batch, a, vec, stream);
+  }
 }
 
+// 64 keys a CTA, 64-query tiles double-buffered; D = 256: 32-query tiles,
+// one buffer (208 KB; 64-query tiles double-buffered would be 417 KB)
 template <int D>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, void* dk, void* dv, int batch,
                            const Args& a, int vec, cudaStream_t stream) {
-  constexpr int BK = 64, BQ = 64;
-  const size_t smem =
-      size_t(2 * BK * D + 4 * BQ * D + 2 * BQ * BK + 6 * BQ) * sizeof(float);
-  auto kernel = flash_bwd_dkv_f32_kernel<D, BK, BQ>;
+  constexpr int BK = 64, BQ = D > 128 ? 32 : 64, STAGES = D > 128 ? 1 : 2;
+  const size_t smem = size_t(2 * BK * D + 2 * STAGES * BQ * D + 2 * BQ * BK +
+                             3 * STAGES * BQ) * sizeof(float);
+  auto kernel = flash_bwd_dkv_f32_kernel<D, BK, BQ, STAGES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
@@ -1025,6 +1058,390 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// -- head dim 256 ---------------------------------------------------------
+//
+// At D = 256 the D <= 128 CTAs do not fit the card: dq's Q and dO for two
+// 64-row consumers and two K/V stages come to 256 KB of shared memory, and
+// a dk/dv consumer would hold dk and dv as 2 x 128 fp32 accumulators, over
+// the 240 registers it gets. So both kernels take 64 rows (or keys) a CTA
+// and give the two consumer warpgroups different outputs of them:
+//  * dq: both consumers compute S and dP for the same 64 query rows (the
+//    same products on the same operands: the same bits) and each keeps one
+//    128-column half of dq (64 accumulators), dq[:, 128 wg ..] += dS .
+//    K[:, 128 wg ..]. The scores are computed twice; that is the price of
+//    a register budget of 64 + 2 x 32 a thread. Q and dO (32 KB each) load
+//    once, K/V tiles stream through two 64 KB stages: 192 KB;
+//  * dk/dv: one CTA per (64 keys, batch * kv head); consumer 0 computes
+//    S^T and dv += P^T . dO, consumer 1 S^T, dP^T and dk += dS^T . Q, each
+//    with one m64n256 accumulator (128 registers). K and V load once (32
+//    KB each), query tiles stream through two 64 KB stages: 192 KB. 64-key
+//    CTAs also double the grid of a GQA model with one kv head (Gemma-2B's
+//    widths: 8 x 1 x 1024 / 64 = 128 CTAs on 132 SMs), where 128-key CTAs
+//    would leave half the SMs idle. What remains is the causal spread: the
+//    first key tile sees every query tile, the last one one.
+// Producer, tile sequence, masks, rounding points and the segment-id skip
+// are those of the D <= 128 kernels above.
+
+template <typename T>
+struct DqSmem256 {
+  static constexpr int D = 256, ST = 2;
+  T q[D / 64][BOX];          // the CTA's 64 query rows
+  T o[D / 64][BOX];          // and their dO rows
+  T k[ST][D / 64][BOX];      // streamed key tiles
+  T v[ST][D / 64][BOX];
+  int32_t seg[ST][ROWS];
+  uint64_t full[ST], empty[ST], loaded;
+};
+
+template <typename T>
+struct DkvSmem256 {
+  static constexpr int D = 256, ST = 2;
+  T k[D / 64][BOX];          // the CTA's 64 keys
+  T v[D / 64][BOX];
+  T q[ST][D / 64][BOX];      // streamed query tiles
+  T o[ST][D / 64][BOX];
+  float lse[ST][ROWS];       // log2(e) * lse of the tile's queries
+  float delta[ST][ROWS];
+  int32_t seg[ST][ROWS];
+  uint64_t full[ST], empty[ST], loaded;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap to,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dq, Args a) {
+  using namespace ptwg;
+  using Sm = DqSmem256<T>;
+  constexpr int D = Sm::D, ST = Sm::ST;
+  Sm& s = aligned_smem<Sm>();
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;   // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int kvh = h / (a.heads / a.kv_heads);
+  const int32_t* sb =
+      a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
+  const int kv_end = a.causal ? min(a.n_kv, q0 + ROWS) : a.n_kv;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      bar_init(&s.full[i], 32);               // the producer warp
+      bar_init(&s.empty[i], CONSUMERS * 4);   // every consumer warp
+    }
+    bar_init(&s.loaded, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  const int2 q_ids = sb != nullptr ? id_range(sb, q0, a.n) : make_int2(0, 0);
+
+  if (wg == CONSUMERS) {   // producer warpgroup: one warp issues the TMA
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp != CONSUMERS * 4) return;
+    if (lane == 0) {
+      bar_arrive_tx(&s.loaded, 2 * (D / 64) * BOX_BYTES);
+      for (int j = 0; j < D / 64; ++j) {
+        tma_load(s.q[j], &tq, &s.loaded, j * 64, h, q0, b);
+        tma_load(s.o[j], &to, &s.loaded, j * 64, h, q0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < kv_end; k0 += ROWS) {
+      if (sb != nullptr && !ranges_meet(id_range(sb, k0, a.n_kv), q_ids))
+        continue;
+      bar_wait(&s.empty[stage], phase ^ 1);
+      if (sb != nullptr)
+        for (int r = lane; r < ROWS; r += 32)
+          s.seg[stage][r] = k0 + r < a.n_kv ? sb[k0 + r] : 0;
+      if (lane == 0) {
+        bar_arrive_tx(&s.full[stage], 2 * (D / 64) * BOX_BYTES);
+        for (int j = 0; j < D / 64; ++j) {
+          tma_load(s.k[stage][j], &tk, &s.full[stage], j * 64, kvh, k0, b);
+          tma_load(s.v[stage][j], &tv, &s.full[stage], j * 64, kvh, k0, b);
+        }
+      } else {
+        bar_arrive(&s.full[stage]);
+      }
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {   // consumer warpgroup wg: dq[:, 128 wg .. 128 wg + 127]
+    regs_alloc<CONSUMER_REGS>();
+    const int r0 = q0 + (warp & 3) * 16 + (lane >> 2);
+    const float scale2 = a.scale * LOG2E;
+    float lse2[2], dlt[2];
+    int seg_r[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 8 * hi;
+      const int64_t at = int64_t(bh) * a.n + row;
+      lse2[hi] = row < a.n ? lse[at] * LOG2E : 0.f;
+      dlt[hi] = row < a.n ? delta[at] : 0.f;
+      seg_r[hi] = sb != nullptr && row < a.n ? sb[row] : 0;
+    }
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    bar_wait(&s.loaded, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = 0; k0 < kv_end; k0 += ROWS) {
+      if (sb != nullptr && !ranges_meet(id_range(sb, k0, a.n_kv), q_ids))
+        continue;
+      bar_wait(&s.full[stage], phase);
+      float sa[32], pa[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)   // S = Q . K^T
+        wgmma_ss<0, 0, T>(sa, desc_kslice(s.q[0], kk, BOX_BYTES),
+                          desc_kslice(s.k[stage][0], kk, BOX_BYTES), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)   // dP = dO . V^T
+        wgmma_ss<0, 0, T>(pa, desc_kslice(s.o[0], kk, BOX_BYTES),
+                          desc_kslice(s.v[stage][0], kk, BOX_BYTES), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sa);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hi = (i >> 1) & 1, row = r0 + 8 * hi;
+        const int c = acc_col(i, lane), col = k0 + c;
+        const bool ok = col < a.n_kv && row < a.n &&
+                        (!a.causal || col <= row) &&
+                        (sb == nullptr || seg_r[hi] == s.seg[stage][c]);
+        sa[i] = ok ? exp2f(sa[i] * scale2 - lse2[hi]) : 0.f;   // P
+      }
+      wgmma_wait<0>();
+      fence_regs(pa);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)   // dS, rounded to T by the pack
+        pa[i] = sa[i] * (pa[i] - dlt[(i >> 1) & 1]);
+      uint32_t ds[4][4];
+      acc_to_frag<T>(ds, pa);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)   // dq half += dS . K half, MN-major
+        wgmma_rs<1, T>(acc, ds[kk],
+                       desc_mnmajor(s.k[stage][2 * wg], BOX_BYTES) + kk * 128,
+                       1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) bar_arrive(&s.empty[stage]);
+      if (++stage == ST) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int row = r0 + 8 * hi;
+      if (row >= a.n) continue;
+      T* out = dq + ((int64_t(b) * a.n + row) * a.heads + h) * D + 128 * wg;
+#pragma unroll
+      for (int i = 2 * hi; i < 64; i += 4)
+        store2(out + acc_col(i, lane), acc[i] * a.scale,
+               acc[i + 1] * a.scale);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap to,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                Args a) {
+  using namespace ptwg;
+  using Sm = DkvSmem256<T>;
+  constexpr int D = Sm::D, ST = Sm::ST;
+  Sm& s = aligned_smem<Sm>();
+  const int wg = threadIdx.x / 128, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int k0 = blockIdx.x * ROWS;   // the first key tiles go first
+  const int b = blockIdx.y / a.kv_heads, kvh = blockIdx.y % a.kv_heads;
+  const int rep = a.heads / a.kv_heads;
+  const int32_t* sb =
+      a.segs != nullptr ? a.segs + int64_t(b) * a.n : nullptr;
+  // causal: query tiles that end before key k0 see none of these keys
+  const int q_begin = a.causal ? k0 : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      bar_init(&s.full[i], 32);
+      bar_init(&s.empty[i], CONSUMERS * 4);
+    }
+    bar_init(&s.loaded, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+  const int2 k_ids =
+      sb != nullptr ? id_range(sb, k0, a.n_kv) : make_int2(0, 0);
+
+  if (wg == CONSUMERS) {   // producer warpgroup
+    regs_dealloc<PRODUCER_REGS>();
+    if (warp != CONSUMERS * 4) return;
+    if (lane == 0) {
+      bar_arrive_tx(&s.loaded, 2 * (D / 64) * BOX_BYTES);
+      for (int j = 0; j < D / 64; ++j) {
+        tma_load(s.k[j], &tk, &s.loaded, j * 64, kvh, k0, b);
+        tma_load(s.v[j], &tv, &s.loaded, j * 64, kvh, k0, b);
+      }
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hq = 0; hq < rep; ++hq) {
+      const int h = kvh * rep + hq;
+      const int64_t bh = int64_t(b) * a.heads + h;
+      for (int q0 = q_begin; q0 < a.n; q0 += ROWS) {
+        if (sb != nullptr && !ranges_meet(id_range(sb, q0, a.n), k_ids))
+          continue;
+        bar_wait(&s.empty[stage], phase ^ 1);
+        for (int r = lane; r < ROWS; r += 32) {
+          const int q = q0 + r;
+          const bool in = q < a.n;
+          s.lse[stage][r] = in ? lse[bh * a.n + q] * LOG2E : 0.f;
+          s.delta[stage][r] = in ? delta[bh * a.n + q] : 0.f;
+          s.seg[stage][r] = sb != nullptr && in ? sb[q] : 0;
+        }
+        if (lane == 0) {
+          bar_arrive_tx(&s.full[stage], 2 * (D / 64) * BOX_BYTES);
+          for (int j = 0; j < D / 64; ++j) {
+            tma_load(s.q[stage][j], &tq, &s.full[stage], j * 64, h, q0, b);
+            tma_load(s.o[stage][j], &to, &s.full[stage], j * 64, h, q0, b);
+          }
+        } else {
+          bar_arrive(&s.full[stage]);
+        }
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {   // consumer 0: dv of the CTA's keys; consumer 1: dk
+    regs_alloc<CONSUMER_REGS>();
+    const int r0 = k0 + (warp & 3) * 16 + (lane >> 2);
+    const float scale2 = a.scale * LOG2E;
+    int seg_r[2];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int key = r0 + 8 * hi;
+      seg_r[hi] = sb != nullptr && key < a.n_kv ? sb[key] : 0;
+    }
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    bar_wait(&s.loaded, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hq = 0; hq < rep; ++hq) {
+      for (int q0 = q_begin; q0 < a.n; q0 += ROWS) {
+        if (sb != nullptr && !ranges_meet(id_range(sb, q0, a.n), k_ids))
+          continue;
+        bar_wait(&s.full[stage], phase);
+        float sa[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)   // S^T = K . Q^T
+          wgmma_ss<0, 0, T>(sa, desc_kslice(s.k[0], kk, BOX_BYTES),
+                            desc_kslice(s.q[stage][0], kk, BOX_BYTES),
+                            kk > 0);
+        wgmma_commit();
+        if (wg == 0) {
+          wgmma_wait<0>();
+          fence_regs(sa);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {   // P^T; a column is a query
+            const int key = r0 + 8 * ((i >> 1) & 1);
+            const int c = acc_col(i, lane), col = q0 + c;
+            const bool ok =
+                col < a.n && key < a.n_kv && (!a.causal || key <= col) &&
+                (sb == nullptr || seg_r[(i >> 1) & 1] == s.seg[stage][c]);
+            sa[i] = ok ? exp2f(sa[i] * scale2 - s.lse[stage][c]) : 0.f;
+          }
+          uint32_t pf[4][4];   // P^T rounded to T
+          acc_to_frag<T>(pf, sa);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)   // dv += P^T . dO, dO MN-major
+            wgmma_rs<1, T>(acc, pf[kk],
+                           desc_mnmajor(s.o[stage][0], BOX_BYTES) + kk * 128,
+                           1);
+        } else {
+          float pa[32];
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)   // dP^T = V . dO^T
+            wgmma_ss<0, 0, T>(pa, desc_kslice(s.v[0], kk, BOX_BYTES),
+                              desc_kslice(s.o[stage][0], kk, BOX_BYTES),
+                              kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(sa);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {   // P^T
+            const int key = r0 + 8 * ((i >> 1) & 1);
+            const int c = acc_col(i, lane), col = q0 + c;
+            const bool ok =
+                col < a.n && key < a.n_kv && (!a.causal || key <= col) &&
+                (sb == nullptr || seg_r[(i >> 1) & 1] == s.seg[stage][c]);
+            sa[i] = ok ? exp2f(sa[i] * scale2 - s.lse[stage][c]) : 0.f;
+          }
+          wgmma_wait<0>();
+          fence_regs(pa);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)   // dS^T
+            pa[i] = sa[i] * (pa[i] - s.delta[stage][acc_col(i, lane)]);
+          uint32_t df[4][4];   // dS^T rounded to T
+          acc_to_frag<T>(df, pa);
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)   // dk += dS^T . Q, Q MN-major
+            wgmma_rs<1, T>(acc, df[kk],
+                           desc_mnmajor(s.q[stage][0], BOX_BYTES) + kk * 128,
+                           1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) bar_arrive(&s.empty[stage]);
+        if (++stage == ST) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    T* out = wg == 0 ? dv : dk;
+    const float mul = wg == 0 ? 1.f : a.scale;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int key = r0 + 8 * hi;
+      if (key >= a.n_kv) continue;
+      const int64_t at =
+          ((int64_t(b) * a.n_kv + key) * a.kv_heads + kvh) * D;
+#pragma unroll
+      for (int i = 2 * hi; i < 128; i += 4)
+        store2(out + at + acc_col(i, lane), acc[i] * mul, acc[i + 1] * mul);
+    }
+  }
+}
+
 // the four operands' tensor maps: q, dO [B, N, H, D] and k, v [B, N_kv,
 // H_kv, D] through their strides, 64-row boxes
 template <int D, typename T>
@@ -1089,6 +1506,49 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+
+// head dim 256: 64-row (dq) and 64-key (dk/dv) CTAs, see above
+template <typename T>
+cudaError_t launch_dq256(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int batch, const Args& a,
+                         cudaStream_t stream) {
+  CUtensorMap m[4];
+  cudaError_t err = operand_maps<256, T>(m, q, k, v, dout, batch, a);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(DqSmem256<T>) + 1024;
+  auto kernel = flash_bwd_dq_wgmma_d256_kernel<T>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + ROWS - 1) / ROWS, batch * a.heads);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv256(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int batch,
+                          const Args& a, cudaStream_t stream) {
+  CUtensorMap m[4];
+  cudaError_t err = operand_maps<256, T>(m, q, k, v, dout, batch, a);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(DkvSmem256<T>) + 1024;
+  auto kernel = flash_bwd_dkv_wgmma_d256_kernel<T>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n_kv + ROWS - 1) / ROWS, batch * a.kv_heads);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), a);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -1118,17 +1578,26 @@ int pt_flash_attention_bwd_dq(
   const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
   const int vec = rows_vec(q, k, v, dout, batch, n, n_kv, heads, kv_heads, st);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 256)
+    return launch_dq_f32<256>(q, k, v, dout, lse, delta, dq, batch, a, vec,
+                              s);
   if (dtype == 0 && head_dim == 128)
     return launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, batch, a, vec,
                               s);
   if (dtype == 0 && head_dim == 64)
     return launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, batch, a, vec, s);
+  if (dtype == 1 && head_dim == 256)
+    return tc::launch_dq256<tc::bf16>(q, k, v, dout, lse, delta, dq, batch,
+                                    a, s);
   if (dtype == 1 && head_dim == 128)
     return tc::launch_dq<128, tc::bf16>(q, k, v, dout, lse, delta, dq, batch,
                                         a, s);
   if (dtype == 1 && head_dim == 64)
     return tc::launch_dq<64, tc::bf16>(q, k, v, dout, lse, delta, dq, batch,
                                        a, s);
+  if (dtype == 3 && head_dim == 256)
+    return tc::launch_dq256<__half>(q, k, v, dout, lse, delta, dq, batch,
+                                  a, s);
   if (dtype == 3 && head_dim == 128)
     return tc::launch_dq<128, __half>(q, k, v, dout, lse, delta, dq, batch,
                                       a, s);
@@ -1154,18 +1623,27 @@ int pt_flash_attention_bwd_dkv(
   const Args a = make_args(n, n_kv, heads, kv_heads, st, scale, causal, segs);
   const int vec = rows_vec(q, k, v, dout, batch, n, n_kv, heads, kv_heads, st);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && head_dim == 256)
+    return launch_dkv_f32<256>(q, k, v, dout, lse, delta, dk, dv, batch, a,
+                               vec, s);
   if (dtype == 0 && head_dim == 128)
     return launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, batch, a,
                                vec, s);
   if (dtype == 0 && head_dim == 64)
     return launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, batch, a,
                               vec, s);
+  if (dtype == 1 && head_dim == 256)
+    return tc::launch_dkv256<tc::bf16>(q, k, v, dout, lse, delta, dk, dv,
+                                     batch, a, s);
   if (dtype == 1 && head_dim == 128)
     return tc::launch_dkv<128, tc::bf16>(q, k, v, dout, lse, delta, dk, dv,
                                          batch, a, s);
   if (dtype == 1 && head_dim == 64)
     return tc::launch_dkv<64, tc::bf16>(q, k, v, dout, lse, delta, dk, dv,
                                         batch, a, s);
+  if (dtype == 3 && head_dim == 256)
+    return tc::launch_dkv256<__half>(q, k, v, dout, lse, delta, dk, dv,
+                                   batch, a, s);
   if (dtype == 3 && head_dim == 128)
     return tc::launch_dkv<128, __half>(q, k, v, dout, lse, delta, dk, dv,
                                        batch, a, s);

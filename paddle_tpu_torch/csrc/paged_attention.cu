@@ -75,6 +75,14 @@
 //    loop, about half the fp32 peak (shared-memory load issue at 8 warps
 //    an SM), and at the suffix prefill the causal spread of work over 128
 //    CTAs, which two history splits even out in part.
+//  * D = 256 (a Llama at Gemma-2B's widths): a 16-token fp32 page of one
+//    kv head's K and V is 32 KB, so the rows kernels' ring takes 2 stages
+//    where a stage passes 16 KB (NST); the mixed rows kernel takes 8-row
+//    tiles (16 rows would hold 2 x 16 x 8 Q and O registers a lane) and
+//    the decode kernel 2 CTAs an SM (the split plan counts the same); the
+//    tiles kernel takes 64-row tiles only, with one K/V buffer where two do
+//    not fit (fp32 pools: 208 KB with one). A lane's 8 dims load as two
+//    4-element vectors (ldv<8>).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -143,8 +151,11 @@ __device__ __forceinline__ float2 ld2(const int8_t* p) {
 }
 template <int VW, typename T>
 __device__ __forceinline__ void ldv(const T* p, float* x) {
-  static_assert(VW == 4 || VW == 2, "4 or 2 elements");
-  if constexpr (VW == 4) {
+  static_assert(VW == 8 || VW == 4 || VW == 2, "8, 4 or 2 elements");
+  if constexpr (VW == 8) {   // D = 256: a lane's 8 dims
+    ldv<4>(p, x);
+    ldv<4>(p + 4, x + 4);
+  } else if constexpr (VW == 4) {
     const float4 v = ld4(p);
     x[0] = v.x;
     x[1] = v.y;
@@ -235,10 +246,22 @@ __device__ __forceinline__ int64_t out_row(const Args& a, int slot, int kvh,
 
 constexpr int RT = 128;              // threads
 constexpr int RWARPS = RT / 32;
-constexpr int NST = 4;               // page ring stages
 constexpr int TPW = 4;               // keys per warp and pass, 8 lanes each
 constexpr int DECODE_ROWS = 8;       // query rows per tile
-constexpr int MIXED_ROWS = 16;
+// Page ring stages: 4, or 2 where a page of one kv head's K and V passes 16
+// KB at 16-token pages (fp32 at D = 256: 32 KB a stage), so that the ring
+// stays at 64 KB and two or three CTAs share an SM.
+template <typename TKV, int D>
+constexpr int NST = D * sizeof(TKV) > 512 ? 2 : 4;
+// Query rows a tile of the mixed rows kernel: 16, or 8 at D = 256, where
+// the 16-row walk's Q and O registers (2 x 16 x D / 32) would be 256.
+template <int D>
+constexpr int MIXED_ROWS = D > 128 ? 8 : 16;
+// CTAs an SM of the decode kernel: 3, or 2 at D = 256 (its 8-row walk holds
+// 2 x 8 x 8 Q and O registers beside the dots: ~190, over 3 CTAs' 170);
+// serving/kernels/paged_attention.py's split plan counts the same
+template <int D>
+constexpr int DECODE_CTAS = D > 128 ? 2 : 3;
 
 // one ring stage: K and V of one page of one kv head ([bs][D] each), then
 // the int8 pools' scales ([bs] each)
@@ -252,7 +275,7 @@ __host__ __device__ size_t page_stage_bytes(int bs) {
 // the query tile, then the ring, which the 4 warps' merge reuses
 template <typename TKV, int D, int R>
 size_t rows_smem(int bs) {
-  const size_t ring = NST * page_stage_bytes<TKV, D>(bs);
+  const size_t ring = NST<TKV, D> * page_stage_bytes<TKV, D>(bs);
   const size_t merge = size_t(RWARPS) * R * (D + 2) * sizeof(float);
   return size_t(R) * D * sizeof(float) + (ring > merge ? ring : merge);
 }
@@ -335,6 +358,7 @@ __device__ __forceinline__ void rows_walk(const Args& a, const SlotRows& sr,
                                           const float* qs, char* ring) {
   constexpr int VW = D / 32;   // P.V: output dims per lane
   constexpr int QC = D / 32;   // Q.K^T: 4-element chunks per lane, 8 a key
+  constexpr int ST = NST<TKV, D>;   // page ring stages
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rep = a.heads / a.kv_heads, bs = a.block_size;
   const size_t stage = page_stage_bytes<TKV, D>(bs);
@@ -355,17 +379,17 @@ __device__ __forceinline__ void rows_walk(const Args& a, const SlotRows& sr,
   const int tl = lane >> 3, g = lane & 7;
   for (int p = p_begin; p < p_end; ++p) {
     const int i = p - p_begin;
-    cp_async_wait<NST - 2>();
+    cp_async_wait<ST - 2>();
     __syncthreads();   // page p has landed for every thread, and every warp
                        // is done with page p - 1: its stage refills now
     {
-      const int pn = p + NST - 1;
+      const int pn = p + ST - 1;
       if (pn < p_end)
         issue_page<TKV, D>(a, table[pn], min(bs, k_end - pn * bs), kvh,
-                           ring + ((i + NST - 1) % NST) * stage);
+                           ring + ((i + ST - 1) % ST) * stage);
       cp_async_commit();
     }
-    const TKV* ks = reinterpret_cast<const TKV*>(ring + (i % NST) * stage);
+    const TKV* ks = reinterpret_cast<const TKV*>(ring + (i % ST) * stage);
     const TKV* vs = ks + bs * D;
     const float* sc = reinterpret_cast<const float*>(vs + bs * D);
     const int nt = min(bs, k_end - p * bs);
@@ -506,6 +530,7 @@ __device__ __forceinline__ void rows_walk_lanes(
     char* ring) {
   static_assert(RR == 8 || RR == 16, "8 or 16 rows");
   constexpr int VW = D / 32;        // dims per lane
+  constexpr int ST = NST<TKV, D>;   // page ring stages
   constexpr int NV = RR / 8;        // rows a lane holds after the scatter
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rep = a.heads / a.kv_heads, bs = a.block_size;
@@ -532,17 +557,17 @@ __device__ __forceinline__ void rows_walk_lanes(
   }
   for (int p = p_begin; p < p_end; ++p) {
     const int i = p - p_begin;
-    cp_async_wait<NST - 2>();
+    cp_async_wait<ST - 2>();
     __syncthreads();   // page p has landed for every thread, and every warp
                        // is done with page p - 1: its stage refills now
     {
-      const int pn = p + NST - 1;
+      const int pn = p + ST - 1;
       if (pn < p_end)
         issue_page<TKV, D>(a, table[pn], min(bs, k_end - pn * bs), kvh,
-                           ring + ((i + NST - 1) % NST) * stage);
+                           ring + ((i + ST - 1) % ST) * stage);
       cp_async_commit();
     }
-    const TKV* ks = reinterpret_cast<const TKV*>(ring + (i % NST) * stage);
+    const TKV* ks = reinterpret_cast<const TKV*>(ring + (i % ST) * stage);
     const TKV* vs = ks + bs * D;
     const float* sc = reinterpret_cast<const float*>(vs + bs * D);
     const int nt = min(bs, k_end - p * bs);
@@ -673,7 +698,7 @@ __device__ __forceinline__ void rows_body(const Args& a) {
   char* ring = reinterpret_cast<char*>(qs + R * D);
   const size_t stage = page_stage_bytes<TKV, D>(bs);
   const int* table = a.block_tables + int64_t(slot) * a.max_blocks;
-  for (int i = 0; i < NST - 1; ++i) {
+  for (int i = 0; i < NST<TKV, D> - 1; ++i) {
     const int p = p_begin + i;
     if (p < p_end)
       issue_page<TKV, D>(a, table[p], min(bs, k_end - p * bs), kvh,
@@ -701,13 +726,14 @@ __device__ __forceinline__ void rows_body(const Args& a) {
 }
 
 template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(RT, 3) paged_decode_kernel(const Args a) {
+__global__ void __launch_bounds__(RT, DECODE_CTAS<D>)
+paged_decode_kernel(const Args a) {
   rows_body<TQ, TKV, D, DECODE_ROWS, true>(a);
 }
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(RT, 2) mixed_paged_kernel(const Args a) {
-  rows_body<TQ, TKV, D, MIXED_ROWS, false>(a);
+  rows_body<TQ, TKV, D, MIXED_ROWS<D>, false>(a);
 }
 
 // -- tiles kernel: the long mixed step and the suffix prefill ----------------
@@ -723,14 +749,19 @@ __device__ __forceinline__ int chunk_at(int r, int c) {
   return r * D + ((SWZ ? c ^ (r & 7) : c) << 2);
 }
 
-// Q [BM][D] and P^T [BN][BM] in fp32, the int8 scales [2][2][BN], then
-// K and V [2][BN][D] each in the pool's type
+// Q [BM][D] and P^T [BN][BM] in fp32, the int8 scales [ST][2][BN], then
+// K and V [ST][BN][D] each in the pool's type, for ST stages
 template <typename TKV, int D, int BM>
-size_t tiles_smem() {
-  return (size_t(BM) * D + size_t(BN) * BM + (kInt8<TKV> ? 4 * BN : 0)) *
+constexpr size_t tiles_smem(int st) {
+  return (size_t(BM) * D + size_t(BN) * BM + (kInt8<TKV> ? 2 * st * BN : 0)) *
              sizeof(float) +
-         size_t(4) * BN * D * sizeof(TKV);
+         size_t(2) * st * BN * D * sizeof(TKV);
 }
+// K/V stages of the tiles kernel: 2 (tile j + 1 lands while tile j
+// computes), or 1 where two do not fit (fp32 pools at D = 256: 208 KB with
+// one, 336 KB with two)
+template <typename TKV, int D, int BM>
+constexpr int TILE_STAGES = tiles_smem<TKV, D, BM>(2) <= MAX_SMEM ? 2 : 1;
 
 // keys [k0, k0 + BN) of kv head kvh, gathered through the block table in
 // 4-element chunks (swizzled by key % 8 with SWZ); keys at or past k_lim
@@ -760,12 +791,13 @@ mixed_paged_tiles_kernel(const Args a) {
   constexpr int RM = BM / 16;  // query rows per thread
   constexpr int NC = D / 16;   // output columns per thread
   constexpr int C4 = D / 4;
+  constexpr int ST = TILE_STAGES<TKV, D, BM>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [BM][D], swizzled
   float* pt = qs + BM * D;                       // [BN][BM] P^T, swizzled
-  float* sc = pt + BN * BM;                      // [2][K, V][BN] (int8)
-  TKV* ks = reinterpret_cast<TKV*>(sc + (kInt8<TKV> ? 4 * BN : 0));
-  TKV* vs = ks + 2 * BN * D;                     // [2][BN][D] each
+  float* sc = pt + BN * BM;                      // [ST][K, V][BN] (int8)
+  TKV* ks = reinterpret_cast<TKV*>(sc + (kInt8<TKV> ? 2 * ST * BN : 0));
+  TKV* vs = ks + ST * BN * D;                    // [ST][BN][D] each
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int tile = gridDim.y - 1 - blockIdx.y;   // heaviest first
@@ -832,14 +864,16 @@ mixed_paged_tiles_kernel(const Args a) {
   }
   // the swizzle of this thread's rows: (ty + 16 i) % 8 and (tx + 16 j) % 8
   const int qsw = ty & 7, ksw = tx & 7;
-  for (int st = 0; k0 < k_end; st ^= 1) {
+  for (int st = 0; k0 < k_end; st = (st + 1) % ST) {
     cp_async_wait<0>();
     // tile k0 has landed for every thread, and every thread is done with
     // the previous tile's P.V: its buffers and P^T are free
     __syncthreads();
     const int k1 = k0 + BN;
-    if (k1 < k_end) load_tile(st ^ 1, k1);
-    cp_async_commit();
+    if (ST == 2) {
+      if (k1 < k_end) load_tile(st ^ 1, k1);
+      cp_async_commit();
+    }
 
     const TKV* kt = ks + st * BN * D;
     const float* ksc = sc + st * 2 * BN;
@@ -944,6 +978,11 @@ mixed_paged_tiles_kernel(const Args a) {
           acc[i][4 * g + 3] = fmaf(p[i], v4.w, acc[i][4 * g + 3]);
         }
       }
+    }
+    if (ST == 1) {
+      __syncthreads();   // every thread is done with this tile's K and V
+      if (k1 < k_end) load_tile(0, k1);
+      cp_async_commit();
     }
     k0 = k1;
   }
@@ -1079,7 +1118,7 @@ cudaError_t launch_decode(Args a, cudaStream_t stream) {
 template <typename TQ, typename TKV, int D, int BM>
 cudaError_t launch_tiles(Args a, cudaStream_t stream) {
   a.tiles = (a.heads / a.kv_heads * a.chunk + BM - 1) / BM;
-  const size_t smem = tiles_smem<TKV, D, BM>();
+  const size_t smem = tiles_smem<TKV, D, BM>(TILE_STAGES<TKV, D, BM>);
   auto kernel = mixed_paged_tiles_kernel<TQ, TKV, D, BM>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1090,14 +1129,18 @@ cudaError_t launch_tiles(Args a, cudaStream_t stream) {
   return launch_combine<TQ, D>(false, a, stream);
 }
 
-// tile_rows: 16 = the rows kernel, 64 or 128 = the tiles kernel
+// tile_rows: MIXED_ROWS<D> = the rows kernel, 64 or (D <= 128) 128 = the
+// tiles kernel
 template <typename TQ, typename TKV, int D>
 cudaError_t launch_mixed(Args a, int tile_rows, cudaStream_t stream) {
+  constexpr int R = MIXED_ROWS<D>;
   if (tile_rows == 64) return launch_tiles<TQ, TKV, D, 64>(a, stream);
-  if (tile_rows == 128) return launch_tiles<TQ, TKV, D, 128>(a, stream);
-  if (tile_rows != MIXED_ROWS) return cudaErrorInvalidValue;
-  a.tiles = (a.heads / a.kv_heads * a.chunk + MIXED_ROWS - 1) / MIXED_ROWS;
-  const size_t smem = rows_smem<TKV, D, MIXED_ROWS>(a.block_size);
+  if constexpr (D <= 128) {
+    if (tile_rows == 128) return launch_tiles<TQ, TKV, D, 128>(a, stream);
+  }
+  if (tile_rows != R) return cudaErrorInvalidValue;
+  a.tiles = (a.heads / a.kv_heads * a.chunk + R - 1) / R;
+  const size_t smem = rows_smem<TKV, D, R>(a.block_size);
   auto kernel = mixed_paged_kernel<TQ, TKV, D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -1115,22 +1158,32 @@ template <typename F>
 cudaError_t dispatch(int dtype, int kv_dtype, int head_dim, F&& f) {
   using D64 = std::integral_constant<int, 64>;
   using D128 = std::integral_constant<int, 128>;
-  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
-  const bool wide = head_dim == 128;
+  using D256 = std::integral_constant<int, 256>;
+  using bf16 = __nv_bfloat16;
+  if (head_dim != 64 && head_dim != 128 && head_dim != 256)
+    return cudaErrorInvalidValue;
+  const bool wide = head_dim == 128, d256 = head_dim == 256;
   if (dtype == 0 && kv_dtype == 0)
-    return wide ? f(float{}, float{}, D128{}) : f(float{}, float{}, D64{});
+    return d256 ? f(float{}, float{}, D256{})
+           : wide ? f(float{}, float{}, D128{}) : f(float{}, float{}, D64{});
   if (dtype == 1 && kv_dtype == 1)
-    return wide ? f(__nv_bfloat16{}, __nv_bfloat16{}, D128{})
-                : f(__nv_bfloat16{}, __nv_bfloat16{}, D64{});
+    return d256 ? f(bf16{}, bf16{}, D256{})
+           : wide ? f(bf16{}, bf16{}, D128{}) : f(bf16{}, bf16{}, D64{});
   if (dtype == 0 && kv_dtype == 2)
-    return wide ? f(float{}, int8_t{}, D128{}) : f(float{}, int8_t{}, D64{});
+    return d256 ? f(float{}, int8_t{}, D256{})
+           : wide ? f(float{}, int8_t{}, D128{})
+                  : f(float{}, int8_t{}, D64{});
   if (dtype == 1 && kv_dtype == 2)
-    return wide ? f(__nv_bfloat16{}, int8_t{}, D128{})
-                : f(__nv_bfloat16{}, int8_t{}, D64{});
+    return d256 ? f(bf16{}, int8_t{}, D256{})
+           : wide ? f(bf16{}, int8_t{}, D128{}) : f(bf16{}, int8_t{}, D64{});
   if (dtype == 3 && kv_dtype == 3)
-    return wide ? f(__half{}, __half{}, D128{}) : f(__half{}, __half{}, D64{});
+    return d256 ? f(__half{}, __half{}, D256{})
+           : wide ? f(__half{}, __half{}, D128{})
+                  : f(__half{}, __half{}, D64{});
   if (dtype == 3 && kv_dtype == 2)
-    return wide ? f(__half{}, int8_t{}, D128{}) : f(__half{}, int8_t{}, D64{});
+    return d256 ? f(__half{}, int8_t{}, D256{})
+           : wide ? f(__half{}, int8_t{}, D128{})
+                  : f(__half{}, int8_t{}, D64{});
   return cudaErrorInvalidValue;
 }
 

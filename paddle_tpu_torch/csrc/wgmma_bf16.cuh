@@ -164,6 +164,44 @@ constexpr bool is_f16 = std::is_same<T, __half>::value;
   " %48, %49, %50, %51, %52, %53, %54, %55," \
   " %56, %57, %58, %59, %60, %61, %62, %63}"
 
+// the accumulators of an m64n256 product (128 registers): the head-dim-256
+// kernels' output rows
+#define PTWG_ACC128 \
+  PTWG_ACC64, \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+  "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+  "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+  "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), \
+  "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+  "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+  "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+  "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), \
+  "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+  "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+  "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define PTWG_DST128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7," \
+  " %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23," \
+  " %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39," \
+  " %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55," \
+  " %56, %57, %58, %59, %60, %61, %62, %63," \
+  " %64, %65, %66, %67, %68, %69, %70, %71," \
+  " %72, %73, %74, %75, %76, %77, %78, %79," \
+  " %80, %81, %82, %83, %84, %85, %86, %87," \
+  " %88, %89, %90, %91, %92, %93, %94, %95," \
+  " %96, %97, %98, %99, %100, %101, %102, %103," \
+  " %104, %105, %106, %107, %108, %109, %110, %111," \
+  " %112, %113, %114, %115, %116, %117, %118, %119," \
+  " %120, %121, %122, %123, %124, %125, %126, %127}"
+
 // d = A . B (accumulate = 0) or d += A . B, one k16 slice. TRANS_B = 0:
 // B K-major; 1: B MN-major. TRANS_A likewise for A (default K-major).
 #define PTWG_SS_N64(INSTR)                                                \
@@ -191,6 +229,12 @@ constexpr bool is_f16 = std::is_same<T, __half>::value;
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
                  "r"(accumulate), "n"(TRANS_B))
 
+#define PTWG_RS_N256(INSTR)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" INSTR " "    \
+               PTWG_DST128 ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n" \
+               : PTWG_ACC128                                              \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), \
+                 "r"(accumulate), "n"(TRANS_B))
 template <int TRANS_B, int TRANS_A = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
                                          uint64_t desc_b, int accumulate) {
@@ -229,10 +273,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
     PTWG_RS_N128("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16");
 }
 
+template <int TRANS_B, typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (is_f16<T>)
+    PTWG_RS_N256("wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16");
+  else
+    PTWG_RS_N256("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16");
+}
+
 #undef PTWG_SS_N64
 #undef PTWG_RS_N64
 #undef PTWG_SS_N128
 #undef PTWG_RS_N128
+#undef PTWG_RS_N256
+#undef PTWG_ACC128
+#undef PTWG_DST128
 #undef PTWG_ACC32
 #undef PTWG_ACC64
 #undef PTWG_DST32

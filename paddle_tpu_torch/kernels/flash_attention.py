@@ -51,7 +51,49 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+# the head dims the kernels take (flash here, paged in
+# serving/kernels/paged_attention.py): D = 256 has kernels designed for it
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu and
+# csrc/paged_attention.cu name their D = 256 choices)
+HEAD_DIMS = (64, 128, 256)
+# calls that ``plain_head_dim`` sent to a plain version: SDPA and the paged
+# wrappers at a head dim the reference itself runs no Pallas kernel for
+plain_head_dim_calls = 0
+
+
+def head_dim_route(head_dim):
+    """Where an attention call at ``head_dim`` goes on the card, by the
+    head dim alone: ``"kernel"`` for ``HEAD_DIMS``; ``"raise"`` for the
+    other multiples of 128 (384 and up), which the reference sends to its
+    Pallas kernels (``paddle_tpu/nn/functional/attention.py:75-100``,
+    ``paddle_tpu/serving/kernels/paged_attention.py:414-446``) and the port
+    has no instance for (ROADMAP A.3); ``"plain"`` for every other, which
+    the reference computes with XLA on purpose (``_sdpa_reference``,
+    ``paged_attention_reference``)."""
+    if head_dim in HEAD_DIMS:
+        return "kernel"
+    return "raise" if head_dim % 128 == 0 else "plain"
+
+
+def plain_head_dim(head_dim, *tensors):
+    """True (and counted in ``plain_head_dim_calls``) when
+    ``head_dim_route`` sends ``head_dim`` to the plain version and
+    ``tensors`` lie on one CPU or CUDA device (other placements go on to
+    the wrappers, which raise); decided before any launch, never after an
+    error."""
+    global plain_head_dim_calls
+    if head_dim_route(head_dim) != "plain":
+        return False
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type not in ("cpu", "cuda"):
+        return False
+    plain_head_dim_calls += 1
+    return True
+
+
+def no_kernel_message(what, head_dim):
+    return ("%s: head_dim %d has no kernel (the kernels take %s; ROADMAP "
+            "A.3 queues the rest)" % (what, head_dim, HEAD_DIMS))
 
 # kernel launches since the last reset (chip_smoke.py reads and resets
 # them): the forward, the backward's dq kernel and its dk/dv kernel,
@@ -176,7 +218,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
     -> ``(out [B, N, H, D], lse [B*H, N] float32)``.
 
     CUDA tensors launch the kernel (float32, bfloat16 or float16,
-    head_dim 64 or 128, last axis contiguous; bf16 and float16 on
+    head_dim 64, 128 or 256, last axis contiguous; bf16 and float16 on
     ``wgmma`` with TMA loads, float32 on the CUDA cores) or raise; CPU
     tensors take the plain version."""
     _check_shapes(q, k, v)
@@ -196,8 +238,7 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None):
                          "bfloat16 or float16 q/k/v of one dtype, got "
                          "%s/%s/%s" % (q.dtype, k.dtype, v.dtype))
     if d not in HEAD_DIMS:
-        raise ValueError("flash_attention: head_dim %d not in %s"
-                         % (d, HEAD_DIMS))
+        raise ValueError(no_kernel_message("flash_attention", d))
     if n == 0 or n_kv == 0:
         raise ValueError("flash_attention: empty sequence")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -327,8 +368,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal=False,
                          "one dtype and a float32 lse")
     b, n, h, d = q.shape
     if d not in HEAD_DIMS:
-        raise ValueError("flash_attention_backward: head_dim %d not in %s"
-                         % (d, HEAD_DIMS))
+        raise ValueError(no_kernel_message("flash_attention_backward", d))
     if n == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention_backward: empty sequence")
     # autograd may hand over a broadcast gradient (stride 0): the kernels

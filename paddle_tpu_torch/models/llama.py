@@ -65,9 +65,18 @@ class LlamaConfig:
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-6,
                  rope_theta=10000.0, dtype="float32", recompute=False,
-                 fuse_attention_qkv=False, fuse_mlp=False):
+                 fuse_attention_qkv=False, fuse_mlp=False,
+                 tie_word_embeddings=False):
         if dtype not in _DTYPES:
             raise ValueError("dtype must be one of %s" % sorted(_DTYPES))
+        # the reference accepts tie_word_embeddings and never applies it
+        # (paddle_tpu/models/llama.py:50, 63, 392-403: lm_head stays its
+        # own weight): "Faults of the reference" 23 in ROADMAP.md
+        if tie_word_embeddings:
+            raise NotImplementedError(
+                "LlamaConfig: tie_word_embeddings=True is not supported (the "
+                "reference accepts it and keeps an untied lm_head)")
+        self.tie_word_embeddings = False
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size

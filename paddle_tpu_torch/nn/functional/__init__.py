@@ -4,7 +4,8 @@ from .activation import (
     prelu, relu, relu6, relu_, rrelu, selu, sigmoid, silu, softmax, softmax_,
     softplus, softshrink, softsign, swish, tanh, tanh_, tanhshrink,
     thresholded_relu)
-from .attention import scaled_dot_product_attention, variable_length_attention
+from .attention import (scaled_dot_product_attention, sparse_attention,
+                        variable_length_attention)
 from .common import (
     affine_grid, alpha_dropout, bilinear, channel_shuffle, cosine_similarity,
     dropout, dropout2d, dropout3d, embedding, fold, grid_sample, interpolate,

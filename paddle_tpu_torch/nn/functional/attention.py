@@ -3,15 +3,21 @@
 
 ``scaled_dot_product_attention`` keeps the reference's ``[B, N, H, D]``
 layout and START-aligned causal convention (query i attends keys j <= i,
-also when ``q_len != kv_len``). Without a mask it always goes through the
-flash kernel wrapper, through ``FlashAttention.apply``: the forward
-kernel, with the two backward kernels as its gradient, on CUDA tensors,
-and their plain versions on CPU tensors. Under ``torch.no_grad()``
-(serving) it launches the forward kernel alone. Unlike the reference's
-dispatch there is no tileability gate (the kernel masks its own ragged
-edges, so every length goes to it) and no fallback on error. k/v may
-carry fewer heads than q (GQA, ``H % H_kv == 0``); the kernel maps each
-query head onto its kv head instead of repeating K/V.
+also when ``q_len != kv_len``). Without a mask, at a head dim the kernels
+take (64, 128, 256), it goes through the flash kernel wrapper, through
+``FlashAttention.apply``: the forward kernel, with the two backward
+kernels as its gradient, on CUDA tensors, and their plain versions on CPU
+tensors. Under ``torch.no_grad()`` (serving) it launches the forward
+kernel alone. Unlike the reference's dispatch there is no tileability
+gate on the lengths (the kernel masks its own ragged edges, so every
+length goes to it) and no fallback on error. k/v may carry fewer heads
+than q (GQA, ``H % H_kv == 0``); the kernel maps each query head onto its
+kv head instead of repeating K/V. At any other head dim the head dim
+alone decides (``kernels.flash_attention.head_dim_route``, before any
+launch): one that the reference computes with XLA (every D outside 128Z
+but 64) takes the reference's ``_sdpa_reference`` in plain ops on either
+device, counted in ``plain_head_dim_calls``; a multiple of 128 from 384 on
+goes to the wrapper, which raises on CUDA (ROADMAP A.3).
 
 With ``attn_mask`` it computes the reference's XLA path
 (``_sdpa_reference``) in plain tensor ops on either device: float32
@@ -31,7 +37,14 @@ call still goes through the flash kernel, which computes the same
 function as the reference's path.
 
 ``variable_length_attention`` is the packed-sequence entry point: the
-same autograd function in its segment-id mode.
+same autograd function in its segment-id mode, at every head dim (the
+reference sends it to its kernel at any D), so on CUDA a head dim outside
+the kernels' raises (ROADMAP A.3).
+
+``sparse_attention`` is the reference's: dense attention with the optional
+mask, in plain ops. The reference accepts ``sparse_csr_offset`` and
+``sparse_csr_columns`` and drops both ("Faults of the reference" 24 in
+ROADMAP.md); here they raise.
 """
 from __future__ import annotations
 
@@ -42,7 +55,7 @@ import numpy as np
 import torch
 
 from ...core.dispatch import primitive
-from ...kernels.flash_attention import FlashAttention
+from ...kernels.flash_attention import FlashAttention, plain_head_dim
 
 # the reference's masked score (a finite value: a row masked everywhere
 # softmaxes to uniform instead of NaN)
@@ -71,15 +84,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "attends keys j <= i). For cached decode (bottom-right "
             "alignment), pass an explicit end-aligned attn_mask.",
             stacklevel=2)
-    if attn_mask is None:
+    if attn_mask is None and not plain_head_dim(query.shape[-1], query, key,
+                                                 value):
         return FlashAttention.apply(query, key, value, is_causal, scale)
     return _masked_attention(query, key, value, attn_mask, is_causal, scale)
 
 
 def _masked_attention(q, k, v, mask, causal, scale):
-    """The reference's ``_sdpa_reference`` with a mask, in plain tensor
-    ops; query head ``h`` reads kv head ``h // (H / H_kv)``, as the
-    kernel maps them."""
+    """The reference's ``_sdpa_reference`` (with a mask, or none), in
+    plain tensor ops; query head ``h`` reads kv head ``h // (H / H_kv)``,
+    as the kernel maps them."""
     b, n, h, d = q.shape
     m, h_kv = k.shape[1], k.shape[2]
     if h % h_kv:
@@ -92,15 +106,32 @@ def _masked_attention(q, k, v, mask, causal, scale):
     if causal:
         keep = torch.ones(n, m, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, MASKED)
-    mask = torch.as_tensor(mask, device=q.device)
-    if mask.dtype == torch.bool:
-        logits = logits.masked_fill(~mask, MASKED)
-    else:
-        logits = logits + mask.to(logits.dtype)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=q.device)
+        if mask.dtype == torch.bool:
+            logits = logits.masked_fill(~mask, MASKED)
+        else:
+            logits = logits + mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     probs = probs.view(b, h_kv, h // h_kv, n, m)
     out = torch.einsum("bkgnm,bmkd->bnkgd", probs, v)
     return out.reshape(b, n, h, d)
+
+
+@primitive
+def sparse_attention(query, key, value, sparse_csr_offset=None,
+                     sparse_csr_columns=None, attn_mask=None):
+    """The reference's ``sparse_attention``
+    (``paddle_tpu/nn/functional/attention.py:130-136``): dense attention
+    over ``[B, N, H, D]`` with the optional ``attn_mask`` (boolean or
+    additive), no causal mask, in plain ops on either device. A CSR
+    pattern raises ``NotImplementedError``: the reference drops it and
+    computes dense attention, which is not what its caller asked for."""
+    if sparse_csr_offset is not None or sparse_csr_columns is not None:
+        raise NotImplementedError(
+            "sparse_attention: sparse_csr_offset / sparse_csr_columns are "
+            "not supported (the reference ignores them and attends densely)")
+    return _masked_attention(query, key, value, attn_mask, False, None)
 
 
 def segment_ids_from_lens(seq_lens, total):

@@ -37,7 +37,6 @@ WAITING = {
     **dict.fromkeys(("cond", "while_loop"), "A.6"),
     **dict.fromkeys(("_sharded", "parallel_softmax_cross_entropy",
                      "moe_mlp", "sequence_parallel_attention"), _A7),
-    "sparse_attention": "A.3",
 }
 
 

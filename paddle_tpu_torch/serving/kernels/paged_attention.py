@@ -54,10 +54,11 @@ from typing import NamedTuple
 import torch
 
 from ... import _build
+from ...kernels import flash_attention as _fa
 from ...kernels.quant import dequantize_int8_block
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = _fa.HEAD_DIMS
 KV_INT8 = 2             # the C side's pool code for int8 (beside DTYPE_CODES)
 GRID_LIMIT = 65535      # a CUDA grid's y and z extent
 
@@ -73,6 +74,11 @@ TILED_MIN_ROWS, TALL_MIN_ROWS = 64, 512
 SPLIT_PAGES = 16
 TILE_SPLIT_PAGES = 16
 ROWS_WAVE, TILES_WAVE = 3 * 132, 132
+# D = 256 (csrc/paged_attention.cu's MIXED_ROWS<D>, DECODE_CTAS<D> and
+# launch_mixed): 8-row mixed tiles, two decode CTAs an SM (the decode and
+# mixed rows kernels alike: 2 x 132 CTA slots), 64-row tiles only
+WIDE_HEAD_DIM = 256
+WIDE_MIXED_ROWS, WIDE_ROWS_WAVE = 8, 2 * 132
 
 # kernel launches since the last reset, by kernel and pool mode
 launches = 0
@@ -100,9 +106,11 @@ class SplitPlan(NamedTuple):
 
 
 def split_plan(slots, chunk, heads, kv_heads, max_blocks, block_size,
-               decode=False):
+               decode=False, head_dim=128):
     """The kernel and the history split for a call, from shapes alone
     (Python ints: nothing here may read a tensor on the card).
+    ``head_dim`` 256 takes 8-row mixed tiles, no 128-row tiles and two
+    rows-kernel CTAs an SM (``WIDE_*``).
 
     Decode takes the decode kernel (8-row tiles); a mixed step with fewer
     than ``TILED_MIN_ROWS`` rows a slot and kv head the rows kernel
@@ -122,13 +130,17 @@ def split_plan(slots, chunk, heads, kv_heads, max_blocks, block_size,
     if min(args) < 1 or heads % kv_heads:
         raise ValueError("split_plan: bad shapes %r" % (args,))
     rows = heads // kv_heads * chunk
+    wide = head_dim == WIDE_HEAD_DIM
+    rows_wave = WIDE_ROWS_WAVE if wide else ROWS_WAVE
     if decode:
-        kernel, tile_rows, wave = "decode", DECODE_ROWS, ROWS_WAVE
+        kernel, tile_rows, wave = "decode", DECODE_ROWS, rows_wave
     elif rows >= TILED_MIN_ROWS:
         kernel, wave = "tiles", TILES_WAVE
-        tile_rows = TALL_TILE_ROWS if rows >= TALL_MIN_ROWS else TILE_ROWS
+        tile_rows = (TALL_TILE_ROWS if rows >= TALL_MIN_ROWS and not wide
+                     else TILE_ROWS)
     else:
-        kernel, tile_rows, wave = "rows", MIXED_ROWS, ROWS_WAVE
+        kernel, wave = "rows", rows_wave
+        tile_rows = WIDE_MIXED_ROWS if wide else MIXED_ROWS
     tiles = -(-rows // tile_rows)
     ctas = tiles * kv_heads * slots
     if ctas >= wave:
@@ -304,7 +316,8 @@ def paged_attention_split_reference(q, k_pool, v_pool, block_tables,
     mb = block_tables.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     if split_pages is None:
-        split_pages = split_plan(s, 1, h, hkv, mb, bs, decode=True).split_pages
+        split_pages = split_plan(s, 1, h, hkv, mb, bs, decode=True,
+                                 head_dim=d).split_pages
     k, v, m = _split_view(k_pool, v_pool, block_tables, k_scale, v_scale, s,
                           h)
     logits = torch.einsum("shd,smhd->shm", q.float(), k) * scale
@@ -331,7 +344,8 @@ def mixed_paged_attention_split_reference(q, k_pool, v_pool, block_tables,
     mb = block_tables.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     if split_pages is None:
-        split_pages = split_plan(s, c, h, hkv, mb, bs).split_pages
+        split_pages = split_plan(s, c, h, hkv, mb, bs,
+                                 head_dim=d).split_pages
     k, v, m = _split_view(k_pool, v_pool, block_tables, k_scale, v_scale, s,
                           h)
     logits = torch.einsum("schd,smhd->shcm", q.float(), k) * scale
@@ -382,7 +396,7 @@ def _kernel_args(name, q, k_pool, v_pool, k_scale, v_scale, ints):
         raise ValueError("%s: block tables and lengths must be int32" % name)
     d = q.shape[-1]
     if d not in HEAD_DIMS:
-        raise ValueError("%s: head_dim %d not in %s" % (name, d, HEAD_DIMS))
+        raise ValueError(_fa.no_kernel_message(name, d))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("%s: inputs must be contiguous" % name)
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -398,7 +412,7 @@ def _launch_plan(name, q, rows, k_pool, block_tables, decode):
     _, bs, hkv, d = k_pool.shape
     s, h = q.shape[0], q.shape[-2]
     plan = split_plan(s, rows // (s * h), h, hkv, block_tables.shape[1], bs,
-                      decode=decode)
+                      decode=decode, head_dim=d)
     # the rows kernels' grid is (split, kv head, slot x tile), the tiles
     # kernel's (slot x kv head x split, tile)
     yz = ((plan.tiles,) if plan.kernel == "tiles"
@@ -419,9 +433,10 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
 
     CUDA tensors launch the decode kernel, and with more than one split
     the combine (float32, bfloat16 or float16 q; pools of q's dtype, or
-    int8 with float32 ``k_scale``/``v_scale``; head_dim 64 or 128; contiguous,
-    16-byte aligned pools; int32 tables and lengths) or raise; CPU tensors
-    take the plain version."""
+    int8 with float32 ``k_scale``/``v_scale``; head_dim 64, 128 or 256;
+    contiguous, 16-byte aligned pools; int32 tables and lengths) or raise;
+    CPU tensors take the plain version, and so does every head dim that
+    ``head_dim_route`` sends there (kernels/flash_attention.py)."""
     _check_shapes(q, k_pool, v_pool, block_tables, seq_lens, k_scale,
                   v_scale)
     s, h, d = q.shape
@@ -430,7 +445,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, scale=None,
     tensors = [q, k_pool, v_pool, block_tables, seq_lens]
     if k_scale is not None:
         tensors += [k_scale, v_scale]
-    if all(t.device.type == "cpu" for t in tensors):
+    if (_fa.plain_head_dim(d, *tensors)
+            or all(t.device.type == "cpu" for t in tensors)):
         return paged_attention_reference(q, k_pool, v_pool, block_tables,
                                          seq_lens, scale, k_scale, v_scale)
     kv_code, (ks, vs) = _kernel_args(
@@ -469,10 +485,11 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
 
     CUDA tensors launch the mixed rows or tiles kernel (``split_plan``),
     and with more than one split the combine (float32, bfloat16 or float16
-    q; pools of q's dtype, or int8 with float32 scales; head_dim 64 or 128;
-    contiguous, 16-byte aligned pools; int32 tables and lengths;
+    q; pools of q's dtype, or int8 with float32 scales; head_dim 64, 128
+    or 256; contiguous, 16-byte aligned pools; int32 tables and lengths;
     ``hist + q_len <= MB * bs``) or raise; CPU tensors take the plain
-    version."""
+    version, and so does every head dim that ``head_dim_route`` sends
+    there."""
     _check_mixed_shapes(q, k_pool, v_pool, block_tables, hist_lens, q_lens,
                         k_scale, v_scale)
     s, c, h, d = q.shape
@@ -481,7 +498,8 @@ def mixed_paged_attention(q, k_pool, v_pool, block_tables, hist_lens,
     tensors = [q, k_pool, v_pool, block_tables, hist_lens, q_lens]
     if k_scale is not None:
         tensors += [k_scale, v_scale]
-    if all(t.device.type == "cpu" for t in tensors):
+    if (_fa.plain_head_dim(d, *tensors)
+            or all(t.device.type == "cpu" for t in tensors)):
         return mixed_paged_attention_reference(
             q, k_pool, v_pool, block_tables, hist_lens, q_lens, scale,
             k_scale, v_scale)

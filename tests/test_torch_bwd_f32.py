@@ -55,7 +55,8 @@ class TestSource:
         branches = re.findall(
             r"dtype == 0 && head_dim == (\d+)\)\s*return (\w+)<", ENTRY)
         assert sorted(branches) == sorted([
-            ("128", "launch_dq_f32"), ("64", "launch_dq_f32"),
+            ("256", "launch_dq_f32"), ("128", "launch_dq_f32"),
+            ("64", "launch_dq_f32"), ("256", "launch_dkv_f32"),
             ("128", "launch_dkv_f32"), ("64", "launch_dkv_f32")])
         assert re.findall(r"auto kernel = (\w+)<", F32) == [
             "flash_bwd_dq_f32_kernel", "flash_bwd_dkv_f32_kernel"]
@@ -75,8 +76,24 @@ class TestSource:
         ("dkv", dict(BK=64, BQ=64))])
     def test_shared_memory_fits_a_cta(self, kernel, tiles, d):
         """Each launch's dynamic shared memory, evaluated from the
-        launcher's own expression, at every instantiation."""
+        launcher's own expression, at every instantiation: two K/V (or
+        Q/dO) stages up to D = 128; at D = 256 the one instantiation its
+        launcher names (64 rows, 32-key tiles, one stage; dk/dv 64 keys,
+        32-query tiles, one stage)."""
         launcher = F32[F32.index("cudaError_t launch_%s_f32" % kernel):]
+        tiles = dict(tiles, STAGES=2)
+        if d > 128:
+            if kernel == "dq":
+                body = F32[F32.index("cudaError_t launch_dq_f32("):]
+                bm, bn, st = re.search(
+                    r"if constexpr \(D > 128\) \{\s*return "
+                    r"launch_dq_f32_tiles<D, (\d+), (\d+), (\d+)>",
+                    body).groups()
+                tiles = dict(BM=int(bm), BN=int(bn), STAGES=int(st))
+            else:
+                tiles = dict(BK=64, BQ=32, STAGES=1)
+                assert ("BQ = D > 128 ? 32 : 64, STAGES = D > 128 ? 1 : 2"
+                        in launcher)
         expr = re.search(r"size_t\((.*?)\) \* sizeof\(float\)", launcher,
                          re.S).group(1)
         floats = eval(" ".join(expr.split()), {}, dict(tiles, D=d))

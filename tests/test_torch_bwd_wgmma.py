@@ -125,7 +125,8 @@ def test_bf16_backward_dispatches_only_to_the_wgmma_kernels():
     bf16 = re.findall(r"dtype == 1 && head_dim == (\d+)\)\s*return (\S+)<",
                       entry)
     assert sorted(bf16) == sorted([
-        ("128", "tc::launch_dq"), ("64", "tc::launch_dq"),
+        ("256", "tc::launch_dq256"), ("128", "tc::launch_dq"),
+        ("64", "tc::launch_dq"), ("256", "tc::launch_dkv256"),
         ("128", "tc::launch_dkv"), ("64", "tc::launch_dkv")])
     assert "<__nv_bfloat16" not in text.replace(
         "__nv_bfloat162", "")   # no bf16 instantiation of the SIMT kernels

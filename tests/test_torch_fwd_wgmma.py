@@ -46,10 +46,10 @@ class TestDispatch:
         text, entry = _entry("flash_attention")
         branches = re.findall(
             r"dtype == (\d) && head_dim == (\d+)\)\s*return (\S+)<", entry)
-        assert sorted(branches) == sorted([
-            ("0", "128", "launch_f32"), ("0", "64", "launch_f32"),
-            ("1", "128", "tc::launch"), ("1", "64", "tc::launch"),
-            ("3", "128", "tc::launch"), ("3", "64", "tc::launch")])
+        assert sorted(branches) == sorted(
+            [("0", d, "launch_f32") for d in ("256", "128", "64")]
+            + [(code, d, "tc::launch") for code in ("1", "3")
+               for d in ("256", "128", "64")])
         # tc::launch starts flash_fwd_wgmma_kernel and nothing else
         tc = text[text.index("namespace tc {"):text.index("}  // namespace tc")]
         assert re.findall(r"auto kernel = (\w+)<", tc) == [
